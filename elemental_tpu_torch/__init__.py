@@ -1,0 +1,25 @@
+"""elemental_tpu_torch: the PyTorch/CUDA port of elemental_tpu.
+
+Distributed dense linear algebra on a virtual r x c grid held on one
+device (an NVIDIA H100 by default; ``Grid(device="cpu")`` for the CPU).
+The stacked-storage layout of every ``DistMatrix`` is the JAX package's,
+bit for bit.  This slice ports the SPD solve: ``cholesky``,
+``cholesky_solve_after`` and ``hpd_solve``, with the diagonal-block
+factor/inverse as a hand-written CUDA kernel (``kernels/csrc``).
+
+The package imports ``torch`` and numpy only -- never ``jax`` and nothing
+of ``elemental_tpu``.
+"""
+from .core.dist import Dist, MC, MD, MR, VC, VR, STAR, CIRC, LEGAL_PAIRS
+from .core.grid import Grid, default_grid
+from .core.environment import (blocksize, set_blocksize, push_blocksize,
+                               pop_blocksize, blocksize_scope)
+from .core.distmatrix import (DistMatrix, from_global, to_global, zeros,
+                              from_storage, storage_numpy)
+from .core.view import view, update_view
+from .redist.engine import redistribute, transpose_dist, panel_spread
+from .blas import make_trapezoidal, trsm
+from .lapack import cholesky, hpd_solve, cholesky_solve_after
+from . import kernels
+
+__version__ = "0.1.0"

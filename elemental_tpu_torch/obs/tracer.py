@@ -1,0 +1,28 @@
+"""The drivers' tick hook: the null hook only.
+
+PyTorch port of ``NULL_HOOK`` / ``phase_hook`` from
+``elemental_tpu/obs/tracer.py``.  Drivers call ``tick()`` unconditionally;
+with no timer the hook does nothing.  Tracers and phase timers belong to
+a later slice (the drivers refuse ``timer=`` until then).
+"""
+from __future__ import annotations
+
+
+class NullHook:
+    """Zero-overhead stand-in so drivers can call tick() unconditionally."""
+    __slots__ = ()
+
+    def start(self):
+        pass
+
+    def tick(self, phase, step, *arrays):
+        pass
+
+
+NULL_HOOK = NullHook()
+
+
+def phase_hook(driver: str, timer=None):
+    """This invocation's tick hook: ``timer`` when given, else
+    :data:`NULL_HOOK`."""
+    return NULL_HOOK if timer is None else timer

@@ -1,0 +1,3 @@
+"""Redistribution engine (correct-first, through the global matrix)."""
+from .engine import (redistribute, to_star_star, transpose_dist,
+                     panel_spread, apply_fault)
