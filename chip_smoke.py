@@ -152,7 +152,8 @@ def phase_kernels(et) -> list:
         library_ms = _time_ms(library, reps)
         itemsize = D.element_size()
         flop_ms = (2 * w ** 3 / 3) / PEAK_FLOPS[name] * 1e3
-        byte_ms = 3 * w * w * itemsize / PEAK_BYTES * 1e3
+        # bytes: D's lower triangle read (w^2 / 2), L and Li written (2 w^2)
+        byte_ms = 2.5 * w * w * itemsize / PEAK_BYTES * 1e3
         row = {"w": w, "dtype": name, "kernel_residual": rk,
                "plain_residual": rp, "max_abs_err": abs_err,
                "max_rel_err": rel_err, "kernel_ms": kernel_ms,

@@ -2,8 +2,8 @@
 
 PyTorch port of ``elemental_tpu/kernels/__init__.py``: the
 ``panel_impl`` knob of the drivers turns into a :class:`PanelPlan`, and
-each call site asks ``plan.use_kernel(shape, dtype)`` -- a static gate on
-dtype and working-set size.
+each call site asks ``plan.use_kernel(dtype)`` -- a static gate on dtype
+(the kernel has no size gate: see ``common.py``).
 
 * :func:`potrf_inv` -- lower Cholesky factor + inverse of a diagonal
   block, a CUDA kernel for ``sm_90a`` (``csrc/potrf_inv.cu``), twin of
@@ -24,7 +24,6 @@ from dataclasses import dataclass
 
 import torch
 
-from .common import PANEL_DEVICE_BUDGET, panel_fits
 from .chol_panel import potrf_inv, potrf_inv_reference
 
 #: implementations the ``panel_impl`` knob enumerates ('auto' and None
@@ -40,14 +39,10 @@ class PanelPlan:
     impl: str = "torch"
     source: str = "default"
 
-    def use_kernel(self, shape, dtype, copies: int = 4) -> bool:
-        """Static per-call-site gate: the kernel only for real dtypes whose
-        working set of ``copies`` buffers fits the device budget."""
-        if self.impl != "kernel":
-            return False
-        if dtype.is_complex:
-            return False
-        return panel_fits(shape, dtype, copies=copies)
+    def use_kernel(self, dtype) -> bool:
+        """Static per-call-site gate: the kernel for every real dtype,
+        whatever the block size; an allocation failure raises."""
+        return self.impl == "kernel" and not dtype.is_complex
 
 
 def resolve_panel(panel_impl=None, *, dtype=None, device=None,

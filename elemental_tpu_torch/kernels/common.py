@@ -1,16 +1,15 @@
-"""Shared plumbing of the port's hand-written Hopper kernels: the size
-gate, and the build and load of the CUDA sources.
+"""Shared plumbing of the port's hand-written Hopper kernels: the build
+and load of the CUDA sources.
 
-The size gate (the counterpart of the JAX package's VMEM budget in
-``elemental_tpu/kernels/common.py``).  A Pallas panel kernel keeps its
-whole block resident in the TPU core's 16 MiB of VMEM, so the JAX gate
-caps the block (w <= 1024 at f32 for ``potrf_inv``).  The port's
-``potrf_inv`` keeps only a fixed base sub-block on chip (<= 32 x 32, in
-one warp's registers) and streams everything else from device memory, so
-the block size has no on-chip limit.  What
-remains is the device-memory working set the wrapper allocates:
-``copies`` w x w buffers (outputs and scratch), gated at a share of the
-card's 80 GB so one panel can never crowd out the matrix it belongs to.
+No size gate.  The JAX package's ``panel_fits`` caps a Pallas block at
+its 16 MiB VMEM budget (w <= 1024 at f32 for ``potrf_inv``), because a
+Pallas panel kernel keeps its whole block resident in the TPU core's
+VMEM.  The port's ``potrf_inv`` keeps only a fixed base sub-block on
+chip (<= 32 x 32, in one warp's registers) and streams everything else
+from device memory, so it has no size limit and no gate: every real
+block on a CUDA tensor launches it, and a block too large for device
+memory fails its allocation and raises (the plain version would need as
+much).  A kernel with an on-chip limit brings its own gate.
 
 The build.  Each ``csrc/*.cu`` source is compiled by hand with ``nvcc``
 into a shared library with a plain C interface and loaded with
@@ -30,11 +29,6 @@ import shutil
 import subprocess
 from pathlib import Path
 
-import torch
-
-#: device-memory budget for one panel kernel's working set (a tenth of an
-#: H100's 80 GB)
-PANEL_DEVICE_BUDGET = 8 * 2 ** 30
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
@@ -44,16 +38,6 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _LIBS: dict = {}
-
-
-def panel_fits(shape, dtype, copies: int = 4,
-               budget: int = PANEL_DEVICE_BUDGET) -> bool:
-    """Does a ``shape`` panel's working set of ``copies`` buffers fit the
-    device-memory budget?  (No shared-memory term: see the module
-    docstring.)"""
-    m, n = shape
-    itemsize = torch.empty((), dtype=dtype).element_size()
-    return copies * m * n * itemsize <= budget
 
 
 def _nvcc() -> str:

@@ -37,9 +37,10 @@
 // cudaGetLastError() that is not cudaSuccess.
 //
 // Bound.  The least work is 2w^3/3 flops (potrf w^3/3 + trtri w^3/3)
-// against 3 w^2 elements moved (D read, L and Li written).  At w = 2048
-// float that is ~5.7 GFLOP, ~0.086 ms at the data-sheet 67 TFLOP/s FP32,
-// against ~50 MB, ~0.015 ms at 3.35 TB/s: the kernel is compute-bound.
+// against 2.5 w^2 elements moved (D's lower triangle read, L and Li
+// written).  At w = 2048 float that is ~5.7 GFLOP, ~0.086 ms at the
+// data-sheet 67 TFLOP/s FP32, against ~42 MB, ~0.013 ms at 3.35 TB/s: the
+// kernel is compute-bound.
 // This first design is far from that bound: the base block is a serial
 // recurrence on one warp (32 columns per block, w/32 blocks), every GEMM has
 // K = b (so it is bound by its tile loads, not its FMAs; the next tile is

@@ -61,9 +61,9 @@ _potrf_inv_impl = potrf_inv_reference
 
 def _potrf_inv(D, precision, bs: int = 512, plan=None):
     """``(L, L^{-1})`` of a diagonal block through the ``'compute'`` seam:
-    the kernel when ``plan`` selects it and the block passes the static
-    gate, else :func:`_potrf_inv_impl`."""
-    if plan is not None and plan.use_kernel(D.shape, D.dtype, copies=4):
+    the kernel when ``plan`` selects it for the block's dtype, else
+    :func:`_potrf_inv_impl`."""
+    if plan is not None and plan.use_kernel(D.dtype):
         return apply_fault("compute", _kernel_potrf_inv(D, precision, bs=bs))
     return apply_fault("compute", _potrf_inv_impl(D, precision, bs))
 

@@ -14,7 +14,7 @@ import torch
 
 from elemental_tpu.kernels import potrf_inv as jax_pallas_potrf_inv
 from elemental_tpu.lapack.cholesky import _potrf_inv_impl as jax_potrf_inv_impl
-from elemental_tpu_torch.kernels import (PANEL_IMPLS, PanelPlan, panel_fits,
+from elemental_tpu_torch.kernels import (PANEL_IMPLS, PanelPlan,
                                          potrf_inv, potrf_inv_reference,
                                          resolve_panel)
 
@@ -128,10 +128,10 @@ def test_resolve_panel():
 
 
 def test_size_gate_passes_the_main_path_block():
-    # w = 2048 float32 (nb = 2048 on the 1x1 main path) must reach the kernel
+    # w = 2048 float32 (nb = 2048 on the 1x1 main path) must reach the
+    # kernel, and so must any larger block: the gate is on dtype alone
     plan = PanelPlan(impl="kernel")
-    assert panel_fits((2048, 2048), torch.float32, copies=4)
-    assert plan.use_kernel((2048, 2048), torch.float32)
-    assert not plan.use_kernel((2048, 2048), torch.complex64)
-    assert not panel_fits((1 << 17, 1 << 17), torch.float64, copies=4)
-    assert not PanelPlan(impl="torch").use_kernel((64, 64), torch.float32)
+    assert plan.use_kernel(torch.float32) and plan.use_kernel(torch.float64)
+    assert not plan.use_kernel(torch.complex64)
+    assert not plan.use_kernel(torch.complex128)
+    assert not PanelPlan(impl="torch").use_kernel(torch.float32)

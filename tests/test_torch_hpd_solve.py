@@ -4,6 +4,7 @@ same numpy inputs, at n = 40, nb = 16 (float64, rtol 1e-12)."""
 import jax
 import numpy as np
 import pytest
+import torch
 
 import elemental_tpu as el
 import elemental_tpu_torch as et
@@ -37,9 +38,16 @@ def test_hpd_solve_slice_matches_jax(rc, uplo):
     assert np.linalg.norm(F @ got - B) < 1e-12 * np.linalg.norm(B)
 
 
-def test_hpd_solve_info_raises():
-    g = et.Grid(device="cpu")
-    A = et.from_global(_hpd(8, seed=9), et.MC, et.MR, g)
-    B = et.from_global(np.ones((8, 1)), et.MC, et.MR, g)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        et.hpd_solve(A, B, info=True)
+
+@pytest.mark.parametrize("rc", GRIDS, ids=lambda rc: f"{rc[0]}x{rc[1]}")
+def test_hpd_solve_leaves_inputs_untouched(rc):
+    """PyTorch updates in place where JAX never does: neither the
+    factorization nor the two triangular sweeps may write into the
+    caller's A or B."""
+    tg = et.Grid(*rc, device="cpu")
+    A = et.from_global(_hpd(24, seed=9), et.MC, et.MR, tg)
+    B = et.from_global(np.random.default_rng(10).normal(size=(24, 3)),
+                       et.MC, et.MR, tg)
+    a0, b0 = A.local.clone(), B.local.clone()
+    et.hpd_solve(A, B, nb=8)
+    assert torch.equal(A.local, a0) and torch.equal(B.local, b0)
