@@ -9,17 +9,23 @@ Phases, each of which raises on failure:
 
 1. set-up: the card's name and power limit, the torch and CUDA versions,
    ``allow_tf32 = False``, and the build of every CUDA kernel from the
-   sources in the checkout (timed);
+   sources in the checkout (one ``nvcc`` per source, all at once; timed);
 2. every kernel against its plain PyTorch version on the card, at the
-   shapes the main path gives it and a ladder around them, with its time,
+   shapes the main paths give it and a ladder around them, with its time,
    the plain version's, one library call's and the least time the card
-   could take (``bound_ms``);
-3. the main path at full width: ``hpd_solve(A, B, nb=2048)`` on the 1x1
-   grid, N = 32768 float32, nrhs = 8, A = G G^T / N + N I from a seeded
-   generator; the factor gate of ``bench.py``, a solve residual, and the
-   kernel's launch count on that run;
-4. the distributed branch: ``hpd_solve`` on a virtual 2x2 grid on the
-   card, N = 1024 float64, nb = 128, against ``torch.linalg.solve``.
+   could take (``bound_ms``): ``potrf_inv`` (w = 64 ... 2048) and
+   ``lu_panel`` (32768 x 2048 ... a panel of constructed ties);
+3. the Cholesky main path at full width: ``hpd_solve(A, B, nb=2048)`` on
+   the 1x1 grid, N = 32768 float32, nrhs = 8, A = G G^T / N + N I from a
+   seeded generator; the factor gate of ``bench.py``, a solve residual,
+   and ``potrf_inv``'s launch count on that run;
+3b. the LU main path at full width: ``lu_solve(A, B, nb=2048)`` on the
+   1x1 grid, N = 32768 float32, nrhs = 8, A and B normal from a seeded
+   generator; ``bench.py``'s LU factor gate, HPL's scaled residual and
+   ``lu_panel``'s launch count on that run;
+4. the distributed branches: ``hpd_solve`` and ``lu`` + ``lu_solve_after``
+   on a virtual 2x2 grid on the card, N = 1024 float64, nb = 128, with
+   and without the crossover, against ``torch.linalg.solve``.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the card's name and power limit, and the one before that the JSON
@@ -45,6 +51,9 @@ RES_TOL = {"float32": 3e-6, "float64": 1e-12}
 #: largest elementwise difference, relative to the largest entry, between
 #: the kernel's (L, L^-1) and the plain version's
 ELEM_TOL = {"float32": 1e-4, "float64": 1e-11}
+#: lu_panel's residual ||P[perm] - L U|| / ||P|| of the CPU tests, scaled
+#: with M / 256 (the tests' bound is set at M <= 256)
+LU_RES_TOL = {"float32": 1e-5, "float64": 1e-12}
 
 
 def _card_line() -> str:
@@ -168,10 +177,98 @@ def phase_kernels(et) -> list:
     return rows
 
 
+def _tie_panel():
+    """A 32 x 8 float32 panel whose columns tie on |value| at every pivot
+    search (``tests/kernels/test_lu_panel.py``'s construction)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(3)
+    P = np.zeros((32, 8), dtype=np.float32)
+    for j in range(8):
+        P[:, j] = rng.integers(1, 4, size=32).astype(np.float32)
+        P[j::5, j] = 3.0
+        P[:, j] *= np.sign(rng.normal(size=32)) + 0.5
+    return torch.from_numpy(P).cuda()
+
+
+def phase_lu_panel() -> list:
+    """``lu_panel`` against its plain version; returns the per-shape rows.
+    Pivots must be identical on the tie panel and the small shapes; at the
+    two large shapes a near-tie among thousands of rows may resolve
+    differently under other rounding, so the count of differing pivots is
+    printed, not gated."""
+    import torch
+    from elemental_tpu_torch.kernels import lu_panel, lu_panel_reference
+    rows = []
+    for M, nbw, dt, inner, large in (
+            (32768, 2048, torch.float32, 64, True),
+            (2048, 2048, torch.float32, 64, True),
+            (4096, 512, torch.float32, 64, False),
+            (1024, 128, torch.float64, 64, False),
+            (32, 8, torch.float32, 4, False)):
+        name = str(dt).replace("torch.", "")
+        if M == 32:
+            P = _tie_panel()
+        else:
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(M + nbw)
+            P = torch.randn(M, nbw, generator=gen, device="cuda", dtype=dt)
+        packed, perm = lu_panel(P, nbw, inner=inner)
+        torch.cuda.synchronize()
+        ref, rperm = lu_panel_reference(P, nbw, inner)
+
+        def rebuilt(F, p):
+            """The input the factor stands for: (L U) with row i put back
+            at row p[i]."""
+            L = torch.tril(F, -1) + torch.eye(M, nbw, dtype=dt, device="cuda")
+            out = torch.empty_like(P)
+            out[p] = L @ torch.triu(F[:nbw])
+            return out
+
+        Pk, Pp = rebuilt(packed, perm), rebuilt(ref, rperm)
+        norm_p = torch.linalg.norm(P)
+        rk = float(torch.linalg.norm(P - Pk) / norm_p)
+        rp = float(torch.linalg.norm(P - Pp) / norm_p)
+        # kernel against plain version, on what both factors rebuild
+        abs_err = float((Pk - Pp).abs().max())
+        del Pk, Pp
+        pivots_differ = int((perm != rperm).sum())
+        lmax = float(torch.tril(packed, -1).abs().max())
+        tol = LU_RES_TOL[name] * max(1.0, M / 256)
+        if not (rk <= tol and rp <= tol and lmax <= 1.0
+                and (large or pivots_differ == 0)):
+            raise AssertionError(
+                f"lu_panel {M}x{nbw} {name}: kernel residual {rk:.3e}, plain "
+                f"{rp:.3e}, tolerance {tol:.1e}, max |L| {lmax}, "
+                f"{pivots_differ} pivots differ")
+        reps = 1 if M * nbw >= 2 ** 24 else 5
+        kernel_ms = _time_ms(lambda: lu_panel(P, nbw, inner=inner), 3 * reps)
+        plain_ms = _time_ms(lambda: lu_panel_reference(P, nbw, inner), reps)
+        library_ms = _time_ms(lambda: torch.linalg.lu_factor(P), 3 * reps)
+        itemsize = P.element_size()
+        flop_ms = (M * nbw ** 2 - nbw ** 3 / 3) / PEAK_FLOPS[name] * 1e3
+        byte_ms = 2 * M * nbw * itemsize / PEAK_BYTES * 1e3
+        row = {"M": M, "nbw": nbw, "dtype": name, "inner": inner,
+               "kernel_residual": rk, "plain_residual": rp,
+               "residual_tolerance": tol, "max_abs_L": lmax,
+               "pivots_differ": pivots_differ, "max_abs_err": abs_err,
+               "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+               "library_ms": library_ms, "bound_ms": max(flop_ms, byte_ms),
+               "bound_by": "operations" if flop_ms >= byte_ms else "bytes"}
+        print("phase 2 lu_panel " + json.dumps(row), flush=True)
+        if M == 32768:
+            print("phase 2 lu_panel breakdown " + json.dumps(
+                _device_breakdown(lambda: lu_panel(P, nbw, inner=inner))),
+                flush=True)
+        rows.append(row)
+        del P, packed, ref
+    return rows
+
+
 def phase_main_path(et, card: str) -> dict:
     """hpd_solve at full width on the 1x1 grid; returns its numbers."""
     import torch
-    from elemental_tpu_torch.kernels import potrf_inv
+    from elemental_tpu_torch.kernels import lu_panel, potrf_inv
     N, nb, nrhs = 32768, 2048, 8
     grid = et.Grid()
     # warm-up at a small size (library handles, the kernel's first launch)
@@ -186,15 +283,16 @@ def phase_main_path(et, card: str) -> dict:
     B = et.from_global(Bg, et.MC, et.MR, grid)
     del Ag
     torch.cuda.synchronize()
-    potrf_inv.launches = 0
+    potrf_inv.launches = lu_panel.launches = 0
     t0 = time.perf_counter()
     X = et.hpd_solve(A, B, nb=nb)
     torch.cuda.synchronize()
     t_solve = time.perf_counter() - t0
     launches = potrf_inv.launches
-    if launches != N // nb:
+    if launches != N // nb or lu_panel.launches != 0:
         raise AssertionError(f"potrf_inv launched {launches} times on the "
-                             f"main path, expected {N // nb}")
+                             f"main path, expected {N // nb}; lu_panel "
+                             f"{lu_panel.launches}, expected 0")
     t0 = time.perf_counter()
     F = et.cholesky(A, nb=nb)
     torch.cuda.synchronize()
@@ -219,6 +317,75 @@ def phase_main_path(et, card: str) -> dict:
            "potrf_inv_launches": launches, "factor_residual": factor_res,
            "solve_residual": solve_res, "card": card}
     print("phase 3 main path " + json.dumps(out), flush=True)
+    return out
+
+
+def phase_lu_main_path(et, card: str) -> dict:
+    """lu_solve at full width on the 1x1 grid; returns its numbers."""
+    import torch
+    from elemental_tpu_torch.kernels import lu_panel, potrf_inv
+    N, nb, nrhs = 32768, 2048, 8
+    grid = et.Grid()
+    gen = torch.Generator(device="cuda")
+    # warm-up at a small size (library handles, the kernel's first launch)
+    gen.manual_seed(1)
+    Aw = torch.randn(4096, 4096, generator=gen, device="cuda")
+    et.lu_solve(et.from_global(Aw, et.MC, et.MR, grid),
+                et.from_global(torch.ones(4096, nrhs, device="cuda"),
+                               et.MC, et.MR, grid), nb=nb)
+    torch.linalg.lu_factor(Aw)
+    del Aw
+    gen.manual_seed(0)
+    Ag = torch.randn(N, N, generator=gen, device="cuda")
+    Bg = torch.randn(N, nrhs, generator=gen, device="cuda")
+    A = et.from_global(Ag, et.MC, et.MR, grid)
+    B = et.from_global(Bg, et.MC, et.MR, grid)
+    del Ag
+    torch.cuda.synchronize()
+    potrf_inv.launches = lu_panel.launches = 0
+    t0 = time.perf_counter()
+    X = et.lu_solve(A, B, nb=nb)
+    torch.cuda.synchronize()
+    t_solve = time.perf_counter() - t0
+    launches = lu_panel.launches
+    if launches != N // nb or potrf_inv.launches != 0:
+        raise AssertionError(f"lu_panel launched {launches} times on the "
+                             f"main path, expected {N // nb}; potrf_inv "
+                             f"{potrf_inv.launches}, expected 0")
+    t0 = time.perf_counter()
+    LU, perm = et.lu(A, nb=nb)
+    torch.cuda.synchronize()
+    t_lu = time.perf_counter() - t0
+    a, lu_, x, b = A.local, LU.local, X.local, B.local
+    # bench.py's factor gate: ||A[perm] v - L (U v)|| / (||A||_F ||v||)
+    v = torch.randn(N, 1, generator=gen, device="cuda")
+    uv = torch.triu(lu_) @ v
+    luv = torch.tril(lu_, -1) @ uv + uv
+    factor_res = float(torch.linalg.norm(a[perm] @ v - luv)
+                       / (torch.linalg.norm(a) * torch.linalg.norm(v)))
+    del uv, luv, LU, lu_
+    # HPL's scaled residual, one per right-hand side
+    eps = torch.finfo(torch.float32).eps
+    norm_a = float(a.abs().sum(dim=1).max())
+    r = (a @ x - b).abs().amax(dim=0)
+    hpl = (r / (eps * (norm_a * x.abs().amax(dim=0) + b.abs().amax(dim=0))
+                * N)).tolist()
+    finite = bool(torch.isfinite(x).all())
+    if not (factor_res < 1e-3 and max(hpl) < 16 and finite
+            and tuple(x.shape) == (N, nrhs)):
+        raise AssertionError(f"LU main path: factor residual "
+                             f"{factor_res:.3e} (< 1e-3), HPL scaled "
+                             f"residuals {hpl} (< 16), finite {finite}")
+    lu_factor_ms = _time_ms(lambda: torch.linalg.lu_factor(a), 1)
+    print("phase 3b lu_solve breakdown " + json.dumps(
+        _device_breakdown(lambda: et.lu_solve(A, B, nb=nb))), flush=True)
+    out = {"N": N, "nb": nb, "nrhs": nrhs, "dtype": "float32",
+           "lu_solve_s": t_solve, "lu_s": t_lu,
+           "lu_tflops": 2 * N ** 3 / 3 / t_lu / 1e12,
+           "lu_factor_ms": lu_factor_ms, "lu_panel_launches": launches,
+           "factor_residual": factor_res, "hpl_scaled_residuals": hpl,
+           "card": card}
+    print("phase 3b LU main path " + json.dumps(out), flush=True)
     return out
 
 
@@ -251,6 +418,37 @@ def phase_distributed(et) -> None:
              "rel_error_vs_torch_solve": err, "residual": res}), flush=True)
 
 
+def phase_lu_distributed(et) -> None:
+    """lu + lu_solve_after on a virtual 2x2 grid on the card, against
+    torch.linalg.solve."""
+    import torch
+    from elemental_tpu_torch.kernels import lu_panel
+    N, nb, nrhs = 1024, 128, 4
+    grid = et.Grid(2, 2)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    Ag = torch.randn(N, N, generator=gen, device="cuda", dtype=torch.float64)
+    Bg = torch.randn(N, nrhs, generator=gen, device="cuda", dtype=torch.float64)
+    ref = torch.linalg.solve(Ag, Bg)
+    for crossover in (None, 0):
+        A = et.from_global(Ag, et.MC, et.MR, grid)
+        B = et.from_global(Bg, et.MC, et.MR, grid)
+        lu_panel.launches = 0
+        LU, perm = et.lu(A, nb=nb, crossover=crossover)
+        X = et.lu_solve_after(LU, perm, B, nb=nb)
+        torch.cuda.synchronize()
+        launches = lu_panel.launches
+        x = et.to_global(X)
+        err = float(torch.linalg.norm(x - ref) / torch.linalg.norm(ref))
+        if launches < 1 or not err < 1e-10:
+            raise AssertionError(f"LU 2x2 grid crossover={crossover}: "
+                                 f"launches {launches}, error {err:.3e}")
+        print("phase 4 LU distributed " + json.dumps(
+            {"grid": "2x2", "N": N, "nb": nb, "dtype": "float64",
+             "crossover": crossover, "lu_panel_launches": launches,
+             "rel_error_vs_torch_solve": err}), flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -270,12 +468,15 @@ def main() -> int:
     print(f"phase 1 torch.backends.cuda.matmul.allow_tf32 = "
           f"{torch.backends.cuda.matmul.allow_tf32}", flush=True)
     t0 = time.perf_counter()
-    common.build(["potrf_inv"])
+    common.build(["potrf_inv", "lu_panel"])
     print(f"phase 1 build_s {time.perf_counter() - t0:.3f}", flush=True)
 
     rows = phase_kernels(et)
+    lu_rows = phase_lu_panel()
     main_path = phase_main_path(et, card)
+    lu_path = phase_lu_main_path(et, card)
     phase_distributed(et)
+    phase_lu_distributed(et)
 
     at_path = next(r for r in rows if r["w"] == 2048 and r["dtype"] == "float32")
     kernels = [{
@@ -287,6 +488,16 @@ def main() -> int:
         "plain_ms": at_path["plain_ms"], "bound_ms": at_path["bound_ms"],
         "bound_by": at_path["bound_by"], "library_ms": at_path["library_ms"],
     }]
+    lu_at = next(r for r in lu_rows if r["M"] == 32768)
+    kernels.append({
+        "name": "lu_panel", "route": "cuda",
+        "source": "elemental_tpu_torch/kernels/csrc/lu_panel.cu",
+        "replaces": "elemental_tpu/kernels/lu_panel.py:119",
+        "launches": lu_path["lu_panel_launches"],
+        "max_abs_err": lu_at["max_abs_err"],
+        "ms": lu_at["kernel_ms"], "plain_ms": lu_at["plain_ms"],
+        "bound_ms": lu_at["bound_ms"], "bound_by": lu_at["bound_by"],
+        "library_ms": lu_at["library_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -3,9 +3,12 @@
 Distributed dense linear algebra on a virtual r x c grid held on one
 device (an NVIDIA H100 by default; ``Grid(device="cpu")`` for the CPU).
 The stacked-storage layout of every ``DistMatrix`` is the JAX package's,
-bit for bit.  This slice ports the SPD solve: ``cholesky``,
-``cholesky_solve_after`` and ``hpd_solve``, with the diagonal-block
-factor/inverse as a hand-written CUDA kernel (``kernels/csrc``).
+bit for bit.  Ported so far: the SPD solve (``cholesky``,
+``cholesky_solve_after``, ``hpd_solve``), with the diagonal-block
+factor/inverse as a hand-written CUDA kernel, and the LU solve (``lu``,
+``lu_solve``, ``lu_solve_after``, ``permute_rows``, ``permute_cols``),
+with the partial-pivot panel as a hand-written cooperative CUDA kernel
+(``kernels/csrc``).
 
 The package imports ``torch`` and numpy only -- never ``jax`` and nothing
 of ``elemental_tpu``.
@@ -17,9 +20,11 @@ from .core.environment import (blocksize, set_blocksize, push_blocksize,
 from .core.distmatrix import (DistMatrix, from_global, to_global, zeros,
                               from_storage, storage_numpy)
 from .core.view import view, update_view
-from .redist.engine import redistribute, transpose_dist, panel_spread
+from .redist.engine import (redistribute, transpose_dist, panel_spread,
+                           move_rows, permute_rows_storage)
 from .blas import make_trapezoidal, trsm
-from .lapack import cholesky, hpd_solve, cholesky_solve_after
+from .lapack import (cholesky, hpd_solve, cholesky_solve_after, lu,
+                     lu_solve, lu_solve_after, permute_rows, permute_cols)
 from . import kernels
 
 __version__ = "0.1.0"

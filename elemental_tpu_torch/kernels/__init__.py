@@ -7,7 +7,10 @@ each call site asks ``plan.use_kernel(dtype)`` -- a static gate on dtype
 
 * :func:`potrf_inv` -- lower Cholesky factor + inverse of a diagonal
   block, a CUDA kernel for ``sm_90a`` (``csrc/potrf_inv.cu``), twin of
-  :func:`potrf_inv_reference` (residual-bounded).
+  :func:`potrf_inv_reference` (residual-bounded);
+* :func:`lu_panel` -- partial-pivot LU of an (M, nbw) panel, a
+  cooperative CUDA kernel for ``sm_90a`` (``csrc/lu_panel.cu``), twin of
+  :func:`lu_panel_reference` (same pivots, residual-bounded factor).
 
 ``panel_impl`` values: ``'torch'`` (the plain PyTorch path, the explicit
 counterpart of the JAX package's ``'xla'``), ``'kernel'`` (the
@@ -25,18 +28,31 @@ from dataclasses import dataclass
 import torch
 
 from .chol_panel import potrf_inv, potrf_inv_reference
+from .lu_panel import lu_panel, lu_panel_reference
 
 #: implementations the ``panel_impl`` knob enumerates ('auto' and None
 #: resolve to one of these by device)
 PANEL_IMPLS = ("torch", "kernel")
 
+#: LU panel chunk-width ladder of the plain path (the JAX package's
+#: pinned ``DEFAULT_INNERS``); the kernel's chunk is its finest rung
+DEFAULT_INNERS = (512, 64)
+
+
+def default_inners() -> tuple:
+    """The LU panel chunk ladder (see :data:`DEFAULT_INNERS`)."""
+    return DEFAULT_INNERS
+
 
 @dataclass(frozen=True)
 class PanelPlan:
     """Resolved panel-implementation choice plus its provenance
-    (``source``: 'default', 'explicit' or 'complex-torch')."""
+    (``source``: 'default', 'explicit' or 'complex-torch').  ``inners``
+    is the LU chunk ladder the plain path recurses on; the LU kernel
+    chunks at :attr:`kernel_inner`."""
 
     impl: str = "torch"
+    inners: tuple = DEFAULT_INNERS
     source: str = "default"
 
     def use_kernel(self, dtype) -> bool:
@@ -44,11 +60,18 @@ class PanelPlan:
         whatever the block size; an allocation failure raises."""
         return self.impl == "kernel" and not dtype.is_complex
 
+    @property
+    def kernel_inner(self) -> int:
+        """Chunk width of the LU kernel: the finest rung of the ladder
+        (the counterpart of the JAX plan's ``pallas_inner``)."""
+        return int(self.inners[-1]) if self.inners else 0
 
-def resolve_panel(panel_impl=None, *, dtype=None, device=None,
+
+def resolve_panel(panel_impl=None, *, dtype=None, device=None, inners=None,
                   source: str | None = None) -> PanelPlan:
     """Turn a ``panel_impl`` knob value into a :class:`PanelPlan` for
-    operands of ``dtype`` on ``device``."""
+    operands of ``dtype`` on ``device``; ``inners`` overrides the LU
+    chunk ladder (:data:`DEFAULT_INNERS`)."""
     if panel_impl not in (None, "auto") + PANEL_IMPLS:
         raise ValueError(
             f"panel_impl must be one of {PANEL_IMPLS + ('auto', None)}, "
@@ -63,4 +86,5 @@ def resolve_panel(panel_impl=None, *, dtype=None, device=None,
         src = source
     if impl == "kernel" and dtype is not None and dtype.is_complex:
         impl, src = "torch", "complex-torch"
-    return PanelPlan(impl=impl, source=src)
+    lad = DEFAULT_INNERS if inners is None else tuple(int(i) for i in inners)
+    return PanelPlan(impl=impl, inners=lad, source=src)

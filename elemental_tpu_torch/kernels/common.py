@@ -9,16 +9,19 @@ chip (<= 32 x 32, in one warp's registers) and streams everything else
 from device memory, so it has no size limit and no gate: every real
 block on a CUDA tensor launches it, and a block too large for device
 memory fails its allocation and raises (the plain version would need as
-much).  A kernel with an on-chip limit brings its own gate.
+much).  ``lu_panel`` likewise keeps its panel in device memory and stages
+each thread block's slab of the current chunk in shared memory when it
+fits (working on it in place otherwise), so it has no size gate either.
 
 The build.  Each ``csrc/*.cu`` source is compiled by hand with ``nvcc``
 into a shared library with a plain C interface and loaded with
 ``ctypes`` (no PyTorch headers, so a build takes seconds).  A build
 happens at first use, into ``kernels/build/`` (ignored by git), under a
-name keyed by the source's hash, so an edited source is never served
-from a stale library.  :func:`build` starts one ``nvcc`` per source, all
-at once.  Nothing is imported or compiled when this module is imported,
-and a failed build raises: there is no fallback.
+name keyed by the hash of the source and the shared ``csrc/*.cuh``
+headers, so an edited source is never served from a stale library.
+:func:`build` starts one ``nvcc`` per source, all at once.  Nothing is
+imported or compiled when this module is imported, and a failed build
+raises: there is no fallback.
 """
 from __future__ import annotations
 
@@ -49,8 +52,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
+                       + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):      # shared headers
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 

@@ -1,14 +1,22 @@
-"""The CUDA ``potrf_inv`` kernel against its plain version, on the card.
+"""The CUDA kernels (``potrf_inv``, ``lu_panel``) against their plain
+versions, and the LU solve through ``lu_panel``, on the card.
 
 Marked ``gpu``: on a machine without a card every test skips (the check is
 made inside the test, so every worker collects the same tests).  On the
 card: ``python -m pytest --noconftest tests/test_torch_gpu.py -m gpu``
-(``tests/conftest.py`` sets up JAX, which this file does not need).  Bounds as in
-``tests/test_torch_chol_panel.py``, scaled with w / 256 above w = 256."""
+(``tests/conftest.py`` sets up JAX, which this file does not need).
+``potrf_inv``'s bounds are those of ``tests/test_torch_chol_panel.py``,
+scaled with w / 256 above w = 256; ``lu_panel``'s are those of
+``tests/test_torch_lu_panel.py`` (identical pivots; ``||P[perm] - L U||
+/ ||P||`` below 1e-5 at float32 and 1e-12 at float64), scaled with
+M / 256 above M = 256."""
+import numpy as np
 import pytest
 import torch
 
-from elemental_tpu_torch.kernels import potrf_inv, potrf_inv_reference
+import elemental_tpu_torch as et
+from elemental_tpu_torch.kernels import (lu_panel, lu_panel_reference,
+                                         potrf_inv, potrf_inv_reference)
 
 pytestmark = pytest.mark.gpu
 
@@ -68,3 +76,108 @@ def test_kernel_refuses_complex():
     _need_card()
     with pytest.raises(ValueError, match="real-only"):
         potrf_inv(torch.eye(8, dtype=torch.complex64, device="cuda"))
+
+
+LU_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+#: (M, nbw, inner): the CPU ladder and panels of the 2x2 check's widths
+LU_LADDER = [(64, 16, 8), (33, 7, 4), (96, 64, 16), (200, 64, 64),
+             (1024, 128, 64), (600, 160, 48)]
+
+
+def _lu_residual(P, packed, perm):
+    M, w = P.shape
+    L = torch.tril(packed, -1) + torch.eye(M, w, dtype=P.dtype,
+                                           device=P.device)
+    U = torch.triu(packed[:w])
+    return float(torch.linalg.norm(P[perm] - L @ U) / torch.linalg.norm(P))
+
+
+@pytest.mark.parametrize("M,nbw,inner", LU_LADDER)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["float32", "float64"])
+def test_lu_panel_matches_plain_version(M, nbw, inner, dtype):
+    _need_card()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(M + nbw)
+    P = torch.randn(M, nbw, generator=gen, device="cuda", dtype=dtype)
+    before = lu_panel.launches
+    packed, perm = lu_panel(P, nbw, inner=inner)
+    torch.cuda.synchronize()
+    assert lu_panel.launches == before + 1
+    ref, rperm = lu_panel_reference(P, nbw, inner)
+    assert torch.equal(perm, rperm)
+    tol = LU_TOL[dtype] * max(1.0, M / 256)
+    assert _lu_residual(P, packed, perm) < tol
+    assert float(torch.tril(packed, -1).abs().max()) <= 1.0
+
+
+@pytest.mark.parametrize("M,nbw,inner,dtype", [
+    (120000, 64, 16, torch.float32), (60000, 96, 64, torch.float64)],
+    ids=["float32", "float64"])
+def test_lu_panel_slab_too_large_for_shared_memory(M, nbw, inner, dtype):
+    """Past ~117k rows (float) or ~58k (double) a thread block's slab of
+    the chunk no longer fits shared memory and the kernel works on it in
+    place in device memory: same pivots, same bound."""
+    _need_card()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(M)
+    P = torch.randn(M, nbw, generator=gen, device="cuda", dtype=dtype)
+    packed, perm = lu_panel(P, nbw, inner=inner)
+    ref, rperm = lu_panel_reference(P, nbw, inner)
+    assert torch.equal(perm, rperm)
+    assert _lu_residual(P, packed, perm) < LU_TOL[dtype] * M / 256
+
+
+def test_lu_panel_ties_and_strided_view():
+    _need_card()
+    m, w = 32, 8
+    rng = np.random.default_rng(3)
+    T = np.zeros((m, w), dtype=np.float32)
+    for j in range(w):
+        T[:, j] = rng.integers(1, 4, size=m).astype(np.float32)
+        T[j::5, j] = 3.0
+        T[:, j] *= np.sign(rng.normal(size=m)) + 0.5
+    P = torch.from_numpy(T).cuda()
+    packed, perm = lu_panel(P, w, inner=4)
+    ref, rperm = lu_panel_reference(P, w, 4)
+    assert torch.equal(perm, rperm)
+    # a strided view (leading dimension 96) gives the contiguous copy's
+    # result, and the caller's tensor is not written
+    big = torch.randn(300, 96, device="cuda", dtype=torch.float64)
+    keep = big.clone()
+    a, pa = lu_panel(big[40:, 16:48], 32, inner=16)
+    b, pb = lu_panel(big[40:, 16:48].contiguous(), 32, inner=16)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and torch.equal(pa, pb)
+    assert torch.equal(big, keep)
+
+
+def test_lu_panel_refuses_what_the_kernel_does_not_take():
+    _need_card()
+    with pytest.raises(ValueError, match="real-only"):
+        lu_panel(torch.ones(16, 4, dtype=torch.complex64, device="cuda"), 4,
+                 inner=2)
+    with pytest.raises(ValueError, match="inner"):
+        lu_panel(torch.ones(16, 4, device="cuda"), 4, inner=0)
+    with pytest.raises(ValueError, match="inner"):
+        lu_panel(torch.ones(200, 100, device="cuda"), 100, inner=128)
+
+
+@pytest.mark.parametrize("grid", [(1, 1), (2, 2)], ids=["1x1", "2x2"])
+def test_lu_solve_runs_through_the_kernel(grid):
+    _need_card()
+    n, nb = 512, 128
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    A = torch.randn(n, n, generator=gen, device="cuda", dtype=torch.float64)
+    B = torch.randn(n, 3, generator=gen, device="cuda", dtype=torch.float64)
+    g = et.Grid(*grid)
+    before = lu_panel.launches
+    X = et.lu_solve(et.from_global(A, et.MC, et.MR, g),
+                    et.from_global(B, et.MC, et.MR, g), nb=nb)
+    x = et.to_global(X)
+    torch.cuda.synchronize()
+    launches = lu_panel.launches - before
+    assert launches == n // nb if grid == (1, 1) else launches >= 1
+    ref = torch.linalg.solve(A, B)
+    assert float(torch.linalg.norm(x - ref) / torch.linalg.norm(ref)) < 1e-10

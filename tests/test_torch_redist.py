@@ -1,14 +1,16 @@
 """The port's redistribution engine against the JAX engine: for the same
-source matrix, ``redistribute``, ``transpose_dist`` and ``panel_spread``
-give storage bit-equal to ``elemental_tpu``'s on 2x2 and 2x4 grids (the
-port moves values through the global matrix, the JAX engine through
-collectives; neither does arithmetic)."""
+source matrix, ``redistribute``, ``transpose_dist``, ``panel_spread`` and
+LU's row moves (``move_rows``, ``permute_rows_storage``) give storage
+bit-equal to ``elemental_tpu``'s on 2x2 and 2x4 grids (the port moves
+values through the global matrix or one storage gather, the JAX engine
+through collectives; neither does arithmetic)."""
 import jax
 import numpy as np
 import pytest
 
 import elemental_tpu as el
 import elemental_tpu_torch as et
+from elemental_tpu.redist import engine as jax_engine
 
 GRIDS = [(2, 2), (2, 4)]
 MOVES = [(("MC", "MR"), ("STAR", "STAR")), (("MC", "MR"), ("VC", "STAR")),
@@ -99,3 +101,42 @@ def test_later_slice_knobs_raise():
         et.redistribute(A, et.STAR, et.STAR, comm_precision="bf16")
     with pytest.raises(NotImplementedError, match="later slice"):
         et.redistribute(A, et.STAR, et.STAR, path="direct")
+
+
+@pytest.mark.parametrize("rc", [(1, 1)] + GRIDS,
+                         ids=lambda rc: f"{rc[0]}x{rc[1]}")
+def test_move_rows_storage_bit_equal(rc):
+    """LU's batched row move: padded target/source lists with invalid
+    (sentinel) entries dropped, as the JAX engine's ``mode="drop"``."""
+    F = np.random.default_rng(11).normal(size=(13, 6))
+    jA = el.from_global(F, el.MC, el.MR, jgrid(*rc))
+    tA = et.from_global(F, et.MC, et.MR, tgrid(*rc))
+    targets = np.array([2, 7, 11, 4, 13, 13])      # 13 = out of range
+    sources = np.array([7, 11, 2, 4, 0, 5])
+    valid = targets < 13
+    jB = jax_engine.move_rows(jA, jax.numpy.asarray(targets),
+                      jax.numpy.asarray(sources), jax.numpy.asarray(valid))
+    tB = et.move_rows(tA, targets, sources, valid)
+    assert tB.local.shape == tA.local.shape
+    assert np.array_equal(et.storage_numpy(tB), np.asarray(jB.local))
+
+
+@pytest.mark.parametrize("rc", [(1, 1)] + GRIDS,
+                         ids=lambda rc: f"{rc[0]}x{rc[1]}")
+@pytest.mark.parametrize("inverse", [False, True])
+def test_permute_rows_storage_bit_equal(rc, inverse):
+    F = np.random.default_rng(12).normal(size=(11, 7))
+    perm = np.random.default_rng(13).permutation(11)
+    jA = el.from_global(F, el.MC, el.MR, jgrid(*rc))
+    tA = et.from_global(F, et.MC, et.MR, tgrid(*rc))
+    jB = jax_engine.permute_rows_storage(jA, jax.numpy.asarray(perm), inverse=inverse)
+    tB = et.permute_rows_storage(tA, perm, inverse=inverse)
+    assert np.array_equal(et.storage_numpy(tB), np.asarray(jB.local))
+    want = F[np.argsort(perm)] if inverse else F[perm]
+    assert np.array_equal(et.to_global(tB).numpy(), want)
+
+
+def test_permute_rows_storage_needs_zero_alignment():
+    A = et.from_global(np.eye(4), et.MC, et.MR, tgrid(2, 2), calign=1)
+    with pytest.raises(ValueError, match="zero alignments"):
+        et.permute_rows_storage(A, np.arange(4))
