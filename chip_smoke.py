@@ -13,8 +13,10 @@ Phases, each of which raises on failure:
 2. every kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it and a ladder around them, with its time,
    the plain version's, one library call's and the least time the card
-   could take (``bound_ms``): ``potrf_inv`` (w = 64 ... 2048) and
-   ``lu_panel`` (32768 x 2048 ... a panel of constructed ties);
+   could take (``bound_ms``): ``potrf_inv`` (w = 64 ... 2048),
+   ``lu_panel`` (32768 x 2048 ... a panel of constructed ties) and
+   ``qr_panel`` (65536 x 2048 ... 33 x 7, a zero column, graded columns,
+   a strided view);
 3. the Cholesky main path at full width: ``hpd_solve(A, B, nb=2048)`` on
    the 1x1 grid, N = 32768 float32, nrhs = 8, A = G G^T / N + N I from a
    seeded generator; the factor gate of ``bench.py``, a solve residual,
@@ -23,9 +25,16 @@ Phases, each of which raises on failure:
    1x1 grid, N = 32768 float32, nrhs = 8, A and B normal from a seeded
    generator; ``bench.py``'s LU factor gate, HPL's scaled residual and
    ``lu_panel``'s launch count on that run;
+3c. the QR least-squares main path at full width: ``least_squares(A, B,
+   nb=2048)`` on the 1x1 grid, m = 65536, n = 32768 float32, nrhs = 8,
+   A and B normal from a seeded generator; the factor residual through
+   ``apply_q``, Q's orthogonality, the normal-equations optimality, and
+   ``qr_panel``'s launch count on that run;
 4. the distributed branches: ``hpd_solve`` and ``lu`` + ``lu_solve_after``
    on a virtual 2x2 grid on the card, N = 1024 float64, nb = 128, with
-   and without the crossover, against ``torch.linalg.solve``.
+   and without the crossover, against ``torch.linalg.solve``; and
+   ``least_squares`` (m = 1536, n = 1024 float64, nb = 128) against
+   ``torch.linalg.lstsq``, with ``lq`` and ``rq`` residuals.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the card's name and power limit, and the one before that the JSON
@@ -54,6 +63,14 @@ ELEM_TOL = {"float32": 1e-4, "float64": 1e-11}
 #: lu_panel's residual ||P[perm] - L U|| / ||P|| of the CPU tests, scaled
 #: with M / 256 (the tests' bound is set at M <= 256)
 LU_RES_TOL = {"float32": 1e-5, "float64": 1e-12}
+#: qr_panel's residual ||F - Q R|| / ||F|| and orthogonality ||Q^T Q - I||
+#: / sqrt(M) of the CPU tests, scaled with M / 256, and never above
+#: QR_RES_CAP; and the relative distance of T from larft(V, tau) of the
+#: kernel's own output (atol 1e-5 / 1e-12 at the tests' k <= 64), scaled
+#: with k / 64
+QR_RES_TOL = {"float32": 3e-6, "float64": 1e-12}
+QR_RES_CAP = {"float32": 1e-4, "float64": 1e-10}
+QR_T_TOL = {"float32": 1e-5, "float64": 1e-12}
 
 
 def _card_line() -> str:
@@ -79,9 +96,10 @@ def _time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _device_breakdown(fn) -> dict:
+def _device_breakdown(fn, top: int = 8) -> dict:
     """One profiled call of ``fn``: its wall time, the device time summed
-    per kernel name, and the device's idle share of the wall time."""
+    per kernel name (the ``top`` largest), and the device's idle share of
+    the wall time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -101,10 +119,10 @@ def _device_breakdown(fn) -> dict:
         n, ms = per_kernel.get(name, (0, 0.0))
         per_kernel[name] = (n + 1, ms + ev.time_range.elapsed_us() / 1e3)
     busy_ms = sum(ms for _, ms in per_kernel.values())
-    top = sorted(per_kernel.items(), key=lambda kv: -kv[1][1])[:8]
+    ranked = sorted(per_kernel.items(), key=lambda kv: -kv[1][1])[:top]
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "idle_share": max(0.0, 1 - busy_ms / wall_ms),
-            "top_kernels": [[k, n, ms] for k, (n, ms) in top]}
+            "top_kernels": [[k, n, ms] for k, (n, ms) in ranked]}
 
 
 def _spd(n: int, dtype, seed: int):
@@ -265,10 +283,125 @@ def phase_lu_panel() -> list:
     return rows
 
 
+def qr_residuals(F, packed, tau, T):
+    """``(||F - Q [R; 0]|| / ||F||, ||Q^T Q - I|| / sqrt(M), Q [R; 0])``
+    with Q = I - V T V^T, in float64; ``tests/test_torch_gpu.py`` uses it
+    too.  The orthogonality is exact through the k x k Gram G = V^T V:
+    Q^T Q - I = V X V^T with X = T^T G T - T - T^T, so its squared norm
+    is trace(G X G X^T)."""
+    import torch
+    from elemental_tpu_torch.kernels.qr_panel import _panel_v
+    M, k = F.shape
+    P, T = packed.double(), T.double()
+    V = _panel_v(P)
+    QR = V @ (T @ (V[:k].T @ torch.triu(P[:k])))
+    QR.neg_()
+    QR[:k] += torch.triu(P[:k])
+    F64 = F.double()
+    res = float(torch.linalg.norm(F64 - QR) / torch.linalg.norm(F64))
+    del F64
+    G = V.T @ V
+    del V
+    X = T.T @ G @ T - T - T.T
+    orth = float(torch.trace(G @ X @ G @ X.T).clamp(min=0).sqrt()) / M ** 0.5
+    return res, orth, QR
+
+
+def _qr_panels():
+    """(label, panel, main) for phase 2: the ladder, the main path's first
+    panel, a zero column, graded columns (float64) and a strided view."""
+    import torch
+
+    def normal(M, k, dt, seed):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed)
+        return torch.randn(M, k, generator=gen, device="cuda", dtype=dt)
+
+    yield "65536x2048", normal(65536, 2048, torch.float32, 1), True
+    for dt in (torch.float32, torch.float64):
+        for M, k in ((2048, 2048), (4096, 512), (1000, 100), (33, 7)):
+            yield f"{M}x{k}", normal(M, k, dt, M + k), False
+    Z = normal(4096, 512, torch.float32, 2)
+    Z[:, 300] = 0.0
+    yield "zero-column", Z, False
+    Gd = normal(4096, 512, torch.float64, 3)
+    Gd *= torch.logspace(0, -10, 512, device="cuda", dtype=torch.float64)
+    yield "graded", Gd, False
+    big = normal(5000, 700, torch.float32, 4)
+    yield "strided-view", big[7:, 50:562], False
+
+
+def phase_qr_panel() -> list:
+    """``qr_panel`` against its plain version; returns the per-shape rows.
+    At the large shapes the packed factors diverge from the plain
+    version's in rounding, so the gates are on residuals: the kernel's
+    within 4x the plain version's (plus the small-shape tolerance), both
+    within the CPU tests' bound scaled with M / 256 and capped at
+    QR_RES_CAP, and T within QR_T_TOL * k / 64 of larft(V, tau) of the
+    kernel's own output."""
+    import torch
+    from elemental_tpu_torch.kernels import qr_panel, qr_panel_reference
+    from elemental_tpu_torch.kernels.qr_panel import _larft, _panel_v
+    rows = []
+    for label, P, main in _qr_panels():
+        name = str(P.dtype).replace("torch.", "")
+        M, k = P.shape
+        packed, tau, T = qr_panel(P)
+        torch.cuda.synchronize()
+        ref, rtau, rT = qr_panel_reference(P)
+        rk, ok, QRk = qr_residuals(P, packed, tau, T)
+        rp, op, QRp = qr_residuals(P, ref, rtau, rT)
+        abs_err = float((QRk - QRp).abs().max())
+        del QRk, QRp
+        Tl = _larft(_panel_v(packed), tau)
+        t_err = float(torch.linalg.norm(T - Tl) / torch.linalg.norm(Tl))
+        tau_diff = float((tau - rtau).abs().max())
+        tol = min(QR_RES_TOL[name] * max(1.0, M / 256), QR_RES_CAP[name])
+        t_tol = QR_T_TOL[name] * max(1.0, k / 64)
+        zero_ok = label != "zero-column" or float(tau[300]) == 0.0
+        small = QR_RES_TOL[name]
+        if not (rk <= tol and ok <= tol and rp <= tol and op <= tol
+                and rk <= 4 * rp + small and ok <= 4 * op + small
+                and t_err <= t_tol and zero_ok
+                and bool(torch.isfinite(packed).all())):
+            raise AssertionError(
+                f"qr_panel {label} {name}: kernel residual {rk:.3e} / "
+                f"orthogonality {ok:.3e}, plain {rp:.3e} / {op:.3e}, "
+                f"tolerance {tol:.1e}; T error {t_err:.3e} (tolerance "
+                f"{t_tol:.1e}); zero column tau = 0: {zero_ok}")
+        reps = 1 if M * k >= 2 ** 24 else 5
+        kernel_ms = _time_ms(lambda: qr_panel(P), 3 * reps)
+        plain_ms = _time_ms(lambda: qr_panel_reference(P), reps)
+        library_ms = _time_ms(lambda: torch.geqrf(P), 3 * reps)
+        itemsize = P.element_size()
+        # reflectors 2Mk^2 - 2k^3/3; V^T V's upper half over V's unit lower
+        # trapezoid Mk^2 - 2k^3/3; T's triangular products k^3/3
+        flops = 3 * M * k * k - k ** 3
+        flop_ms = flops / PEAK_FLOPS[name] * 1e3
+        byte_ms = (2 * M * k + k * k + k) * itemsize / PEAK_BYTES * 1e3
+        row = {"panel": label, "M": M, "k": k, "dtype": name,
+               "kernel_residual": rk, "kernel_orthogonality": ok,
+               "plain_residual": rp, "plain_orthogonality": op,
+               "residual_tolerance": tol, "T_rel_err_vs_larft": t_err,
+               "T_tolerance": t_tol, "max_tau_diff": tau_diff,
+               "max_abs_err": abs_err, "kernel_ms": kernel_ms,
+               "plain_ms": plain_ms, "library_ms": library_ms,
+               "bound_ms": max(flop_ms, byte_ms),
+               "bound_by": "operations" if flop_ms >= byte_ms else "bytes"}
+        print("phase 2 qr_panel " + json.dumps(row), flush=True)
+        if main:
+            print("phase 2 qr_panel breakdown " + json.dumps(
+                _device_breakdown(lambda: qr_panel(P))), flush=True)
+            row["main"] = True
+        rows.append(row)
+        del P, packed, ref, T, rT, Tl
+    return rows
+
+
 def phase_main_path(et, card: str) -> dict:
     """hpd_solve at full width on the 1x1 grid; returns its numbers."""
     import torch
-    from elemental_tpu_torch.kernels import lu_panel, potrf_inv
+    from elemental_tpu_torch.kernels import lu_panel, potrf_inv, qr_panel
     N, nb, nrhs = 32768, 2048, 8
     grid = et.Grid()
     # warm-up at a small size (library handles, the kernel's first launch)
@@ -283,16 +416,17 @@ def phase_main_path(et, card: str) -> dict:
     B = et.from_global(Bg, et.MC, et.MR, grid)
     del Ag
     torch.cuda.synchronize()
-    potrf_inv.launches = lu_panel.launches = 0
+    potrf_inv.launches = lu_panel.launches = qr_panel.launches = 0
     t0 = time.perf_counter()
     X = et.hpd_solve(A, B, nb=nb)
     torch.cuda.synchronize()
     t_solve = time.perf_counter() - t0
     launches = potrf_inv.launches
-    if launches != N // nb or lu_panel.launches != 0:
+    if launches != N // nb or lu_panel.launches or qr_panel.launches:
         raise AssertionError(f"potrf_inv launched {launches} times on the "
                              f"main path, expected {N // nb}; lu_panel "
-                             f"{lu_panel.launches}, expected 0")
+                             f"{lu_panel.launches}, qr_panel "
+                             f"{qr_panel.launches}, expected 0")
     t0 = time.perf_counter()
     F = et.cholesky(A, nb=nb)
     torch.cuda.synchronize()
@@ -323,7 +457,7 @@ def phase_main_path(et, card: str) -> dict:
 def phase_lu_main_path(et, card: str) -> dict:
     """lu_solve at full width on the 1x1 grid; returns its numbers."""
     import torch
-    from elemental_tpu_torch.kernels import lu_panel, potrf_inv
+    from elemental_tpu_torch.kernels import lu_panel, potrf_inv, qr_panel
     N, nb, nrhs = 32768, 2048, 8
     grid = et.Grid()
     gen = torch.Generator(device="cuda")
@@ -342,16 +476,17 @@ def phase_lu_main_path(et, card: str) -> dict:
     B = et.from_global(Bg, et.MC, et.MR, grid)
     del Ag
     torch.cuda.synchronize()
-    potrf_inv.launches = lu_panel.launches = 0
+    potrf_inv.launches = lu_panel.launches = qr_panel.launches = 0
     t0 = time.perf_counter()
     X = et.lu_solve(A, B, nb=nb)
     torch.cuda.synchronize()
     t_solve = time.perf_counter() - t0
     launches = lu_panel.launches
-    if launches != N // nb or potrf_inv.launches != 0:
+    if launches != N // nb or potrf_inv.launches or qr_panel.launches:
         raise AssertionError(f"lu_panel launched {launches} times on the "
                              f"main path, expected {N // nb}; potrf_inv "
-                             f"{potrf_inv.launches}, expected 0")
+                             f"{potrf_inv.launches}, qr_panel "
+                             f"{qr_panel.launches}, expected 0")
     t0 = time.perf_counter()
     LU, perm = et.lu(A, nb=nb)
     torch.cuda.synchronize()
@@ -386,6 +521,105 @@ def phase_lu_main_path(et, card: str) -> dict:
            "factor_residual": factor_res, "hpl_scaled_residuals": hpl,
            "card": card}
     print("phase 3b LU main path " + json.dumps(out), flush=True)
+    return out
+
+
+def phase_qr_main_path(et, card: str) -> dict:
+    """least_squares at full width on the 1x1 grid; returns its numbers.
+    The gates' reductions run in float64, streaming A in row blocks."""
+    import torch
+    from elemental_tpu_torch.kernels import lu_panel, potrf_inv, qr_panel
+    m, n, nb, nrhs = 65536, 32768, 2048, 8
+    blk = 8192
+    grid = et.Grid()
+    gen = torch.Generator(device="cuda")
+    # warm-up at a small size (library handles, the kernel's first launch)
+    gen.manual_seed(1)
+    Aw = torch.randn(4096, 2048, generator=gen, device="cuda")
+    et.least_squares(et.from_global(Aw, et.MC, et.MR, grid),
+                     et.from_global(torch.ones(4096, nrhs, device="cuda"),
+                                    et.MC, et.MR, grid), nb=nb)
+    torch.geqrf(Aw)
+    del Aw
+    gen.manual_seed(0)
+    A = et.from_global(torch.randn(m, n, generator=gen, device="cuda"),
+                       et.MC, et.MR, grid)
+    B = et.from_global(torch.randn(m, nrhs, generator=gen, device="cuda"),
+                       et.MC, et.MR, grid)
+    torch.cuda.synchronize()
+    potrf_inv.launches = lu_panel.launches = qr_panel.launches = 0
+    t0 = time.perf_counter()
+    X = et.least_squares(A, B, nb=nb)
+    torch.cuda.synchronize()
+    t_ls = time.perf_counter() - t0
+    launches = qr_panel.launches
+    if launches != n // nb or potrf_inv.launches or lu_panel.launches:
+        raise AssertionError(f"qr_panel launched {launches} times on the "
+                             f"main path, expected {n // nb}; potrf_inv "
+                             f"{potrf_inv.launches}, lu_panel "
+                             f"{lu_panel.launches}, expected 0")
+    t0 = time.perf_counter()
+    Ap, tau = et.qr(A, nb=nb)
+    torch.cuda.synchronize()
+    t_qr = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    et.apply_q(Ap, tau, B, orient="C")
+    torch.cuda.synchronize()
+    t_apply = time.perf_counter() - t0
+    a, ap, x, b = A.local, Ap.local, X.local.double(), B.local.double()
+
+    def q_times(y, orient):
+        Y = et.from_global(y.float(), et.MC, et.MR, grid)
+        return et.apply_q(Ap, tau, Y, orient=orient).local.double()
+
+    # factor residual ||A v - Q (R v)|| / (||A||_F ||v||)
+    v = torch.randn(n, 1, generator=gen, device="cuda", dtype=torch.float64)
+    rv = torch.zeros(m, 1, device="cuda", dtype=torch.float64)
+    av = torch.empty(m, 1, device="cuda", dtype=torch.float64)
+    norm_a2 = 0.0
+    for i0 in range(0, m, blk):
+        ab = a[i0:i0 + blk].double()
+        av[i0:i0 + blk] = ab @ v
+        norm_a2 += float((ab * ab).sum())
+        if i0 < n:
+            rv[i0:i0 + blk] = torch.triu(ap[i0:i0 + blk].double(),
+                                         diagonal=i0) @ v
+    norm_a = norm_a2 ** 0.5
+    factor_res = float(torch.linalg.norm(av - q_times(rv, "N"))
+                       / (norm_a * torch.linalg.norm(v)))
+    # orthogonality ||Q^T (Q z) - z|| / ||z||
+    z = torch.randn(m, 1, generator=gen, device="cuda", dtype=torch.float64)
+    qz = q_times(q_times(z.float(), "N"), "C")
+    orth = float(torch.linalg.norm(qz - z.float().double())
+                 / torch.linalg.norm(z.float().double()))
+    # normal-equations optimality ||A^T (B - A X)||_F / (||A|| (||A|| ||X||
+    # + ||B||))
+    atr = torch.zeros(n, nrhs, device="cuda", dtype=torch.float64)
+    for i0 in range(0, m, blk):
+        ab = a[i0:i0 + blk].double()
+        atr += ab.T @ (b[i0:i0 + blk] - ab @ x)
+    del ab
+    optimality = float(torch.linalg.norm(atr) / (
+        norm_a * (norm_a * torch.linalg.norm(x) + torch.linalg.norm(b))))
+    finite = bool(torch.isfinite(X.local).all())
+    if not (factor_res < 1e-3 and orth < 1e-4 and optimality < 1e-4
+            and finite and tuple(X.local.shape) == (n, nrhs)):
+        raise AssertionError(
+            f"QR main path: factor residual {factor_res:.3e} (< 1e-3), "
+            f"orthogonality {orth:.3e} (< 1e-4), normal-equations "
+            f"optimality {optimality:.3e} (< 1e-4), finite {finite}")
+    del Ap, tau, rv, av, atr
+    geqrf_ms = _time_ms(lambda: torch.geqrf(a), 1)
+    print("phase 3c least_squares breakdown " + json.dumps(
+        _device_breakdown(lambda: et.least_squares(A, B, nb=nb), top=14)),
+        flush=True)
+    out = {"m": m, "n": n, "nb": nb, "nrhs": nrhs, "dtype": "float32",
+           "least_squares_s": t_ls, "qr_s": t_qr, "apply_q_s": t_apply,
+           "qr_tflops": (2 * m * n ** 2 - 2 * n ** 3 / 3) / t_qr / 1e12,
+           "geqrf_ms": geqrf_ms, "qr_panel_launches": launches,
+           "factor_residual": factor_res, "orthogonality": orth,
+           "normal_equations_optimality": optimality, "card": card}
+    print("phase 3c QR main path " + json.dumps(out), flush=True)
     return out
 
 
@@ -449,6 +683,49 @@ def phase_lu_distributed(et) -> None:
              "rel_error_vs_torch_solve": err}), flush=True)
 
 
+def phase_qr_distributed(et) -> None:
+    """least_squares, lq and rq on a virtual 2x2 grid on the card, float64,
+    against torch.linalg.lstsq and their own reconstructions."""
+    import torch
+    from elemental_tpu_torch.kernels import qr_panel
+    m, n, nb, nrhs = 1536, 1024, 128, 4
+    grid = et.Grid(2, 2)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    Ag = torch.randn(m, n, generator=gen, device="cuda", dtype=torch.float64)
+    Bg = torch.randn(m, nrhs, generator=gen, device="cuda",
+                     dtype=torch.float64)
+    ref = torch.linalg.lstsq(Ag, Bg).solution
+    qr_panel.launches = 0
+    X = et.least_squares(et.from_global(Ag, et.MC, et.MR, grid),
+                         et.from_global(Bg, et.MC, et.MR, grid), nb=nb)
+    x = et.to_global(X)
+    torch.cuda.synchronize()
+    launches = qr_panel.launches
+    err = float(torch.linalg.norm(x - ref) / torch.linalg.norm(ref))
+    # lq and rq of the wide transpose
+    W = et.from_global(Ag.T.contiguous(), et.MC, et.MR, grid)
+    packed, tau = et.lq(W, nb=nb)
+    L = et.to_global(et.explicit_l(packed))
+    Q = et.to_global(et.apply_q_lq(packed, tau, et.identity(
+        m, grid=grid, dtype=torch.float64)))
+    norm_w = torch.linalg.norm(Ag)
+    lq_res = float(torch.linalg.norm(Ag.T - L @ Q[:n]) / norm_w)
+    R, Qr = et.rq(W, nb=nb)
+    rq_res = float(torch.linalg.norm(Ag.T - et.to_global(R)
+                                     @ et.to_global(Qr)) / norm_w)
+    torch.cuda.synchronize()
+    if launches != n // nb or not (err < 1e-10 and lq_res < 1e-12
+                                   and rq_res < 1e-12):
+        raise AssertionError(f"QR 2x2 grid: launches {launches}, error "
+                             f"{err:.3e}, lq residual {lq_res:.3e}, rq "
+                             f"residual {rq_res:.3e}")
+    print("phase 4 QR distributed " + json.dumps(
+        {"grid": "2x2", "m": m, "n": n, "nb": nb, "dtype": "float64",
+         "qr_panel_launches": launches, "rel_error_vs_torch_lstsq": err,
+         "lq_residual": lq_res, "rq_residual": rq_res}), flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -468,15 +745,18 @@ def main() -> int:
     print(f"phase 1 torch.backends.cuda.matmul.allow_tf32 = "
           f"{torch.backends.cuda.matmul.allow_tf32}", flush=True)
     t0 = time.perf_counter()
-    common.build(["potrf_inv", "lu_panel"])
+    common.build(["potrf_inv", "lu_panel", "qr_panel"])
     print(f"phase 1 build_s {time.perf_counter() - t0:.3f}", flush=True)
 
     rows = phase_kernels(et)
     lu_rows = phase_lu_panel()
+    qr_rows = phase_qr_panel()
     main_path = phase_main_path(et, card)
     lu_path = phase_lu_main_path(et, card)
+    qr_path = phase_qr_main_path(et, card)
     phase_distributed(et)
     phase_lu_distributed(et)
+    phase_qr_distributed(et)
 
     at_path = next(r for r in rows if r["w"] == 2048 and r["dtype"] == "float32")
     kernels = [{
@@ -498,6 +778,16 @@ def main() -> int:
         "ms": lu_at["kernel_ms"], "plain_ms": lu_at["plain_ms"],
         "bound_ms": lu_at["bound_ms"], "bound_by": lu_at["bound_by"],
         "library_ms": lu_at["library_ms"]})
+    qr_at = next(r for r in qr_rows if r.get("main"))
+    kernels.append({
+        "name": "qr_panel", "route": "cuda",
+        "source": "elemental_tpu_torch/kernels/csrc/qr_panel.cu",
+        "replaces": "elemental_tpu/kernels/qr_panel.py:95",
+        "launches": qr_path["qr_panel_launches"],
+        "max_abs_err": qr_at["max_abs_err"],
+        "ms": qr_at["kernel_ms"], "plain_ms": qr_at["plain_ms"],
+        "bound_ms": qr_at["bound_ms"], "bound_by": qr_at["bound_by"],
+        "library_ms": qr_at["library_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

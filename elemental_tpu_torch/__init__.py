@@ -5,9 +5,13 @@ device (an NVIDIA H100 by default; ``Grid(device="cpu")`` for the CPU).
 The stacked-storage layout of every ``DistMatrix`` is the JAX package's,
 bit for bit.  Ported so far: the SPD solve (``cholesky``,
 ``cholesky_solve_after``, ``hpd_solve``), with the diagonal-block
-factor/inverse as a hand-written CUDA kernel, and the LU solve (``lu``,
+factor/inverse as a hand-written CUDA kernel; the LU solve (``lu``,
 ``lu_solve``, ``lu_solve_after``, ``permute_rows``, ``permute_cols``),
-with the partial-pivot panel as a hand-written cooperative CUDA kernel
+with the partial-pivot panel as a hand-written cooperative CUDA kernel;
+and QR least squares (``qr``, ``apply_q``, ``explicit_q``,
+``least_squares``, ``lq``, ``apply_q_lq``, ``explicit_l``, ``rq``, with
+``interior_view`` and ``identity``), with the Householder panel and its
+block-reflector triangle as a hand-written cooperative CUDA kernel
 (``kernels/csrc``).
 
 The package imports ``torch`` and numpy only -- never ``jax`` and nothing
@@ -22,9 +26,13 @@ from .core.distmatrix import (DistMatrix, from_global, to_global, zeros,
 from .core.view import view, update_view
 from .redist.engine import (redistribute, transpose_dist, panel_spread,
                            move_rows, permute_rows_storage)
+from .redist.interior import interior_view
 from .blas import make_trapezoidal, trsm
 from .lapack import (cholesky, hpd_solve, cholesky_solve_after, lu,
-                     lu_solve, lu_solve_after, permute_rows, permute_cols)
+                     lu_solve, lu_solve_after, permute_rows, permute_cols,
+                     qr, apply_q, explicit_q, least_squares, lq, apply_q_lq,
+                     explicit_l, rq)
+from .matrices import identity
 from . import kernels
 
 __version__ = "0.1.0"

@@ -10,7 +10,11 @@ each call site asks ``plan.use_kernel(dtype)`` -- a static gate on dtype
   :func:`potrf_inv_reference` (residual-bounded);
 * :func:`lu_panel` -- partial-pivot LU of an (M, nbw) panel, a
   cooperative CUDA kernel for ``sm_90a`` (``csrc/lu_panel.cu``), twin of
-  :func:`lu_panel_reference` (same pivots, residual-bounded factor).
+  :func:`lu_panel_reference` (same pivots, residual-bounded factor);
+* :func:`qr_panel` -- Householder QR of an (M, k) panel with the triangle
+  T of its block reflector, a cooperative CUDA kernel for ``sm_90a``
+  (``csrc/qr_panel.cu``), twin of :func:`qr_panel_reference` =
+  ``_panel_qr`` + ``_larft`` (residual-bounded).
 
 ``panel_impl`` values: ``'torch'`` (the plain PyTorch path, the explicit
 counterpart of the JAX package's ``'xla'``), ``'kernel'`` (the
@@ -29,6 +33,7 @@ import torch
 
 from .chol_panel import potrf_inv, potrf_inv_reference
 from .lu_panel import lu_panel, lu_panel_reference
+from .qr_panel import qr_panel, qr_panel_reference
 
 #: implementations the ``panel_impl`` knob enumerates ('auto' and None
 #: resolve to one of these by device)

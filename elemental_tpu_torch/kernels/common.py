@@ -11,7 +11,9 @@ block on a CUDA tensor launches it, and a block too large for device
 memory fails its allocation and raises (the plain version would need as
 much).  ``lu_panel`` likewise keeps its panel in device memory and stages
 each thread block's slab of the current chunk in shared memory when it
-fits (working on it in place otherwise), so it has no size gate either.
+fits (working on it in place otherwise), so it has no size gate either;
+nor has ``qr_panel``, built the same way (its scratch, partial sums of
+at most 66 tiles of 64 x k, grows with the panel width only).
 
 The build.  Each ``csrc/*.cu`` source is compiled by hand with ``nvcc``
 into a shared library with a plain C interface and loaded with

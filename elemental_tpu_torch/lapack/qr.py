@@ -1,0 +1,322 @@
+"""Householder QR, compact-WY application, least squares, LQ and RQ.
+
+PyTorch port of ``elemental_tpu/lapack/qr.py`` (Elemental
+``src/lapack_like/factor/QR.cpp`` + ``QR/{Householder,PanelHouseholder,
+ApplyQ,SolveAfter}.hpp``, ``reflect/ApplyPacked`` and
+``euclidean_min/LeastSquares.cpp``), classic panel.
+
+The panel is gathered to [STAR,STAR] and reduced once (replicated), and
+the trailing columns get the compact-WY update ``A2 -= V T^H (V^H A2)``
+as storage matmuls, the reference's [MC,STAR] x [STAR,MR] update.  Every
+panel goes through :func:`_panel_qr_dispatch`: on a CUDA tensor with a
+real dtype it runs the hand-written kernel (``kernels/csrc/
+qr_panel.cu``), which returns T with the panel; elsewhere the plain
+larfg recurrence, with T from :func:`_larft`.
+
+On a 1x1 grid the storage IS the global matrix, so :func:`qr` works in
+place on ONE clone of its input and writes only the entries the JAX
+loop's blend keeps: the panel's columns, then the trailing columns >= e
+with ``addmm_`` (no temporary of the trailing block).  :func:`apply_q`
+does the same on one clone of ``B``.  No driver changes its inputs.
+
+Packing follows LAPACK geqrf: R on/above the diagonal, the Householder
+vectors' tails below it (unit diagonal implicit), plus a tau vector.
+TSQR (``panel='tsqr'``, ``tsqr``), ``qr_col_piv`` and checksum-guarded
+QR belong to later slices.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..core.dist import MC, MR, STAR
+from ..core.distmatrix import DistMatrix
+from ..core.environment import check_precision
+from ..core.view import view, update_view
+from ..redist.engine import apply_fault, redistribute, transpose_dist
+from ..redist.interior import interior_view
+from ..blas.level1 import make_trapezoidal
+from ..blas.level3 import _check_mcmr, trsm
+from ..kernels import qr_panel as _kernel_qr_panel
+from ..kernels import resolve_panel
+from ..kernels.qr_panel import _larft, _panel_qr, _panel_v
+from ..matrices.basic import identity
+from ..tune.policy import blocksize_policy as _blocksize
+from .cholesky import _check_knobs, _not_ported
+from .lu import _update_cols_ge, _update_cols_lt, permute_cols, permute_rows
+
+
+def _panel_qr_dispatch(P, plan=None):
+    """One classic replicated panel through the resolved ``panel_impl``
+    plan: ``(packed, tau, T)``, from the kernel when the plan selects it
+    for the panel's dtype, else from the plain recurrence with T from
+    :func:`_larft`."""
+    if plan is not None and plan.use_kernel(P.dtype):
+        return _kernel_qr_panel(P)
+    Pf, tau = _panel_qr(P)
+    return Pf, tau, _larft(_panel_v(Pf), tau)
+
+
+def _check_qr_knobs(nb, panel, comm_precision, redist_path, timer, health,
+                    abft) -> None:
+    """Refuse the knobs of later slices and unknown panel strategies."""
+    _check_knobs(nb, None, None, comm_precision, redist_path, timer,
+                 health, abft)
+    if panel == "auto":
+        _not_ported("panel", panel, "the tuner ('auto')")
+    if panel == "tsqr":
+        _not_ported("panel", panel, "the TSQR tree panel")
+    if panel not in (None, "classic"):
+        raise ValueError(f"qr: unknown panel strategy {panel!r}; "
+                         "expected 'classic', 'tsqr', or 'auto'")
+
+
+def _local_qr_array(a, ib: int, plan):
+    """Blocked Householder QR of a plain (m, n) array on ONE clone of it:
+    returns ``(packed, tau)`` as new tensors.  Per panel the packed panel
+    is written back, then the trailing columns get the compact-WY update
+    in place."""
+    a = a.clone(memory_format=torch.contiguous_format)
+    m, n = a.shape
+    kend = min(m, n)
+    taus = []
+    for s in range(0, kend, ib):
+        e = min(s + ib, kend)
+        Pf, tau, T = _panel_qr_dispatch(a[s:, s:e], plan)
+        Pf, = apply_fault("compute", (Pf,))
+        taus.append(tau)
+        a[s:, s:e] = Pf
+        if e < n:
+            V = _panel_v(Pf)
+            A2 = a[s:, e:]
+            W = T.conj().mT @ (V.conj().mT @ A2)
+            A2.addmm_(V, W, alpha=-1)
+    tau = torch.cat(taus) if taus else a.new_zeros((0,))
+    return a, tau
+
+
+def qr(A: DistMatrix, nb: int | None = None, precision=None,
+       panel: str = "classic", panel_impl: str | None = None,
+       comm_precision: str | None = None, timer=None, health=None,
+       redist_path: str | None = None, abft=None):
+    """Blocked Householder QR; returns ``(packed, tau)`` in geqrf format.
+
+    The block size actually used is attached to the packed matrix (the
+    ``_qr_nb`` attribute), so :func:`apply_q` called with ``nb=None``
+    reuses the factorization's blocking and a mismatching explicit ``nb``
+    raises instead of silently producing a wrong Q.
+
+    ``panel_impl`` (``None`` | ``'auto'`` | ``'torch'`` | ``'kernel'``)
+    selects the panel implementation; ``None`` and ``'auto'`` take the
+    CUDA kernel for a real dtype on the card and the plain recurrence
+    elsewhere.  ``precision`` is ``None`` or ``'highest'`` (full
+    float32/float64 arithmetic; on the card
+    ``torch.backends.cuda.matmul.allow_tf32`` must be False).  The knobs
+    of later slices -- ``panel='tsqr'`` / ``'auto'``, ``nb='auto'``,
+    ``comm_precision``, ``redist_path``, ``timer``, ``health``, ``abft``
+    -- raise ``NotImplementedError``."""
+    _check_mcmr(A)
+    _check_qr_knobs(nb, panel, comm_precision, redist_path, timer, health,
+                    abft)
+    check_precision(precision, A.local)
+    plan = resolve_panel(panel_impl, dtype=A.dtype, device=A.local.device)
+    m, n = A.gshape
+    g = A.grid
+    r, c = g.height, g.width
+    ib = _blocksize(nb, math.lcm(r, c), min(m, n))
+    if g.size == 1:
+        a, tau = _local_qr_array(A.local, ib, plan)
+        Ap = A.with_local(a)
+        _record_qr_nb(Ap, ib)
+        return Ap, tau
+    kend = min(m, n)
+    taus = []
+    for s in range(0, kend, ib):
+        e = min(s + ib, kend)
+        nbw = e - s
+        e_up = min(-(-e // c) * c, n)
+        panel_ss = redistribute(view(A, rows=(s, m), cols=(s, e_up)),
+                                STAR, STAR)
+        Pf, tau, T = _panel_qr_dispatch(panel_ss.local[:, :nbw], plan)
+        Pf, = apply_fault("compute", (Pf,))
+        taus.append(tau)
+        Pf_w = torch.nn.functional.pad(Pf, (0, e_up - e)) if e_up > e else Pf
+        Pf_ss = DistMatrix(Pf_w, (m - s, e_up - s), STAR, STAR, 0, 0, g)
+        A = _update_cols_lt(A, redistribute(Pf_ss, MC, MR), (s, m),
+                            (s, e_up), e)
+        if e < n:
+            V = _panel_v(Pf)
+            V_ss = DistMatrix(V, (m - s, nbw), STAR, STAR, 0, 0, g)
+            V_mc = redistribute(V_ss, MC, STAR)
+            A2 = view(A, rows=(s, m), cols=(s, n))
+            W = V_mc.local.conj().mT @ A2.local        # [STAR,MR] storage
+            W = T.conj().mT @ W
+            upd = V_mc.local @ W
+            A = _update_cols_ge(A, A2.with_local(A2.local - upd), (s, m),
+                                (s, n), e)
+    _record_qr_nb(A, ib)
+    tau = torch.cat(taus) if taus else A.local.new_zeros((0,))
+    return A, tau
+
+
+def _record_qr_nb(Ap: DistMatrix, ib: int) -> None:
+    """Attach the block size a factorization actually used to the packed
+    matrix (frozen dataclass => object.__setattr__).  Host-side metadata
+    only: ``with_local`` and friends drop it."""
+    object.__setattr__(Ap, "_qr_nb", int(ib))
+
+
+def _applyq_blocksize(Ap: DistMatrix, nb, grain: int, kend: int) -> int:
+    """The blocking :func:`apply_q` must sweep with: default to the block
+    size recorded by :func:`qr`, and REFUSE a mismatching explicit ``nb``
+    (different panel boundaries silently produce a wrong Q)."""
+    rec = getattr(Ap, "_qr_nb", None)
+    if nb is None:
+        return rec if rec is not None else _blocksize(None, grain, kend)
+    ib = _blocksize(nb, grain, kend)
+    if rec is not None and ib != rec:
+        raise ValueError(
+            f"apply_q: nb={nb!r} derives block size {ib}, but this packed "
+            f"factor was produced by qr() with block size {rec}; pass "
+            "nb=None to reuse the factorization's blocking")
+    return ib
+
+
+def apply_q(Ap: DistMatrix, tau, B: DistMatrix, orient: str = "N",
+            nb: int | None = None, precision=None) -> DistMatrix:
+    """B := Q B ('N') or Q^H B ('C'), Q from (packed, tau)
+    (``qr::ApplyQ`` / ``ApplyPackedReflectors``).
+
+    Each panel's T is rebuilt with the plain :func:`_larft`, as the JAX
+    package does.  ``nb`` MUST match the factorization's blocking: the
+    default (``None``) reuses the block size :func:`qr` recorded on
+    ``Ap``; an explicit ``nb`` that derives different panel boundaries
+    raises ``ValueError``."""
+    _check_mcmr(Ap, B)
+    check_precision(precision, Ap.local, B.local)
+    m, n = Ap.gshape
+    if B.gshape[0] != m:
+        raise ValueError(f"B height {B.gshape[0]} != {m}")
+    g = Ap.grid
+    r, c = g.height, g.width
+    kend = min(m, n)
+    ib = _applyq_blocksize(Ap, nb, math.lcm(r, c), kend)
+    starts = list(range(0, kend, ib))
+    if orient == "N":
+        starts = starts[::-1]
+    local = g.size == 1
+    if local:
+        b = B.local.clone(memory_format=torch.contiguous_format)
+    for s in starts:
+        e = min(s + ib, kend)
+        nbw = e - s
+        if local:
+            V = _panel_v(Ap.local[s:, s:e])
+        else:
+            e_up = min(-(-e // c) * c, n)
+            panel = redistribute(view(Ap, rows=(s, m), cols=(s, e_up)),
+                                 STAR, STAR)
+            V = _panel_v(panel.local[:, :nbw])
+        T = _larft(V, tau[s:e])
+        Tm = T.conj().mT if orient == "C" else T
+        if local:
+            b[s:].addmm_(V, Tm @ (V.conj().mT @ b[s:]), alpha=-1)
+            continue
+        V_ss = DistMatrix(V, (m - s, nbw), STAR, STAR, 0, 0, g)
+        V_mc = redistribute(V_ss, MC, STAR)
+        B2 = view(B, rows=(s, m))
+        W = V_mc.local.conj().mT @ B2.local
+        W = Tm @ W
+        upd = V_mc.local @ W
+        B = update_view(B, B2.with_local(B2.local - upd), rows=(s, m))
+    return B.with_local(b) if local else B
+
+
+def explicit_q(Ap: DistMatrix, tau, nb: int | None = None,
+               precision=None) -> DistMatrix:
+    """The m x m unitary Q as a DistMatrix (``qr::ExplicitUnitary``)."""
+    eye = identity(Ap.gshape[0], grid=Ap.grid, dtype=Ap.dtype)
+    return apply_q(Ap, tau, eye, orient="N", nb=nb, precision=precision)
+
+
+def least_squares(A: DistMatrix, B: DistMatrix, nb: int | None = None,
+                  precision=None, abft=None) -> DistMatrix:
+    """Minimize ||A X - B||_F for m >= n via QR (``El::LeastSquares``,
+    dense path of ``src/lapack_like/euclidean_min/LeastSquares.cpp``):
+    Q^H B via the packed reflectors, then a triangular solve against the
+    interior-extracted R.  ``abft`` belongs to a later slice and raises
+    ``NotImplementedError``."""
+    if abft is not None:
+        _not_ported("abft", abft, "checksum-guarded execution")
+    _check_mcmr(A, B)
+    m, n = A.gshape
+    if m < n:
+        raise ValueError("least_squares requires m >= n (tall)")
+    Ap, tau = qr(A, nb=nb, precision=precision)
+    Y = apply_q(Ap, tau, B, orient="C", nb=nb, precision=precision)
+    R = make_trapezoidal(interior_view(Ap, (0, n), (0, n)), "U")
+    Y1 = interior_view(Y, (0, n), (0, B.gshape[1]))
+    return trsm("L", "U", "N", R, Y1, nb=nb, precision=precision)
+
+
+# ---------------------------------------------------------------------
+# LQ (via the QR of the adjoint) and RQ (via the exchange identity)
+# ---------------------------------------------------------------------
+
+def lq(A: DistMatrix, nb: int | None = None, precision=None,
+       redist_path: str | None = None):
+    """LQ factorization ``A = L Q`` (``El::LQ``), computed as the QR of
+    ``A^H``.  Returns ``(packed, tau)``, the geqrf-packed QR of ``A^H``
+    ((n, m)-shaped); use :func:`apply_q_lq` / :func:`explicit_l` to
+    consume it.  ``redist_path`` belongs to a later slice and raises
+    ``NotImplementedError``."""
+    if redist_path is not None:
+        _not_ported("redist_path", redist_path, "route selection")
+    Ah = redistribute(transpose_dist(A, conj=True), MC, MR)
+    return qr(Ah, nb=nb, precision=precision)
+
+
+def apply_q_lq(Ap: DistMatrix, tau, B: DistMatrix, orient: str = "N",
+               nb: int | None = None, precision=None) -> DistMatrix:
+    """B := Q B ('N') or Q^H B ('C') with Q the LQ unitary (Q = Q_r^H of
+    the underlying adjoint-QR)."""
+    flip = "C" if orient == "N" else "N"
+    return apply_q(Ap, tau, B, orient=flip, nb=nb, precision=precision)
+
+
+def explicit_l(Ap: DistMatrix) -> DistMatrix:
+    """The explicit (m, min(m,n)) lower-trapezoidal L from :func:`lq`'s
+    packing (L = R^H of the adjoint QR; shape is read from ``Ap``)."""
+    n_, m_ = Ap.gshape                      # Ap is the packed QR of A^H
+    k = min(n_, m_)
+    R = make_trapezoidal(interior_view(Ap, (0, k), (0, m_)), "U")
+    return redistribute(transpose_dist(R, conj=True), MC, MR)
+
+
+def rq(A: DistMatrix, nb: int | None = None, precision=None):
+    """RQ factorization ``A = R Q`` (``El::RQ``) with R (m, k) upper
+    triangular/trapezoidal against the BOTTOM-RIGHT corner and Q (k, n)
+    having orthonormal rows (k = min(m, n)).
+
+    With J the anti-identity, J_m A J_n = L W (LQ), so A = (J_m L J_k)
+    (J_k W J_n).  Returns explicit ``(R, Q)``.  W's first k rows come
+    from applying Q^H to the (n, k) identity slab and taking the
+    adjoint."""
+    m, n = A.gshape
+    k = min(m, n)
+    dev = A.local.device
+    rev_m = torch.arange(m - 1, -1, -1, device=dev)
+    rev_n = torch.arange(n - 1, -1, -1, device=dev)
+    rev_k = torch.arange(k - 1, -1, -1, device=dev)
+    Af = permute_cols(permute_rows(A, rev_m), rev_n)     # J_m A J_n
+    packed, tau = lq(Af, nb=nb, precision=precision)
+    L = explicit_l(packed)                               # (m, k)
+    eye = identity(n, grid=A.grid, dtype=A.dtype)
+    Ik = interior_view(eye, (0, n), (0, k)) if k < n else eye
+    Wh = apply_q_lq(packed, tau, Ik, orient="C", nb=nb,
+                    precision=precision)                 # (n, k) = W^H
+    W = redistribute(transpose_dist(Wh, conj=True), MC, MR)
+    R = permute_cols(permute_rows(L, rev_m), rev_k)
+    Q = permute_cols(permute_rows(W, rev_k), rev_n)
+    return R, Q

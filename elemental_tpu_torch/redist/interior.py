@@ -1,0 +1,46 @@
+"""Interior (arbitrary-offset) submatrix extraction.
+
+PyTorch port of ``interior_view`` (with ``_check_zero_aligned``) from
+``elemental_tpu/redist/interior.py``, correct-first: the requested block
+is gathered out of the stacked storage as a global sub-matrix and laid
+out again, ``B = from_global(A[rs:re, cs:ce])``, which moves values and
+does no arithmetic, so the storage is bit-equal to the JAX package's
+(whose one rotation per distributed dimension is a collective).  On a
+1x1 grid the storage IS the global matrix and the block is one slice.
+``interior_update``, ``vstack`` and ``hstack`` belong to a later slice.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..core.dist import Dist
+from ..core.distmatrix import DistMatrix, _global_index_dim, from_global
+
+
+def _check_zero_aligned(*Ms: DistMatrix):
+    for A in Ms:
+        if (A.calign, A.ralign) != (0, 0):
+            raise ValueError(f"interior ops require zero alignment, got {A}")
+
+
+def interior_view(A: DistMatrix, rows=None, cols=None) -> DistMatrix:
+    """``A[rows[0]:rows[1], cols[0]:cols[1]]`` as a new zero-aligned
+    DistMatrix (same distribution pair), for ARBITRARY offsets."""
+    _check_zero_aligned(A)
+    m, n = A.gshape
+    rows = (0, m) if rows is None else rows
+    cols = (0, n) if cols is None else cols
+    (rs, re), (cs, ce) = rows, cols
+    if not (0 <= rs <= re <= m and 0 <= cs <= ce <= n):
+        raise ValueError(f"range ({rows},{cols}) out of bounds for {A.gshape}")
+    g = A.grid
+    if g.size == 1 or A.cdist is Dist.CIRC:
+        return DistMatrix(A.local[rs:re, cs:ce].clone(), (re - rs, ce - cs),
+                          A.cdist, A.rdist, 0, 0, g)
+    r, c = g.height, g.width
+    dev = A.local.device
+    ri = _global_index_dim(m, A.cdist, r, c, 0, A.local_rows)[rs:re]
+    cj = _global_index_dim(n, A.rdist, r, c, 0, A.local_cols)[cs:ce]
+    block = A.local.index_select(0, torch.as_tensor(ri, device=dev))
+    block = block.index_select(1, torch.as_tensor(cj, device=dev))
+    return from_global(block, A.cdist, A.rdist, g)

@@ -1,5 +1,6 @@
-"""The CUDA kernels (``potrf_inv``, ``lu_panel``) against their plain
-versions, and the LU solve through ``lu_panel``, on the card.
+"""The CUDA kernels (``potrf_inv``, ``lu_panel``, ``qr_panel``) against
+their plain versions, and the LU solve and QR least squares through them,
+on the card.
 
 Marked ``gpu``: on a machine without a card every test skips (the check is
 made inside the test, so every worker collects the same tests).  On the
@@ -9,14 +10,21 @@ card: ``python -m pytest --noconftest tests/test_torch_gpu.py -m gpu``
 scaled with w / 256 above w = 256; ``lu_panel``'s are those of
 ``tests/test_torch_lu_panel.py`` (identical pivots; ``||P[perm] - L U||
 / ||P||`` below 1e-5 at float32 and 1e-12 at float64), scaled with
-M / 256 above M = 256."""
+M / 256 above M = 256; ``qr_panel``'s are those of
+``tests/test_torch_qr_panel.py`` (``||F - Q R|| / ||F||`` and ``||Q^T Q -
+I|| / sqrt(M)`` below 3e-6 at float32 and 1e-12 at float64, T equal to
+``_larft(V, tau)`` of the kernel's own output), scaled with M / 256 above
+M = 256 and, for T, with k / 64 above k = 64."""
 import numpy as np
 import pytest
 import torch
 
 import elemental_tpu_torch as et
 from elemental_tpu_torch.kernels import (lu_panel, lu_panel_reference,
-                                         potrf_inv, potrf_inv_reference)
+                                         potrf_inv, potrf_inv_reference,
+                                         qr_panel, qr_panel_reference)
+from elemental_tpu_torch.kernels.qr_panel import _larft, _panel_v
+from chip_smoke import qr_residuals
 
 pytestmark = pytest.mark.gpu
 
@@ -180,4 +188,108 @@ def test_lu_solve_runs_through_the_kernel(grid):
     launches = lu_panel.launches - before
     assert launches == n // nb if grid == (1, 1) else launches >= 1
     ref = torch.linalg.solve(A, B)
+    assert float(torch.linalg.norm(x - ref) / torch.linalg.norm(ref)) < 1e-10
+
+
+QR_TOL = {torch.float32: 3e-6, torch.float64: 1e-12}
+T_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+#: (M, k): k below, at and past the 64-column chunk, M off the slab grain
+QR_LADDER = [(33, 7), (64, 16), (200, 64), (1000, 100), (600, 130),
+             (4097, 257)]
+
+
+def _panel_on_card(M, k, dtype, seed=0):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(M * 7 + k + seed)
+    return torch.randn(M, k, generator=gen, device="cuda", dtype=dtype)
+
+
+def _check_qr_panel(F, dtype):
+    M, k = F.shape
+    before = qr_panel.launches
+    packed, tau, T = qr_panel(F)
+    torch.cuda.synchronize()
+    assert qr_panel.launches == before + 1
+    tol = QR_TOL[dtype] * max(1.0, M / 256)
+    res, orth, _ = qr_residuals(F, packed, tau, T)
+    assert res < tol and orth < tol
+    Tl = _larft(_panel_v(packed), tau)
+    terr = float(torch.linalg.norm(T - Tl) / torch.linalg.norm(Tl))
+    assert terr < T_TOL[dtype] * max(1.0, k / 64)
+    assert torch.equal(torch.tril(T, -1), torch.zeros_like(T))
+    return packed, tau, T
+
+
+@pytest.mark.parametrize("M,k", QR_LADDER)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["float32", "float64"])
+def test_qr_panel_matches_plain_version(M, k, dtype):
+    _need_card()
+    F = _panel_on_card(M, k, dtype)
+    packed, tau, T = _check_qr_panel(F, dtype)
+    pp, ptau, pT = qr_panel_reference(F)
+    tol = QR_TOL[dtype] * max(1.0, M / 256)
+    rp, op, _ = qr_residuals(F, pp, ptau, pT)
+    assert rp < tol and op < tol
+    if dtype == torch.float64:
+        scale = float(pp.abs().max())
+        assert float((packed - pp).abs().max()) < 1e-10 * scale
+        assert float((tau - ptau).abs().max()) < 1e-10
+
+
+@pytest.mark.parametrize("M,k,dtype", [
+    (70000, 96, torch.float32), (60000, 96, torch.float64)],
+    ids=["float32-shared", "float64-in-place"])
+def test_qr_panel_slab_paths(M, k, dtype):
+    """A thread block's slab of a chunk in shared memory (float32 at 70000
+    rows) and, past ~58k rows in double, in place in device memory."""
+    _need_card()
+    _check_qr_panel(_panel_on_card(M, k, dtype), dtype)
+
+
+def test_qr_panel_special_panels_and_strided_view():
+    _need_card()
+    # a zero column: tau = 0 exactly, beta = 0
+    F = _panel_on_card(300, 70, torch.float32, seed=1)
+    F[:, 66] = 0.0
+    packed, tau, _ = _check_qr_panel(F, torch.float32)
+    assert float(tau[66]) == 0.0 and float(packed[66:, 66].abs().max()) == 0.0
+    # graded columns over 10 decades (float64)
+    G = _panel_on_card(500, 80, torch.float64, seed=2)
+    G *= torch.logspace(0, -10, 80, device="cuda", dtype=torch.float64)
+    _check_qr_panel(G, torch.float64)
+    # a strided view gives the contiguous copy's result, input unwritten
+    big = _panel_on_card(400, 160, torch.float64, seed=3)
+    keep = big.clone()
+    a = qr_panel(big[40:, 16:96])
+    b = qr_panel(big[40:, 16:96].contiguous())
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert torch.equal(big, keep)
+
+
+def test_qr_panel_refuses_what_the_kernel_does_not_take():
+    _need_card()
+    with pytest.raises(ValueError, match="real-only"):
+        qr_panel(torch.ones(16, 4, dtype=torch.complex64, device="cuda"))
+    with pytest.raises(ValueError, match="M >= k"):
+        qr_panel(torch.ones(3, 4, device="cuda"))
+
+
+@pytest.mark.parametrize("grid", [(1, 1), (2, 2)], ids=["1x1", "2x2"])
+def test_least_squares_runs_through_the_kernel(grid):
+    _need_card()
+    m, n, nb = 1024, 512, 128
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    A = torch.randn(m, n, generator=gen, device="cuda", dtype=torch.float64)
+    B = torch.randn(m, 3, generator=gen, device="cuda", dtype=torch.float64)
+    g = et.Grid(*grid)
+    before = qr_panel.launches
+    X = et.least_squares(et.from_global(A, et.MC, et.MR, g),
+                         et.from_global(B, et.MC, et.MR, g), nb=nb)
+    x = et.to_global(X)
+    torch.cuda.synchronize()
+    assert qr_panel.launches - before == n // nb
+    ref = torch.linalg.lstsq(A, B).solution
     assert float(torch.linalg.norm(x - ref) / torch.linalg.norm(ref)) < 1e-10

@@ -1,9 +1,11 @@
 """The port's redistribution engine against the JAX engine: for the same
 source matrix, ``redistribute``, ``transpose_dist``, ``panel_spread`` and
 LU's row moves (``move_rows``, ``permute_rows_storage``) give storage
-bit-equal to ``elemental_tpu``'s on 2x2 and 2x4 grids (the port moves
-values through the global matrix or one storage gather, the JAX engine
-through collectives; neither does arithmetic)."""
+bit-equal to ``elemental_tpu``'s on 2x2 and 2x4 grids, and
+``interior_view`` gives storage bit-equal to the JAX package's for random
+offsets on 2x4 and 4x2 grids (the port moves values through the global
+matrix or one storage gather, the JAX engine through collectives;
+neither does arithmetic)."""
 import jax
 import numpy as np
 import pytest
@@ -11,6 +13,7 @@ import pytest
 import elemental_tpu as el
 import elemental_tpu_torch as et
 from elemental_tpu.redist import engine as jax_engine
+from elemental_tpu.redist.interior import interior_view as jax_interior_view
 
 GRIDS = [(2, 2), (2, 4)]
 MOVES = [(("MC", "MR"), ("STAR", "STAR")), (("MC", "MR"), ("VC", "STAR")),
@@ -140,3 +143,44 @@ def test_permute_rows_storage_needs_zero_alignment():
     A = et.from_global(np.eye(4), et.MC, et.MR, tgrid(2, 2), calign=1)
     with pytest.raises(ValueError, match="zero alignments"):
         et.permute_rows_storage(A, np.arange(4))
+
+
+INTERIOR_PAIRS = [("MC", "MR"), ("MR", "MC"), ("VC", "STAR"), ("STAR", "VR"),
+                  ("MC", "STAR"), ("STAR", "STAR")]
+
+
+@pytest.mark.parametrize("rc", [(2, 4), (4, 2)],
+                         ids=lambda rc: f"{rc[0]}x{rc[1]}")
+@pytest.mark.parametrize("pair", INTERIOR_PAIRS,
+                         ids=[f"{a}{b}" for a, b in INTERIOR_PAIRS])
+def test_interior_view_storage_bit_equal(rc, pair):
+    """Random (non-grain) offsets: the block is re-laid zero-aligned with
+    zero padding, as the JAX package's rotation + slice gives it."""
+    m, n = 13, 11
+    F = np.random.default_rng(14).normal(size=(m, n))
+    jA = el.from_global(F, *_pair(el, pair), jgrid(*rc))
+    tA = et.from_global(F, *_pair(et, pair), tgrid(*rc))
+    rng = np.random.default_rng(15)
+    for _ in range(4):
+        rs, re = sorted(rng.integers(0, m + 1, size=2))
+        cs, ce = sorted(rng.integers(0, n + 1, size=2))
+        rows, cols = (int(rs), int(re)), (int(cs), int(ce))
+        jB = jax_interior_view(jA, rows, cols)
+        tB = et.interior_view(tA, rows, cols)
+        assert tB.dist == tA.dist and (tB.calign, tB.ralign) == (0, 0)
+        assert tB.gshape == (re - rs, ce - cs)
+        assert np.array_equal(et.storage_numpy(tB), np.asarray(jB.local))
+
+
+def test_interior_view_one_by_one_and_bounds():
+    F = np.random.default_rng(16).normal(size=(7, 5))
+    tA = et.from_global(F, et.MC, et.MR, tgrid(1, 1))
+    B = et.interior_view(tA, (2, 6), (1, 4))
+    assert np.array_equal(et.to_global(B).numpy(), F[2:6, 1:4])
+    B.local.zero_()
+    assert np.array_equal(et.to_global(tA).numpy(), F)   # a copy, not a view
+    with pytest.raises(ValueError, match="out of bounds"):
+        et.interior_view(tA, (0, 8), (0, 5))
+    shifted = et.from_global(F, et.MC, et.MR, tgrid(2, 2), calign=1)
+    with pytest.raises(ValueError, match="zero alignment"):
+        et.interior_view(shifted, (0, 2), (0, 2))
