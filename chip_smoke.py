@@ -13,7 +13,7 @@ Phases, each of which raises on failure:
 2. every kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it and a ladder around them, with its time,
    the plain version's, one library call's and the least time the card
-   could take (``bound_ms``): ``potrf_inv`` (w = 64 ... 2048),
+   could take (``bound_ms``): ``potrf_inv`` (w = 1 ... 2048),
    ``lu_panel`` (32768 x 2048 ... a panel of constructed ties) and
    ``qr_panel`` (65536 x 2048 ... 33 x 7, a zero column, graded columns,
    a strided view);
@@ -143,8 +143,15 @@ def phase_kernels(et) -> list:
     import torch
     from elemental_tpu_torch.kernels import potrf_inv, potrf_inv_reference
     rows = []
-    for w, dt in ((64, torch.float32), (512, torch.float32),
-                  (2048, torch.float32), (512, torch.float64)):
+    # the main path's block (w = 2048 float32), and the edges of the
+    # kernel's blocking: one column, below / at / past one 32-column
+    # diagonal block and one 64-row tile, blocks that do not divide w
+    for w, dt in ((1, torch.float32), (31, torch.float32),
+                  (33, torch.float32), (64, torch.float32),
+                  (100, torch.float32), (129, torch.float32),
+                  (300, torch.float32), (512, torch.float32),
+                  (1000, torch.float32), (2048, torch.float32),
+                  (512, torch.float64), (2048, torch.float64)):
         name = str(dt).replace("torch.", "")
         D, _ = _spd(w, dt, seed=w)
         eye = torch.eye(w, dtype=dt, device="cuda")
@@ -321,6 +328,12 @@ def _qr_panels():
     for dt in (torch.float32, torch.float64):
         for M, k in ((2048, 2048), (4096, 512), (1000, 100), (33, 7)):
             yield f"{M}x{k}", normal(M, k, dt, M + k), False
+    # the edges of the blocking: k not a multiple of the 32-column inner
+    # chunk or the 128-column outer block, M = k, and M just below and
+    # above the slab grain (132 CTAs x 64 rows)
+    for M, k in ((1000, 130), (4097, 257), (2048, 300), (300, 300),
+                 (8447, 300), (8449, 300)):
+        yield f"{M}x{k}", normal(M, k, torch.float32, M + k), False
     Z = normal(4096, 512, torch.float32, 2)
     Z[:, 300] = 0.0
     yield "zero-column", Z, False

@@ -4,11 +4,13 @@ inverse -- a hand-written CUDA kernel for Hopper, and its plain version.
 Replaces the Pallas kernel ``elemental_tpu/kernels/chol_panel.py::
 potrf_inv``.  The kernel (``csrc/potrf_inv.cu``) computes the same
 function, ``(L, L^{-1})`` of the block symmetrized from its lower
-triangle, as a right-looking loop over <= 32 x 32 diagonal sub-blocks:
-one warp factors and inverts each sub-block in registers, and a
-hand-written tiled GEMM does the panel, the trailing update and the
-(right-looking) inverse assembly.  The source's header comment gives the
-bound and what the first design leaves on the table.
+triangle, in one cooperative launch: right-looking over 32-column
+diagonal blocks for the factor and the inverse, worked in place in
+``L`` and ``L^{-1}``.  One thread block factors and inverts each
+diagonal block (one warp, in registers) while the others apply the
+previous block's update in register tiles (look-ahead); every product
+tile waits on one round trip to L2.  The source's header comment gives
+the bound and what the design leaves on the table.
 
 :func:`potrf_inv_reference` is the plain PyTorch version (the port of
 ``elemental_tpu.lapack.cholesky._potrf_inv_impl``).  The wrapper
@@ -26,11 +28,14 @@ from .common import check_launch, load
 _SIGNATURE = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                ctypes.c_void_p, ctypes.c_void_p], ctypes.c_int)
+_ROWBUF = ([ctypes.c_int], ctypes.c_longlong)
 _ENTRY = {torch.float32: "potrf_inv_f32", torch.float64: "potrf_inv_f64"}
 
 
 def _library():
-    return load("potrf_inv", {fn: _SIGNATURE for fn in _ENTRY.values()})
+    sigs = {fn: _SIGNATURE for fn in _ENTRY.values()}
+    sigs["potrf_inv_rowbuf"] = _ROWBUF
+    return load("potrf_inv", sigs)
 
 
 def _sym_lower(d):
@@ -81,9 +86,10 @@ def potrf_inv(D, precision=None, *, bs: int = 512):
     """``(L, L^{-1})`` of a (w, w) symmetric block whose lower triangle is
     valid.  A CPU tensor goes to :func:`potrf_inv_reference`; a CUDA
     tensor (float32 or float64) launches the kernel, and anything the
-    kernel does not take raises.  ``bs`` caps the kernel's diagonal
-    sub-block (at most 32, ``BASE`` in the source); the result is the same
-    function for any ``bs``, only the rounding differs."""
+    kernel does not take raises.  ``bs`` only caps the columns one warp
+    factors at a time inside the kernel's fixed 32-column diagonal blocks
+    (``NB`` in the source); the result is the same function for any
+    ``bs >= 1``, only the rounding differs."""
     if D.dim() != 2 or D.shape[0] != D.shape[1]:
         raise ValueError(f"potrf_inv needs a square block, got {tuple(D.shape)}")
     if D.device.type == "cpu":
@@ -106,13 +112,15 @@ def potrf_inv(D, precision=None, *, bs: int = 512):
         D = D.contiguous()
     L = torch.empty((w, w), dtype=D.dtype, device=D.device)
     Li = torch.empty_like(L)
-    W = torch.empty_like(L)                 # scratch: Schur complements
-    R = torch.empty_like(L)                 # scratch: inverse right-hand sides
-    fn = getattr(_library(), fn_name)
+    lib = _library()
+    # the next diagonal block's rows of the inverse right-hand sides
+    Rb = torch.empty(lib.potrf_inv_rowbuf(w), dtype=D.dtype, device=D.device)
+    bar = torch.zeros(2, dtype=torch.int32, device=D.device)  # grid barrier
     with torch.cuda.device(D.device):
         stream = torch.cuda.current_stream(D.device).cuda_stream
-        err = fn(D.data_ptr(), D.stride(0), w, int(bs), L.data_ptr(),
-                 Li.data_ptr(), W.data_ptr(), R.data_ptr(), stream)
+        err = getattr(lib, fn_name)(D.data_ptr(), D.stride(0), w, int(bs),
+                                    L.data_ptr(), Li.data_ptr(),
+                                    Rb.data_ptr(), bar.data_ptr(), stream)
     check_launch(err, "potrf_inv")
     potrf_inv.launches += 1
     return L, Li

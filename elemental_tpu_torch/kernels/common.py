@@ -4,16 +4,17 @@ and load of the CUDA sources.
 No size gate.  The JAX package's ``panel_fits`` caps a Pallas block at
 its 16 MiB VMEM budget (w <= 1024 at f32 for ``potrf_inv``), because a
 Pallas panel kernel keeps its whole block resident in the TPU core's
-VMEM.  The port's ``potrf_inv`` keeps only a fixed base sub-block on
-chip (<= 32 x 32, in one warp's registers) and streams everything else
-from device memory, so it has no size limit and no gate: every real
-block on a CUDA tensor launches it, and a block too large for device
-memory fails its allocation and raises (the plain version would need as
-much).  ``lu_panel`` likewise keeps its panel in device memory and stages
-each thread block's slab of the current chunk in shared memory when it
-fits (working on it in place otherwise), so it has no size gate either;
-nor has ``qr_panel``, built the same way (its scratch, partial sums of
-at most 66 tiles of 64 x k, grows with the panel width only).
+VMEM.  The port's ``potrf_inv`` keeps on chip only a 32 x 32 diagonal
+block and one product tile's operands per thread block, and works in
+place in its outputs in device memory, so it has no size limit and no
+gate: every real block on a CUDA tensor launches it, and a block too
+large for device memory fails its allocation and raises (the plain
+version would need as much).  ``lu_panel`` likewise keeps its panel in
+device memory and stages each thread block's slab of the current chunk
+in shared memory when it fits (working on it in place otherwise), so it
+has no size gate either; nor has ``qr_panel``, built the same way (its
+scratch, the partial sums of at most 64 row slices of a 128 x k
+product, grows with the panel width only).
 
 The build.  Each ``csrc/*.cu`` source is compiled by hand with ``nvcc``
 into a shared library with a plain C interface and loaded with

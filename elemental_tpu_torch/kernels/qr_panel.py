@@ -6,13 +6,15 @@ Replaces the Pallas kernel ``elemental_tpu/kernels/qr_panel.py::
 qr_panel``.  The kernel (``csrc/qr_panel.cu``) computes what
 :func:`_panel_qr` followed by ``_larft(_panel_v(packed), tau)`` computes:
 the larfg reflector chain over the k columns, each reflector applied as
-H^H to the columns on its right, then T with ``Q = I - V T V^H``.  The
-norm and the row dot of each column span the whole panel height, so the
-kernel factors 64-column chunks in ONE cooperative launch each, whose
-thread blocks own slabs of rows and meet at one grid-wide barrier per
-column, and applies each chunk's block reflector to the rest of the
-panel with hand-written GEMMs.  The source's header comment gives the
-bound.
+H^H to the columns on its right, then T with ``Q = I - V T V^H``.  It is
+blocked at two levels.  32-column inner chunks are factored column by
+column in ONE cooperative launch each, whose thread blocks own slabs of
+rows and meet at one grid-wide barrier per column; each inner chunk's
+block reflector goes only to the rest of its 128-column outer block,
+which stays in L2.  Each outer block's reflector then goes to the rest of
+the panel with register-tiled products of depth 128, and T is assembled
+per outer block from the inner blocks' larft recurrences and the grams
+the products already hold.  The source's header comment gives the bound.
 
 :func:`_panel_qr`, :func:`_larft` and :func:`_panel_v` are the plain
 PyTorch versions (ports of ``elemental_tpu.lapack.qr``'s functions of

@@ -135,3 +135,65 @@ def test_size_gate_passes_the_main_path_block():
     assert not plan.use_kernel(torch.complex64)
     assert not plan.use_kernel(torch.complex128)
     assert not PanelPlan(impl="torch").use_kernel(torch.float32)
+
+
+def _two_level_potrf_inv(D, nb, b):
+    """The CUDA kernel's algebra (``csrc/potrf_inv.cu``), in float64 torch:
+    nb-column diagonal blocks, each factored and inverted in b-column
+    sub-blocks (a sub-block's Cholesky and inverse, the rows below it
+    times that inverse, the block's trailing lower triangle; then the
+    inverse's off-diagonal block rows left-looking); then the right-looking
+    outer step: the panel W Lkk^{-T}, the inverse rows Lkk^{-1} R, the
+    trailing lower triangle and R.  W lives in L's lower triangle and R in
+    Li, as in the kernel."""
+    w = D.shape[0]
+    L = torch.tril(D).clone()
+    Li = torch.zeros_like(D)
+    for b0 in range(0, w, nb):
+        b1 = min(b0 + nb, w)
+        n = b1 - b0
+        S = torch.tril(L[b0:b1, b0:b1]).clone()
+        X = torch.zeros_like(S)
+        for c0 in range(0, n, b):
+            c1 = min(c0 + b, n)
+            blk = torch.tril(S[c0:c1, c0:c1])
+            Lcc = torch.linalg.cholesky(blk + torch.tril(blk, -1).T)
+            Xcc = torch.linalg.solve_triangular(
+                Lcc, torch.eye(c1 - c0, dtype=D.dtype), upper=False)
+            S[c0:c1, c0:c1] = Lcc
+            X[c0:c1, c0:c1] = Xcc
+            S[c1:, c0:c1] = S[c1:, c0:c1] @ Xcc.T
+            S[c1:, c1:] -= torch.tril(S[c1:, c0:c1] @ S[c1:, c0:c1].T)
+        for c0 in range(b, n, b):
+            c1 = min(c0 + b, n)
+            X[c0:c1, :c0] = -X[c0:c1, c0:c1] @ (S[c0:c1, :c0] @ X[:c0, :c0])
+        L[b0:b1, b0:b1] = S
+        Li[b0:b1, b0:b1] = X
+        L[b1:, b0:b1] = L[b1:, b0:b1] @ X.T
+        Li[b0:b1, :b0] = X @ Li[b0:b1, :b0]
+        L[b1:, b1:] -= torch.tril(L[b1:, b0:b1] @ L[b1:, b0:b1].T)
+        Li[b1:, :b1] -= L[b1:, b0:b1] @ Li[b0:b1, :b1]
+    return L, Li
+
+
+@pytest.mark.parametrize("w,nb,b", [(1, 32, 32), (31, 32, 32), (33, 32, 32),
+                                    (100, 32, 32), (129, 32, 32),
+                                    (300, 32, 7)])
+def test_two_level_blocking_matches_plain_and_jax(w, nb, b):
+    """The kernel's blocked factor and right-looking inverse assembly
+    (32-column diagonal blocks, as in the kernel) agree with the plain
+    version and with JAX's ``_potrf_inv_impl`` to rtol 1e-10 (float64;
+    the same function through other blockings) at the edges of its
+    blocks: w below, at and past one block, blocks that do not divide w,
+    and a sub-block cap that does not divide the block."""
+    D = _spd(w, np.float64)
+    L, Li = _two_level_potrf_inv(torch.from_numpy(D), nb, b)
+    Lp, Lip = potrf_inv_reference(torch.from_numpy(D), bs=b)
+    jL, jLi = jax_potrf_inv_impl(jnp.asarray(D), None, bs=b)
+    assert max(_residuals(L.numpy(), Li.numpy(), D)) < F64_TOL
+    for got, want in ((L, Lp.numpy()), (Li, Lip.numpy()),
+                      (L, np.asarray(jL)), (Li, np.asarray(jLi))):
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-10,
+                                   atol=1e-10 * np.abs(want).max())
+    assert torch.equal(torch.triu(L, 1), torch.zeros_like(L))
+    assert torch.equal(torch.triu(Li, 1), torch.zeros_like(Li))

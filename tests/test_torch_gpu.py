@@ -29,7 +29,13 @@ from chip_smoke import qr_residuals
 pytestmark = pytest.mark.gpu
 
 TOL = {torch.float32: 3e-6, torch.float64: 1e-12}
-LADDER = [(48, 16), (96, 32), (16, 512), (128, 64), (512, 512), (2048, 512)]
+#: (w, bs): the CPU ladder, then the edges of the kernel's blocking (one
+#: column; below, at and past a 32-column diagonal block and a 64-row
+#: tile; blocks that do not divide w; a sub-block cap that does not divide
+#: the block)
+LADDER = [(48, 16), (96, 32), (16, 512), (128, 64), (512, 512), (2048, 512),
+          (1, 512), (31, 512), (33, 512), (100, 512), (129, 512), (300, 7),
+          (1000, 512)]
 
 
 def _need_card():
@@ -193,9 +199,12 @@ def test_lu_solve_runs_through_the_kernel(grid):
 
 QR_TOL = {torch.float32: 3e-6, torch.float64: 1e-12}
 T_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
-#: (M, k): k below, at and past the 64-column chunk, M off the slab grain
+#: (M, k): k below, at and past the 32-column inner chunk and the
+#: 128-column outer block, M off the slab grain; then M = k, M just below
+#: and above the slab grain of 132 CTAs x 64 rows, and k not a multiple of
+#: either block
 QR_LADDER = [(33, 7), (64, 16), (200, 64), (1000, 100), (600, 130),
-             (4097, 257)]
+             (4097, 257), (300, 300), (8447, 300), (8449, 300), (2048, 130)]
 
 
 def _panel_on_card(M, k, dtype, seed=0):
@@ -238,11 +247,12 @@ def test_qr_panel_matches_plain_version(M, k, dtype):
 
 
 @pytest.mark.parametrize("M,k,dtype", [
-    (70000, 96, torch.float32), (60000, 96, torch.float64)],
+    (70000, 96, torch.float32), (120000, 96, torch.float64)],
     ids=["float32-shared", "float64-in-place"])
 def test_qr_panel_slab_paths(M, k, dtype):
-    """A thread block's slab of a chunk in shared memory (float32 at 70000
-    rows) and, past ~58k rows in double, in place in device memory."""
+    """A thread block's slab of a 32-column chunk in shared memory
+    (float32 at 70000 rows) and, past ~113k rows in double, in place in
+    device memory."""
     _need_card()
     _check_qr_panel(_panel_on_card(M, k, dtype), dtype)
 

@@ -162,3 +162,66 @@ def test_strided_view_gives_the_contiguous_result():
     a = qr_panel(big[4:, 3:11])
     b = qr_panel(big[4:, 3:11].contiguous())
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _tcc(G, t):
+    """larft's forward recurrence on a chunk's gram G = V_c^T V_c."""
+    n = t.shape[0]
+    Tc = torch.diag(t)
+    for i in range(1, n):
+        Tc[:i, i] = -t[i] * (Tc[:i, :i] @ G[:i, i])
+    return Tc
+
+
+def _two_level_qr(F, cw, ob):
+    """The CUDA kernel's algebra (``csrc/qr_panel.cu``), in float64 torch:
+    cw-column inner chunks factored by the column recurrence, each inner
+    block reflector applied to the rest of its ob-column outer block only,
+    then each outer block's reflector to the rest of the panel.  T is
+    assembled per outer block from the inner T_cc recurrences and the
+    grams Z = V_c^T P[:, so:eo] and Z_o = V_o^T P the products already
+    hold."""
+    P = F.clone()
+    M, k = P.shape
+    tau = torch.zeros(k, dtype=P.dtype)
+    T = torch.zeros(k, k, dtype=P.dtype)
+    for so in range(0, k, ob):
+        eo = min(so + ob, k)
+        for s in range(so, eo, cw):
+            e = min(s + cw, eo)
+            P[s:, s:e], tau[s:e] = _panel_qr(P[s:, s:e])
+            Vc = _panel_v(P[s:, s:e])
+            Z = Vc.T @ torch.cat([P[s:, so:s], Vc, P[s:, e:eo]], dim=1)
+            Tcc = _tcc(Z[:, s - so:e - so], tau[s:e])
+            T[s:e, s:e] = Tcc
+            Y = Tcc.T @ Z
+            T[so:s, s:e] = -T[so:s, so:s] @ Y[:, :s - so].T
+            P[s:, e:eo] -= Vc @ Y[:, e - so:]
+        Vo = _panel_v(P[so:, so:eo])
+        Yo = T[so:eo, so:eo].T @ (Vo.T @ torch.cat([P[so:, :so], P[so:, eo:]],
+                                                  dim=1))
+        T[:so, so:eo] = -T[:so, :so] @ Yo[:, :so].T
+        P[so:, eo:] -= Vo @ Yo[:, so:]
+    return P, tau, T
+
+
+@pytest.mark.parametrize("shape,cw,ob", [((40, 20), 4, 8), ((33, 7), 4, 8),
+                                         ((64, 17), 4, 16), ((24, 24), 8, 16)],
+                         ids=["k-not-multiple", "one-outer-block",
+                              "ragged-inner", "square"])
+def test_two_level_blocking_matches_plain_and_jax(shape, cw, ob):
+    """The kernel's two-level blocking gives the plain version's packed
+    panel and tau, and its T (assembled per outer block from the inner
+    T_cc blocks and the grams) equals ``_larft`` of the port and of the
+    JAX package, to 1e-12 of the largest entry (float64; the same
+    recurrence through other blockings)."""
+    F = torch.from_numpy(_panel(shape, np.float64))
+    P, tau, T = _two_level_qr(F, cw, ob)
+    packed, ptau = _panel_qr(F)
+    _close(P.numpy(), packed.numpy(), 1e-12)
+    _close(tau.numpy(), ptau.numpy(), 1e-12)
+    V = _panel_v(P)
+    _close(T.numpy(), _larft(V, tau).numpy(), 1e-12)
+    _close(T.numpy(), np.asarray(jax_larft(jnp.asarray(V.numpy()),
+                                           jnp.asarray(tau.numpy()))), 1e-12)
+    assert torch.equal(torch.tril(T, -1), torch.zeros_like(T))
