@@ -14,7 +14,8 @@ Phases, each of which raises on failure:
    shapes the main paths give it and a ladder around them, with its time,
    the plain version's, one library call's and the least time the card
    could take (``bound_ms``): ``potrf_inv`` (w = 1 ... 2048),
-   ``lu_panel`` (32768 x 2048 ... a panel of constructed ties) and
+   ``lu_panel`` (32768 x 2048 ... a panel of constructed ties, the edges
+   of its 128-column outer block) and
    ``qr_panel`` (65536 x 2048 ... 33 x 7, a zero column, graded columns,
    a strided view);
 3. the Cholesky main path at full width: ``hpd_solve(A, B, nb=2048)`` on
@@ -230,7 +231,15 @@ def phase_lu_panel() -> list:
             (2048, 2048, torch.float32, 64, True),
             (4096, 512, torch.float32, 64, False),
             (1024, 128, torch.float64, 64, False),
-            (32, 8, torch.float32, 4, False)):
+            (32, 8, torch.float32, 4, False),
+            # the edges of the 128-column outer block, ragged 48-column
+            # chunks, M just below and above the slab grain of 132 x 64
+            (1000, 127, torch.float32, 64, False),
+            (1000, 128, torch.float32, 48, False),
+            (1000, 129, torch.float32, 64, False),
+            (2000, 257, torch.float32, 48, False),
+            (8447, 300, torch.float32, 64, False),
+            (8449, 300, torch.float32, 48, False)):
         name = str(dt).replace("torch.", "")
         if M == 32:
             P = _tie_panel()

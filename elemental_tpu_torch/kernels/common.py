@@ -10,9 +10,12 @@ place in its outputs in device memory, so it has no size limit and no
 gate: every real block on a CUDA tensor launches it, and a block too
 large for device memory fails its allocation and raises (the plain
 version would need as much).  ``lu_panel`` likewise keeps its panel in
-device memory and stages each thread block's slab of the current chunk
-in shared memory when it fits (working on it in place otherwise), so it
-has no size gate either; nor has ``qr_panel``, built the same way (its
+device memory and stages each thread block's slab of the current
+(at most 64-column) inner chunk in shared memory when it fits, beyond
+~117k rows in float and ~58k in double working on it in place; its
+scratch (published rows, the <= 2 x 128 rows an outer block displaces,
+a pivot key per column) grows with the panel width only, so it has no
+size gate either; nor has ``qr_panel``, built the same way (its
 scratch, the partial sums of at most 64 row slices of a 128 x k
 product, grows with the panel width only).
 

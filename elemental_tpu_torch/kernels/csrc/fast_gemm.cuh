@@ -1,6 +1,6 @@
 // Register-tiled FP32 / FP64 GEMM tiles for Hopper CUDA cores, shared by
-// potrf_inv.cu and qr_panel.cu: full-precision FMA only (no TF32, no
-// tensor cores), no library.
+// potrf_inv.cu, lu_panel.cu and qr_panel.cu: full-precision FMA only (no
+// TF32, no tensor cores), no library.
 //
 // One CTA of FG_THREADS = 256 threads computes a BM x BN output tile,
 // BM = 16 TM (TM = 8: 128 rows, TM = 4: 64), BN = 16 TN (TN = 8: 128

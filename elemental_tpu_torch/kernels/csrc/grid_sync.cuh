@@ -1,11 +1,12 @@
-// A grid-wide barrier for a cooperative launch (every CTA resident), shared
-// by the port's persistent kernels.  A waiting CTA polls one generation
-// word with an acquire load and backs off with __nanosleep between polls,
-// so the CTAs that wait do not flood L2 with polls while the others still
-// work (cooperative_groups' grid.sync() spins without backing off).  The
-// two words (arrivals, generation) are zero at launch; the wrapper passes
-// them.  Data written before the barrier is read after it through L2
-// (ld.cg): L1 is not coherent across SMs.
+// Grid-wide barriers for a cooperative launch (every CTA resident), shared
+// by the port's persistent kernels.  grid_barrier: a waiting CTA polls one
+// generation word with an acquire load and backs off with __nanosleep
+// between polls, so the CTAs that wait do not flood L2 with polls while
+// the others still work (cooperative_groups' grid.sync() spins without
+// backing off).  Its two words (arrivals, generation) are zero at launch;
+// the wrapper passes them.  grid_count_arrive / grid_count_wait, at the
+// end, are a split barrier on one counter.  Data written before a barrier
+// is read after it through L2 (ld.cg): L1 is not coherent across SMs.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -62,6 +63,31 @@ __device__ __forceinline__ unsigned grid_arrive(unsigned* bar) {
 __device__ __forceinline__ void grid_wait_past(unsigned* bar, unsigned gen) {
   if (threadIdx.x == 0)
     while (ld_acquire_gpu(bar + 1) == gen) __nanosleep(64);
+  __syncthreads();
+}
+
+// A counting barrier, split in two.  grid_count_arrive adds this CTA's
+// arrival to one word that only grows (zero when the wrapper allocates it,
+// never reset); grid_count_wait waits until the word reaches `target`, the
+// arrivals of every barrier so far (the caller keeps the count: target +=
+// CTAs at each arrival, across launches too).  An arrival is one release
+// (fence.acq_rel, then a relaxed reduction: no sequentially consistent
+// fence), the wait one acquire load in a spin, and the poll that waits is
+// the one that sees the barrier open (no generation word to flip).  Work
+// placed between the two overlaps the others' arrivals.
+__device__ __forceinline__ void grid_count_arrive(unsigned* ctr) {
+  __syncthreads();
+  if (threadIdx.x == 0)
+    asm volatile("fence.acq_rel.gpu;\n\t"
+                 "red.relaxed.gpu.global.add.u32 [%0], 1;"
+                 :: "l"(ctr) : "memory");
+}
+
+__device__ __forceinline__ void grid_count_wait(const unsigned* ctr,
+                                                unsigned target) {
+  if (threadIdx.x == 0)
+    while (ld_acquire_gpu(ctr) < target) {
+    }
   __syncthreads();
 }
 

@@ -3,21 +3,27 @@ CUDA kernel for Hopper, and its plain version.
 
 Replaces the Pallas kernel ``elemental_tpu/kernels/lu_panel.py::
 lu_panel``.  The kernel (``csrc/lu_panel.cu``) computes the same
-function as ``_panel_lu(P, nbw, None, (inner,))``: per column a |max|
-pivot search (first maximum on ties, NaN above every number), a swap of
-whole panel rows, a column scale by division and a rank-1 update inside
-the current ``inner``-wide chunk; per chunk a unit-lower forward
-substitution for U12 and one trailing product.  The pivot search spans
-the whole panel height, so each chunk runs as ONE cooperative launch
-whose thread blocks own slabs of rows and meet at a grid-wide barrier
-once per column.  The source's header comment gives the bound.
+function as ``_panel_lu(P, nbw, None, (KERNEL_OUTER_BLOCK, inner))``:
+per column a |max| pivot search (first maximum on ties, NaN above every
+number), a swap of whole panel rows, a column scale by division and a
+rank-1 update inside the current ``inner``-wide chunk; per chunk a
+unit-lower solve and one product on the rest of its 128-column outer
+block; per outer block its composed row swaps on the panel's other
+columns, a solve for U12 and one product of depth 128 on the rest of the
+panel.  The pivot search spans the whole panel height, so each chunk
+runs as ONE cooperative launch whose thread blocks own slabs of rows
+and meet once per column at a split grid barrier: in float32 every
+block raises one 64-bit key per column, (|v|, -row) packed in order, by
+``atomicMax``, and applies the rest of the column's update while the
+others arrive.  The source's header comment gives the bound.
 
 :func:`_panel_lu_unb` and :func:`_panel_lu` are the plain PyTorch
 versions (ports of ``elemental_tpu.lapack.lu._panel_lu_unb`` /
-``_panel_lu``); :func:`lu_panel_reference` is the latter at one chunk
-width.  The wrapper :func:`lu_panel` uses it for a CPU tensor; for a
-CUDA tensor it launches the kernel or raises -- there is no fallback.
-No function here calls ``.item()`` or otherwise syncs with the host.
+``_panel_lu``); :func:`lu_panel_reference` is the latter at the
+kernel's two levels.  The wrapper :func:`lu_panel` uses it for a CPU
+tensor; for a CUDA tensor it launches the kernel or raises -- there is
+no fallback.  No function here calls ``.item()`` or otherwise syncs
+with the host.
 """
 from __future__ import annotations
 
@@ -29,15 +35,21 @@ from .common import check_launch, load
 
 #: widest chunk the kernel takes (``CW`` in the source)
 KERNEL_MAX_INNER = 64
+#: the kernel's outer block (``OB`` in the source): the plain version
+#: recurses on ``(KERNEL_OUTER_BLOCK, inner)``
+KERNEL_OUTER_BLOCK = 128
 
 _SIGNATURE = ([ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p], ctypes.c_int)
+_SCRATCH = ([ctypes.c_int, ctypes.c_int], ctypes.c_longlong)
 _ENTRY = {torch.float32: "lu_panel_f32", torch.float64: "lu_panel_f64"}
 
 
 def _library():
-    return load("lu_panel", {fn: _SIGNATURE for fn in _ENTRY.values()})
+    sigs = {fn: _SIGNATURE for fn in _ENTRY.values()}
+    sigs["lu_panel_scratch"] = sigs["lu_panel_words"] = _SCRATCH
+    return load("lu_panel", sigs)
 
 
 def _swap(x, i, p):
@@ -103,8 +115,10 @@ def _panel_lu(P, nbw: int, precision=None, inners=(512, 64)):
 
 def lu_panel_reference(P, nbw: int, inner: int):
     """The plain version of the kernel: ``_panel_lu(P, nbw, None,
-    (inner,))``, or :func:`_panel_lu_unb` when ``inner`` is 0."""
-    return _panel_lu(P, nbw, None, (int(inner),) if inner else ())
+    (KERNEL_OUTER_BLOCK, inner))``, or :func:`_panel_lu_unb` when
+    ``inner`` is 0."""
+    inners = (KERNEL_OUTER_BLOCK, int(inner)) if inner else ()
+    return _panel_lu(P, nbw, None, inners)
 
 
 def lu_panel(P, nbw: int, precision=None, *, inner: int):
@@ -137,17 +151,20 @@ def lu_panel(P, nbw: int, precision=None, *, inner: int):
     perm = torch.empty(M, dtype=torch.int64, device=P.device)
     if nbw == 0:
         return out, torch.arange(M, device=P.device)
+    lib = _library()
     gmax = torch.cuda.get_device_properties(P.device).multi_processor_count
-    # candidate values + rows (two parities per block) and row j's chunk
-    ws = torch.empty(2 * gmax * (KERNEL_MAX_INNER + 1) + 2 * KERNEL_MAX_INNER,
-                     dtype=P.dtype, device=P.device)
-    wi = torch.empty(2 * gmax + nbw, dtype=torch.int32, device=P.device)
-    fn = getattr(_library(), fn_name)
+    # published rows and candidates, the displaced rows of the swaps; and,
+    # zeroed, the pivot keys, the barrier counter and the pivot rows
+    ws = torch.empty(lib.lu_panel_scratch(nbw, gmax), dtype=P.dtype,
+                     device=P.device)
+    wz = torch.zeros(lib.lu_panel_words(nbw, gmax), dtype=torch.int64,
+                     device=P.device)
     with torch.cuda.device(P.device):
         stream = torch.cuda.current_stream(P.device).cuda_stream
-        err = fn(out.data_ptr(), out.stride(0), M, nbw, int(inner),
-                 perm.data_ptr(), ws.data_ptr(), wi.data_ptr(), gmax,
-                 stream)
+        err = getattr(lib, fn_name)(out.data_ptr(), out.stride(0), M, nbw,
+                                    int(inner), perm.data_ptr(),
+                                    ws.data_ptr(), wz.data_ptr(), gmax,
+                                    stream)
     check_launch(err, "lu_panel")
     lu_panel.launches += 1
     return out, perm

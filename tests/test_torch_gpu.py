@@ -93,9 +93,14 @@ def test_kernel_refuses_complex():
 
 
 LU_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
-#: (M, nbw, inner): the CPU ladder and panels of the 2x2 check's widths
+#: (M, nbw, inner): the CPU ladder and panels of the 2x2 check's widths;
+#: then the edges of the 128-column outer block (127, 128, 129 and 257
+#: columns, ragged 48-column chunks) and M just below and above the slab
+#: grain of 132 CTAs x 64 rows (past it the last CTAs' slabs are empty)
 LU_LADDER = [(64, 16, 8), (33, 7, 4), (96, 64, 16), (200, 64, 64),
-             (1024, 128, 64), (600, 160, 48)]
+             (1024, 128, 64), (600, 160, 48), (1000, 127, 64),
+             (1000, 128, 48), (1000, 129, 64), (2000, 257, 48),
+             (8447, 300, 64), (8449, 300, 48)]
 
 
 def _lu_residual(P, packed, perm):
@@ -140,6 +145,50 @@ def test_lu_panel_slab_too_large_for_shared_memory(M, nbw, inner, dtype):
     ref, rperm = lu_panel_reference(P, nbw, inner)
     assert torch.equal(perm, rperm)
     assert _lu_residual(P, packed, perm) < LU_TOL[dtype] * M / 256
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["float32", "float64"])
+@pytest.mark.parametrize("case", ["nan", "zero"])
+def test_lu_panel_nan_and_zero_columns(case, dtype):
+    """A column with two NaNs (NaN ranks above every number and two NaNs
+    tie, so the lower row is the pivot) and an all-zero column (every |v|
+    ties at 0, so the first row is): the same pivots as the plain
+    version, past an outer block."""
+    _need_card()
+    M, nbw, inner = 700, 200, 48
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    P = torch.randn(M, nbw, generator=gen, device="cuda", dtype=dtype)
+    if case == "nan":
+        P[650, 150] = P[500, 150] = float("nan")
+    else:
+        P[:, 150] = 0.0
+    packed, perm = lu_panel(P, nbw, inner=inner)
+    ref, rperm = lu_panel_reference(P, nbw, inner)
+    torch.cuda.synchronize()
+    assert torch.equal(perm, rperm)
+    # before the special column the factor is finite and bounded
+    assert bool(torch.isfinite(packed[:, :150]).all())
+    assert float(torch.tril(packed[:, :150], -1).abs().max()) <= 1.0
+
+
+@pytest.mark.parametrize("M,nbw,inner,dtype", [
+    (8449, 300, 48, torch.float32), (120000, 64, 16, torch.float32),
+    (700, 200, 48, torch.float64)],
+    ids=["float32", "float32-in-place", "float64"])
+def test_lu_panel_repeats_bit_for_bit(M, nbw, inner, dtype):
+    """The pivot key's maximum and the products do not depend on the
+    order in which thread blocks arrive, so repeated calls agree bit for
+    bit: a read that overtook its barrier would show here."""
+    _need_card()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(M + 3 * nbw)
+    P = torch.randn(M, nbw, generator=gen, device="cuda", dtype=dtype)
+    first, fperm = lu_panel(P, nbw, inner=inner)
+    for _ in range(20):
+        packed, perm = lu_panel(P, nbw, inner=inner)
+        assert torch.equal(packed, first) and torch.equal(perm, fperm)
 
 
 def test_lu_panel_ties_and_strided_view():

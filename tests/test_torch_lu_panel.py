@@ -18,7 +18,8 @@ from elemental_tpu.lapack.lu import _panel_lu_unb as jax_panel_lu_unb
 from elemental_tpu_torch.kernels import (DEFAULT_INNERS, PanelPlan,
                                          default_inners, lu_panel,
                                          lu_panel_reference, resolve_panel)
-from elemental_tpu_torch.kernels.lu_panel import _panel_lu, _panel_lu_unb
+from elemental_tpu_torch.kernels.lu_panel import (KERNEL_OUTER_BLOCK,
+                                                  _panel_lu, _panel_lu_unb)
 
 RES_TOL = {np.float32: 1e-5, np.float64: 1e-12}
 #: (shape, nbw, inner) -- the unblocked rungs of the JAX kernel tests at
@@ -136,10 +137,15 @@ def test_cpu_tensor_never_counts_a_launch():
 
 
 def test_reference_is_the_chunked_ladder():
-    F = torch.from_numpy(_panel((40, 16), np.float64))
-    for inner in (0, 4):
-        got = lu_panel_reference(F, 16, inner)
-        want = _panel_lu(F, 16, None, (inner,) if inner else ())
+    """The plain version is the kernel's two levels: outer blocks of
+    ``KERNEL_OUTER_BLOCK`` columns, ``inner``-wide chunks inside them."""
+    assert KERNEL_OUTER_BLOCK == 128
+    for shape, nbw, inner in (((40, 16), 16, 0), ((40, 16), 16, 4),
+                              ((150, 140), 140, 32)):
+        F = torch.from_numpy(_panel(shape, np.float64))
+        got = lu_panel_reference(F, nbw, inner)
+        want = _panel_lu(F, nbw, None,
+                         (KERNEL_OUTER_BLOCK, inner) if inner else ())
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
@@ -155,3 +161,97 @@ def test_panel_plan_inners():
     cplx = resolve_panel("kernel", dtype=torch.complex128, inners=(8,))
     assert (cplx.impl, cplx.source, cplx.inners) == ("torch", "complex-torch",
                                                      (8,))
+
+
+def _two_level_lu(F, nbw, ob, cw):
+    """The CUDA kernel's algebra (``csrc/lu_panel.cu``), in float64 torch.
+    Each cw-column chunk of an ob-column outer block is factored column by
+    column on its own columns only; its composed swaps then reach the rest
+    of the outer block as one gather of the <= 2 cw rows it displaced; its
+    U12 solve and product reach only the rest of the outer block.  Per
+    outer block, its composed swaps reach the panel's other columns the
+    same way, U12 is solved chunk by chunk (a solve, then a product on the
+    outer block's rows below the chunk), and one product of depth ob
+    updates the rest of the panel."""
+    P = F.clone()
+    M = P.shape[0]
+    piv = list(range(nbw))
+
+    def move_displaced(lo, hi, cols):
+        """Rows lo .. hi-1 and the pivot rows of columns lo .. hi-1 take
+        the rows the swaps of those columns send them, on ``cols``."""
+        if not cols:
+            return
+        dst = list(range(lo, hi)) + piv[lo:hi]
+        src = []
+        for x in dst:
+            for j in range(hi - 1, lo - 1, -1):
+                x = piv[j] if x == j else (j if x == piv[j] else x)
+            src.append(x)
+        c = torch.tensor(cols)
+        P[torch.tensor(dst)[:, None], c] = P[torch.tensor(src)[:, None], c]
+
+    def solve(lo, hi, c0, c1):
+        L = torch.tril(P[lo:hi, lo:hi], -1) + torch.eye(hi - lo,
+                                                        dtype=P.dtype)
+        P[lo:hi, c0:c1] = torch.linalg.solve_triangular(
+            L, P[lo:hi, c0:c1], upper=False, unitriangular=True)
+
+    for so in range(0, nbw, ob):
+        eo = min(so + ob, nbw)
+        for s in range(so, eo, cw):
+            e = min(s + cw, eo)
+            for j in range(s, e):
+                p = j + int(torch.argmax(P[j:, j].abs()))
+                piv[j] = p
+                P[[j, p], s:e] = P[[p, j], s:e]
+                P[j + 1:, j] /= P[j, j]
+                P[j + 1:, j + 1:e] -= torch.outer(P[j + 1:, j], P[j, j + 1:e])
+            move_displaced(s, e, list(range(so, s)) + list(range(e, eo)))
+            if e < eo:
+                solve(s, e, e, eo)
+                P[e:, e:eo] -= P[e:, s:e] @ P[s:e, e:eo]
+        move_displaced(so, eo, list(range(0, so)) + list(range(eo, nbw)))
+        if eo < nbw:
+            for s in range(so, eo, cw):
+                e = min(s + cw, eo)
+                solve(s, e, eo, nbw)
+                P[e:eo, eo:] -= P[e:eo, s:e] @ P[s:e, eo:]
+            P[eo:, eo:] -= P[eo:, so:eo] @ P[so:eo, eo:]
+    perm = torch.arange(M)
+    for j in range(nbw):
+        perm[[j, piv[j]]] = perm[[piv[j], j]]
+    return P, perm
+
+
+#: (M, nbw, inner): panels across 1-3 outer blocks with ragged chunks, then
+#: two within one outer block (where the Pallas kernel is the same function)
+TWO_LEVEL = [(300, 129, 48), (300, 129, 64), (320, 200, 48), (320, 200, 64),
+             (340, 300, 48), (340, 300, 64), (200, 128, 48), (180, 100, 64)]
+
+
+@pytest.mark.parametrize("M,nbw,inner", TWO_LEVEL,
+                         ids=[f"{m}x{n}-inner{i}" for m, n, i in TWO_LEVEL])
+def test_two_level_blocking_matches_plain_and_jax(M, nbw, inner):
+    """The kernel's two-level blocking (its displaced-row gathers and its
+    chunked U12 solves included) and the plain version give the JAX
+    package's ``_panel_lu(P, nbw, None, (128, inner))`` pivots exactly and
+    its packed factor to 1e-12 of the largest entry (float64; the same
+    algorithm, rounded through other blockings); within one outer block
+    the Pallas kernel (interpret mode) gives the same pivots."""
+    F = _panel((M, nbw), np.float64)
+    jpacked, jperm = jax_panel_lu(jnp.asarray(F), nbw, None,
+                                  (KERNEL_OUTER_BLOCK, inner))
+    want, wperm = np.asarray(jpacked), np.asarray(jperm)
+    tol = 1e-12 * np.abs(want).max()
+    for packed, perm in (_two_level_lu(torch.from_numpy(F), nbw,
+                                       KERNEL_OUTER_BLOCK, inner),
+                         lu_panel_reference(torch.from_numpy(F), nbw, inner)):
+        np.testing.assert_array_equal(perm.numpy(), wperm)
+        np.testing.assert_allclose(packed.numpy(), want, rtol=0, atol=tol)
+    assert _residual(F, want, wperm) < RES_TOL[np.float64]
+    if nbw <= KERNEL_OUTER_BLOCK:
+        ppacked, pperm = jax_lu_panel(jnp.asarray(F), nbw, inner=inner,
+                                      interpret=True)
+        np.testing.assert_array_equal(np.asarray(pperm), wperm)
+        assert _residual(F, np.asarray(ppacked), wperm) < RES_TOL[np.float64]
