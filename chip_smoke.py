@@ -31,11 +31,24 @@ Phases, each of which raises on failure:
    A and B normal from a seeded generator; the factor residual through
    ``apply_q``, Q's orthogonality, the normal-equations optimality, and
    ``qr_panel``'s launch count on that run;
+3d. the generalized eigensolver at full size: ``herm_gen_def_eig(A, B,
+   nb=512)`` on the 1x1 grid, N = 16384 float32, A = (G + G^T) / 2 and
+   B = G' G'^T / N + N I from seeded generators; the wall time whole and
+   per step of the call (Cholesky, ``two_sided_trsm``,
+   ``hermitian_tridiag`` against its bytes floor, ``tridiag_eig``,
+   ``apply_q_herm_tridiag`` and its plain T rebuilds, the final
+   ``trsm``), a device profile with the idle share, three gates over
+   N eps (residual, B-orthogonality, eigenvalues against the float64
+   ``eigvalsh`` of the reduced matrix), ``torch.linalg.eigh`` of that
+   matrix timed beside it, and ``potrf_inv``'s launch count on that run;
 4. the distributed branches: ``hpd_solve`` and ``lu`` + ``lu_solve_after``
    on a virtual 2x2 grid on the card, N = 1024 float64, nb = 128, with
-   and without the crossover, against ``torch.linalg.solve``; and
+   and without the crossover, against ``torch.linalg.solve``;
    ``least_squares`` (m = 1536, n = 1024 float64, nb = 128) against
-   ``torch.linalg.lstsq``, with ``lq`` and ``rq`` residuals.
+   ``torch.linalg.lstsq``, with ``lq`` and ``rq`` residuals;
+   ``herm_eig``, ``skew_herm_eig`` and ``herm_gen_def_eig`` (n = 1024
+   float64, nb = 128: the D&C and its distributed merges); and
+   ``entry.dryrun_multichip(8)`` on a virtual 2x4 grid.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the card's name and power limit, and the one before that the JSON
@@ -81,11 +94,12 @@ def _card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _time_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn`` over ``reps`` calls, after one warm-up,
-    with CUDA events."""
+def _time_ms(fn, reps: int, warm: bool = True) -> float:
+    """Mean device time of ``fn`` over ``reps`` calls, after one warm-up
+    call unless ``warm`` is False, with CUDA events."""
     import torch
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -97,16 +111,17 @@ def _time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _device_breakdown(fn, top: int = 8) -> dict:
+def _device_breakdown(fn, top: int = 8, cpu: bool = True) -> dict:
     """One profiled call of ``fn``: its wall time, the device time summed
     per kernel name (the ``top`` largest), and the device's idle share of
-    the wall time."""
+    the wall time.  ``cpu=False`` records the device activity only (fewer
+    events for a call of ~10^5 launches)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CPU] if cpu else []
+    with profile(activities=acts + [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -645,6 +660,214 @@ def phase_qr_main_path(et, card: str) -> dict:
     return out
 
 
+def eig_gates(A, B, X, w, w_ref):
+    """Phase 3d's three ratios, each over N eps (float32 eps), computed in
+    float64: ``(residual, orthogonality, eigenvalue error)`` with
+    residual ||A X - B X diag(w)||_F / ((||A||_F + max|w| ||B||_F) ||X||_F),
+    orthogonality ||X^T B X - I||_max and eigenvalue error max|w - w_ref| /
+    ||C||_2 (``w_ref`` the float64 eigenvalues of C, so ||C||_2 is their
+    largest magnitude).  ``tests/test_torch_gpu.py`` uses it too."""
+    import torch
+    n = A.shape[0]
+    neps = n * torch.finfo(torch.float32).eps
+    a, b, x = A.double(), B.double(), X.double()
+    wd = w.double()
+    bx = b @ x
+    r = a @ x
+    r -= bx * wd[None, :]
+    res = float(torch.linalg.norm(r) / (
+        (torch.linalg.norm(a) + wd.abs().max() * torch.linalg.norm(b))
+        * torch.linalg.norm(x)))
+    del r, a
+    g = x.T @ bx
+    g.diagonal().sub_(1.0)
+    orth = float(g.abs().max())
+    del g, bx, b, x
+    wr = w_ref.double()
+    lam = float((wd - wr).abs().max() / wr.abs().max())
+    return res / neps, orth / neps, lam / neps
+
+
+def _herm_pencil(n: int, seed: int):
+    """(A, B): A = (G + G^T) / 2 of a seeded standard normal G, B = bench.py's
+    SPD matrix G' G'^T / n + n I from its own seed; float32, on the card."""
+    import torch
+    B, _ = _spd(n, torch.float32, seed=seed + 1)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    G = torch.randn(n, n, generator=gen, device="cuda")
+    A = G + G.T
+    del G
+    A.mul_(0.5)
+    return A, B
+
+
+def phase_eig_main_path(et, card: str) -> dict:
+    """herm_gen_def_eig at full size on the 1x1 grid: the call timed whole,
+    then its steps timed one by one, a profile, the three gates
+    and torch.linalg.eigh of the reduced matrix beside it."""
+    import torch
+    from elemental_tpu_torch.kernels import lu_panel, potrf_inv, qr_panel
+    from elemental_tpu_torch.kernels.qr_panel import _larft
+    cond = sys.modules["elemental_tpu_torch.lapack.condense"]
+    N, nb = 16384, 512
+    grid = et.Grid()
+
+    def dm(x):
+        return et.from_global(x, et.MC, et.MR, grid)
+
+    # warm-up at a small size (library handles, the kernel's first launch,
+    # the batched leaf eigh, the library eigensolvers)
+    Aw, Bw = _herm_pencil(2048, seed=20)
+    et.herm_gen_def_eig(dm(Aw), dm(Bw), nb=nb)
+    torch.linalg.eigh(Aw)
+    torch.linalg.eigvalsh(Aw.double())
+    del Aw, Bw
+    Ag, Bg = _herm_pencil(N, seed=10)
+    A, B = dm(Ag), dm(Bg)
+    del Ag, Bg
+    torch.cuda.synchronize()
+    potrf_inv.launches = lu_panel.launches = qr_panel.launches = 0
+    t0 = time.perf_counter()
+    w, X = et.herm_gen_def_eig(A, B, nb=nb)
+    torch.cuda.synchronize()
+    t_total = time.perf_counter() - t0
+    launches = potrf_inv.launches
+    if launches != N // nb or lu_panel.launches or qr_panel.launches:
+        raise AssertionError(f"potrf_inv launched {launches} times on the "
+                             f"eigensolver path, expected {N // nb}; lu_panel "
+                             f"{lu_panel.launches}, qr_panel "
+                             f"{qr_panel.launches}, expected 0")
+    if not (bool(torch.isfinite(X.local).all()) and X.gshape == (N, N)
+            and tuple(w.shape) == (N,) and bool((w[1:] >= w[:-1]).all())):
+        raise AssertionError("herm_gen_def_eig: X not finite, a shape is "
+                             "wrong or w is not ascending")
+    del X
+
+    # herm_gen_def_eig's steps, one by one (the calls herm_gen_def_eig and
+    # herm_eig make at this size: n > dc_min, so the D&C)
+    steps = {}
+
+    def step(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        steps[name] = time.perf_counter() - t
+        return out
+
+    L = step("cholesky_s", lambda: et.cholesky(B, "L", nb=nb))
+    C = step("two_sided_trsm_s", lambda: et.two_sided_trsm("L", A, L, nb=nb))
+    Ap, d, e, tau = step("hermitian_tridiag_s",
+                         lambda: et.hermitian_tridiag(C, nb=nb))
+    w2, ZT = step("tridiag_eig_s", lambda: et.tridiag_eig(d, e, grid=grid))
+    Z = step("apply_q_herm_tridiag_s",
+             lambda: et.apply_q_herm_tridiag(Ap, tau, ZT, nb=nb))
+    del ZT
+    X = step("trsm_s", lambda: et.trsm("L", "L", "C", L, Z, nb=nb))
+    del Z
+
+    # apply_q_herm_tridiag's share spent rebuilding T with the plain _larft
+    def larfts():
+        for s in range(0, N - 1, nb):
+            e_col = min(s + nb, N - 1)
+            V = cond._tridiag_v_panel(Ap.local[s:, s:], e_col - s)
+            _larft(V, tau[s:e_col])
+    step("larft_in_apply_q_s", larfts)
+    # bytes the tridiagonal reduction's column loop must read: the
+    # whole trailing block of its panel, once a column
+    tri_bytes = sum(nb * (N - s) ** 2 * 4 for s in range(0, N - 1, nb))
+    tri_floor_s = tri_bytes / PEAK_BYTES
+    del Ap, d, e, tau, L
+
+    # gates: the float64 eigenvalues of the port's C, run once, untimed
+    t0 = time.perf_counter()
+    w_ref = torch.linalg.eigvalsh(C.local.double())
+    t_ref = time.perf_counter() - t0
+    res, orth, lam = eig_gates(A.local, B.local, X.local, w, w_ref)
+    del X, w_ref
+    if not (res < 16 and orth < 16 and lam < 16):
+        raise AssertionError(f"eigensolver gates: residual {res:.3f}, "
+                             f"orthogonality {orth:.3f}, eigenvalues "
+                             f"{lam:.3f} (each / (N eps), each < 16)")
+    # the library's eigensolver on the reduced matrix, timed beside the path
+    eigh_ms = _time_ms(lambda: torch.linalg.eigh(C.local), 1, warm=False)
+    del C
+    t0 = time.perf_counter()
+    prof = _device_breakdown(lambda: et.herm_gen_def_eig(A, B, nb=nb),
+                             top=14, cpu=False)
+    prof["profile_call_s"] = time.perf_counter() - t0
+    prof["idle_share_vs_unprofiled_wall"] = max(
+        0.0, 1 - prof["device_busy_ms"] / (t_total * 1e3))
+    print("phase 3d herm_gen_def_eig breakdown " + json.dumps(prof),
+          flush=True)
+    out = {"N": N, "nb": nb, "dtype": "float32",
+           "herm_gen_def_eig_s": t_total, **steps,
+           "hermitian_tridiag_floor_s": tri_floor_s,
+           "hermitian_tridiag_GBps": tri_bytes / steps["hermitian_tridiag_s"] / 1e9,
+           "eigh_C_ms": eigh_ms, "eigvalsh_C_float64_s": t_ref,
+           "potrf_inv_launches": launches,
+           "gate_residual_over_Neps": res, "gate_orthogonality_over_Neps": orth,
+           "gate_eigenvalues_over_Neps": lam, "card": card}
+    print("phase 3d eigensolver main path " + json.dumps(out), flush=True)
+    return out
+
+
+def phase_eig_distributed(et) -> None:
+    """herm_eig (its D&C branch and the distributed merges: n > dc_min =
+    repl_max = 512), skew_herm_eig and herm_gen_def_eig on a virtual 2x2
+    grid on the card, float64.  The bounds are those of the JAX package's
+    tests of its D&C (tests/lapack/test_tridiag_eig.py:93-110: eigenvalues
+    1e-9, residual 1e-10, orthogonality 1e-10 n), which the JAX package
+    itself meets at this size with ~3.3e-11 (test_spectral.py's 1e-12 is
+    set at n = 24, where herm_eig takes the dense eigh)."""
+    import torch
+    n, nb = 1024, 128
+    grid = et.Grid(2, 2)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    G = torch.randn(n, n, generator=gen, device="cuda", dtype=torch.float64)
+    F = (G + G.T) / 2
+    S = G - G.T
+    Gb = torch.randn(n, n, generator=gen, device="cuda", dtype=torch.float64)
+    Bm = Gb @ Gb.T / n + 2 * torch.eye(n, device="cuda", dtype=torch.float64)
+    eye = torch.eye(n, device="cuda", dtype=torch.float64)
+
+    def dm(x):
+        return et.from_global(x, et.MC, et.MR, grid)
+
+    w, Z = et.herm_eig(dm(F), nb=nb)
+    z = et.to_global(Z)
+    wn = torch.linalg.eigvalsh(F)
+    eig_err = float((w - wn).abs().max())
+    eig_res = float(torch.linalg.norm(F @ z - z * w[None, :]) / torch.linalg.norm(F))
+    eig_orth = float(torch.linalg.norm(z.T @ z - eye))
+    ws, Zs = et.skew_herm_eig(dm(S), nb=nb)
+    zs = et.to_global(Zs)
+    # the general eigensolver's reference runs on the host (no MAGMA needed)
+    imag_ref = torch.sort(torch.linalg.eigvals(S.cpu()).imag).values.cuda()
+    skew_err = float((ws - imag_ref).abs().max())
+    skew_res = float(torch.linalg.norm(S.to(zs.dtype) @ zs - zs * (1j * ws)[None, :])
+                     / torch.linalg.norm(S))
+    wg, Xg = et.herm_gen_def_eig(dm(F), dm(Bm), nb=nb)
+    x = et.to_global(Xg)
+    gen_res = float(torch.linalg.norm(F @ x - Bm @ x * wg[None, :])
+                    / torch.linalg.norm(F))
+    gen_orth = float(torch.linalg.norm(x.T @ Bm @ x - eye))
+    torch.cuda.synchronize()
+    row = {"grid": "2x2", "n": n, "nb": nb, "dtype": "float64",
+           "herm_eig_eigenvalue_error": eig_err, "herm_eig_residual": eig_res,
+           "herm_eig_orthogonality": eig_orth,
+           "skew_herm_eig_error": skew_err, "skew_herm_eig_residual": skew_res,
+           "herm_gen_def_eig_residual": gen_res,
+           "herm_gen_def_eig_orthogonality": gen_orth}
+    if not (eig_err < 1e-9 and eig_res < 1e-10 and eig_orth < 1e-10 * n
+            and skew_err < 1e-9 and skew_res < 1e-10
+            and gen_res < 1e-10 and gen_orth < 1e-10):
+        raise AssertionError(f"eigensolvers on the 2x2 grid: {row}")
+    print("phase 4 eigensolvers distributed " + json.dumps(row), flush=True)
+
+
 def phase_distributed(et) -> None:
     """hpd_solve on a virtual 2x2 grid on the card, against torch.linalg.solve."""
     import torch
@@ -776,11 +999,19 @@ def main() -> int:
     main_path = phase_main_path(et, card)
     lu_path = phase_lu_main_path(et, card)
     qr_path = phase_qr_main_path(et, card)
+    eig_path = phase_eig_main_path(et, card)
     phase_distributed(et)
     phase_lu_distributed(et)
     phase_qr_distributed(et)
+    phase_eig_distributed(et)
+    et.entry.dryrun_multichip(8)
 
     at_path = next(r for r in rows if r["w"] == 2048 and r["dtype"] == "float32")
+    at_eig = next(r for r in rows if r["w"] == 512 and r["dtype"] == "float32")
+    print("phase 3d potrf_inv at w = 512 " + json.dumps(
+        {k: at_eig[k] for k in ("kernel_ms", "plain_ms", "library_ms",
+                                "bound_ms", "bound_by", "max_abs_err")}
+        | {"launches": eig_path["potrf_inv_launches"]}), flush=True)
     kernels = [{
         "name": "potrf_inv", "route": "cuda",
         "source": "elemental_tpu_torch/kernels/csrc/potrf_inv.cu",

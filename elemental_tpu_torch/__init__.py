@@ -12,7 +12,11 @@ and QR least squares (``qr``, ``apply_q``, ``explicit_q``,
 ``least_squares``, ``lq``, ``apply_q_lq``, ``explicit_l``, ``rq``, with
 ``interior_view`` and ``identity``), with the Householder panel and its
 block-reflector triangle as a hand-written cooperative CUDA kernel
-(``kernels/csrc``).
+(``kernels/csrc``); and the Hermitian eigensolvers (``herm_eig``,
+``skew_herm_eig``, ``hermitian_svd``, ``herm_gen_def_eig``: Cholesky,
+``two_sided_trsm``, ``hermitian_tridiag``, the Cuppen divide and conquer
+``tridiag_eig`` and ``apply_q_herm_tridiag``), with SUMMA ``gemm``, the
+level-2 BLAS and ``entry`` (the twin of ``__graft_entry__.py``).
 
 The package imports ``torch`` and numpy only -- never ``jax`` and nothing
 of ``elemental_tpu``.
@@ -26,13 +30,17 @@ from .core.distmatrix import (DistMatrix, from_global, to_global, zeros,
 from .core.view import view, update_view
 from .redist.engine import (redistribute, transpose_dist, panel_spread,
                            move_rows, permute_rows_storage)
-from .redist.interior import interior_view
-from .blas import make_trapezoidal, trsm
+from .redist.interior import interior_view, interior_update
+from .blas import (make_trapezoidal, make_symmetric, index_dependent_map,
+                   index_dependent_fill, gemv, ger, hemv, symv, her2, trmv,
+                   trsv, gemm, trsm, trmm, two_sided_trsm, two_sided_trmm)
 from .lapack import (cholesky, hpd_solve, cholesky_solve_after, lu,
                      lu_solve, lu_solve_after, permute_rows, permute_cols,
                      qr, apply_q, explicit_q, least_squares, lq, apply_q_lq,
-                     explicit_l, rq)
+                     explicit_l, rq, hermitian_tridiag, apply_q_herm_tridiag,
+                     tridiag_eig, herm_eig, skew_herm_eig, herm_gen_def_eig,
+                     hermitian_svd)
 from .matrices import identity
-from . import kernels
+from . import kernels, entry
 
 __version__ = "0.1.0"

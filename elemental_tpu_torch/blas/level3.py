@@ -1,8 +1,14 @@
-"""Level-3 BLAS of the Cholesky slice: blocked Trsm.
+"""Level-3 BLAS: SUMMA Gemm, blocked Trsm, Trmm and the two-sided
+transforms.
 
-PyTorch port of ``_check_mcmr``, ``_mask_triangle``, ``trsm``,
-``_trsm_left`` and ``local_rank_update`` from
-``elemental_tpu/blas/level3.py`` (Elemental ``src/blas_like/level3/Trsm``).
+PyTorch port of ``_check_mcmr``, ``_orient``, ``_mask_triangle``,
+``gemm`` with its SUMMA schedules (``_summa_c``, ``_summa_a``,
+``_summa_b``, ``_summa_dot``, ``_summa_slice`` and the ``'gspmd'``
+branch), ``_safe_astype``, ``trsm``, ``_trsm_left``,
+``local_rank_update``, ``trmm``, ``two_sided_trsm`` and
+``two_sided_trmm`` from ``elemental_tpu/blas/level3.py`` (Elemental
+``src/blas_like/level3/``: ``Gemm``, ``Trsm``, ``Trmm``,
+``TwoSidedTrsm``, ``TwoSidedTrmm``).
 
 The stacked-storage array of a DistMatrix is a row/column permutation of
 the global matrix, so whenever two operands agree on the contraction
@@ -18,14 +24,14 @@ import math
 
 import torch
 
-from ..core.dist import MC, MR, VR, STAR
-from ..core.distmatrix import DistMatrix
+from ..core.dist import MC, MR, VC, VR, STAR
+from ..core.distmatrix import DistMatrix, zeros as dm_zeros
 from ..core.environment import check_precision
 from ..core.view import view, update_view
 from ..obs.tracer import NULL_HOOK as _NULL_HOOK, phase_hook as _phase_hook
 from ..redist.engine import redistribute, transpose_dist
 from ..tune.policy import blocksize_policy as _blocksize
-from .level1 import _global_indices
+from .level1 import _global_indices, make_symmetric
 
 
 def _check_mcmr(*Ms: DistMatrix):
@@ -37,6 +43,13 @@ def _check_mcmr(*Ms: DistMatrix):
             raise ValueError("operands on different grids")
 
 
+def _orient(A: DistMatrix, orient: str) -> DistMatrix:
+    """op(A) as a zero-aligned [MC,MR] matrix."""
+    if orient == "N":
+        return A
+    return redistribute(transpose_dist(A, conj=(orient == "C")), MC, MR)
+
+
 def _mask_triangle(C: DistMatrix, uplo: str, strict: bool = False):
     """Boolean mask over C's storage selecting the given global triangle."""
     I, J = _global_indices(C)
@@ -46,8 +59,192 @@ def _mask_triangle(C: DistMatrix, uplo: str, strict: bool = False):
 
 
 def _nonzero(x) -> bool:
-    # complex(0) counts as zero
+    # complex(0) counts as zero: a 0j beta must not force a complex
+    # accumulator (and a TypeError out of _safe_astype) onto a real C
     return not (isinstance(x, (int, float, complex)) and x == 0)
+
+
+def _safe_astype(x, dtype):
+    """``x.to(dtype)`` that refuses to drop an imaginary part."""
+    if x.is_complex() and not dtype.is_complex:
+        raise TypeError(f"complex result cannot be stored in {dtype} output; "
+                        "pass a complex C (or complex operands)")
+    return x.to(dtype)
+
+
+# ---------------------------------------------------------------------
+# Gemm (SUMMA)
+# ---------------------------------------------------------------------
+
+def gemm(A: DistMatrix, B: DistMatrix, alpha=1.0, beta=0.0,
+         C: DistMatrix | None = None, orient_a: str = "N",
+         orient_b: str = "N", alg: str = "auto",
+         nb: int | str | None = None, precision=None,
+         comm_precision: str | None = None,
+         redist_path: str | None = None) -> DistMatrix:
+    """C := alpha op(A) op(B) + beta C on [MC,MR] (SUMMA, ``El::Gemm``).
+
+    ``alg`` is one of 'A' / 'B' / 'C' (stationary A, B or C), 'dot'
+    (inner dimension 1-D cyclic on both operands), 'gspmd' (one storage
+    matmul) or 'slice' (one-sided slicing); 'dot', 'gspmd' and 'slice'
+    ignore ``nb``.  On the virtual grid every schedule is storage
+    matmuls on one device, so all give the same product up to the order
+    of the sums.  ``alg='auto'`` and ``nb='auto'`` need the tuner, and
+    ``comm_precision`` / ``redist_path`` the wire and route choices: all
+    belong to later slices and raise ``NotImplementedError``.  The
+    ``BlockMatrix`` read-proxy of the JAX package waits for
+    ``core/block.py``."""
+    check_precision(precision, A.local, B.local)
+    if alg == "auto" or isinstance(nb, str):
+        raise NotImplementedError(
+            f"gemm alg={alg!r} nb={nb!r}: 'auto' needs the tuner (a later "
+            "slice); name an alg and an int nb")
+    for name, v in (("comm_precision", comm_precision),
+                    ("redist_path", redist_path)):
+        if v is not None:
+            raise NotImplementedError(
+                f"gemm {name}={v!r} is not ported yet (a later slice)")
+    A = _orient(A, orient_a)
+    B = _orient(B, orient_b)
+    _check_mcmr(A, B)
+    m, k = A.gshape
+    k2, n = B.gshape
+    if k != k2:
+        raise ValueError(f"inner dims mismatch: {A.gshape} x {B.gshape}")
+    if C is None:
+        dt = torch.promote_types(A.dtype, B.dtype)
+        if isinstance(alpha, complex) or isinstance(beta, complex):
+            dt = torch.promote_types(dt, torch.complex64)
+        C = dm_zeros(m, n, MC, MR, A.grid, dtype=dt)
+        beta = 0.0
+    else:
+        _check_mcmr(A, B, C)
+        if C.gshape != (m, n):
+            raise ValueError(f"C shape {C.gshape} != ({m},{n})")
+    if alg == "C":
+        return _summa_c(alpha, A, B, beta, C, nb)
+    if alg == "A":
+        return _summa_a(alpha, A, B, beta, C, nb)
+    if alg == "B":
+        return _summa_b(alpha, A, B, beta, C, nb)
+    if alg == "dot":
+        return _summa_dot(alpha, A, B, beta, C)
+    if alg == "slice":
+        return _summa_slice(alpha, A, B, beta, C)
+    if alg == "gspmd":
+        # B's k-rows re-landed on A's k-column cyclic order ([MR,STAR]),
+        # then one storage matmul
+        Bk = redistribute(B, MR, STAR)
+        D = DistMatrix(A.local @ Bk.local, (m, n), MC, STAR, 0, 0, A.grid)
+        return _finish(alpha, redistribute(D, MC, MR).local, beta, C)
+    raise ValueError(f"unknown gemm alg {alg!r}")
+
+
+def _finish(alpha, d, beta, C: DistMatrix) -> DistMatrix:
+    """C := alpha d + beta C for a product ``d`` in C's storage order."""
+    out = alpha * d
+    if _nonzero(beta):
+        out = out + beta * C.local
+    return C.with_local(_safe_astype(out, C.dtype))
+
+
+def _init_acc(beta, C: DistMatrix):
+    return _safe_astype(beta * C.local, C.dtype) if _nonzero(beta) \
+        else torch.zeros_like(C.local)
+
+
+def _summa_c(alpha, A, B, beta, C, nb):
+    """Stationary-C (``gemm::SUMMA_NNC``): per k-panel, A1 -> [MC,STAR],
+    B1 -> [STAR,MR], and a local product accumulates into C's storage."""
+    k = A.gshape[1]
+    r, c = A.grid.height, A.grid.width
+    kb = _blocksize(nb, math.lcm(r, c), k)
+    acc = beta * C.local if _nonzero(beta) else torch.zeros_like(C.local)
+    for s in range(0, k, kb):
+        e = min(s + kb, k)
+        A1 = redistribute(view(A, cols=(s, e)), MC, STAR)
+        B1 = redistribute(view(B, rows=(s, e)), STAR, MR)
+        acc = acc + alpha * (A1.local @ B1.local)
+    return C.with_local(_safe_astype(acc, C.dtype))
+
+
+def _summa_a(alpha, A, B, beta, C, nb):
+    """Stationary-A (``gemm::SUMMA_NNA``): per C column panel, B1 ->
+    [MR,STAR]; the storage product is the [MC,STAR] panel, filtered onto
+    [MC,MR]."""
+    m = A.gshape[0]
+    n = B.gshape[1]
+    jb = _blocksize(nb, A.grid.width, n)
+    out = C.with_local(_init_acc(beta, C))
+    for s in range(0, n, jb):
+        e = min(s + jb, n)
+        B1 = redistribute(view(B, cols=(s, e)), MR, STAR)
+        D1 = DistMatrix(A.local @ B1.local, (m, e - s), MC, STAR, 0, 0, A.grid)
+        panel = redistribute(D1, MC, MR)
+        cur = view(out, cols=(s, e))
+        out = update_view(out, cur.with_local(
+            cur.local + _safe_astype(alpha * panel.local, C.dtype)), cols=(s, e))
+    return out
+
+
+def _summa_b(alpha, A, B, beta, C, nb):
+    """Stationary-B: per C row panel, A1^T -> [MC,STAR]; the storage
+    product is the [STAR,MR] panel, filtered onto [MC,MR]."""
+    m = A.gshape[0]
+    n = B.gshape[1]
+    ib = _blocksize(nb, A.grid.height, m)
+    out = C.with_local(_init_acc(beta, C))
+    for s in range(0, m, ib):
+        e = min(s + ib, m)
+        A1T = redistribute(transpose_dist(view(A, rows=(s, e))), MC, STAR)
+        D1 = DistMatrix(A1T.local.mT @ B.local, (e - s, n), STAR, MR, 0, 0,
+                        A.grid)
+        panel = redistribute(D1, MC, MR)
+        cur = view(out, rows=(s, e))
+        out = update_view(out, cur.with_local(
+            cur.local + _safe_astype(alpha * panel.local, C.dtype)), rows=(s, e))
+    return out
+
+
+def _summa_dot(alpha, A, B, beta, C):
+    """SUMMA-Dot (``gemm::SUMMA_NNDot``): the inner dimension 1-D cyclic
+    on both operands ([STAR,VC] x [VC,STAR], the same permutation on each
+    side), one storage product into the replicated C, filtered onto
+    [MC,MR].  On a 1x1 grid the storage arrays are the global operands:
+    one local matmul."""
+    m, n = C.gshape
+    if A.grid.size == 1:
+        return _finish(alpha, A.local @ B.local, beta, C)
+    Avc = redistribute(A, STAR, VC)
+    Bvc = redistribute(B, VC, STAR)
+    D = DistMatrix(Avc.local @ Bvc.local, (m, n), STAR, STAR, 0, 0, A.grid)
+    return _finish(alpha, redistribute(D, MC, MR).local, beta, C)
+
+
+def _slice_row_mode(m: int, n: int, grid_shape: tuple) -> bool:
+    """Row slices ([VC,STAR] output) for a tall output or an Nx1 grid,
+    column slices ([STAR,VR]) otherwise (``redist.plan.slice_row_mode``)."""
+    r, c = grid_shape
+    return c == 1 or (r != 1 and m >= n)
+
+
+def _summa_slice(alpha, A, B, beta, C):
+    """Slicing one-sided gemm: every rank owns a 1-D cyclic slice of C's
+    rows (A -> [VC,STAR], B -> [STAR,STAR]) or columns ([STAR,STAR] x
+    [STAR,VR]) and contracts locally; 1x1 is one local matmul."""
+    m, n = C.gshape
+    g = A.grid
+    if g.size == 1:
+        return _finish(alpha, A.local @ B.local, beta, C)
+    if _slice_row_mode(m, n, (g.height, g.width)):
+        As = redistribute(A, VC, STAR)
+        Bs = redistribute(B, STAR, STAR)
+        D = DistMatrix(As.local @ Bs.local, (m, n), VC, STAR, 0, 0, g)
+    else:
+        As = redistribute(A, STAR, STAR)
+        Bs = redistribute(B, STAR, VR)
+        D = DistMatrix(As.local @ Bs.local, (m, n), STAR, VR, 0, 0, g)
+    return _finish(alpha, redistribute(D, MC, MR).local, beta, C)
 
 
 def trsm(side: str, uplo: str, orient: str, A: DistMatrix, B: DistMatrix,
@@ -158,3 +355,55 @@ def local_rank_update(C: DistMatrix, A_loc, B_loc, rows=None, cols=None,
     upd = torch.matmul(A_loc, B_loc)
     new = sub.local + (alpha * upd).to(C.dtype)
     return update_view(C, sub.with_local(new), rows=rows, cols=cols)
+
+
+def trmm(side: str, uplo: str, orient: str, A: DistMatrix, B: DistMatrix,
+         alpha=1.0, unit: bool = False, nb: int | None = None,
+         precision=None) -> DistMatrix:
+    """B := alpha op(tri(A)) B ('L') or alpha B op(tri(A)) ('R')
+    (``El::Trmm``): the triangle, with an optional implicit unit
+    diagonal, masked on storage, then one SUMMA ``gemm``.  The JAX
+    package lets the tuner pick the schedule; the port names
+    ``alg='dot'``, on 1x1 one full-precision matmul."""
+    _check_mcmr(A, B)
+    T = A.local.where(_mask_triangle(A, uplo, strict=unit), 0)
+    if unit:
+        I, J = _global_indices(A)
+        on = (J[None, :] == I[:, None]) & (I[:, None] < A.gshape[0])
+        T = torch.where(on, torch.ones((), dtype=A.dtype, device=T.device), T)
+    Tm = A.with_local(T)
+    if side.upper().startswith("L"):
+        return gemm(Tm, B, alpha=alpha, orient_a=orient, alg="dot", nb=nb,
+                    precision=precision)
+    return gemm(B, Tm, alpha=alpha, orient_b=orient, alg="dot", nb=nb,
+                precision=precision)
+
+
+# ---------------------------------------------------------------------
+# Two-sided transforms (generalized eigenproblem reductions)
+# ---------------------------------------------------------------------
+
+def two_sided_trsm(uplo: str, A: DistMatrix, L: DistMatrix,
+                   nb: int | None = None, precision=None) -> DistMatrix:
+    """Congruence solve: lower -> inv(L) A inv(L)^H, upper -> inv(U)^H A
+    inv(U) (``El::TwoSidedTrsm``: reduces A x = lambda B x with B = L L^H /
+    U^H U to a standard Hermitian problem).  A is read from the ``uplo``
+    triangle; the result is returned full (Hermitian)."""
+    full = make_symmetric(A, uplo, conj=True)
+    if uplo.upper().startswith("L"):
+        Y = trsm("L", "L", "N", L, full, nb=nb, precision=precision)
+        return trsm("R", "L", "C", L, Y, nb=nb, precision=precision)
+    Y = trsm("L", "U", "C", L, full, nb=nb, precision=precision)
+    return trsm("R", "U", "N", L, Y, nb=nb, precision=precision)
+
+
+def two_sided_trmm(uplo: str, A: DistMatrix, L: DistMatrix,
+                   nb: int | None = None, precision=None) -> DistMatrix:
+    """Congruence product: lower -> L^H A L, upper -> U A U^H
+    (``El::TwoSidedTrmm``, the inverse transform of two_sided_trsm)."""
+    full = make_symmetric(A, uplo, conj=True)
+    if uplo.upper().startswith("L"):
+        Y = trmm("L", "L", "C", L, full, nb=nb, precision=precision)
+        return trmm("R", "L", "N", L, Y, nb=nb, precision=precision)
+    Y = trmm("L", "U", "N", L, full, nb=nb, precision=precision)
+    return trmm("R", "U", "C", L, Y, nb=nb, precision=precision)

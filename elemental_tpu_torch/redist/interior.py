@@ -1,20 +1,22 @@
-"""Interior (arbitrary-offset) submatrix extraction.
+"""Interior (arbitrary-offset) submatrix extraction and embedding.
 
-PyTorch port of ``interior_view`` (with ``_check_zero_aligned``) from
-``elemental_tpu/redist/interior.py``, correct-first: the requested block
-is gathered out of the stacked storage as a global sub-matrix and laid
-out again, ``B = from_global(A[rs:re, cs:ce])``, which moves values and
-does no arithmetic, so the storage is bit-equal to the JAX package's
-(whose one rotation per distributed dimension is a collective).  On a
-1x1 grid the storage IS the global matrix and the block is one slice.
-``interior_update``, ``vstack`` and ``hstack`` belong to a later slice.
+PyTorch port of ``interior_view`` and ``interior_update`` (with
+``_check_zero_aligned``) from ``elemental_tpu/redist/interior.py``,
+correct-first: a block is gathered out of the stacked storage as a
+global sub-matrix and laid out again, ``B = from_global(A[rs:re,
+cs:ce])``, and written back through the global matrix, which moves
+values and does no arithmetic, so the storage is bit-equal to the JAX
+package's (whose one rotation per distributed dimension is a
+collective).  On a 1x1 grid the storage IS the global matrix and each
+is one slice.  ``vstack`` and ``hstack`` belong to a later slice.
 """
 from __future__ import annotations
 
 import torch
 
 from ..core.dist import Dist
-from ..core.distmatrix import DistMatrix, _global_index_dim, from_global
+from ..core.distmatrix import (DistMatrix, _global_index_dim, from_global,
+                               to_global)
 
 
 def _check_zero_aligned(*Ms: DistMatrix):
@@ -44,3 +46,25 @@ def interior_view(A: DistMatrix, rows=None, cols=None) -> DistMatrix:
     block = A.local.index_select(0, torch.as_tensor(ri, device=dev))
     block = block.index_select(1, torch.as_tensor(cj, device=dev))
     return from_global(block, A.cdist, A.rdist, g)
+
+
+def interior_update(A: DistMatrix, B: DistMatrix, at=(0, 0)) -> DistMatrix:
+    """Functionally write ``B`` into ``A`` starting at global ``at=(i0,j0)``
+    (arbitrary offsets; B must share A's distribution pair and grid).
+    Returns a new matrix; ``A`` is left untouched."""
+    _check_zero_aligned(A, B)
+    if B.dist != A.dist or B.grid != A.grid:
+        raise ValueError(f"interior_update needs matching layout: {A} vs {B}")
+    i0, j0 = at
+    m, n = A.gshape
+    h, w = B.gshape
+    if i0 + h > m or j0 + w > n:
+        raise ValueError(f"block {B.gshape} at {at} exceeds {A.gshape}")
+    g = A.grid
+    if g.size == 1 or A.cdist is Dist.CIRC:
+        out = A.local.clone()
+        out[i0:i0 + h, j0:j0 + w] = B.local
+        return A.with_local(out)
+    G = to_global(A)
+    G[i0:i0 + h, j0:j0 + w] = to_global(B)
+    return from_global(G, A.cdist, A.rdist, g)

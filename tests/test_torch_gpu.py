@@ -1,6 +1,6 @@
 """The CUDA kernels (``potrf_inv``, ``lu_panel``, ``qr_panel``) against
-their plain versions, and the LU solve and QR least squares through them,
-on the card.
+their plain versions, and the LU solve, QR least squares and the
+generalized eigensolver through them, on the card.
 
 Marked ``gpu``: on a machine without a card every test skips (the check is
 made inside the test, so every worker collects the same tests).  On the
@@ -14,7 +14,10 @@ M / 256 above M = 256; ``qr_panel``'s are those of
 ``tests/test_torch_qr_panel.py`` (``||F - Q R|| / ||F||`` and ``||Q^T Q -
 I|| / sqrt(M)`` below 3e-6 at float32 and 1e-12 at float64, T equal to
 ``_larft(V, tau)`` of the kernel's own output), scaled with M / 256 above
-M = 256 and, for T, with k / 64 above k = 64."""
+M = 256 and, for T, with k / 64 above k = 64.  ``herm_gen_def_eig`` is
+held to ``chip_smoke.py`` phase 3d's three gates (each ratio over N eps
+below 16) and to the same call on the CPU; ``tridiag_eig`` on the card
+to the same call on the CPU (float64 eigenvalues to 1e-10)."""
 import numpy as np
 import pytest
 import torch
@@ -24,7 +27,7 @@ from elemental_tpu_torch.kernels import (lu_panel, lu_panel_reference,
                                          potrf_inv, potrf_inv_reference,
                                          qr_panel, qr_panel_reference)
 from elemental_tpu_torch.kernels.qr_panel import _larft, _panel_v
-from chip_smoke import qr_residuals
+from chip_smoke import eig_gates, qr_residuals
 
 pytestmark = pytest.mark.gpu
 
@@ -352,3 +355,88 @@ def test_least_squares_runs_through_the_kernel(grid):
     assert qr_panel.launches - before == n // nb
     ref = torch.linalg.lstsq(A, B).solution
     assert float(torch.linalg.norm(x - ref) / torch.linalg.norm(ref)) < 1e-10
+
+
+def test_herm_gen_def_eig_runs_through_the_kernel_and_meets_the_gates():
+    _need_card()
+    n, nb = 1024, 128
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    G = torch.randn(n, n, generator=gen, device="cuda")
+    A = (G + G.T) / 2
+    G = torch.randn(n, n, generator=gen, device="cuda")
+    B = G @ G.T / n + n * torch.eye(n, device="cuda")
+    g = et.Grid()
+    before = potrf_inv.launches
+    w, X = et.herm_gen_def_eig(et.from_global(A, et.MC, et.MR, g),
+                               et.from_global(B, et.MC, et.MR, g), nb=nb)
+    torch.cuda.synchronize()
+    assert potrf_inv.launches - before == n // nb
+    L = et.cholesky(et.from_global(B, et.MC, et.MR, g), nb=nb)
+    C = et.two_sided_trsm("L", et.from_global(A, et.MC, et.MR, g), L, nb=nb)
+    w_ref = torch.linalg.eigvalsh(C.local.double())
+    res, orth, lam = eig_gates(A, B, X.local, w, w_ref)
+    assert res < 16 and orth < 16 and lam < 16, (res, orth, lam)
+    # the same call on the CPU (the plain potrf_inv): eigenvalues within
+    # the gate of each other
+    gc = et.Grid(device="cpu")
+    wc, Xc = et.herm_gen_def_eig(et.from_global(A.cpu(), et.MC, et.MR, gc),
+                                 et.from_global(B.cpu(), et.MC, et.MR, gc),
+                                 nb=nb)
+    neps = n * torch.finfo(torch.float32).eps
+    assert float((w.cpu().double() - wc.double()).abs().max()
+                 / w_ref.abs().max().cpu()) / neps < 16
+    _, orth_c, _ = eig_gates(A.cpu(), B.cpu(), Xc.local, wc, w_ref.cpu())
+    assert orth_c < 16
+
+
+@pytest.mark.parametrize("branch", [dict(), dict(leaf_max=16, repl_max=64)],
+                         ids=["default", "distributed"])
+def test_tridiag_eig_on_the_card_matches_the_cpu(branch):
+    """Eigenvalues to 1e-10 of the largest; the eigenvectors are held to
+    the residual and orthogonality bounds of the JAX package's test of its
+    distributed D&C (``tests/lapack/test_tridiag_eig.py:83-88``, 1e-9: a
+    random tridiagonal has near-equal eigenvalues, whose eigenvectors two
+    roundings may rotate apart, and the D&C's residual on this input is
+    ~1.2e-10 on the CPU too)."""
+    _need_card()
+    n = 1024
+    rng = np.random.default_rng(8)
+    d, e = rng.standard_normal(n), rng.standard_normal(n - 1)
+    w, Z = et.tridiag_eig(torch.as_tensor(d, device="cuda"),
+                          torch.as_tensor(e, device="cuda"), grid=et.Grid(),
+                          **branch)
+    wc, Zc = et.tridiag_eig(torch.as_tensor(d), torch.as_tensor(e),
+                            grid=et.Grid(device="cpu"), **branch)
+    assert w.is_cuda and Z.local.is_cuda
+    np.testing.assert_allclose(w.cpu().numpy(), wc.numpy(), rtol=0,
+                               atol=1e-10 * float(wc.abs().max()))
+    z = et.to_global(Z).cpu().numpy()
+    T = np.diag(d) + np.diag(e, 1) + np.diag(e, -1)
+    assert np.linalg.norm(T @ z - z * w.cpu().numpy()[None, :]) \
+        / np.linalg.norm(T) < 1e-9
+    assert np.linalg.norm(z.T @ z - np.eye(n)) < 1e-9 * n
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.complex128],
+                         ids=["f64", "c128"])
+def test_hermitian_tridiag_on_the_card_matches_the_cpu(dtype):
+    """The card replays one CUDA graph a column; the CPU runs the same
+    column eagerly: d, e, tau and the packed storage to 1e-10 of their
+    largest entry (n = 64, nb = 16: a ragged last panel; a wrong replay
+    gives errors of order one, and the two devices' sums round apart by
+    ~1e-11 at this n)."""
+    _need_card()
+    n, nb = 64, 16
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(9)
+    G = torch.randn(n, n, generator=gen, device="cuda", dtype=dtype)
+    F = (G + G.mH) / 2
+    out = et.hermitian_tridiag(et.from_global(F, et.MC, et.MR, et.Grid()),
+                               nb=nb)
+    ref = et.hermitian_tridiag(et.from_global(F.cpu(), et.MC, et.MR,
+                                              et.Grid(device="cpu")), nb=nb)
+    for got, want in zip((out[0].local,) + out[1:],
+                         (ref[0].local,) + ref[1:]):
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0,
+                                   atol=1e-10 * float(want.abs().max()))

@@ -2,8 +2,9 @@
 source matrix, ``redistribute``, ``transpose_dist``, ``panel_spread`` and
 LU's row moves (``move_rows``, ``permute_rows_storage``) give storage
 bit-equal to ``elemental_tpu``'s on 2x2 and 2x4 grids, and
-``interior_view`` gives storage bit-equal to the JAX package's for random
-offsets on 2x4 and 4x2 grids (the port moves values through the global
+``interior_view`` and ``interior_update`` give storage bit-equal to the
+JAX package's for random offsets on 2x4 and 4x2 grids (and on 1x1 for
+``interior_update``; the port moves values through the global
 matrix or one storage gather, the JAX engine through collectives;
 neither does arithmetic)."""
 import jax
@@ -13,6 +14,7 @@ import pytest
 import elemental_tpu as el
 import elemental_tpu_torch as et
 from elemental_tpu.redist import engine as jax_engine
+from elemental_tpu.redist.interior import interior_update as jax_interior_update
 from elemental_tpu.redist.interior import interior_view as jax_interior_view
 
 GRIDS = [(2, 2), (2, 4)]
@@ -184,3 +186,31 @@ def test_interior_view_one_by_one_and_bounds():
     shifted = et.from_global(F, et.MC, et.MR, tgrid(2, 2), calign=1)
     with pytest.raises(ValueError, match="zero alignment"):
         et.interior_view(shifted, (0, 2), (0, 2))
+
+
+@pytest.mark.parametrize("rc", [(1, 1), (2, 4), (4, 2)],
+                         ids=lambda rc: f"{rc[0]}x{rc[1]}")
+@pytest.mark.parametrize("pair", INTERIOR_PAIRS,
+                         ids=[f"{a}{b}" for a, b in INTERIOR_PAIRS])
+def test_interior_update_storage_bit_equal(rc, pair):
+    """Random (non-grain) offsets: the block lands where the JAX package's
+    rotations put it; the input matrix is left untouched."""
+    m, n = 13, 11
+    rng = np.random.default_rng(17)
+    F = rng.normal(size=(m, n))
+    jA = el.from_global(F, *_pair(el, pair), jgrid(*rc))
+    tA = et.from_global(F, *_pair(et, pair), tgrid(*rc))
+    for _ in range(3):
+        h, w = int(rng.integers(1, m + 1)), int(rng.integers(1, n + 1))
+        at = (int(rng.integers(0, m - h + 1)), int(rng.integers(0, n - w + 1)))
+        G = rng.normal(size=(h, w))
+        jB = el.from_global(G, *_pair(el, pair), jgrid(*rc))
+        tB = et.from_global(G, *_pair(et, pair), tgrid(*rc))
+        before = tA.local.clone()
+        jA = jax_interior_update(jA, jB, at)
+        tA2 = et.interior_update(tA, tB, at)
+        assert bool((tA.local == before).all())
+        tA = tA2
+        assert np.array_equal(et.storage_numpy(tA), np.asarray(jA.local))
+    with pytest.raises(ValueError, match="exceeds"):
+        et.interior_update(tA, tB, (m - h + 1, 0))
