@@ -16,8 +16,8 @@ Phases, each of which raises on failure:
    could take (``bound_ms``): ``potrf_inv`` (w = 1 ... 2048),
    ``lu_panel`` (32768 x 2048 ... a panel of constructed ties, the edges
    of its 128-column outer block) and
-   ``qr_panel`` (65536 x 2048 ... 33 x 7, a zero column, graded columns,
-   a strided view);
+   ``qr_panel`` (65536 x 2048, the SVD path's 32768 x 512 ... 33 x 7, a
+   zero column, graded columns, a strided view);
 3. the Cholesky main path at full width: ``hpd_solve(A, B, nb=2048)`` on
    the 1x1 grid, N = 32768 float32, nrhs = 8, A = G G^T / N + N I from a
    seeded generator; the factor gate of ``bench.py``, a solve residual,
@@ -36,19 +36,36 @@ Phases, each of which raises on failure:
    B = G' G'^T / N + N I from seeded generators; the wall time whole and
    per step of the call (Cholesky, ``two_sided_trsm``,
    ``hermitian_tridiag`` against its bytes floor, ``tridiag_eig``,
-   ``apply_q_herm_tridiag`` and its plain T rebuilds, the final
+   ``apply_q_herm_tridiag`` and its T rebuilds, the final
    ``trsm``), a device profile with the idle share, three gates over
    N eps (residual, B-orthogonality, eigenvalues against the float64
    ``eigvalsh`` of the reduced matrix), ``torch.linalg.eigh`` of that
    matrix timed beside it, and ``potrf_inv``'s launch count on that run;
+3e. the SVD main path at full width: ``svd(A, nb=512)`` on the 1x1 grid
+   (the Chan route: ``qr``, the QDWH ``polar`` of R, ``herm_eig`` of H, a
+   ``gemm`` and ``apply_q``), m = 32768, n = 16384 float32, A = U0
+   diag(s0) V0^T with seeded orthonormal U0, V0 and s0 geometric from 1
+   to 1e-3; the wall time whole and per step, a device profile of
+   ``polar`` with the idle share, four gates over n eps (reconstruction,
+   U and V orthogonality, singular values against s0),
+   ``torch.linalg.svd(A)`` timed beside it, and the launch counts the
+   QDWH schedule predicts (``qr_panel`` and ``potrf_inv``; no
+   ``lu_panel``);
+3f. the rest of the slice at n = 4096 float32, each timed with its
+   launches: ``herm_eig(approach='qdwh')`` (the gates of 3d against the
+   float64 ``eigvalsh``), ``svd(approach='golub')`` at 8192 x 4096 (the
+   gates of 3e), ``polar`` of a square matrix and ``sign`` of a
+   symmetric indefinite one (through ``lu_panel``);
 4. the distributed branches: ``hpd_solve`` and ``lu`` + ``lu_solve_after``
    on a virtual 2x2 grid on the card, N = 1024 float64, nb = 128, with
    and without the crossover, against ``torch.linalg.solve``;
    ``least_squares`` (m = 1536, n = 1024 float64, nb = 128) against
    ``torch.linalg.lstsq``, with ``lq`` and ``rq`` residuals;
    ``herm_eig``, ``skew_herm_eig`` and ``herm_gen_def_eig`` (n = 1024
-   float64, nb = 128: the D&C and its distributed merges); and
-   ``entry.dryrun_multichip(8)`` on a virtual 2x4 grid.
+   float64, nb = 128: the D&C and its distributed merges); every
+   ``svd`` route, ``polar`` (tall and wide), ``herm_eig(approach='qdwh')``
+   and ``herk`` / ``syrk`` / ``trrk`` in float64 with the JAX tests'
+   bounds; and ``entry.dryrun_multichip(8)`` on a virtual 2x4 grid.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the card's name and power limit, and the one before that the JSON
@@ -339,8 +356,9 @@ def qr_residuals(F, packed, tau, T):
 
 
 def _qr_panels():
-    """(label, panel, main) for phase 2: the ladder, the main path's first
-    panel, a zero column, graded columns (float64) and a strided view."""
+    """(label, panel, path) for phase 2: the least-squares path's first
+    panel (path "3c"), the SVD path's panel (path "3e"), the ladder, a
+    zero column, graded columns (float64) and a strided view."""
     import torch
 
     def normal(M, k, dt, seed):
@@ -348,24 +366,25 @@ def _qr_panels():
         gen.manual_seed(seed)
         return torch.randn(M, k, generator=gen, device="cuda", dtype=dt)
 
-    yield "65536x2048", normal(65536, 2048, torch.float32, 1), True
+    yield "65536x2048", normal(65536, 2048, torch.float32, 1), "3c"
+    yield "32768x512", normal(32768, 512, torch.float32, 5), "3e"
     for dt in (torch.float32, torch.float64):
         for M, k in ((2048, 2048), (4096, 512), (1000, 100), (33, 7)):
-            yield f"{M}x{k}", normal(M, k, dt, M + k), False
+            yield f"{M}x{k}", normal(M, k, dt, M + k), None
     # the edges of the blocking: k not a multiple of the 32-column inner
     # chunk or the 128-column outer block, M = k, and M just below and
     # above the slab grain (132 CTAs x 64 rows)
     for M, k in ((1000, 130), (4097, 257), (2048, 300), (300, 300),
                  (8447, 300), (8449, 300)):
-        yield f"{M}x{k}", normal(M, k, torch.float32, M + k), False
+        yield f"{M}x{k}", normal(M, k, torch.float32, M + k), None
     Z = normal(4096, 512, torch.float32, 2)
     Z[:, 300] = 0.0
-    yield "zero-column", Z, False
+    yield "zero-column", Z, None
     Gd = normal(4096, 512, torch.float64, 3)
     Gd *= torch.logspace(0, -10, 512, device="cuda", dtype=torch.float64)
-    yield "graded", Gd, False
+    yield "graded", Gd, None
     big = normal(5000, 700, torch.float32, 4)
-    yield "strided-view", big[7:, 50:562], False
+    yield "strided-view", big[7:, 50:562], None
 
 
 def phase_qr_panel() -> list:
@@ -380,7 +399,7 @@ def phase_qr_panel() -> list:
     from elemental_tpu_torch.kernels import qr_panel, qr_panel_reference
     from elemental_tpu_torch.kernels.qr_panel import _larft, _panel_v
     rows = []
-    for label, P, main in _qr_panels():
+    for label, P, path in _qr_panels():
         name = str(P.dtype).replace("torch.", "")
         M, k = P.shape
         packed, tau, T = qr_panel(P)
@@ -426,10 +445,10 @@ def phase_qr_panel() -> list:
                "bound_ms": max(flop_ms, byte_ms),
                "bound_by": "operations" if flop_ms >= byte_ms else "bytes"}
         print("phase 2 qr_panel " + json.dumps(row), flush=True)
-        if main:
+        if path == "3c":
             print("phase 2 qr_panel breakdown " + json.dumps(
                 _device_breakdown(lambda: qr_panel(P))), flush=True)
-            row["main"] = True
+        row["path"] = path
         rows.append(row)
         del P, packed, ref, T, rT, Tl
     return rows
@@ -767,7 +786,7 @@ def phase_eig_main_path(et, card: str) -> dict:
     X = step("trsm_s", lambda: et.trsm("L", "L", "C", L, Z, nb=nb))
     del Z
 
-    # apply_q_herm_tridiag's share spent rebuilding T with the plain _larft
+    # apply_q_herm_tridiag's share spent rebuilding T with _larft
     def larfts():
         for s in range(0, N - 1, nb):
             e_col = min(s + nb, N - 1)
@@ -810,6 +829,292 @@ def phase_eig_main_path(et, card: str) -> dict:
            "gate_residual_over_Neps": res, "gate_orthogonality_over_Neps": orth,
            "gate_eigenvalues_over_Neps": lam, "card": card}
     print("phase 3d eigensolver main path " + json.dumps(out), flush=True)
+    return out
+
+
+def svd_gates(A, U, s, V, s_ref):
+    """Phase 3e's four ratios, each over n eps (float32 eps), reduced in
+    float64: ``(reconstruction, U orthogonality, V orthogonality, singular
+    values)`` = ||A - U diag(s) V^T||_F / ||A||_F, ||U^T U - I||_max,
+    ||V^T V - I||_max and max|s - s_ref| / max(s_ref).
+    ``tests/test_torch_gpu.py`` uses it too."""
+    import torch
+    n = V.shape[0]
+    neps = n * torch.finfo(torch.float32).eps
+    u = U.double()
+    rec = (u * s.double()[None, :]) @ V.double().T
+    rec -= A.double()
+    rec_r = float(torch.linalg.norm(rec) / torch.linalg.norm(A.double()))
+    del rec
+    g = u.T @ u
+    del u
+    g.diagonal().sub_(1.0)
+    orth_u = float(g.abs().max())
+    v = V.double()
+    g = v.T @ v
+    g.diagonal().sub_(1.0)
+    orth_v = float(g.abs().max())
+    del g, v
+    sr = s_ref.double()
+    sv = float((s.double() - sr).abs().max() / sr.abs().max())
+    return rec_r / neps, orth_u / neps, orth_v / neps, sv / neps
+
+
+def _svd_matrix(m: int, n: int, seed: int):
+    """(A, s0): A = U0 diag(s0) V0^T in float32 on the card, U0 and V0 the
+    Q factors (``torch.linalg.qr``: test data, not the port) of seeded
+    standard normals, s0 geometric from 1 down to 1e-3 (float64), so the
+    reference singular values are known without an SVD."""
+    import torch
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    U0 = torch.linalg.qr(torch.randn(m, n, generator=gen, device="cuda")).Q
+    V0 = torch.linalg.qr(torch.randn(n, n, generator=gen, device="cuda")).Q
+    s0 = torch.logspace(0, -3, n, device="cuda", dtype=torch.float64)
+    U0 *= s0.float()[None, :]
+    A = U0 @ V0.T
+    del U0, V0
+    return A, s0
+
+
+def _qdwh_counts(et, n: int, nb: int, dtype) -> tuple:
+    """(qr_panel, potrf_inv) launches that ``svd(A, nb)`` of a tall float32
+    (m, n) matrix must make on the 1x1 grid, from the QDWH schedule:
+    Chan's ``qr`` and each QR step's ``qr`` of the (2n, n) stack take
+    n / nb panels each, each Cholesky step's ``cholesky`` n / nb blocks."""
+    funcs = sys.modules["elemental_tpu_torch.lapack.funcs"]
+    eps = funcs._eps_of(dtype)
+    sched = funcs._qdwh_schedule(eps, 10 * eps)
+    n_qr = sum(1 for (_, _, c) in sched if c > 100.0)
+    panels = -(-n // nb)
+    return panels * (1 + n_qr), panels * (len(sched) - n_qr), n_qr, \
+        len(sched) - n_qr
+
+
+def phase_svd_main_path(et, card: str) -> dict:
+    """svd at full width on the 1x1 grid (the Chan route: qr, the QDWH
+    polar of R, herm_eig of H, a gemm and apply_q): the call timed whole,
+    then its steps one by one, a device profile of polar, the four gates
+    and torch.linalg.svd timed beside it."""
+    import torch
+    from elemental_tpu_torch.kernels import lu_panel, potrf_inv, qr_panel
+    funcs = sys.modules["elemental_tpu_torch.lapack.funcs"]
+    m, n, nb = 32768, 16384, 512
+    grid = et.Grid()
+
+    def dm(x):
+        return et.from_global(x, et.MC, et.MR, grid)
+
+    # warm-up at a small size (library handles, the kernels' first
+    # launches, the eigensolver's batched leaves)
+    Aw, _ = _svd_matrix(4096, 2048, seed=31)
+    et.svd(dm(Aw), nb=nb)
+    del Aw
+    Ag, s0 = _svd_matrix(m, n, seed=30)
+    A = dm(Ag)
+    want_qr, want_potrf, n_qr, n_chol = _qdwh_counts(et, n, nb,
+                                                      torch.float32)
+    torch.cuda.synchronize()
+    potrf_inv.launches = lu_panel.launches = qr_panel.launches = 0
+    t0 = time.perf_counter()
+    U, s, V = et.svd(A, nb=nb)
+    torch.cuda.synchronize()
+    t_total = time.perf_counter() - t0
+    launches = {"qr_panel": qr_panel.launches,
+                "potrf_inv": potrf_inv.launches, "lu_panel": lu_panel.launches}
+    if launches != {"qr_panel": want_qr, "potrf_inv": want_potrf,
+                    "lu_panel": 0}:
+        raise AssertionError(f"svd launches {launches}, expected qr_panel "
+                             f"{want_qr}, potrf_inv {want_potrf}, lu_panel 0")
+    if not (bool(torch.isfinite(U.local).all())
+            and bool(torch.isfinite(V.local).all())
+            and U.gshape == (m, n) and V.gshape == (n, n)
+            and tuple(s.shape) == (n,) and bool((s[1:] <= s[:-1]).all())):
+        raise AssertionError("svd: U or V not finite, a shape is wrong or s "
+                             "is not descending")
+    rec, orth_u, orth_v, sv = svd_gates(Ag, U.local, s, V.local, s0)
+    del U, V, s
+    if not (rec < 16 and orth_u < 16 and orth_v < 16 and sv < 16):
+        raise AssertionError(f"svd gates: reconstruction {rec:.3f}, U "
+                             f"orthogonality {orth_u:.3f}, V orthogonality "
+                             f"{orth_v:.3f}, singular values {sv:.3f} "
+                             "(each / (n eps), each < 16)")
+
+    # the call's steps, one by one (what svd -> _svd_polar -> polar run)
+    steps = {}
+
+    def step(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        steps[name] = steps.get(name, 0.0) + time.perf_counter() - t
+        return out
+
+    Ap, tau = step("qr_s", lambda: et.qr(A, nb=nb))
+    R = et.make_trapezoidal(et.interior_view(Ap, (0, n), (0, n)), "U")
+
+    def polar_steps():
+        eps = funcs._eps_of(torch.float32)
+        alpha = float(torch.sqrt(et.one_norm(R) * et.infinity_norm(R)))
+        X = R.with_local(R.local / alpha)
+        for i, (a, b, c) in enumerate(funcs._qdwh_schedule(eps, 10 * eps)):
+            if c > 100.0:
+                X = step("polar_qr_steps_s", lambda: funcs._qdwh_step_qr(
+                    X, a, b, c, nb, None))
+            elif "polar_chol_steps_s" in steps:
+                X = step("polar_chol_steps_s", lambda: funcs._qdwh_step_chol(
+                    X, a, b, c, nb, None))
+            else:
+                X = step("polar_chol_steps_s", lambda: chol_parts(X, a, b, c))
+        H = step("polar_H_s", lambda: funcs._hermitianize(et.gemm(
+            X, R, orient_a="C", alg="dot", nb=nb)))
+        return X, H
+
+    def chol_parts(X, a, b, c):
+        # the first Cholesky step split at its calls; a right-side trsm
+        # transposes its operand twice through redistribute
+        Z = step("chol_step_herk_s", lambda: et.herk(
+            "L", X, alpha=c, orient="C", nb=nb))
+        W = step("chol_step_cholesky_s", lambda: et.cholesky(
+            et.shift_diagonal(Z, 1), "L", nb=nb))
+        del Z
+        B = step("chol_step_trsm_R_s", lambda: et.trsm(
+            "R", "L", "C", W, X, nb=nb))
+        B = step("chol_step_trsm_R_s", lambda: et.trsm(
+            "R", "L", "N", W, B, nb=nb))
+        return X.with_local(B.local.mul_(a - b / c).add_(X.local,
+                                                        alpha=b / c))
+
+    Up, H = polar_steps()
+    # one of the four transposes of an operand that the first Cholesky
+    # step's two right-side trsm make
+    step("chol_step_one_transpose_s", lambda: et.redistribute(
+        et.transpose_dist(Up), et.MC, et.MR))
+    steps["polar_s"] = (steps["polar_qr_steps_s"]
+                        + steps["polar_chol_steps_s"] + steps["polar_H_s"])
+    w, Vh = step("herm_eig_s", lambda: et.herm_eig(H, "L", True, nb=nb))
+    del H
+    order = torch.argsort(-w, stable=True)
+    Vd = step("permute_cols_s", lambda: et.permute_cols(Vh, order))
+    del Vh
+    UR = step("gemm_s", lambda: et.gemm(Up, Vd, alg="dot"))
+    del Up, Vd
+    step("apply_q_s", lambda: et.apply_q(Ap, tau, et.pad_matrix(UR, m, n),
+                                         nb=nb))
+    del UR, Ap, tau
+
+    # torch.linalg.svd of A, timed beside the path (the port never calls
+    # it); one call takes ~53 s here (NVIDIA H100 80GB HBM3, 700 W), under
+    # the 120 s above which it would be timed on R instead
+    lib_ms = _time_ms(lambda: torch.linalg.svd(Ag, full_matrices=False), 1,
+                      warm=False)
+    # a device profile of polar alone, and its idle share
+    t0 = time.perf_counter()
+    et.polar(R, nb=nb)
+    torch.cuda.synchronize()
+    t_polar = time.perf_counter() - t0
+    prof = _device_breakdown(lambda: et.polar(R, nb=nb), top=14, cpu=False)
+    prof["unprofiled_polar_s"] = t_polar
+    prof["idle_share_vs_unprofiled_wall"] = max(
+        0.0, 1 - prof["device_busy_ms"] / (t_polar * 1e3))
+    print("phase 3e polar breakdown " + json.dumps(prof), flush=True)
+    del R, A, Ag
+    out = {"m": m, "n": n, "nb": nb, "dtype": "float32", "route": "chan",
+           "qdwh_qr_steps": n_qr, "qdwh_chol_steps": n_chol,
+           "svd_s": t_total, **steps, "torch_linalg_svd_ms": lib_ms,
+           "qr_panel_launches": launches["qr_panel"],
+           "potrf_inv_launches": launches["potrf_inv"],
+           "lu_panel_launches": launches["lu_panel"],
+           "gate_reconstruction_over_neps": rec,
+           "gate_U_orthogonality_over_neps": orth_u,
+           "gate_V_orthogonality_over_neps": orth_v,
+           "gate_singular_values_over_neps": sv, "card": card}
+    print("phase 3e svd main path " + json.dumps(out), flush=True)
+    return out
+
+
+def phase_svd_rest(et, card: str) -> dict:
+    """The rest of the slice on the card at n = 4096 float32, each timed:
+    herm_eig(approach='qdwh'), svd(approach='golub') at 8192 x 4096,
+    polar of a square matrix and sign of a symmetric indefinite one."""
+    import torch
+    from elemental_tpu_torch.kernels import lu_panel, potrf_inv, qr_panel
+    n, nb = 4096, 512
+    grid = et.Grid()
+    neps = n * torch.finfo(torch.float32).eps
+
+    def dm(x):
+        return et.from_global(x, et.MC, et.MR, grid)
+
+    def timed(fn):
+        potrf_inv.launches = lu_panel.launches = qr_panel.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t, {
+            "qr_panel": qr_panel.launches, "potrf_inv": potrf_inv.launches,
+            "lu_panel": lu_panel.launches}
+
+    out = {"n": n, "nb": nb, "dtype": "float32"}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(40)
+    G = torch.randn(n, n, generator=gen, device="cuda")
+    F = (G + G.T) / 2
+    (w, Z), t, cnt = timed(lambda: et.herm_eig(dm(F), nb=nb,
+                                               approach="qdwh"))
+    eye = torch.eye(n, device="cuda")
+    res, orth, lam = eig_gates(F, eye, Z.local, w,
+                               torch.linalg.eigvalsh(F.double()))
+    del Z
+    out["herm_eig_qdwh"] = {"s": t, "launches": cnt,
+                            "gate_residual_over_neps": res,
+                            "gate_orthogonality_over_neps": orth,
+                            "gate_eigenvalues_over_neps": lam}
+    if not (res < 16 and orth < 16 and lam < 16 and cnt["potrf_inv"] > 0
+            and cnt["qr_panel"] > 0):
+        raise AssertionError(f"herm_eig qdwh: {out['herm_eig_qdwh']}")
+
+    Ag, s0 = _svd_matrix(2 * n, n, seed=41)
+    (U, s, V), t, cnt = timed(lambda: et.svd(dm(Ag), nb=nb,
+                                             approach="golub"))
+    gates = svd_gates(Ag, U.local, s, V.local, s0)
+    del U, V, Ag
+    out["svd_golub"] = {"m": 2 * n, "s": t, "launches": cnt,
+                        "gates_over_neps": gates}
+    if not max(gates) < 16:
+        raise AssertionError(f"svd golub: {out['svd_golub']}")
+
+    Gs = torch.randn(n, n, generator=gen, device="cuda")
+    (Up, H), t, cnt = timed(lambda: et.polar(dm(Gs), nb=nb))
+    u = Up.local.double()
+    g = u.T @ u
+    g.diagonal().sub_(1.0)
+    orth = float(g.abs().max()) / neps
+    res = float(torch.linalg.norm(Gs.double() - u @ H.local.double())
+                / torch.linalg.norm(Gs.double())) / neps
+    del u, g, Up, H
+    out["polar_square"] = {"s": t, "launches": cnt,
+                           "gate_orthogonality_over_neps": orth,
+                           "gate_residual_over_neps": res}
+    if not (orth < 16 and res < 16):
+        raise AssertionError(f"polar: {out['polar_square']}")
+
+    Q = torch.linalg.qr(torch.randn(n, n, generator=gen, device="cuda")).Q
+    d = torch.rand(n, generator=gen, device="cuda") * 1.5 + 0.5
+    d[n // 2:] *= -1
+    Sa = (Q * d[None, :]) @ Q.T
+    Sa = (Sa + Sa.T) / 2
+    Sg, t, cnt = timed(lambda: et.sign(dm(Sa), nb=nb))
+    sd = Sg.local.double()
+    res = float((sd @ sd - torch.eye(n, device="cuda",
+                                      dtype=torch.float64)).abs().max()) / neps
+    out["sign"] = {"s": t, "launches": cnt, "gate_S2_minus_I_over_neps": res}
+    if not (res < 16 and cnt["lu_panel"] > 0):
+        raise AssertionError(f"sign: {out['sign']}")
+    out["card"] = card
+    print("phase 3f svd slice " + json.dumps(out), flush=True)
     return out
 
 
@@ -867,6 +1172,118 @@ def phase_eig_distributed(et) -> None:
         raise AssertionError(f"eigensolvers on the 2x2 grid: {row}")
     print("phase 4 eigensolvers distributed " + json.dumps(row), flush=True)
 
+
+def phase_svd_distributed(et) -> None:
+    """svd (every route), polar (tall and wide), herm_eig(approach='qdwh')
+    and herk / syrk / trrk on a virtual 2x2 grid on the card, float64,
+    with the bounds of the JAX package's tests (tests/lapack/
+    test_spectral.py::_check_svd / _check_eig, tests/lapack/
+    test_funcs.py, tests/blas/test_level3.py)."""
+    import torch
+    grid = et.Grid(2, 2)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    f64 = torch.float64
+
+    def dm(x):
+        return et.from_global(x, et.MC, et.MR, grid)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda", dtype=f64)
+
+    def check_svd(F, U, s, V, sv):
+        """tests/lapack/test_spectral.py::_check_svd and
+        ::test_svd_values_only as (value, bound) pairs."""
+        sn = torch.linalg.svdvals(F)
+        k = s.shape[0]
+        smax = max(float(sn[0]), 1.0)
+        Ug, Vg = et.to_global(U), et.to_global(V)
+        eye = torch.eye(k, device="cuda", dtype=f64)
+        return {"s": (float((s - sn[:k]).abs().max()) / smax, 1e-12),
+                "rec": (float(torch.linalg.norm((Ug * s[None, :]) @ Vg.T - F)
+                              / torch.linalg.norm(F)), 1e-12),
+                "orth_u": (float(torch.linalg.norm(Ug.T @ Ug - eye)) / k,
+                           1e-12),
+                "orth_v": (float(torch.linalg.norm(Vg.T @ Vg - eye)) / k,
+                           1e-12),
+                "values_only": (float((sv - sn).abs().max()) / smax, 1e-12)}
+
+    rows = {}
+    for name, shape, kw in (("chan", (480, 192), {"approach": "chan"}),
+                            ("auto_tall", (480, 192), {}),
+                            ("polar", (256, 256), {"approach": "polar"}),
+                            ("golub", (300, 200), {"approach": "golub"}),
+                            ("local", (200, 120), {"approach": "local"}),
+                            ("wide", (192, 320), {}),
+                            ("eig_qdwh", (256, 256),
+                             {"approach": "polar", "eig_approach": "qdwh"})):
+        F = rnd(*shape)
+        U, s, V = et.svd(dm(F), nb=64, **kw)
+        sv = et.svd(dm(F), vectors=False, nb=64, **kw)
+        rows[name] = check_svd(F, U, s, V, sv)
+    # tests/lapack/test_funcs.py::test_polar_tall_wide_complex
+    for shape, rec_bound in (((384, 256), 1e-14), ((256, 384), 1e-13)):
+        F = rnd(*shape)
+        U, H = et.polar(dm(F), nb=64)
+        Ug, Hg = et.to_global(U), et.to_global(H)
+        k = min(shape)
+        eye = torch.eye(k, device="cuda", dtype=f64)
+        gram = Ug.T @ Ug if shape[0] >= shape[1] else Ug @ Ug.T
+        rows[f"polar_{shape[0]}x{shape[1]}"] = {
+            "orth": (float(torch.linalg.norm(gram - eye)), 1e-13),
+            "rec": (float(torch.linalg.norm(Ug @ Hg - F)
+                          / torch.linalg.norm(F)), rec_bound)}
+    # tests/lapack/test_spectral.py::_check_eig
+    n = 256
+    G = rnd(n, n)
+    F = (G + G.T) / 2
+    w, Z = et.herm_eig(dm(F), nb=64, approach="qdwh")
+    Zg = et.to_global(Z)
+    wn = torch.linalg.eigvalsh(F)
+    rows["herm_eig_qdwh"] = {
+        "w": (float(torch.linalg.norm(w - wn) / torch.linalg.norm(wn)), 1e-12),
+        "res": (float(torch.linalg.norm(F @ Zg - Zg * w[None, :])
+                      / torch.linalg.norm(F)), 1e-12),
+        "orth": (float(torch.linalg.norm(Zg.T @ Zg - torch.eye(
+            n, device="cuda", dtype=f64))) / n, 1e-12)}
+    # tests/blas/test_level3.py::test_herk / test_syrk / test_trrk: the
+    # triangle to rtol 1e-12, the other strict triangle C's exactly
+    m, k = 180, 100
+    X, C0 = rnd(m, k), rnd(m, m)
+    tri_err, other = 0.0, 0.0
+    for uplo in ("L", "U"):
+        tri = torch.tril if uplo == "L" else torch.triu
+        anti = (lambda x: torch.triu(x, 1)) if uplo == "L" \
+            else (lambda x: torch.tril(x, -1))
+        for orient, Xo in (("N", X), ("C", X.T.contiguous())):
+            got = et.to_global(et.herk(uplo, dm(Xo), alpha=2.0, beta=0.5,
+                                       C=dm(C0), orient=orient, nb=32))
+            want = 2.0 * X @ X.T + 0.5 * C0
+            tri_err = max(tri_err, float((tri(got) - tri(want)).abs().max()
+                                         / want.abs().max()))
+            other = max(other, float((anti(got) - anti(C0)).abs().max()))
+    got = et.to_global(et.syrk("L", dm(X), nb=32))
+    tri_err = max(tri_err, float((torch.tril(got) - torch.tril(X @ X.T))
+                                 .abs().max() / (X @ X.T).abs().max()))
+    Amc = et.redistribute(dm(X), et.MC, et.STAR)
+    Bmr = et.redistribute(dm(X.T.contiguous()), et.STAR, et.MR)
+    got = et.to_global(et.trrk("U", 1.5, Amc, Bmr, 2.0, dm(C0)))
+    want = 1.5 * X @ X.T + 2.0 * C0
+    tri_err = max(tri_err, float((torch.triu(got) - torch.triu(want))
+                                 .abs().max() / want.abs().max()))
+    other = max(other, float((torch.tril(got, -1) - torch.tril(C0, -1))
+                             .abs().max()))
+    rows["herk_syrk_trrk"] = {"triangle": (tri_err, 1e-12),
+                              "other_triangle": (other, 0.0)}
+    torch.cuda.synchronize()
+    print("phase 4 svd distributed " + json.dumps(
+        {"grid": "2x2", "dtype": "float64",
+         "value_bound": rows}), flush=True)
+    bad = {name: {k: vb for k, vb in row.items() if not vb[0] <= vb[1]}
+           for name, row in rows.items()}
+    bad = {name: row for name, row in bad.items() if row}
+    if bad:
+        raise AssertionError(f"svd slice on the 2x2 grid: {bad}")
 
 def phase_distributed(et) -> None:
     """hpd_solve on a virtual 2x2 grid on the card, against torch.linalg.solve."""
@@ -1000,18 +1417,39 @@ def main() -> int:
     lu_path = phase_lu_main_path(et, card)
     qr_path = phase_qr_main_path(et, card)
     eig_path = phase_eig_main_path(et, card)
+    svd_path = phase_svd_main_path(et, card)
+    svd_rest = phase_svd_rest(et, card)
     phase_distributed(et)
     phase_lu_distributed(et)
     phase_qr_distributed(et)
     phase_eig_distributed(et)
+    phase_svd_distributed(et)
     et.entry.dryrun_multichip(8)
 
     at_path = next(r for r in rows if r["w"] == 2048 and r["dtype"] == "float32")
     at_eig = next(r for r in rows if r["w"] == 512 and r["dtype"] == "float32")
-    print("phase 3d potrf_inv at w = 512 " + json.dumps(
+    print("phase 3d/3e potrf_inv at w = 512 " + json.dumps(
         {k: at_eig[k] for k in ("kernel_ms", "plain_ms", "library_ms",
                                 "bound_ms", "bound_by", "max_abs_err")}
-        | {"launches": eig_path["potrf_inv_launches"]}), flush=True)
+        | {"launches_3d": eig_path["potrf_inv_launches"],
+           "launches_3e": svd_path["potrf_inv_launches"]}), flush=True)
+    qr_svd = next(r for r in qr_rows if r["path"] == "3e")
+    print("phase 3e qr_panel at 32768 x 512 " + json.dumps(
+        {k: qr_svd[k] for k in ("kernel_ms", "plain_ms", "library_ms",
+                                "bound_ms", "bound_by", "max_abs_err")}
+        | {"launches_3e": svd_path["qr_panel_launches"]}), flush=True)
+
+    def by_phase(name):
+        """The kernel's launches on each path that runs it."""
+        key = f"{name}_launches"
+        out = {p: d[key] for p, d in (("3", main_path), ("3b", lu_path),
+                                      ("3c", qr_path), ("3d", eig_path),
+                                      ("3e", svd_path)) if d.get(key)}
+        for step, d in svd_rest.items():
+            if isinstance(d, dict) and d["launches"].get(name):
+                out[f"3f {step}"] = d["launches"][name]
+        return out
+
     kernels = [{
         "name": "potrf_inv", "route": "cuda",
         "source": "elemental_tpu_torch/kernels/csrc/potrf_inv.cu",
@@ -1020,6 +1458,7 @@ def main() -> int:
         "max_abs_err": at_path["max_abs_err"], "ms": at_path["kernel_ms"],
         "plain_ms": at_path["plain_ms"], "bound_ms": at_path["bound_ms"],
         "bound_by": at_path["bound_by"], "library_ms": at_path["library_ms"],
+        "launches_by_phase": by_phase("potrf_inv"),
     }]
     lu_at = next(r for r in lu_rows if r["M"] == 32768)
     kernels.append({
@@ -1030,8 +1469,9 @@ def main() -> int:
         "max_abs_err": lu_at["max_abs_err"],
         "ms": lu_at["kernel_ms"], "plain_ms": lu_at["plain_ms"],
         "bound_ms": lu_at["bound_ms"], "bound_by": lu_at["bound_by"],
-        "library_ms": lu_at["library_ms"]})
-    qr_at = next(r for r in qr_rows if r.get("main"))
+        "library_ms": lu_at["library_ms"],
+        "launches_by_phase": by_phase("lu_panel")})
+    qr_at = next(r for r in qr_rows if r["path"] == "3c")
     kernels.append({
         "name": "qr_panel", "route": "cuda",
         "source": "elemental_tpu_torch/kernels/csrc/qr_panel.cu",
@@ -1040,7 +1480,8 @@ def main() -> int:
         "max_abs_err": qr_at["max_abs_err"],
         "ms": qr_at["kernel_ms"], "plain_ms": qr_at["plain_ms"],
         "bound_ms": qr_at["bound_ms"], "bound_by": qr_at["bound_by"],
-        "library_ms": qr_at["library_ms"]})
+        "library_ms": qr_at["library_ms"],
+        "launches_by_phase": by_phase("qr_panel")})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

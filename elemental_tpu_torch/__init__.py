@@ -16,7 +16,12 @@ block-reflector triangle as a hand-written cooperative CUDA kernel
 ``skew_herm_eig``, ``hermitian_svd``, ``herm_gen_def_eig``: Cholesky,
 ``two_sided_trsm``, ``hermitian_tridiag``, the Cuppen divide and conquer
 ``tridiag_eig`` and ``apply_q_herm_tridiag``), with SUMMA ``gemm``, the
-level-2 BLAS and ``entry`` (the twin of ``__graft_entry__.py``).
+level-2 BLAS and ``entry`` (the twin of ``__graft_entry__.py``); and the
+SVD (``svd``: the Chan route, QDWH ``polar`` + ``herm_eig``, the
+Golub-Kahan route through ``bidiag``), the rest of the matrix functions
+(``sign``, the inverses, ``pseudoinverse``, the square roots),
+``herm_eig(approach='qdwh')``, ``hessenberg``, the rank-k updates
+(``herk``, ``syrk``, ``trrk``) and the whole level-1 zoo.
 
 The package imports ``torch`` and numpy only -- never ``jax`` and nothing
 of ``elemental_tpu``.
@@ -27,19 +32,32 @@ from .core.environment import (blocksize, set_blocksize, push_blocksize,
                                pop_blocksize, blocksize_scope)
 from .core.distmatrix import (DistMatrix, from_global, to_global, zeros,
                               from_storage, storage_numpy)
-from .core.view import view, update_view
+from .core.view import view, update_view, pad_matrix
 from .redist.engine import (redistribute, transpose_dist, panel_spread,
                            move_rows, permute_rows_storage)
-from .redist.interior import interior_view, interior_update
-from .blas import (make_trapezoidal, make_symmetric, index_dependent_map,
-                   index_dependent_fill, gemv, ger, hemv, symv, her2, trmv,
-                   trsv, gemm, trsm, trmm, two_sided_trsm, two_sided_trmm)
-from .lapack import (cholesky, hpd_solve, cholesky_solve_after, lu,
-                     lu_solve, lu_solve_after, permute_rows, permute_cols,
-                     qr, apply_q, explicit_q, least_squares, lq, apply_q_lq,
-                     explicit_l, rq, hermitian_tridiag, apply_q_herm_tridiag,
-                     tridiag_eig, herm_eig, skew_herm_eig, herm_gen_def_eig,
-                     hermitian_svd)
+from .redist.interior import interior_view, interior_update, vstack, hstack
+from .blas import (gemm, herk, syrk, trrk, trsm, trmm, two_sided_trsm,
+                   two_sided_trmm)
+from .blas import gemv, ger, hemv, symv, her2, trmv, trsv
+from .blas import (axpy, scale, fill, entrywise_map, hadamard,
+                   index_dependent_map, index_dependent_fill,
+                   make_trapezoidal, shift_diagonal, make_symmetric,
+                   get_diagonal, set_diagonal, diagonal_scale,
+                   diagonal_solve, frobenius_norm, max_norm, one_norm,
+                   infinity_norm, dot, dotu, trace, transpose, adjoint,
+                   real_part, imag_part, max_abs_loc, max_loc,
+                   scale_trapezoid, axpy_trapezoid, safe_scale,
+                   get_submatrix, set_submatrix)
+from .lapack import cholesky, hpd_solve, cholesky_solve_after
+from .lapack import lu, lu_solve, lu_solve_after, permute_rows, permute_cols
+from .lapack import (qr, apply_q, explicit_q, least_squares, lq, apply_q_lq,
+                     explicit_l, rq)
+from .lapack import (hermitian_tridiag, apply_q_herm_tridiag, hessenberg,
+                     apply_q_hessenberg, bidiag, apply_p_bidiag)
+from .lapack import (polar, sign, inverse, triangular_inverse, hpd_inverse,
+                     pseudoinverse, square_root, hpd_square_root)
+from .lapack import (herm_eig, skew_herm_eig, herm_gen_def_eig, hermitian_svd,
+                     svd, tridiag_eig)
 from .matrices import identity
 from . import kernels, entry
 

@@ -1,14 +1,14 @@
-"""Level-3 BLAS: SUMMA Gemm, blocked Trsm, Trmm and the two-sided
-transforms.
+"""Level-3 BLAS: SUMMA Gemm, the rank-k updates, blocked Trsm, Trmm and
+the two-sided transforms.
 
 PyTorch port of ``_check_mcmr``, ``_orient``, ``_mask_triangle``,
 ``gemm`` with its SUMMA schedules (``_summa_c``, ``_summa_a``,
 ``_summa_b``, ``_summa_dot``, ``_summa_slice`` and the ``'gspmd'``
-branch), ``_safe_astype``, ``trsm``, ``_trsm_left``,
-``local_rank_update``, ``trmm``, ``two_sided_trsm`` and
+branch), ``_safe_astype``, ``trrk``, ``herk``, ``syrk``, ``trsm``,
+``_trsm_left``, ``local_rank_update``, ``trmm``, ``two_sided_trsm`` and
 ``two_sided_trmm`` from ``elemental_tpu/blas/level3.py`` (Elemental
-``src/blas_like/level3/``: ``Gemm``, ``Trsm``, ``Trmm``,
-``TwoSidedTrsm``, ``TwoSidedTrmm``).
+``src/blas_like/level3/``: ``Gemm``, ``Herk``/``Syrk``, ``Trrk``,
+``Trsm``, ``Trmm``, ``TwoSidedTrsm``, ``TwoSidedTrmm``).
 
 The stacked-storage array of a DistMatrix is a row/column permutation of
 the global matrix, so whenever two operands agree on the contraction
@@ -29,7 +29,7 @@ from ..core.distmatrix import DistMatrix, zeros as dm_zeros
 from ..core.environment import check_precision
 from ..core.view import view, update_view
 from ..obs.tracer import NULL_HOOK as _NULL_HOOK, phase_hook as _phase_hook
-from ..redist.engine import redistribute, transpose_dist
+from ..redist.engine import panel_spread, redistribute, transpose_dist
 from ..tune.policy import blocksize_policy as _blocksize
 from .level1 import _global_indices, make_symmetric
 
@@ -245,6 +245,86 @@ def _summa_slice(alpha, A, B, beta, C):
         Bs = redistribute(B, STAR, VR)
         D = DistMatrix(As.local @ Bs.local, (m, n), STAR, VR, 0, 0, g)
     return _finish(alpha, redistribute(D, MC, MR).local, beta, C)
+
+
+# ---------------------------------------------------------------------
+# Trrk / Herk / Syrk
+# ---------------------------------------------------------------------
+
+def trrk(uplo: str, alpha, A_mc: DistMatrix, B_mr: DistMatrix, beta,
+         C: DistMatrix, precision=None) -> DistMatrix:
+    """Triangular rank-k: C(tri) := alpha A B + beta C(tri), the other
+    triangle untouched.  A is [MC,STAR], B is [STAR,MR] (the reference's
+    ``LocalTrrk``): the full local product, masked to the triangle."""
+    if A_mc.dist != (MC, STAR) or B_mr.dist != (STAR, MR):
+        raise ValueError("trrk expects A [MC,STAR], B [STAR,MR]")
+    _check_mcmr(C)
+    check_precision(precision, A_mc.local, B_mr.local, C.local)
+    tri_new = alpha * (A_mc.local @ B_mr.local) + beta * C.local
+    return C.with_local(torch.where(_mask_triangle(C, uplo),
+                                    _safe_astype(tri_new, C.dtype), C.local))
+
+
+def herk(uplo: str, A: DistMatrix, alpha=1.0, beta=0.0,
+         C: DistMatrix | None = None, orient: str = "N",
+         nb: int | str | None = None, precision=None, conj: bool = True,
+         comm_precision: str | None = None,
+         redist_path: str | None = None) -> DistMatrix:
+    """C(tri) := alpha op(A) op(A)^H + beta C(tri)  (orient 'N' or 'C'/'T').
+
+    Per k-panel: A1 -> [VC,STAR], then ``panel_spread`` gives the
+    [MC,STAR] panel and its [STAR,MR] adjoint, and one ``addmm_``
+    accumulates their product into ONE buffer in place; the triangle is
+    masked once at the end (in place when C starts at zero on a 1x1
+    grid).  ``nb='auto'``, ``comm_precision`` and ``redist_path`` belong
+    to later slices and raise ``NotImplementedError``."""
+    check_precision(precision, A.local)
+    if isinstance(nb, str):
+        raise NotImplementedError(
+            f"herk nb={nb!r}: 'auto' needs the tuner (a later slice)")
+    for name, v in (("comm_precision", comm_precision),
+                    ("redist_path", redist_path)):
+        if v is not None:
+            raise NotImplementedError(
+                f"herk {name}={v!r} is not ported yet (a later slice)")
+    if orient != "N":
+        A = _orient(A, "C" if conj else "T")
+    _check_mcmr(A)
+    m, k = A.gshape
+    g = A.grid
+    fresh = C is None
+    if fresh:
+        C = dm_zeros(m, m, MC, MR, g, dtype=A.dtype)
+        beta = 0.0
+    else:
+        _check_mcmr(A, C)
+        if C.gshape != (m, m):
+            raise ValueError(f"C shape {C.gshape} != ({m},{m})")
+    kb = _blocksize(nb, g.width, k)
+    dt = torch.promote_types(A.dtype, C.dtype)
+    if isinstance(alpha, complex) or isinstance(beta, complex):
+        dt = torch.promote_types(dt, torch.complex64)
+    acc = (beta * C.local).to(dt) if _nonzero(beta) \
+        else torch.zeros(C.local.shape, dtype=dt, device=C.local.device)
+    for s in range(0, k, kb):
+        e = min(s + kb, k)
+        A1_vc = redistribute(view(A, cols=(s, e)), VC, STAR)
+        A1_mc, A1H_mr = panel_spread(A1_vc, conj=conj)
+        acc.addmm_(A1_mc.local.to(dt), A1H_mr.local.to(dt), alpha=alpha)
+    acc = _safe_astype(acc, C.dtype)
+    if fresh and g.size == 1:
+        # the storage is the global matrix: keep the triangle in place
+        return C.with_local(acc.tril_() if uplo.upper().startswith("L")
+                            else acc.triu_())
+    return C.with_local(torch.where(_mask_triangle(C, uplo), acc, C.local))
+
+
+def syrk(uplo: str, A: DistMatrix, alpha=1.0, beta=0.0,
+         C: DistMatrix | None = None, orient: str = "N",
+         nb: int | None = None, precision=None) -> DistMatrix:
+    """C(tri) := alpha op(A) op(A)^T + beta C(tri) (``El::Syrk``)."""
+    return herk(uplo, A, alpha, beta, C, orient=orient, nb=nb,
+                precision=precision, conj=False)
 
 
 def trsm(side: str, uplo: str, orient: str, A: DistMatrix, B: DistMatrix,

@@ -16,6 +16,8 @@ block sizes as multiples of lcm(r, c) so this always holds.
 ``view`` may return a tensor that shares memory with ``A.local`` (the
 library never writes into it); ``update_view`` returns a NEW matrix and
 leaves ``A`` untouched, as the JAX package's functional update does.
+``pad_matrix`` extends a matrix with zeros (the Chan and Golub-Kahan
+SVD routes pad U with it).
 """
 from __future__ import annotations
 
@@ -77,3 +79,20 @@ def update_view(A: DistMatrix, B: DistMatrix, rows=None, cols=None) -> DistMatri
 
 def round_up(x: int, grain: int) -> int:
     return -(-x // grain) * grain
+
+
+def pad_matrix(A: DistMatrix, M: int, N: int) -> DistMatrix:
+    """Extend the global shape to (M, N) >= gshape with explicit zeros.
+
+    A pure-local storage extension (the cyclic layout keeps each rank's
+    block contiguous per residue class), as in the JAX package."""
+    m, n = A.gshape
+    if M < m or N < n:
+        raise ValueError(f"pad_matrix target ({M},{N}) smaller than {A.gshape}")
+    Sc, Sr = A.col_stride, A.row_stride
+    lr2 = ix.max_local_length(M, Sc)
+    lc2 = ix.max_local_length(N, Sr)
+    b, lr, lc = _blocked(A.local, Sc, Sr)
+    b = torch.nn.functional.pad(b, (0, lc2 - lc, 0, 0, 0, lr2 - lr))
+    return dataclasses.replace(A, local=b.reshape(Sc * lr2, Sr * lc2),
+                               gshape=(M, N))

@@ -88,19 +88,36 @@ def _larft(V, tau):
     """Forward-columnwise block-reflector triangle (the JAX package's
     ``_larft``): Q = I - V T V^H, T upper triangular with diagonal tau.
 
-    Column i of T is ``-tau_i T[:i, :i] (V^H V)[:i, i]``; it is built as
-    row i of T^T, so each step writes one contiguous row (one matrix-
-    vector product and one scale)."""
+    The JAX package runs the column recurrence ``T[:i, i] = -tau_i
+    T[:i, :i] (V^H V)[:i, i]``, k dependent steps.  Here T is built
+    bottom-up over levels b = 1, 2, 4, ... from the Gram B = V^H V: two
+    adjacent diagonal blocks T11, T22 of width b join into one of width
+    2b with ``T12 = -T11 B12 T22`` (B12 = V1^H V2), the same triangle in
+    exact arithmetic, and every pair of a level is one batched product
+    pair.  k is padded to a power of two with zero tau, whose rows and
+    columns of T stay zero.  So a panel takes ~4 log2(k) launches, not
+    ~2 k."""
     k = tau.shape[0]
-    B = V.conj().mT @ V
-    Bt = B.mT.contiguous()                 # Bt[i, :i] = B[:i, i]
-    Tt = torch.diag(tau)
-    ntau = -tau
-    for i in range(1, k):
-        row = Tt[i, :i]
-        torch.mv(Tt[:i, :i].mT, Bt[i, :i], out=row)
-        row.mul_(ntau[i])
-    return Tt.mT.contiguous()
+    if k == 0:
+        return V.new_zeros((0, 0))
+    K = 1 << (k - 1).bit_length()
+    B = V.new_zeros((K, K))
+    torch.matmul(V.conj().mT, V, out=B[:k, :k])
+    T = V.new_zeros((K, K))
+    T.diagonal()[:k] = tau
+    b = 1
+    while b < K:
+        p = K // (2 * b)
+        # the p diagonal (2b x 2b) blocks of T and B, as (p, 2b, 2b) views
+        Td = T.view(p, 2 * b, p, 2 * b).diagonal(dim1=0, dim2=2) \
+            .permute(2, 0, 1)
+        Bd = B.view(p, 2 * b, p, 2 * b).diagonal(dim1=0, dim2=2) \
+            .permute(2, 0, 1)
+        T12 = torch.bmm(torch.bmm(Td[:, :b, :b], Bd[:, :b, b:]),
+                        Td[:, b:, b:])
+        Td[:, :b, b:] = T12.neg_()
+        b *= 2
+    return T[:k, :k].contiguous()
 
 
 def _panel_v(Pf):

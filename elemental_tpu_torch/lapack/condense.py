@@ -1,11 +1,13 @@
-"""Condense layer: reduction of a Hermitian matrix to real tridiagonal form.
+"""Condense layer: reduction to tridiagonal, bidiagonal and Hessenberg form.
 
-PyTorch port of the tridiagonal part of ``elemental_tpu/lapack/condense.py``
-(``_real_dtype``, ``_larfg_at``, ``_tridiag_panel``, ``_packed_panel``,
-``hermitian_tridiag``, ``_tridiag_v_panel`` and ``apply_q_herm_tridiag``;
-Elemental ``src/lapack_like/condense/HermitianTridiag/**``: blocked latrd
-panels building a W panel from one Hemv a column, then a Her2k-style
-two-sided trailing update).
+PyTorch port of ``elemental_tpu/lapack/condense.py`` (``_real_dtype``,
+``_larfg_at``, ``_tridiag_panel``, ``_packed_panel``,
+``hermitian_tridiag``, ``_tridiag_v_panel``, ``apply_q_herm_tridiag``,
+``_bidiag_panel``, ``bidiag``, ``apply_p_bidiag``, ``hessenberg`` and
+``apply_q_hessenberg``; Elemental
+``src/lapack_like/condense/HermitianTridiag/**``: blocked latrd panels
+building a W panel from one Hemv a column, then a Her2k-style two-sided
+trailing update; ``Bidiag/**``; ``Hessenberg/**``).
 
 The JAX package runs each panel's column loop as one jitted
 ``fori_loop``.  Here the loop body, :func:`_tridiag_column`, keeps the
@@ -24,8 +26,12 @@ Packing (lower): reflector j has an implicit 1 at row j+1; its tail lives
 in ``Ap[j+2:, j]``; ``d``/``e`` (real) are returned separately and also
 written to the diagonal/subdiagonal of ``Ap``.  ``uplo`` selects which
 triangle of the Hermitian input is read; the packing is always lower.
-``bidiag``, ``hessenberg`` and their apply functions belong to a later
-slice.
+
+``bidiag`` is blocked the same way (labrd panels, a rank-2k trailing
+update); its column loop runs eagerly on the card, with the pivot index
+on the device.  ``hessenberg`` is the JAX package's unblocked replicated
+reduction.  Every apply function rebuilds a panel's T with the blocked
+:func:`~..kernels.qr_panel._larft`.
 """
 from __future__ import annotations
 
@@ -38,6 +44,7 @@ from ..core.distmatrix import DistMatrix
 from ..core.environment import check_precision
 from ..core.view import view, update_view, round_up
 from ..redist.engine import redistribute, transpose_dist
+from ..blas.level1 import _global_indices
 from ..blas.level3 import _check_mcmr, _mask_triangle
 from ..kernels.qr_panel import _larft
 from ..tune.policy import blocksize_policy as _blocksize
@@ -269,8 +276,8 @@ def apply_q_herm_tridiag(Ap: DistMatrix, tau, B: DistMatrix,
     (the back-transform of ``El::HermitianEig``, ``ApplyPackedReflectors``).
     ``nb`` must match the factorization's.
 
-    Each panel's T is rebuilt with the plain :func:`_larft`, as the JAX
-    package does.  On a 1x1 grid the panels update one clone of ``B`` in
+    Each panel's T is rebuilt with :func:`_larft` (blocked, a few
+    launches a panel).  On a 1x1 grid the panels update one clone of ``B`` in
     place (``addmm_``), as :func:`~.qr.apply_q` does."""
     _check_mcmr(Ap, B)
     check_precision(precision, Ap.local, B.local)
@@ -310,3 +317,276 @@ def apply_q_herm_tridiag(Ap: DistMatrix, tau, B: DistMatrix,
         B = update_view(B, B2.with_local(B2.local - upd.to(B.dtype)),
                         rows=(s, n))
     return B.with_local(b) if local else B
+
+
+# ---------------------------------------------------------------------
+# Bidiagonal reduction (the SVD condense step)
+# ---------------------------------------------------------------------
+
+def _bidiag_panel(Ag, Pc, Pr, nbw: int):
+    """labrd: reduce ``nbw`` columns AND rows of the (mt, nt) trailing
+    matrix ``Ag`` (replicated, fixed for the panel).
+
+    ``Pc``/``Pr``: the replicated panel columns (mt, nbw) / rows (nbw, nt)
+    at panel start.  The running matrix is ``A0 - U Y^H - X V^H``; per
+    column the two products with ``Ag`` are the reference's
+    ``bidiag::PanelBidiag`` distributed products (one ``gemv^H`` building
+    Y, one ``gemv`` building X).  The JAX package runs the loop as one
+    jitted ``fori_loop``; here it runs eagerly, with the pivot index as a
+    one-element device tensor, so no launch waits for the host."""
+    mt, nt = Ag.shape
+    dtype = Pc.dtype
+    rdtype = _real_dtype(dtype)
+    dev = Pc.device
+    U = torch.zeros((mt, nbw), dtype=dtype, device=dev)
+    Y = torch.zeros((nt, nbw), dtype=dtype, device=dev)
+    V = torch.zeros((nt, nbw), dtype=dtype, device=dev)
+    X = torch.zeros((mt, nbw), dtype=dtype, device=dev)
+    d = torch.zeros((nbw,), dtype=rdtype, device=dev)
+    e = torch.zeros((nbw,), dtype=rdtype, device=dev)
+    tauq = torch.zeros((nbw,), dtype=dtype, device=dev)
+    taup = torch.zeros((nbw,), dtype=dtype, device=dev)
+    ridx = torch.arange(mt, device=dev)
+    cidx = torch.arange(nt, device=dev)
+    piv = torch.arange(nbw + 1, device=dev)
+    for j in range(nbw):
+        # current column j
+        col = Pc[:, j] - U @ Y[j].conj() - X @ V[j].conj()
+        u, tq, beta = _larfg_at(col, piv[j:j + 1], ridx)
+        d[j:j + 1] = beta
+        # larfg: H^H x = beta e, so the left update A <- H^H A is
+        # A - u y^H with y = tq * A_cur^H u
+        y = Ag.mH @ u
+        y -= Y @ (U.mH @ u) + V @ (X.mH @ u)
+        U[:, j] = u
+        Y[:, j] = tq * y
+        tauq[j:j + 1] = tq
+        if j + 1 >= nt:
+            continue                     # no right reflector: v, x, tp = 0
+        # current row j (after the left update): right reflector at col j+1
+        row = Pr[j] - U[j] @ Y.mH - X[j] @ V.mH
+        v, tp, betar = _larfg_at(row.conj(), piv[j + 1:j + 2], cidx)
+        e[j:j + 1] = betar
+        # right update A <- A G with G = I - tp v v^H: x = tp * A_cur v
+        x = Ag @ v
+        x -= U @ (Y.mH @ v) + X @ (V.mH @ v)
+        V[:, j] = v
+        X[:, j] = tp * x
+        taup[j:j + 1] = tp
+    return U, Y, V, X, d, e, tauq, taup
+
+
+def bidiag(A: DistMatrix, nb: int | None = None, precision=None):
+    """Reduce a tall/square [MC,MR] matrix (m >= n) to upper bidiagonal
+    form ``A = Q B P^H`` (``El::Bidiag``).
+
+    Returns ``(Ap, d, e, tauq, taup)``: ``d`` the diagonal, ``e`` the
+    superdiagonal (length n-1); left reflectors packed below the diagonal
+    of ``Ap`` (unit at row j -- geqrf layout, so :func:`.qr.apply_q`
+    applies Q); right reflector j's tail stored in ROW j at columns
+    >= j+2 (unit at column j+1), applied by :func:`apply_p_bidiag`."""
+    _check_mcmr(A)
+    check_precision(precision, A.local)
+    m, n = A.gshape
+    if m < n:
+        raise ValueError("bidiag requires m >= n (transpose the input)")
+    g = A.grid
+    r, c = g.height, g.width
+    dtype = A.dtype
+    rdtype = _real_dtype(dtype)
+    dev = A.local.device
+    if n == 0:
+        z = torch.zeros((0,), dtype=rdtype, device=dev)
+        zt = torch.zeros((0,), dtype=dtype, device=dev)
+        return A, z, z, zt, zt
+    ib = _blocksize(nb, math.lcm(r, c), n)
+    Ap = A
+    d_parts, e_parts, tq_parts, tp_parts = [], [], [], []
+    for s in range(0, n, ib):
+        e_col = min(s + ib, n)
+        nbw = e_col - s
+        ce_up = min(round_up(e_col, c), n)
+        re_up = min(round_up(e_col, r), m)
+        Ag = redistribute(view(Ap, rows=(s, m), cols=(s, n)), STAR, STAR).local
+        Pc = redistribute(view(Ap, rows=(s, m), cols=(s, ce_up)),
+                          STAR, STAR).local[:, :nbw]
+        Pr = redistribute(view(Ap, rows=(s, re_up), cols=(s, n)),
+                          STAR, STAR).local[:nbw, :]
+        U, Y, V, X, dpan, epan, tq, tp = _bidiag_panel(Ag, Pc, Pr, nbw)
+        del Ag
+        d_parts.append(dpan)
+        e_parts.append(epan)
+        tq_parts.append(tq)
+        tp_parts.append(tp)
+        # packed panel columns: u tails below diag, d on diag, e on superdiag
+        mt, nt = m - s, n - s
+        rl = torch.arange(mt, device=dev)[:, None]
+        cl = torch.arange(nbw, device=dev)[None, :]
+        packedc = torch.where(rl > cl, U, 0)
+        packedc = torch.where(rl == cl, dpan[None, :].to(dtype), packedc)
+        esup = torch.cat([torch.zeros((1,), dtype=rdtype, device=dev),
+                          epan[:nbw - 1]])
+        packedc = torch.where(rl == cl - 1, esup[None, :].to(dtype), packedc)
+        # in-panel right-reflector tails: entry (i, jc) with i <= jc-2 holds
+        # v_i[jc] (row-stored packing restricted to the panel's columns)
+        VT = torch.nn.functional.pad(V.mT[:, :nbw], (0, 0, 0, mt - nbw))
+        packedc = torch.where(rl + 2 <= cl, VT, packedc)
+        if ce_up > e_col:
+            packedc = torch.nn.functional.pad(packedc, (0, ce_up - e_col))
+        blk = DistMatrix(packedc, (mt, ce_up - s), STAR, STAR, 0, 0, g)
+        Ap = _update_cols_lt(Ap, redistribute(blk, MC, MR), (s, m),
+                             (s, ce_up), e_col)
+        # packed panel rows: v tails right of superdiag, e on superdiag
+        rl2 = torch.arange(nbw, device=dev)[:, None]
+        cl2 = torch.arange(nt, device=dev)[None, :]
+        packedr = torch.where(cl2 > rl2 + 1, V.mT, 0)
+        packedr = torch.where(cl2 == rl2 + 1, epan[:, None].to(dtype), packedr)
+        if re_up > e_col:
+            packedr = torch.nn.functional.pad(packedr, (0, 0, 0, re_up - e_col))
+        blkr = DistMatrix(packedr, (re_up - s, nt), STAR, STAR, 0, 0, g)
+        cur = view(Ap, rows=(s, re_up), cols=(s, n))
+        I2, J2 = _global_indices(cur)
+        # rows < nbw, columns >= e_col only: the diag/superdiag and in-panel
+        # tails are owned by the column write above
+        keep = (I2 < nbw)[:, None] & (J2 >= (e_col - s))[None, :]
+        merged = torch.where(keep, redistribute(blkr, MC, MR).local, cur.local)
+        Ap = update_view(Ap, cur.with_local(merged), rows=(s, re_up),
+                         cols=(s, n))
+        if e_col == n:
+            break
+        # trailing update: A22 -= U2 Y2^H + X2 V2^H
+        mt2, nt2 = m - e_col, n - e_col
+
+        def panel(P, h, dist):
+            ss = DistMatrix(P, (h, nbw) if dist is MC else (nbw, h), STAR,
+                            STAR, 0, 0, g)
+            return redistribute(ss, MC, STAR) if dist is MC \
+                else redistribute(ss, STAR, MR)
+
+        U2mc = panel(U[nbw:], mt2, MC)
+        X2mc = panel(X[nbw:], mt2, MC)
+        Y2Hmr = panel(Y[nbw:].mH, nt2, MR)
+        V2Hmr = panel(V[nbw:].mH, nt2, MR)
+        A22 = view(Ap, rows=(e_col, m), cols=(e_col, n))
+        new = torch.addmm(A22.local, U2mc.local, Y2Hmr.local, alpha=-1)
+        new.addmm_(X2mc.local, V2Hmr.local, alpha=-1)
+        Ap = update_view(Ap, A22.with_local(new), rows=(e_col, m),
+                         cols=(e_col, n))
+    d = torch.cat(d_parts)[:n]
+    e_ = torch.cat(e_parts)[:n - 1]
+    tauq = torch.cat(tq_parts)[:n]
+    taup = torch.cat(tp_parts)[:max(n - 1, 0)]
+    return Ap, d, e_, tauq, taup
+
+
+def apply_p_bidiag(Ap: DistMatrix, taup, B: DistMatrix, orient: str = "N",
+                   nb: int | None = None, precision=None) -> DistMatrix:
+    """B := P B ('N') or P^H B ('C') with P = G_0 G_1 ... G_{n-2} the
+    right-reflector product from :func:`bidiag` (G_j = I - taup_j
+    v_j v_j^H, v_j unit at position j+1).  On a 1x1 grid the panels
+    update one clone of ``B`` in place, as :func:`~.qr.apply_q` does."""
+    _check_mcmr(Ap, B)
+    check_precision(precision, Ap.local, B.local)
+    n = Ap.gshape[1]
+    if B.gshape[0] != n:
+        raise ValueError(f"B height {B.gshape[0]} != {n}")
+    g = Ap.grid
+    r, c = g.height, g.width
+    ib = _blocksize(nb, math.lcm(r, c), n)
+    kend = max(n - 1, 0)
+    starts = list(range(0, kend, ib))
+    if orient == "N":
+        starts = starts[::-1]
+    local = g.size == 1
+    if local:
+        b = B.local.clone(memory_format=torch.contiguous_format)
+    for s in starts:
+        e_col = min(s + ib, kend)
+        nbw = e_col - s
+        re_up = min(round_up(e_col, r), Ap.gshape[0])
+        Prow = redistribute(view(Ap, rows=(s, re_up), cols=(s, n)),
+                            STAR, STAR).local[:nbw, :]
+        # V panel: v_j tails from row j at cols >= j+2 (unit at j+1)
+        V = torch.tril(Prow.mT, -2)
+        idx = torch.arange(nbw, device=V.device)
+        V[idx + 1, idx] = 1
+        T = _larft(V, taup[s:e_col])
+        Tm = T.mH if orient == "C" else T
+        if local:
+            b[s:].addmm_(V, Tm @ (V.mH @ b[s:]), alpha=-1)
+            continue
+        V_mc = redistribute(
+            DistMatrix(V, (n - s, nbw), STAR, STAR, 0, 0, g), MC, STAR)
+        B2 = view(B, rows=(s, n))
+        Wl = Tm @ (V_mc.local.mH @ B2.local)
+        upd = V_mc.local @ Wl
+        B = update_view(B, B2.with_local(B2.local - upd.to(B.dtype)),
+                        rows=(s, n))
+    return B.with_local(b) if local else B
+
+
+# ---------------------------------------------------------------------
+# Hessenberg reduction (for Schur / pseudospectra)
+# ---------------------------------------------------------------------
+
+def hessenberg(A: DistMatrix, nb: int | None = None, precision=None):
+    """Reduce A to upper Hessenberg form: A = Q H Q^H (``El::Hessenberg``,
+    lower/'L' reflector convention).
+
+    Returns ``(H, Q_packed, tau)``: ``H`` the [MC,MR] Hessenberg matrix,
+    ``Q_packed``/``tau`` the reflectors (packed as by
+    :func:`hermitian_tridiag`).  Unblocked and replicated, as the JAX
+    package's correctness-first version (its ``fori_loop`` runs eagerly
+    here)."""
+    _check_mcmr(A)
+    check_precision(precision, A.local)
+    n = A.gshape[0]
+    if A.gshape != (n, n):
+        raise ValueError(f"hessenberg needs square, got {A.gshape}")
+    g = A.grid
+    dtype = A.dtype
+    dev = A.local.device
+    if n <= 2:
+        return A, A, torch.zeros((max(n - 1, 0),), dtype=dtype, device=dev)
+    Ag = redistribute(A, STAR, STAR).local.clone()
+    ridx = torch.arange(n, device=dev)
+    Vp = torch.zeros((n, n - 1), dtype=dtype, device=dev)
+    tau = torch.zeros((n - 1,), dtype=dtype, device=dev)
+    for jj in range(n - 1):
+        v, tau_j, _ = _larfg_at(Ag[:, jj], ridx[jj + 1:jj + 2], ridx)
+        # A := H^H A H, H = I - tau v v^H
+        w = tau_j.conj() * (v.conj() @ Ag)
+        Ag -= torch.outer(v, w)
+        u = Ag @ (tau_j * v)
+        Ag -= torch.outer(u, v.conj())
+        Vp[:, jj] = v
+        tau[jj:jj + 1] = tau_j
+    # zero below the first subdiagonal (numerical dust from the loop)
+    Hloc = torch.triu(Ag, -1)
+    H = redistribute(DistMatrix(Hloc, (n, n), STAR, STAR, 0, 0, g), MC, MR)
+    packed = torch.tril(Vp, -2)
+    idx = torch.arange(n - 1, device=dev)
+    packed[idx, idx] = Hloc[idx, idx]
+    packed[idx + 1, idx] = Hloc[idx + 1, idx]
+    Qp = redistribute(DistMatrix(packed, (n, n - 1), STAR, STAR, 0, 0, g),
+                      MC, MR)
+    return H, Qp, tau
+
+
+def apply_q_hessenberg(Qp: DistMatrix, tau, B: DistMatrix, orient: str = "N",
+                       precision=None) -> DistMatrix:
+    """B := Q B / Q^H B with Q from :func:`hessenberg` (packing as
+    tridiag)."""
+    check_precision(precision, Qp.local, B.local)
+    n = B.gshape[0]
+    g = B.grid
+    P = redistribute(Qp, STAR, STAR).local
+    nref = tau.shape[0]
+    V = _tridiag_v_panel(
+        torch.nn.functional.pad(P, (0, max(0, n - P.shape[1]))), nref)
+    T = _larft(V, tau)
+    Tm = T.mH if orient == "C" else T
+    V_mc = redistribute(DistMatrix(V, (n, nref), STAR, STAR, 0, 0, g),
+                        MC, STAR)
+    upd = V_mc.local @ (Tm @ (V_mc.local.mH @ B.local))
+    return B.with_local(B.local - upd.to(B.dtype))

@@ -188,8 +188,8 @@ def apply_q(Ap: DistMatrix, tau, B: DistMatrix, orient: str = "N",
     """B := Q B ('N') or Q^H B ('C'), Q from (packed, tau)
     (``qr::ApplyQ`` / ``ApplyPackedReflectors``).
 
-    Each panel's T is rebuilt with the plain :func:`_larft`, as the JAX
-    package does.  ``nb`` MUST match the factorization's blocking: the
+    Each panel's T is rebuilt with :func:`_larft` (a blocked build, a
+    few launches a panel).  ``nb`` MUST match the factorization's blocking: the
     default (``None``) reuses the block size :func:`qr` recorded on
     ``Ap``; an explicit ``nb`` that derives different panel boundaries
     raises ``ValueError``."""

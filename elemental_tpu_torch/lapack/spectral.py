@@ -1,11 +1,10 @@
-"""Spectral layer: Hermitian eigensolvers.
+"""Spectral layer: Hermitian eigensolvers and the SVD.
 
-PyTorch port of ``_sym_from_triangle``, ``_subset_slice``, ``herm_eig``,
-``skew_herm_eig``, ``herm_gen_def_eig`` and ``hermitian_svd`` from
-``elemental_tpu/lapack/spectral.py`` (Elemental
+PyTorch port of ``elemental_tpu/lapack/spectral.py`` (Elemental
 ``src/lapack_like/spectral/HermitianEig.cpp``: tridiagonalize ->
 tridiagonal EVP -> back-transform; ``HermitianGenDefEig``,
-``SkewHermitianEig``, ``HermitianSVD``).
+``SkewHermitianEig``, ``HermitianSVD``, ``SVD.cpp`` with its
+``svd::Chan`` tall path).
 
 The tridiagonal EVP is solved redundantly on the replicated (d, e): by
 ``torch.linalg.eigh`` of the tridiagonal at n <= ``dc_min``, else by the
@@ -13,8 +12,13 @@ Cuppen divide and conquer of :mod:`.tridiag_eig`, whose eigenvector
 matrix above ``repl_max`` only exists [MC,MR].  The O(n^3) work (the
 reduction and the back-transform) stays distributed and matmul-shaped.
 Subset eigenpairs select tridiagonal eigenvector columns before the
-back-transform.  ``approach='qdwh'`` (``funcs.py``) and ``svd`` belong
-to a later slice.
+back-transform.  ``herm_eig(approach='qdwh')`` is the polar-based
+spectral divide and conquer of :mod:`.funcs`.  ``svd`` takes the Chan
+route (QR, then the SVD of R) on a tall matrix, the QDWH polar route
+(polar, then ``herm_eig`` of the polar factor H), the Golub-Kahan route
+(``bidiag`` + the tridiagonal EVP of B^H B) or the replicated
+``torch.linalg.svd`` of a small block.  Its ``gemm`` calls name
+``alg='dot'``, where the JAX package lets the tuner pick.
 """
 from __future__ import annotations
 
@@ -23,13 +27,15 @@ import torch
 
 from ..core.dist import MC, MR, STAR
 from ..core.distmatrix import DistMatrix
-from ..redist.engine import redistribute
+from ..redist.engine import redistribute, transpose_dist
 from ..redist.interior import interior_view
-from ..blas.level1 import _global_indices
-from ..blas.level3 import _check_mcmr, trsm, two_sided_trsm
+from ..core.view import pad_matrix
+from ..blas.level1 import diagonal_scale, make_trapezoidal
+from ..blas.level3 import _check_mcmr, gemm, trsm, two_sided_trsm
 from .cholesky import cholesky
 from .condense import hermitian_tridiag, apply_q_herm_tridiag, _real_dtype
 from .lu import permute_cols
+from .qr import qr, apply_q
 from .tridiag_eig import tridiag_eig
 
 # Above this order the tridiagonal EVP switches from the replicated eigh to
@@ -80,8 +86,8 @@ def herm_eig(A: DistMatrix, uplo: str = "L", vectors: bool = True,
     """Eigendecomposition of a Hermitian [MC,MR] matrix: ``A = Z diag(w)
     Z^H`` (``El::HermitianEig``).  Returns ascending real ``w``
     (replicated) and, when ``vectors``, the distributed eigenvector
-    matrix ``Z``.  ``approach='qdwh'`` needs ``funcs.py`` (a later slice)
-    and raises ``NotImplementedError``."""
+    matrix ``Z``.  ``approach='qdwh'`` takes the polar-based spectral
+    divide and conquer (:func:`.funcs._qdwh_eig`)."""
     _check_mcmr(A)
     n = A.gshape[0]
     if A.gshape != (n, n):
@@ -98,9 +104,8 @@ def herm_eig(A: DistMatrix, uplo: str = "L", vectors: bool = True,
         return w, redistribute(
             DistMatrix(Z[:, s:e], (n, e - s), STAR, STAR, 0, 0, g), MC, MR)
     if approach == "qdwh":
-        raise NotImplementedError(
-            "herm_eig approach='qdwh' needs funcs.py, which is not ported "
-            "yet (a later slice)")
+        from .funcs import _qdwh_eig
+        return _qdwh_eig(A, uplo, vectors, subset, nb, precision)
     if approach != "tridiag":
         raise ValueError(f"herm_eig: unknown approach {approach!r}")
     Ap, d, e_, tau = hermitian_tridiag(A, uplo, nb=nb, precision=precision)
@@ -206,8 +211,154 @@ def hermitian_svd(A: DistMatrix, uplo: str = "L", vectors: bool = True,
     s = w.abs()[order]
     signs = torch.where(w[order] < 0, -1.0, 1.0).to(A.dtype)
     V = permute_cols(Z, order)          # distributed column permutation
-    # U = V diag(signs): each storage column scaled by its global column's
-    # sign (the JAX package's diagonal_scale('R', ...))
-    _, J = _global_indices(V)
-    U = V.with_local(V.local * signs[J.clamp(0, signs.shape[0] - 1)][None, :])
+    d = DistMatrix(signs[:, None], (signs.shape[0], 1), STAR, STAR, 0, 0,
+                   A.grid)
+    U = diagonal_scale("R", d, V)
     return U, s, V
+
+
+def svd(A: DistMatrix, vectors: bool = True, approach: str = "auto",
+        nb: int | None = None, precision=None, eig_approach: str = "tridiag"):
+    """Singular value decomposition ``A = U diag(s) V^H`` (``El::SVD``).
+
+    ``approach``:
+      * 'chan'  -- tall path (``svd::Chan``): QR first, SVD of the small R,
+        U = Q U_R (the reference's default for m >= 1.5 n).
+      * 'polar' -- QDWH polar + Hermitian eigensolve of the factor H.
+      * 'golub' -- Bidiag + tridiagonal EVP of B^H B + back-transform
+        (``svd::GolubReinsch`` analog; see :func:`_svd_golub_kahan`).
+      * 'local' -- the replicated ``torch.linalg.svd`` of a small block.
+      * 'auto'  -- 'chan' when m >= 1.5 n (or the mirrored transpose when
+        n >= 1.5 m), else 'polar'.
+    ``eig_approach`` is forwarded to the inner :func:`herm_eig` ('qdwh'
+    selects the spectral D&C).  Returns (U, s, V) with s descending
+    (replicated real vector)."""
+    _check_mcmr(A)
+    m, n = A.gshape
+    g = A.grid
+    if n > m:
+        out = svd(redistribute(transpose_dist(A, conj=True), MC, MR),
+                  vectors, approach, nb, precision, eig_approach)
+        if not vectors:
+            return out
+        U, s, V = out
+        return V, s, U
+    if approach == "auto":
+        approach = "chan" if m >= max(int(1.5 * n), n + 1) else "polar"
+
+    if approach == "chan" and m > n:
+        Ap, tau = qr(A, nb=nb, precision=precision)
+        Rd = make_trapezoidal(interior_view(Ap, (0, n), (0, n)), "U")
+        out = svd(Rd, vectors, "polar" if n > 128 else "local", nb,
+                  precision, eig_approach)
+        del Rd
+        if not vectors:
+            return out
+        UR, s, V = out
+        # U = Q [UR; 0] -- the row pad is a pure-local storage extension
+        U0 = pad_matrix(UR, m, n)
+        del UR
+        U = apply_q(Ap, tau, U0, orient="N", nb=nb, precision=precision)
+        return U, s, V
+
+    if approach == "golub":
+        return _svd_golub_kahan(A, vectors, nb, precision, eig_approach)
+
+    if approach == "local" or (approach == "chan" and m == n):
+        # replicated fallback for small blocks (the redundant-LAPACK analog)
+        Ag = redistribute(A, STAR, STAR).local
+        U, s, Vh = torch.linalg.svd(Ag, full_matrices=False)
+        s = s.to(_real_dtype(A.dtype))
+        if not vectors:
+            return s
+        Ud = redistribute(DistMatrix(U, (m, n), STAR, STAR, 0, 0, g), MC, MR)
+        Vd = redistribute(DistMatrix(Vh.mH.contiguous(), (n, n), STAR, STAR,
+                                     0, 0, g), MC, MR)
+        return Ud, s, Vd
+
+    if approach == "polar":
+        return _svd_polar(A, vectors, nb, precision, eig_approach)
+    raise ValueError(f"unknown svd approach {approach!r}")
+
+
+def _svd_golub_kahan(A: DistMatrix, vectors: bool, nb, precision,
+                     eig_approach: str):
+    """Golub-Kahan path (``svd::GolubReinsch`` analog): Bidiag, then the
+    symmetric tridiagonal EVP of B^H B, then back-transform
+    U = Q [B V_B S^{-1}; 0], V = P V_B.
+
+    Numerical note: forming B^H B squares the condition number; singular
+    values below ~sqrt(eps)*s_max lose relative accuracy (use 'polar'
+    when they matter)."""
+    from ..blas.level1 import index_dependent_fill
+    from ..core.distmatrix import zeros as dm_zeros
+    from .condense import bidiag, apply_p_bidiag
+    m, n = A.gshape
+    g = A.grid
+    rdtype = _real_dtype(A.dtype)
+    Ap, d, e, tauq, taup = bidiag(A, nb=nb, precision=precision)
+    zero = torch.zeros((1,), dtype=rdtype, device=d.device)
+    epad = torch.cat([zero, e])            # e_{j-1} at j
+    enext = torch.cat([e, zero])           # e_j at j
+    esafe = e if e.shape[0] else zero
+    T0 = dm_zeros(n, n, MC, MR, g, dtype=rdtype)
+
+    def tfill(i, j):
+        ic = i.clamp(0, n - 1)
+        jc = j.clamp(0, n - 1)
+        diag = d[ic] ** 2 + epad[ic] ** 2
+        # (B^H B)[i, i+1] = d_i e_i ; [i+1, i] its conjugate (real here)
+        sup = d[ic] * esafe[i.clamp(0, max(n - 2, 0))]
+        sub = d[jc] * esafe[j.clamp(0, max(n - 2, 0))]
+        return torch.where(i == j, diag,
+                           torch.where(j == i + 1, sup,
+                                       torch.where(i == j + 1, sub, 0.0)))
+
+    T = index_dependent_fill(T0, tfill)
+    out = herm_eig(T, "L", vectors, nb=nb, approach=eig_approach,
+                   precision=precision)
+    if not vectors:
+        return torch.sqrt(torch.clamp(torch.sort(out, descending=True).values,
+                                      min=0))
+    w, Z = out
+    order = torch.argsort(-w, stable=True)
+    s = torch.sqrt(torch.clamp(w[order], min=0))
+    # cast to A's dtype BEFORE the complex back-transforms (a real-typed VB
+    # would silently truncate the reflectors' imaginary parts)
+    VB = permute_cols(Z, order)
+    VB = VB.with_local(VB.local.to(A.dtype))
+    # U_B = B V_B S^{-1}: row i of B V_B = d_i VB[i,:] + e_i VB[i+1,:]
+    dd = DistMatrix(d[:, None].to(A.dtype), (n, 1), STAR, STAR, 0, 0, g)
+    ee = DistMatrix(enext[:, None].to(A.dtype), (n, 1), STAR, STAR, 0, 0, g)
+    VBshift = pad_matrix(interior_view(VB, (1, n), (0, n)), n, n)
+    BV = diagonal_scale("L", dd, VB)
+    BV = BV.with_local(BV.local + diagonal_scale("L", ee, VBshift).local)
+    sinv = torch.where(s > 0, 1.0 / torch.where(s == 0, 1.0, s), 0)
+    ds = DistMatrix(sinv[:, None].to(A.dtype), (n, 1), STAR, STAR, 0, 0, g)
+    UB = diagonal_scale("R", ds, BV)
+    V = apply_p_bidiag(Ap, taup, VB, orient="N", nb=nb, precision=precision)
+    U = apply_q(Ap, tauq, pad_matrix(UB, m, n), orient="N", nb=nb,
+                precision=precision)
+    return U, s, V
+
+
+def _svd_polar(A: DistMatrix, vectors: bool, nb, precision,
+               eig_approach: str):
+    """Polar path: A = Up H; H = V diag(w) V^H; s = w descending;
+    U = Up V."""
+    from .funcs import polar
+    Up, H = polar(A, nb=nb, precision=precision)
+    if not vectors:
+        w = herm_eig(H, "L", vectors=False, nb=nb, approach=eig_approach,
+                     precision=precision)
+        return torch.clamp(torch.sort(w, descending=True).values, min=0)
+    w, V = herm_eig(H, "L", True, nb=nb, approach=eig_approach,
+                    precision=precision)
+    del H
+    # H is PSD: w ascending >= 0 (up to rounding); descending order
+    order = torch.argsort(-w, stable=True)
+    s = torch.clamp(w[order], min=0)
+    Vd = permute_cols(V, order)
+    del V
+    U = gemm(Up, Vd, alg="dot", precision=precision)
+    return U, s, Vd

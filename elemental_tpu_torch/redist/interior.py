@@ -8,7 +8,8 @@ cs:ce])``, and written back through the global matrix, which moves
 values and does no arithmetic, so the storage is bit-equal to the JAX
 package's (whose one rotation per distributed dimension is a
 collective).  On a 1x1 grid the storage IS the global matrix and each
-is one slice.  ``vstack`` and ``hstack`` belong to a later slice.
+is one slice.  The stacking helpers ``_blank``, ``vstack`` and
+``hstack`` (QDWH's [sqrt(c) X; I]) are one concatenation on a 1x1 grid.
 """
 from __future__ import annotations
 
@@ -68,3 +69,43 @@ def interior_update(A: DistMatrix, B: DistMatrix, at=(0, 0)) -> DistMatrix:
     G = to_global(A)
     G[i0:i0 + h, j0:j0 + w] = to_global(B)
     return from_global(G, A.cdist, A.rdist, g)
+
+
+# ---------------------------------------------------------------------
+# stacking helpers (QDWH's [sqrt(c) X; I] and friends)
+# ---------------------------------------------------------------------
+
+def _blank(m: int, n: int, like: DistMatrix) -> DistMatrix:
+    """A zero (m, n) matrix with ``like``'s distribution pair, grid and
+    dtype."""
+    meta = DistMatrix(None, (m, n), like.cdist, like.rdist, 0, 0, like.grid)
+    stor = torch.zeros((meta.col_stride * meta.local_rows,
+                        meta.row_stride * meta.local_cols),
+                       dtype=like.dtype, device=like.local.device)
+    return meta.with_local(stor)
+
+
+def vstack(A: DistMatrix, B: DistMatrix) -> DistMatrix:
+    """[A; B] (concatenate rows) with A's distribution pair."""
+    if A.gshape[1] != B.gshape[1]:
+        raise ValueError(f"vstack width mismatch {A.gshape} vs {B.gshape}")
+    if A.grid.size == 1 and A.dist == B.dist:
+        return DistMatrix(torch.cat([A.local, B.local.to(A.dtype)]),
+                          (A.gshape[0] + B.gshape[0], A.gshape[1]),
+                          A.cdist, A.rdist, 0, 0, A.grid)
+    out = _blank(A.gshape[0] + B.gshape[0], A.gshape[1], A)
+    out = interior_update(out, A, (0, 0))
+    return interior_update(out, B, (A.gshape[0], 0))
+
+
+def hstack(A: DistMatrix, B: DistMatrix) -> DistMatrix:
+    """[A, B] (concatenate columns) with A's distribution pair."""
+    if A.gshape[0] != B.gshape[0]:
+        raise ValueError(f"hstack height mismatch {A.gshape} vs {B.gshape}")
+    if A.grid.size == 1 and A.dist == B.dist:
+        return DistMatrix(torch.cat([A.local, B.local.to(A.dtype)], dim=1),
+                          (A.gshape[0], A.gshape[1] + B.gshape[1]),
+                          A.cdist, A.rdist, 0, 0, A.grid)
+    out = _blank(A.gshape[0], A.gshape[1] + B.gshape[1], A)
+    out = interior_update(out, A, (0, 0))
+    return interior_update(out, B, (0, A.gshape[1]))

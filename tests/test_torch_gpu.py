@@ -1,6 +1,6 @@
 """The CUDA kernels (``potrf_inv``, ``lu_panel``, ``qr_panel``) against
-their plain versions, and the LU solve, QR least squares and the
-generalized eigensolver through them, on the card.
+their plain versions, and the LU solve, QR least squares, the generalized
+eigensolver and the SVD through them, on the card.
 
 Marked ``gpu``: on a machine without a card every test skips (the check is
 made inside the test, so every worker collects the same tests).  On the
@@ -17,7 +17,10 @@ I|| / sqrt(M)`` below 3e-6 at float32 and 1e-12 at float64, T equal to
 M = 256 and, for T, with k / 64 above k = 64.  ``herm_gen_def_eig`` is
 held to ``chip_smoke.py`` phase 3d's three gates (each ratio over N eps
 below 16) and to the same call on the CPU; ``tridiag_eig`` on the card
-to the same call on the CPU (float64 eigenvalues to 1e-10)."""
+to the same call on the CPU (float64 eigenvalues to 1e-10).  ``svd`` is
+held to ``chip_smoke.py`` phase 3e's four gates and its launch counts at
+float32, and ``svd``, ``polar``, ``herk`` and ``bidiag`` to the same
+calls on the CPU."""
 import numpy as np
 import pytest
 import torch
@@ -436,6 +439,140 @@ def test_hermitian_tridiag_on_the_card_matches_the_cpu(dtype):
                                nb=nb)
     ref = et.hermitian_tridiag(et.from_global(F.cpu(), et.MC, et.MR,
                                               et.Grid(device="cpu")), nb=nb)
+    for got, want in zip((out[0].local,) + out[1:],
+                         (ref[0].local,) + ref[1:]):
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0,
+                                   atol=1e-10 * float(want.abs().max()))
+
+
+def _align(Z, Zref):
+    s = np.sign(np.real(np.sum(Z.conj() * Zref, axis=0)))
+    s[s == 0] = 1
+    return Z * s
+
+
+def _qdwh_launches(n, nb, dtype):
+    """(qr_panel, potrf_inv) launches of one ``polar`` of a tall (m, n)
+    matrix on the 1x1 grid, from the QDWH schedule."""
+    from elemental_tpu_torch.lapack import funcs
+    eps = funcs._eps_of(dtype)
+    sched = funcs._qdwh_schedule(eps, 10 * eps)
+    n_qr = sum(1 for (_, _, c) in sched if c > 100.0)
+    return n_qr * (n // nb), (len(sched) - n_qr) * (n // nb)
+
+
+def test_svd_runs_through_the_kernels_and_meets_the_gates():
+    """The Chan route at m = 2048, n = 1024 float32, nb = 128: Chan's qr
+    and each QR step's qr launch qr_panel n / nb times, each Cholesky
+    step's cholesky potrf_inv n / nb times; chip_smoke.py phase 3e's four
+    gates (each ratio over n eps below 16)."""
+    from chip_smoke import _svd_matrix, svd_gates
+    _need_card()
+    m, n, nb = 2048, 1024, 128
+    A, s0 = _svd_matrix(m, n, seed=3)
+    want_qr, want_potrf = _qdwh_launches(n, nb, torch.float32)
+    before = (qr_panel.launches, potrf_inv.launches, lu_panel.launches)
+    U, s, V = et.svd(et.from_global(A, et.MC, et.MR, et.Grid()), nb=nb)
+    torch.cuda.synchronize()
+    assert (qr_panel.launches - before[0], potrf_inv.launches - before[1],
+            lu_panel.launches - before[2]) == (want_qr + n // nb,
+                                               want_potrf, 0)
+    assert max(svd_gates(A, U.local, s, V.local, s0)) < 16
+
+
+@pytest.mark.parametrize("route", ["chan", "polar", "golub"])
+def test_svd_on_the_card_matches_the_cpu(route):
+    """float64, m = 512, n = 256, nb = 64 (the Chan route's R takes the
+    polar route, n > 128): singular values to 1e-12 of the largest, U and
+    V to 1e-9 after each column's sign is aligned."""
+    _need_card()
+    m, n, nb = (512, 256, 64) if route != "polar" else (256, 256, 64)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    F = torch.randn(m, n, generator=gen, device="cuda", dtype=torch.float64)
+    U, s, V = et.svd(et.from_global(F, et.MC, et.MR, et.Grid()), nb=nb,
+                     approach=route)
+    Uc, sc, Vc = et.svd(et.from_global(F.cpu(), et.MC, et.MR,
+                                       et.Grid(device="cpu")), nb=nb,
+                        approach=route)
+    assert U.local.is_cuda and s.is_cuda
+    np.testing.assert_allclose(s.cpu().numpy(), sc.numpy(), rtol=0,
+                               atol=1e-12 * float(sc.max()))
+    for got, want in ((U, Uc), (V, Vc)):
+        g, w = et.to_global(got).cpu().numpy(), et.to_global(want).numpy()
+        np.testing.assert_allclose(_align(g, w), w, rtol=0, atol=1e-9)
+
+
+@pytest.mark.parametrize("shape", [(384, 256), (256, 256), (256, 384)],
+                         ids=["tall", "square", "wide"])
+def test_polar_on_the_card_matches_the_cpu(shape):
+    """float64, nb = 64: U and H to 1e-10 of the CPU's; the launches the
+    QDWH schedule predicts (the wide case factors the adjoint)."""
+    _need_card()
+    nb = 64
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(12)
+    F = torch.randn(*shape, generator=gen, device="cuda", dtype=torch.float64)
+    want_qr, want_potrf = _qdwh_launches(min(shape), nb, torch.float64)
+    before = (qr_panel.launches, potrf_inv.launches)
+    U, H = et.polar(et.from_global(F, et.MC, et.MR, et.Grid()), nb=nb)
+    torch.cuda.synchronize()
+    assert (qr_panel.launches - before[0],
+            potrf_inv.launches - before[1]) == (want_qr, want_potrf)
+    Uc, Hc = et.polar(et.from_global(F.cpu(), et.MC, et.MR,
+                                     et.Grid(device="cpu")), nb=nb)
+    for got, want in ((U, Uc), (H, Hc)):
+        np.testing.assert_allclose(et.to_global(got).cpu().numpy(),
+                                   et.to_global(want).numpy(), rtol=0,
+                                   atol=1e-10)
+
+
+@pytest.mark.parametrize("grid", [(1, 1), (2, 2)], ids=["1x1", "2x2"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_herk_on_the_card_matches_the_cpu(grid, dtype):
+    """Both triangles and orientations, with and without C: the updated
+    triangle to 1e-5 (f32) / 1e-12 (f64) of its largest entry, the other
+    triangle C's bit for bit."""
+    _need_card()
+    m, k = 300, 200
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    X = torch.randn(m, k, generator=gen, device="cuda", dtype=dtype)
+    C0 = torch.randn(m, m, generator=gen, device="cuda", dtype=dtype)
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    for uplo in ("L", "U"):
+        strict = (lambda x: torch.triu(x, 1)) if uplo == "L" \
+            else (lambda x: torch.tril(x, -1))
+        for orient, Xo in (("N", X), ("C", X.T.contiguous())):
+            for C in (None, C0):
+                outs = []
+                for dev in ("cuda", "cpu"):
+                    g = et.Grid(*grid, device=dev)
+                    kw = {} if C is None else {
+                        "alpha": 2.0, "beta": 0.5,
+                        "C": et.from_global(C.to(dev), et.MC, et.MR, g)}
+                    outs.append(et.to_global(et.herk(
+                        uplo, et.from_global(Xo.to(dev), et.MC, et.MR, g),
+                        orient=orient, nb=64, **kw)).cpu())
+                got, want = outs
+                np.testing.assert_allclose(got.numpy(), want.numpy(),
+                                           rtol=0, atol=tol * float(
+                                               want.abs().max()))
+                other = torch.zeros_like(got) if C is None else C0.cpu()
+                assert torch.equal(strict(got), strict(other))
+
+
+def test_bidiag_on_the_card_matches_the_cpu():
+    """float64, 96 x 64, nb = 16: d, e, tauq, taup and the packed storage
+    to 1e-10 of their largest entry."""
+    _need_card()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(14)
+    F = torch.randn(96, 64, generator=gen, device="cuda", dtype=torch.float64)
+    out = et.bidiag(et.from_global(F, et.MC, et.MR, et.Grid()), nb=16)
+    ref = et.bidiag(et.from_global(F.cpu(), et.MC, et.MR,
+                                   et.Grid(device="cpu")), nb=16)
     for got, want in zip((out[0].local,) + out[1:],
                          (ref[0].local,) + ref[1:]):
         np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0,

@@ -195,8 +195,12 @@ def test_small_orders_and_refusals():
         F = _sym(n, 8)
         w, Z = et.herm_eig(et.from_global(F, et.MC, et.MR, g))
         _check_eig(F, w, _glob(Z))
-    A = et.from_global(_sym(8, 9), et.MC, et.MR, g)
-    with pytest.raises(NotImplementedError):
-        et.herm_eig(A, approach="qdwh")
+    F = _sym(8, 9)
+    A = et.from_global(F, et.MC, et.MR, g)
+    # approach='qdwh' is ported (lapack/funcs.py) and no longer refused
+    w, Z = et.herm_eig(A, approach="qdwh")
+    _check_eig(F, w, _glob(Z))
+    with pytest.raises(ValueError, match="unknown approach"):
+        et.herm_eig(A, approach="pmrrr")
     with pytest.raises(ValueError):
         et.herm_eig(et.from_global(np.ones((4, 3)), et.MC, et.MR, g))
