@@ -14,10 +14,11 @@ Phases, each of which raises on failure:
    shapes the main paths give it and a ladder around them, with its time,
    the plain version's, one library call's and the least time the card
    could take (``bound_ms``): ``potrf_inv`` (w = 1 ... 2048),
-   ``lu_panel`` (32768 x 2048 ... a panel of constructed ties, the edges
-   of its 128-column outer block) and
-   ``qr_panel`` (65536 x 2048, the SVD path's 32768 x 512 ... 33 x 7, a
-   zero column, graded columns, a strided view);
+   ``lu_panel`` (32768 x 2048, phase 3h's 8192 x 512 ... a panel of
+   constructed ties, the edges of its 128-column outer block) and
+   ``qr_panel`` (65536 x 2048, the SVD path's 32768 x 512, phase 3h's
+   40960 x 512 ... 33 x 7, a zero column, graded columns, a strided
+   view);
 3. the Cholesky main path at full width: ``hpd_solve(A, B, nb=2048)`` on
    the 1x1 grid, N = 32768 float32, nrhs = 8, A = G G^T / N + N I from a
    seeded generator; the factor gate of ``bench.py``, a solve residual,
@@ -56,6 +57,25 @@ Phases, each of which raises on failure:
    float64 ``eigvalsh``), ``svd(approach='golub')`` at 8192 x 4096 (the
    gates of 3e), ``polar`` of a square matrix and ``sign`` of a
    symmetric indefinite one (through ``lu_panel``);
+3g. the symmetric-indefinite main path at full width: ``symmetric_solve(K,
+   B, nb=512)`` on the 1x1 grid, N = 32768 float32, nrhs = 8, K the KKT
+   matrix [[H, J^T], [J, 0]] of an equality-constrained quadratic program
+   (n = 24576, p = 8192, H = G G^T / n + I, J standard normal, seeded);
+   the call timed whole, then ``ldl`` and ``ldl_solve_after``, the count
+   of 2x2 pivots and max|L|, three gates reduced in float64 (factor
+   residual, solve residual, the exact inertia (n, p, 0)),
+   ``torch.linalg.ldl_factor`` + ``ldl_solve`` timed beside it, a device
+   profile of the call at N = 8192 with its idle share, and 0 launches of
+   each kernel (``ldl`` has none);
+3h. the rest of the slice on the 1x1 grid float32, each step timed with
+   its launches against the count the drivers' blocking predicts and
+   gated by the JAX test's own check over n eps: ``lse``, ``glm``,
+   ``ridge``, ``tikhonov``, the determinants, ``condition``, ``two_norm``,
+   ``nuclear_norm``, ``two_norm_estimate``, ``qr_col_piv``,
+   ``lu_full_pivot``, ``schur`` / ``triang_eig`` / ``eig`` (complex64),
+   ``pseudospectra``, ``sylvester``, ``lyapunov``, ``riccati``, ``hemm``
+   and ``her2k`` (each beside ``torch.matmul``), ``quasi_trsm`` and
+   ``multishift_trsm``;
 4. the distributed branches: ``hpd_solve`` and ``lu`` + ``lu_solve_after``
    on a virtual 2x2 grid on the card, N = 1024 float64, nb = 128, with
    and without the crossover, against ``torch.linalg.solve``;
@@ -65,7 +85,9 @@ Phases, each of which raises on failure:
    float64, nb = 128: the D&C and its distributed merges); every
    ``svd`` route, ``polar`` (tall and wide), ``herm_eig(approach='qdwh')``
    and ``herk`` / ``syrk`` / ``trrk`` in float64 with the JAX tests'
-   bounds; and ``entry.dryrun_multichip(8)`` on a virtual 2x4 grid.
+   bounds; every public function of the LDL slice in float64 with the
+   JAX tests' inputs and bounds; and ``entry.dryrun_multichip(8)`` on a
+   virtual 2x4 grid.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the card's name and power limit, and the one before that the JSON
@@ -75,6 +97,7 @@ beside this file, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -144,13 +167,16 @@ def _device_breakdown(fn, top: int = 8, cpu: bool = True) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     per_kernel: dict = {}
-    for ev in prof.events():
-        if ev.device_type != DeviceType.CUDA:
+    # the raw device events: building the profiler's per-event Python
+    # objects (``prof.events()``) costs ~0.1 ms an event, minutes for the
+    # ~10^6 graph nodes of a long call
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != DeviceType.CUDA:
             continue
-        name = ev.name.replace("(anonymous namespace)::", "")
+        name = ev.name().replace("(anonymous namespace)::", "")
         name = name.replace("void ", "").split("(")[0][:60]
         n, ms = per_kernel.get(name, (0, 0.0))
-        per_kernel[name] = (n + 1, ms + ev.time_range.elapsed_us() / 1e3)
+        per_kernel[name] = (n + 1, ms + ev.duration_ns() / 1e6)
     busy_ms = sum(ms for _, ms in per_kernel.values())
     ranked = sorted(per_kernel.items(), key=lambda kv: -kv[1][1])[:top]
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
@@ -261,6 +287,8 @@ def phase_lu_panel() -> list:
     for M, nbw, dt, inner, large in (
             (32768, 2048, torch.float32, 64, True),
             (2048, 2048, torch.float32, 64, True),
+            # the first panel of phase 3h's determinants
+            (8192, 512, torch.float32, 64, True),
             (4096, 512, torch.float32, 64, False),
             (1024, 128, torch.float64, 64, False),
             (32, 8, torch.float32, 4, False),
@@ -368,6 +396,7 @@ def _qr_panels():
 
     yield "65536x2048", normal(65536, 2048, torch.float32, 1), "3c"
     yield "32768x512", normal(32768, 512, torch.float32, 5), "3e"
+    yield "40960x512", normal(40960, 512, torch.float32, 6), "3h"
     for dt in (torch.float32, torch.float64):
         for M, k in ((2048, 2048), (4096, 512), (1000, 100), (33, 7)):
             yield f"{M}x{k}", normal(M, k, dt, M + k), None
@@ -1118,6 +1147,573 @@ def phase_svd_rest(et, card: str) -> dict:
     return out
 
 
+def _kkt(n: int, p: int, seed: int):
+    """K = [[H, J^T], [J, 0]] in float32 on the card: H = G G^T / n + I with
+    G n x n and J p x n standard normal from a seeded generator, the
+    saddle-point matrix of an equality-constrained quadratic program (an
+    interior-point or SQP step).  Its inertia is (n, p, 0) by Sylvester's
+    law.  The lower triangle is mirrored so that K is exactly symmetric."""
+    import torch
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    N = n + p
+    K = torch.zeros(N, N, device="cuda")
+    G = torch.randn(n, n, generator=gen, device="cuda")
+    H = G @ G.T
+    del G
+    H.div_(n)
+    H.diagonal().add_(1.0)
+    K[:n, :n] = H
+    del H
+    J = torch.randn(p, n, generator=gen, device="cuda")
+    K[n:, :n] = J
+    del J
+    K.tril_()
+    K += torch.tril(K, -1).T
+    return K, gen
+
+
+def _ldl_gates(K, Lp, d, e, perm, X, B, gen):
+    """Phase 3g's two residuals, reduced in float64: the factor residual
+    ||P K P^T v - L (D (L^T v))|| / (||K||_F ||v||) and the solve residual
+    ||K X - B||_F / (||K||_F ||X||_F).  ``tests/test_torch_gpu.py`` uses
+    it too."""
+    import torch
+    N = K.shape[0]
+    f64 = torch.float64
+    k = K.double()
+    norm_k = torch.linalg.norm(k)
+    v = torch.randn(N, 1, generator=gen, device="cuda", dtype=f64)
+    u = torch.zeros_like(v)
+    u[perm] = v
+    pkp_v = (k @ u)[perm]
+    solve_res = float(torch.linalg.norm(k @ X.double() - B.double())
+                      / (norm_k * torch.linalg.norm(X.double())))
+    del k, u
+    low = torch.tril(Lp.double(), -1)
+    t = low.T @ v + v
+    ed = e.double()
+    z = d.double()[:, None] * t
+    z[:-1] += ed[:, None] * t[1:]
+    z[1:] += ed[:, None] * t[:-1]
+    ldl_v = low @ z + z
+    factor_res = float(torch.linalg.norm(pkp_v - ldl_v)
+                       / (norm_k * torch.linalg.norm(v)))
+    return factor_res, solve_res
+
+
+def phase_ldl_main_path(et, card: str) -> dict:
+    """symmetric_solve of a KKT saddle-point system at full width on the 1x1
+    grid: the call timed whole, then ldl and ldl_solve_after, the three
+    gates, torch.linalg.ldl_factor + ldl_solve beside it, and a device
+    profile of the same call at N = 8192."""
+    import torch
+    from elemental_tpu_torch.kernels import lu_panel, potrf_inv, qr_panel
+    n, p, nb, nrhs = 24576, 8192, 512, 8
+    N = n + p
+    grid = et.Grid()
+
+    def dm(x):
+        return et.from_global(x, et.MC, et.MR, grid)
+
+    def library(K, B):
+        LD, piv = torch.linalg.ldl_factor(K)
+        return torch.linalg.ldl_solve(LD, piv, B)
+
+    # warm-up at N = 2048 (library handles, the CUDA graph of the column)
+    Kw, gen = _kkt(1536, 512, seed=71)
+    Bw = torch.randn(2048, nrhs, generator=gen, device="cuda")
+    et.symmetric_solve(dm(Kw), dm(Bw), nb=nb)
+    library(Kw, Bw)
+    del Kw, Bw
+    Kg, gen = _kkt(n, p, seed=70)
+    Bg = torch.randn(N, nrhs, generator=gen, device="cuda")
+    K, B = dm(Kg), dm(Bg)
+    torch.cuda.synchronize()
+    potrf_inv.launches = lu_panel.launches = qr_panel.launches = 0
+    t0 = time.perf_counter()
+    X = et.symmetric_solve(K, B, nb=nb)
+    torch.cuda.synchronize()
+    t_total = time.perf_counter() - t0
+    launches = {"potrf_inv": potrf_inv.launches, "lu_panel": lu_panel.launches,
+                "qr_panel": qr_panel.launches}
+    if any(launches.values()):
+        raise AssertionError(f"symmetric_solve launched {launches}; ldl has "
+                             "no panel kernel, expected 0 each")
+    del X
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    Lp, d, e, perm = et.ldl(K, conjugate=False, nb=nb)
+    torch.cuda.synchronize()
+    t_ldl = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    X = et.ldl_solve_after(Lp, d, e, perm, B, conjugate=False, nb=nb)
+    torch.cuda.synchronize()
+    t_after = time.perf_counter() - t0
+    x = X.local
+    if not (bool(torch.isfinite(x).all()) and tuple(x.shape) == (N, nrhs)
+            and bool(torch.isfinite(Lp.local).all())):
+        raise AssertionError("ldl: X or L not finite, or a shape is wrong")
+    n22 = int((e != 0).sum())
+    max_l = float(torch.tril(Lp.local, -1).abs().max())
+    counts = et.inertia(d, e)
+    factor_res, solve_res = _ldl_gates(Kg, Lp.local, d, e, perm, x, Bg, gen)
+    del Lp, X, x
+    if not (factor_res < 1e-3 and solve_res < 1e-4 and counts == (n, p, 0)):
+        raise AssertionError(f"ldl gates: factor residual {factor_res:.3e} "
+                             f"(< 1e-3), solve residual {solve_res:.3e} "
+                             f"(< 1e-4), inertia {counts} (== {(n, p, 0)})")
+    # the library's Bunch-Kaufman (cuSOLVER sytrf) beside the path
+    t0 = time.perf_counter()
+    LD, piv = torch.linalg.ldl_factor(Kg)
+    torch.cuda.synchronize()
+    lib_factor_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    torch.linalg.ldl_solve(LD, piv, Bg)
+    torch.cuda.synchronize()
+    lib_solve_s = time.perf_counter() - t0
+    del LD, piv, K, B, Kg, Bg
+    # a device profile of the same call at N = 8192 (at 32768 the profile's
+    # post-processing of ~10^6 graph-node events would take minutes)
+    K8, gen8 = _kkt(6144, 2048, seed=72)
+    B8 = torch.randn(8192, nrhs, generator=gen8, device="cuda")
+    K8d, B8d = dm(K8), dm(B8)
+    et.symmetric_solve(K8d, B8d, nb=nb)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    et.symmetric_solve(K8d, B8d, nb=nb)
+    torch.cuda.synchronize()
+    t8 = time.perf_counter() - t0
+    prof = _device_breakdown(lambda: et.symmetric_solve(K8d, B8d, nb=nb),
+                             top=14, cpu=False)
+    prof["N"] = 8192
+    prof["unprofiled_symmetric_solve_s"] = t8
+    prof["idle_share_vs_unprofiled_wall"] = max(
+        0.0, 1 - prof["device_busy_ms"] / (t8 * 1e3))
+    print("phase 3g symmetric_solve breakdown " + json.dumps(prof),
+          flush=True)
+    out = {"N": N, "n": n, "p": p, "nb": nb, "nrhs": nrhs, "dtype": "float32",
+           "symmetric_solve_s": t_total, "ldl_s": t_ldl,
+           "ldl_solve_after_s": t_after,
+           "torch_ldl_factor_s": lib_factor_s,
+           "torch_ldl_solve_s": lib_solve_s, "pivots_2x2": n22,
+           "max_abs_L": max_l, "inertia": list(counts),
+           "factor_residual": factor_res, "solve_residual": solve_res,
+           "idle_share_N8192": prof["idle_share_vs_unprofiled_wall"],
+           **{f"{k}_launches": v for k, v in launches.items()}, "card": card}
+    print("phase 3g ldl main path " + json.dumps(out), flush=True)
+    return out
+
+
+def _polar_counts(n: int, nb: int, dtype) -> tuple:
+    """(qr_panel, potrf_inv) launches of ``svd`` of a square float32 n x n
+    matrix on the 1x1 grid (the polar route, no Chan QR): the QDWH
+    schedule's QR steps take n / nb panels each, its Cholesky steps n / nb
+    blocks each."""
+    _, _, n_qr, n_chol = _qdwh_counts(None, n, nb, dtype)
+    panels = -(-n // nb)
+    return panels * n_qr, panels * n_chol
+
+
+def _householder(m: int, gen):
+    """A unit vector from a seeded generator: H = I - 2 u u^T."""
+    import torch
+    u = torch.randn(m, 1, generator=gen, device="cuda")
+    return u / torch.linalg.norm(u)
+
+
+def _known_sv_matrix(m: int, n: int, s0, gen):
+    """A = H1 [diag(s0); 0] H2 (float32) with H1, H2 Householder
+    reflectors: singular values exactly s0, formed in O(m n)."""
+    import torch
+    u, v = _householder(m, gen), _householder(n, gen)
+    A = torch.zeros(m, n, device="cuda")
+    A[:n].diagonal().copy_(s0.float())
+    A -= 2 * u @ (u[:n].T * s0.float()[None, :])
+    A -= 2 * (A @ v) @ v.T
+    return A
+
+
+def _quasi_upper(n: int, gen):
+    """A synthetic upper quasi-triangular T (float32): triu(G) / sqrt(n) + 4 I
+    with an isolated 2x2 bump [a b; -b a] at every 37th row."""
+    import torch
+    T = torch.triu(torch.randn(n, n, generator=gen, device="cuda")) / n ** 0.5
+    T.diagonal().add_(4.0)
+    for q in range(0, n - 1, 37):
+        T[q + 1, q + 1] = T[q, q]
+        T[q, q + 1] = 1.5
+        T[q + 1, q] = -1.5
+    return T
+
+
+def phase_ldl_rest(et, card: str) -> dict:
+    """The rest of the slice on the 1x1 grid, each step timed with its
+    kernel launches against the count the driver's blocking predicts, and
+    gated by the JAX test's own check of the function over n eps
+    (float32; pseudospectra against the JAX test's own 1e-3)."""
+    import torch
+    funcs = sys.modules["elemental_tpu_torch.lapack.funcs"]
+    nb = 512
+    eps = torch.finfo(torch.float32).eps
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(80)
+    lu_calls = [0]
+    real_lu_solve = funcs.lu_solve
+
+    def counted_lu_solve(*a, **k):
+        lu_calls[0] += 1
+        return real_lu_solve(*a, **k)
+
+    out = {"nb": nb, "dtype": "float32"}
+    funcs.lu_solve = counted_lu_solve
+    try:
+        _ldl_rest_steps(et, out, nb, eps, gen, lu_calls)
+    finally:
+        funcs.lu_solve = real_lu_solve
+    out["card"] = card
+    print("phase 3h ldl slice " + json.dumps(
+        {k: v for k, v in out.items() if not isinstance(v, dict)}),
+        flush=True)
+    return out
+
+
+def _ldl_rest_steps(et, out: dict, nb: int, eps: float, gen,
+                    lu_calls: list) -> None:
+    """Phase 3h's steps, each recorded in ``out``; ``lu_calls[0]`` counts
+    the calls of ``lu_solve`` (the sign iteration's), zeroed per step."""
+    import torch
+    from elemental_tpu_torch.kernels import lu_panel, potrf_inv, qr_panel
+    grid = et.Grid()
+    f64 = torch.float64
+    nrm = torch.linalg.norm
+
+    def dm(x):
+        return et.from_global(x, et.MC, et.MR, grid)
+
+    def rnd(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device="cuda", dtype=dtype)
+
+    def panels(n):
+        return -(-n // nb)
+
+    def over(v, n):
+        """A gate: the JAX test's own quantity over n eps, limit 16."""
+        return (float(v) / (n * eps), 16.0)
+
+    def run(name, fn, expect, gates_of):
+        """Time ``fn`` with every count at 0; check its launches against
+        ``expect`` (a dict, or a callable for counts that follow a
+        data-dependent iteration) and its gates, (value, bound) pairs: a
+        float holds if below its bound, anything else if equal to it."""
+        potrf_inv.launches = lu_panel.launches = qr_panel.launches = 0
+        lu_calls[0] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = {"potrf_inv": potrf_inv.launches, "lu_panel": lu_panel.launches,
+               "qr_panel": qr_panel.launches}
+        want = {"potrf_inv": 0, "lu_panel": 0, "qr_panel": 0}
+        want.update(expect() if callable(expect) else expect)
+        gates = gates_of(res)
+        row = {"s": dt, "launches": got, "lu_solve_calls": lu_calls[0],
+               "value_bound": gates}
+        out[name] = row
+        print(f"phase 3h {name} " + json.dumps(row), flush=True)
+        bad = [k for k, (v, bound) in gates.items()
+               if not (v < bound if isinstance(v, float) else v == bound)]
+        if got != want or bad:
+            raise AssertionError(f"{name}: launches {got} (expected {want}), "
+                                 f"failed gates {bad}: {row}")
+        return res
+
+    # lse: a KKT system solved with ldl (gemm + ldl, no panel kernel)
+    m, n, p = 16384, 6144, 2048
+    A, b, C, d = rnd(m, n), rnd(m, 1), rnd(p, n), rnd(p, 1)
+
+    def lse_gates(x):
+        x, a, c, bb, dd = (v.double() for v in (x.local, A, C, b, d))
+        g = a.T @ (bb - a @ x)
+        lam = torch.linalg.lstsq(c.T, g).solution
+        return {"constraint": over(nrm(c @ x - dd)
+                                   / (nrm(c) * nrm(x) + nrm(dd)), n),
+                "optimality": over(nrm(g - c.T @ lam) / (
+                    nrm(a) * (nrm(a) * nrm(x) + nrm(bb))), n)}
+    run("lse", lambda: et.lse(dm(A), dm(b), dm(C), dm(d), nb=nb), {},
+        lse_gates)
+    del A, b, C, d
+
+    # glm: two Cholesky factorizations (W = B B^T: m / nb blocks; M: n / nb)
+    m, n, k = 8192, 2048, 12288
+    A, Bm, d = rnd(m, n), rnd(m, k), rnd(m, 1)
+
+    def glm_gates(xy):
+        x, y = (v.local.double() for v in xy)
+        a, bm, dd = A.double(), Bm.double(), d.double()
+        z = torch.linalg.solve(bm @ bm.T, dd - a @ x)
+        return {"consistency": over(nrm(a @ x + bm @ y - dd) / (
+                    nrm(a) * nrm(x) + nrm(bm) * nrm(y) + nrm(dd)), m),
+                "gls_optimality": over(nrm(a.T @ z) / (nrm(a) * nrm(z)), m)}
+    run("glm", lambda: et.glm(dm(A), dm(Bm), dm(d), nb=nb),
+        {"potrf_inv": panels(m) + panels(n)}, glm_gates)
+    del A, Bm, d
+
+    # ridge and tikhonov: the stacked least-squares problem through qr
+    m, n = 32768, 8192
+    A, b = rnd(m, n), rnd(m, 8)
+    Gt = rnd(n, n) * 0.1
+
+    def stacked_gates(x, gram):
+        x, a, bb = x.local.double(), A.double(), b.double()
+        g = a.T @ (bb - a @ x) - gram(x)
+        return {"normal_equations": over(nrm(g) / (
+            nrm(a) * (nrm(a) * nrm(x) + nrm(bb))), n)}
+    run("ridge", lambda: et.ridge(dm(A), dm(b), 1.5, nb=nb),
+        {"qr_panel": panels(n)},
+        lambda x: stacked_gates(x, lambda v: 1.5 ** 2 * v))
+    run("tikhonov", lambda: et.tikhonov(dm(A), dm(b), dm(Gt), nb=nb),
+        {"qr_panel": panels(n)},
+        lambda x: stacked_gates(x, lambda v: Gt.double().T
+                                @ (Gt.double() @ v)))
+    del A, b, Gt
+
+    # the determinants at N = 8192, scaled so that |det| ~ 1 fits float32
+    n = 8192
+    Ad = rnd(n, n) / n ** 0.5
+    Ad.diagonal().add_(2.0)
+    Ad /= float(torch.exp(torch.linalg.slogdet(Ad.double())[1] / n))
+    sgn, logabs = (float(v) for v in torch.linalg.slogdet(Ad.double()))
+    ref = sgn * math.exp(logabs)
+    run("determinant", lambda: et.determinant(dm(Ad), nb=nb),
+        {"lu_panel": panels(n)},
+        lambda det: {"relative_error": over(abs(float(det) - ref)
+                                            / abs(ref), n)})
+    run("safe_determinant", lambda: et.safe_determinant(dm(Ad), nb=nb),
+        {"lu_panel": panels(n)},
+        lambda r: {"rho": over(abs(float(r[0]) - sgn), n),
+                   "n_kappa_vs_slogdet": over(abs(float(r[1]) * r[2]
+                                                  - logabs), n)})
+    del Ad
+    G = rnd(n, n)
+    Ah = G @ G.T
+    del G
+    Ah.div_(n)
+    Ah.diagonal().add_(1.0)
+    Ah /= float(torch.exp(torch.linalg.slogdet(Ah.double())[1] / n))
+    ref = math.exp(float(torch.linalg.slogdet(Ah.double())[1]))
+    run("hpd_determinant", lambda: et.hpd_determinant(dm(Ah), nb=nb),
+        {"potrf_inv": panels(n)},
+        lambda det: {"relative_error": over(abs(float(det) - ref) / ref, n)})
+    del Ah
+
+    # condition, two_norm, nuclear_norm through svd (the polar route):
+    # A = U0 diag(s0) V0^T, s0 geometric from 1 to 1e-3
+    n = 4096
+    Asv, s0 = _svd_matrix(n, n, seed=81)
+    want_qr, want_potrf = _polar_counts(n, nb, torch.float32)
+    svd_counts = {"qr_panel": want_qr, "potrf_inv": want_potrf}
+    cond0, nuc0 = float(s0[0] / s0[-1]), float(s0.sum())
+    run("condition", lambda: et.condition(dm(Asv), nb=nb), svd_counts,
+        lambda c: {"relative_error": over(abs(float(c) - cond0) / cond0, n)})
+    run("two_norm", lambda: et.two_norm(dm(Asv), nb=nb), svd_counts,
+        lambda s: {"relative_error": over(abs(float(s) - 1.0), n)})
+    run("nuclear_norm", lambda: et.nuclear_norm(dm(Asv), nb=nb), svd_counts,
+        lambda s: {"relative_error": over(abs(float(s) - nuc0) / nuc0, n)})
+    del Asv
+
+    # two_norm_estimate: singular values known, s0[0] = 1 set apart from
+    # the rest (<= 0.5) so that its 20 power steps converge
+    m, n = 32768, 16384
+    s0 = torch.cat([torch.ones(1, device="cuda", dtype=f64),
+                    0.5 * torch.logspace(0, -3, n - 1, device="cuda",
+                                         dtype=f64)])
+    Aest = _known_sv_matrix(m, n, s0, gen)
+    run("two_norm_estimate", lambda: et.two_norm_estimate(dm(Aest)), {},
+        lambda est: {"relative_error": over(abs(float(est) - 1.0), n)})
+    del Aest
+
+    # qr_col_piv: residual through apply_q and the greedy order of R
+    m, n = 8192, 4096
+    Aq = rnd(m, n)
+
+    def cpqr_gates(res):
+        Ap, tau, jpvt = res
+        R = torch.zeros(m, n, device="cuda")
+        R[:n] = torch.triu(Ap.local[:n])
+        QR = et.apply_q(Ap, tau, dm(R), orient="N").local.double()
+        rd = Ap.local.diagonal().abs().double()
+        return {"residual": over(nrm(QR - Aq[:, jpvt].double())
+                                 / nrm(Aq.double()), n),
+                "greedy_order": over((rd[1:] - rd[:-1]).clamp_min(0).max()
+                                     / rd[0], n)}
+    run("qr_col_piv", lambda: et.qr_col_piv(dm(Aq), nb=nb), {}, cpqr_gates)
+    del Aq
+
+    # lu_full_pivot
+    n = 2048
+    Al = rnd(n, n)
+
+    def lufp_gates(res):
+        LU, rp, cp = res
+        lu_ = LU.local.double()
+        L = torch.tril(lu_, -1) + torch.eye(n, device="cuda", dtype=f64)
+        return {"residual": over(nrm(L @ torch.triu(lu_)
+                                     - Al.double()[rp][:, cp])
+                                 / nrm(Al.double()), n),
+                "L_bounded_by_1": (bool(L.abs().max() <= 1.0), True)}
+    run("lu_full_pivot", lambda: et.lu_full_pivot(dm(Al)), {}, lufp_gates)
+    del Al
+
+    # schur, triang_eig and eig of a complex64 matrix (the plain paths);
+    # the reference eigenvalues from the host's LAPACK in complex128.  At
+    # n = 512 schur and eig took ~22 s and ~19 s (74 complex LU solves
+    # each), so n = 256 keeps 3g and 3h near 100 s
+    n = 256
+    c128 = torch.complex128
+    Ac = torch.complex(rnd(n, n), rnd(n, n)) / 2 ** 0.5
+    ev_ref = torch.linalg.eigvals(Ac.cpu().to(c128)).cuda()
+
+    def schur_gates(res):
+        T, Q = res
+        t, q, a = (x.to(c128) for x in (T.local, Q.local, Ac))
+        eye = torch.eye(n, device="cuda", dtype=c128)
+        dist = (ev_ref[:, None] - torch.diagonal(t)[None, :]).abs()
+        return {"strictly_lower_zero": (bool((torch.tril(t, -1) == 0).all()),
+                                        True),
+                "reconstruction": over(nrm(a - q @ t @ q.mH) / nrm(a), n),
+                "orthogonality": over((q.mH @ q - eye).abs().max(), n),
+                "eigenvalues": over(dist.min(dim=1).values.max()
+                                    / ev_ref.abs().max(), n)}
+    T, Q = run("schur", lambda: et.schur(dm(Ac), nb=nb), {}, schur_gates)
+    del Q
+    Tt = T.local.to(c128)
+
+    def triang_gates(res):
+        w, V = res
+        v = V.local.to(c128)
+        r = Tt @ v - v * w.to(c128)[None, :]
+        return {"residual": over(nrm(r, dim=0).max() / nrm(Tt), n)}
+    run("triang_eig", lambda: et.triang_eig(T, nb=nb), {}, triang_gates)
+    del T, Tt
+
+    def eig_gates_(res):
+        w, V = res
+        v, a = V.local.to(c128), Ac.to(c128)
+        return {"residual": over(nrm(a @ v - v * w.to(c128)[None, :])
+                                 / nrm(a), n)}
+    run("eig", lambda: et.eig(dm(Ac), nb=nb), {}, eig_gates_)
+    del Ac
+
+    # pseudospectra on a 20 x 20 window inside the spectrum's disk (radius
+    # ~sqrt(n)): sigma_min(A - z I) against the float64 singular values at
+    # every tenth shift (the JAX test's 1e-3)
+    n = 256
+    Aps = rnd(n, n)
+    r = 0.69 * n ** 0.5
+
+    def pspec_gates(res):
+        Z, sm = res
+        z = torch.as_tensor(Z.reshape(-1)[::10], device="cuda")
+        shifted = Aps.to(c128)[None] - z[:, None, None] * torch.eye(
+            n, device="cuda", dtype=c128)
+        direct = torch.linalg.svdvals(shifted)[:, -1].cpu().numpy()
+        rel = abs(sm.reshape(-1)[::10] - direct) / direct.clip(min=1e-12)
+        return {"max_relative_error": (float(rel.max()), 1e-3)}
+    run("pseudospectra", lambda: et.pseudospectra(
+        dm(Aps), (-r, r), (-r, r), nx=20, ny=20, nb=nb), {}, pspec_gates)
+    del Aps
+
+    # the control solvers, on the sign function (lu_panel through
+    # lu_solve: the count follows the Newton iteration, so lu_solve's calls
+    # are counted and each factors the 2n x 2n block matrix in 2n / nb
+    # panels)
+    n = 2048
+    As = rnd(n, n) / n ** 0.5
+    As.diagonal().sub_(2.0)
+    Bs = rnd(n, n) / n ** 0.5
+    Bs.diagonal().sub_(2.0)
+    Cs = rnd(n, n)
+    Cl = Cs + Cs.T
+    Ar = rnd(n, n) / n ** 0.5
+    Bk = rnd(n, n // 4) / (n // 4) ** 0.5
+    Gr = Bk @ Bk.T
+    Qr = rnd(n, n)
+    Qr = Qr @ Qr.T / n
+    Qr.diagonal().add_(1.0)
+    del Bk
+
+    def sign_lus():
+        return {"lu_panel": lu_calls[0] * panels(2 * n)}
+
+    def residual(X, lhs, rhs):
+        x = X.local.double()
+        return {"residual": over(nrm(lhs(x) - rhs.double())
+                                 / nrm(rhs.double()), n)}
+    a, bs, ar, g = As.double(), Bs.double(), Ar.double(), Gr.double()
+    run("sylvester", lambda: et.sylvester(dm(As), dm(Bs), dm(Cs), nb=nb),
+        sign_lus, lambda X: residual(X, lambda x: a @ x + x @ bs, Cs))
+    run("lyapunov", lambda: et.lyapunov(dm(As), dm(Cl), nb=nb),
+        sign_lus, lambda X: residual(X, lambda x: a @ x + x @ a.T, Cl))
+
+    # the Riccati residual over the size of its terms (the JAX test's
+    # residual over ||Q|| alone grows with ||X||^2 ||G|| in float32)
+    def ric_gates(X):
+        x, q = X.local.double(), Qr.double()
+        r = ar.T @ x + x @ ar + q - x @ g @ x
+        return {"residual": over(nrm(r) / (
+            nrm(q) + 2 * nrm(ar) * nrm(x) + nrm(g) * nrm(x) ** 2), n)}
+    run("riccati", lambda: et.riccati(dm(Ar), dm(Gr), dm(Qr), nb=nb),
+        lambda: {"lu_panel": lu_calls[0] * panels(2 * n),
+                 "qr_panel": panels(n)}, ric_gates)
+    del As, Bs, Cs, Cl, Ar, Gr, Qr, a, bs, ar, g
+
+    # hemm and her2k at 16384, each beside torch.matmul of the same product
+    n = 16384
+    Ah, Bh = rnd(n, n), rnd(n, n)
+    S = torch.tril(Ah) + torch.tril(Ah, -1).T
+    ref = S @ Bh
+    out["hemm_torch_matmul_ms"] = _time_ms(lambda: S @ Bh, 1)
+    del S
+    run("hemm", lambda: et.hemm("L", "L", dm(Ah), dm(Bh)), {},
+        lambda Cm: {"vs_matmul": over(nrm(Cm.local - ref) / nrm(ref), n)})
+    del ref
+    Ak, Bk = Ah[:, : n // 4].contiguous(), Bh[:, : n // 4].contiguous()
+    del Ah, Bh
+    out["her2k_torch_matmul_ms"] = _time_ms(lambda: Ak @ Bk.T + Bk @ Ak.T, 1)
+    ref = torch.tril(Ak @ Bk.T + Bk @ Ak.T)
+    run("her2k", lambda: et.her2k("L", dm(Ak), dm(Bk), nb=nb), {},
+        lambda Cm: {"vs_matmul": over(nrm(torch.tril(Cm.local) - ref)
+                                      / nrm(ref), n)})
+    del Ak, Bk, ref
+
+    # quasi_trsm and multishift_trsm (1024 real shifts in [-1, 1])
+    n = 8192
+    Tq = _quasi_upper(n, gen)
+    Bq = rnd(n, 512)
+
+    def quasi_gates(X):
+        x, t = X.local.double(), Tq.double()
+        return {"residual": over(nrm(t @ x - Bq.double())
+                                 / (nrm(t) * nrm(x)), n)}
+    run("quasi_trsm", lambda: et.quasi_trsm("L", "N", dm(Tq), dm(Bq), nb=nb),
+        {}, quasi_gates)
+    del Tq, Bq
+    n, k = 4096, 1024
+    Tm = torch.triu(rnd(n, n)) / n ** 0.5
+    Tm.diagonal().add_(4.0)
+    Bm = rnd(n, k)
+    sh = torch.rand(k, generator=gen, device="cuda") * 2 - 1
+
+    def ms_gates(X):
+        x, t, bb = X.local.double(), Tm.double(), Bm.double()
+        r = t @ x - x * sh.double()[None, :] - bb
+        return {"residual": over((nrm(r, dim=0) / (
+            nrm(t) * nrm(x, dim=0) + nrm(bb, dim=0))).max(), n)}
+    run("multishift_trsm", lambda: et.multishift_trsm(
+        "U", "N", dm(Tm), sh, dm(Bm)), {}, ms_gates)
+
 def phase_eig_distributed(et) -> None:
     """herm_eig (its D&C branch and the distributed merges: n > dc_min =
     repl_max = 512), skew_herm_eig and herm_gen_def_eig on a virtual 2x2
@@ -1284,6 +1880,282 @@ def phase_svd_distributed(et) -> None:
     bad = {name: row for name, row in bad.items() if row}
     if bad:
         raise AssertionError(f"svd slice on the 2x2 grid: {bad}")
+def phase_ldl_distributed(et) -> None:
+    """Every public function of the LDL slice on a virtual 2x2 grid on the
+    card, float64, with the bounds of the JAX package's tests (tests/
+    lapack/test_ldl.py, test_euclidean_min.py, test_props.py,
+    test_schur.py, test_qr.py, test_variants.py, tests/control/
+    test_control.py, tests/blas/test_level3_ext.py) as (value, bound)
+    pairs; a float holds if below its bound, anything else if equal."""
+    import numpy as np
+    import scipy.linalg
+    import torch
+    grid = et.Grid(2, 2)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(9)
+    f64, c128 = torch.float64, torch.complex128
+    nrm = torch.linalg.norm
+
+    def dm(x):
+        return et.from_global(x, et.MC, et.MR, grid)
+
+    def g(A):
+        return et.to_global(A)
+
+    def rnd(*shape, dtype=f64):
+        if dtype.is_complex:
+            return torch.complex(rnd(*shape), rnd(*shape))
+        return torch.randn(*shape, generator=gen, device="cuda", dtype=dtype)
+
+    def sym(n, dtype=f64):
+        G = rnd(n, n, dtype=dtype)
+        return (G + G.mH) / 2
+
+    def eye(n, dtype=f64):
+        return torch.eye(n, device="cuda", dtype=dtype)
+
+    def from_np(x):
+        return torch.as_tensor(x, device="cuda")
+
+    def np_sym(n, seed, cplx=False):
+        """tests/lapack/test_ldl.py::_sym, the JAX tests' own inputs."""
+        rng = np.random.default_rng(seed)
+        if cplx:
+            G = rng.normal(size=(n, n)) + 1j * rng.normal(size=(n, n))
+            return from_np((G + G.conj().T) / 2)
+        G = rng.normal(size=(n, n))
+        return from_np((G + G.T) / 2)
+
+    rows = {}
+    # ldl: reconstruction, solves, inertia (test_ldl.py's inputs and bounds)
+    stress = np_sym(24, 4)
+    stress.diagonal().fill_(1e-12)                # pervasive 2x2 pivots
+    rec = {}
+    for name, M, conj, bound in (("symmetric", np_sym(24, 0), False, 1e-13),
+                                 ("pivot_stress", stress, False, 1e-12),
+                                 ("hermitian", np_sym(16, 2, True), True,
+                                  1e-13)):
+        Lp, d, e, perm = et.ldl(dm(M), conjugate=conj, nb=8)
+        L = torch.tril(g(Lp), -1) + eye(M.shape[0], M.dtype)
+        D = torch.diag(d.to(M.dtype))
+        D += torch.diag(e.to(M.dtype), -1)
+        D += torch.diag(e.to(M.dtype).conj() if conj else e.to(M.dtype), 1)
+        R = L @ D @ (L.mH if conj else L.mT)
+        rec[name] = (float(nrm(R - M[perm][:, perm]) / nrm(M)), bound)
+    rows["ldl"] = rec
+    rng = np.random.default_rng(5)
+    F, B = np_sym(24, 5), from_np(rng.normal(size=(24, 3)))
+    X = g(et.symmetric_solve(dm(F), dm(B), nb=8))
+    rng = np.random.default_rng(6)
+    Fh = np_sym(16, 6, True)
+    Bc = from_np(rng.normal(size=(16, 3)) + 1j * rng.normal(size=(16, 3)))
+    Xh = g(et.hermitian_solve(dm(Fh), dm(Bc), nb=8))
+    F7 = np_sym(24, 7)
+    _, d, e, _ = et.ldl(dm(F7), conjugate=False, nb=8)
+    w = torch.linalg.eigvalsh(F7)
+    rows["solves"] = {
+        "symmetric_solve": (float(nrm(F @ X - B) / nrm(B)), 1e-12),
+        "hermitian_solve": (float(nrm(Fh @ Xh - Bc) / nrm(Bc)), 1e-12),
+        "inertia": (list(et.inertia(d, e)),
+                    [int((w > 0).sum()), int((w < 0).sum()), 0])}
+    # euclidean_min (test_euclidean_min.py)
+    A, b, C, dd = rnd(80, 32), rnd(80, 2), rnd(12, 32), rnd(12, 2)
+    Gt = rnd(20, 32)
+    x = g(et.ridge(dm(A), dm(b), 1.5, nb=16))
+    ridge_ref = torch.linalg.solve(A.T @ A + 2.25 * eye(32), A.T @ b)
+    xt = g(et.tikhonov(dm(A), dm(b), dm(Gt), nb=16))
+    tik_ref = torch.linalg.solve(A.T @ A + Gt.T @ Gt, A.T @ b)
+    xl = g(et.lse(dm(A), dm(b), dm(C), dm(dd), nb=16))
+    K = torch.zeros(44, 44, device="cuda", dtype=f64)
+    K[:32, :32], K[:32, 32:], K[32:, :32] = A.T @ A, C.T, C
+    lse_ref = torch.linalg.solve(K, torch.cat([A.T @ b, dd]))[:32]
+    Ag, Bg, dg = rnd(48, 16), rnd(48, 48), rnd(48, 1)
+    xg, yg = (g(v) for v in et.glm(dm(Ag), dm(Bg), dm(dg), nb=16))
+    Wi = torch.linalg.inv(Bg @ Bg.T)
+    glm_ref = torch.linalg.solve(Ag.T @ Wi @ Ag, Ag.T @ Wi @ dg)
+    rows["euclidean_min"] = {
+        "ridge": (float(nrm(x - ridge_ref)), 1e-12),
+        "tikhonov": (float(nrm(xt - tik_ref)), 1e-12),
+        "lse": (float(nrm(xl - lse_ref)), 1e-11),
+        "lse_constraint": (float(nrm(C @ xl - dd)), 1e-12),
+        "glm_consistency": (float(nrm(Ag @ xg + Bg @ yg - dg)), 1e-12),
+        "glm": (float(nrm(xg - glm_ref)), 1e-10)}
+    # props (test_props.py)
+    Fd = rnd(48, 48)
+    sgn, logabs = torch.linalg.slogdet(Fd)
+    det_ref = float(sgn * torch.exp(logabs))
+    rho, kappa, nn = et.safe_determinant(dm(Fd * 1e3), nb=16)
+    sgn3, logabs3 = torch.linalg.slogdet(Fd * 1e3)
+    Gh = rnd(48, 48)
+    Hp = Gh @ Gh.T / 48 + 2 * eye(48)
+    Fe = from_np(np.random.default_rng(4).normal(size=(16, 10)))
+    sv = torch.linalg.svdvals(Fe)
+    Fc = rnd(40, 40)
+    Fsym = sym(56)
+    wsym = torch.linalg.eigvalsh(Fsym)
+    rows["props"] = {
+        "determinant": (abs(float(et.determinant(dm(Fd), nb=16)) - det_ref)
+                        / abs(det_ref), 1e-12),
+        "safe_determinant_rho": (abs(float(rho) - float(sgn3)), 1e-10),
+        "safe_determinant_kappa": (abs(float(kappa) * nn - float(logabs3)),
+                                   1e-8),
+        "hpd_determinant": (abs(float(et.hpd_determinant(dm(Hp), nb=16))
+                                - float(torch.linalg.det(Hp)))
+                            / float(torch.linalg.det(Hp)), 1e-12),
+        "two_norm_estimate": (abs(float(et.two_norm_estimate(
+            dm(Fe), iters=40)) - float(sv[0])) / float(sv[0]), 1e-6),
+        "condition_two": (abs(float(et.condition(dm(Fc), "two", nb=16))
+                              - float(torch.linalg.cond(Fc)))
+                          / float(torch.linalg.cond(Fc)), 1e-10),
+        "condition_one": (abs(float(et.condition(dm(Fc), "one", nb=16))
+                              - float(torch.linalg.cond(Fc, 1)))
+                          / float(torch.linalg.cond(Fc, 1)), 1e-10),
+        "nuclear_norm": (abs(float(et.nuclear_norm(dm(Fe), nb=16))
+                             - float(sv.sum())), 1e-10),
+        "two_norm": (abs(float(et.two_norm(dm(Fe), nb=16)) - float(sv[0])),
+                     1e-11),
+        "schatten_norm": (abs(float(et.schatten_norm(dm(Fe), 3.0, nb=16))
+                              - float((sv ** 3).sum() ** (1 / 3))), 1e-10),
+        "matrix_inertia": (list(et.lapack.matrix_inertia(dm(Fsym), nb=16)),
+                           [int((wsym > 0).sum()), int((wsym < 0).sum()),
+                            0])}
+    # qr_col_piv and lu_full_pivot (test_qr.py, test_variants.py)
+    Fq = rnd(64, 48)
+    Ap, tau, jpvt = et.qr_col_piv(dm(Fq), nb=16)
+    R = torch.zeros(64, 48, device="cuda", dtype=f64)
+    R[:48] = torch.triu(g(Ap)[:48])
+    QR = g(et.apply_q(Ap, tau, dm(R), orient="N"))
+    rd = torch.diagonal(g(Ap)).abs()
+    Fl = rnd(57, 57)
+    LU, rp, cp = et.lu_full_pivot(dm(Fl))
+    lug = g(LU)
+    L = torch.tril(lug, -1) + eye(57)
+    rows["pivoting"] = {
+        "qr_col_piv": (float(nrm(QR - Fq[:, jpvt]) / nrm(Fq)), 1e-13),
+        "qr_col_piv_greedy": (float((rd[1:] - rd[:-1]).max()), 1e-10),
+        "lu_full_pivot": (float((L @ torch.triu(lug) - Fl[rp][:, cp])
+                                .abs().max()), 1e-9),
+        "lu_full_pivot_L_bound": (float(L.abs().max()), 1 + 1e-12)}
+    # schur, triang_eig, eig, pseudospectra (test_schur.py)
+    Fs_ = rnd(64, 64)
+    T, Q = et.schur(dm(Fs_), base=16, nb=16)
+    Tg, Qg = g(T), g(Q)
+    evs = torch.linalg.eigvals(Fs_.cpu()).cuda()
+    dist = (evs[:, None] - torch.diagonal(Tg)[None, :]).abs()
+    w, V = et.triang_eig(T, nb=16)
+    Vg = g(V)
+    r_te = nrm(Tg @ Vg - Vg * w[None, :], dim=0).max() / nrm(Tg)
+    we, Ve = et.eig(dm(Fs_), base=16, nb=16)
+    Veg = g(Ve)
+    Fp = rnd(32, 32)
+    Z, sm = et.pseudospectra(dm(Fp), (-3, 3), (-3, 3), nx=4, ny=4, iters=14,
+                             base=64)
+    zz = torch.as_tensor(Z.reshape(-1), device="cuda")
+    direct = torch.linalg.svdvals(Fp.to(c128)[None] - zz[:, None, None]
+                                  * eye(32, c128))[:, -1].cpu().numpy()
+    rows["schur"] = {
+        "strictly_lower_zero": (bool((torch.tril(Tg, -1) == 0).all()),
+                                True),
+        "orthogonality": (float(nrm(Qg.mH @ Qg - eye(64, c128))), 1e-12 * 64),
+        "reconstruction": (float(nrm(Fs_ - Qg @ Tg @ Qg.mH) / nrm(Fs_)),
+                           1e-12),
+        "eigenvalues": (float(dist.min(dim=1).values.max()
+                              / max(float(evs.abs().max()), 1.0)), 1e-10),
+        "triang_eig": (float(r_te), 1e-12),
+        "eig": (float(nrm(Fs_.to(c128) @ Veg - Veg * we[None, :])
+                      / nrm(Fs_)), 1e-11),
+        "pseudospectra": (float(np.max(np.abs(sm.reshape(-1) - direct)
+                                       / np.maximum(direct, 1e-12))), 1e-3)}
+    # sylvester, lyapunov, riccati (test_control.py's inputs, bounds and
+    # scipy's solutions)
+    def stable(rng, n):
+        M = rng.normal(size=(n, n))
+        return M - (np.abs(np.linalg.eigvals(M).real).max() + 1) * np.eye(n)
+    rng = np.random.default_rng(0)
+    As_, Bs_ = stable(rng, 12), stable(rng, 8)
+    Cs_ = rng.normal(size=(12, 8))
+    Xs_ref = from_np(scipy.linalg.solve_sylvester(As_, Bs_, Cs_))
+    As_, Bs_, Cs_ = from_np(As_), from_np(Bs_), from_np(Cs_)
+    Xs = g(et.sylvester(dm(As_), dm(Bs_), dm(Cs_)))
+    rng = np.random.default_rng(1)
+    Al_ = from_np(stable(rng, 12))
+    Cl = from_np(rng.normal(size=(12, 12)))
+    Cl = Cl + Cl.T
+    Xl = g(et.lyapunov(dm(Al_), dm(Cl)))
+    rng = np.random.default_rng(2)
+    Ar, Bk = rng.normal(size=(8, 8)), rng.normal(size=(8, 3))
+    Qr = rng.normal(size=(8, 8))
+    Qr = Qr @ Qr.T / 8 + np.eye(8)
+    Xr_ref = from_np(scipy.linalg.solve_continuous_are(Ar, Bk, Qr, np.eye(3)))
+    Ar, Bk, Qr = from_np(Ar), from_np(Bk), from_np(Qr)
+    Xr = g(et.riccati(dm(Ar), dm(Bk @ Bk.T), dm(Qr)))
+    rows["control"] = {
+        "sylvester": (float(nrm(As_ @ Xs + Xs @ Bs_ - Cs_) / nrm(Cs_)),
+                      1e-12),
+        "sylvester_vs_scipy": (float(nrm(Xs - Xs_ref) / nrm(Xs_ref)), 1e-12),
+        "lyapunov": (float(nrm(Al_ @ Xl + Xl @ Al_.T - Cl) / nrm(Cl)),
+                     1e-12),
+        "riccati": (float(nrm(Ar.T @ Xr + Xr @ Ar + Qr - Xr @ Bk @ Bk.T @ Xr)
+                          / nrm(Qr)), 1e-10),
+        "riccati_vs_scipy": (float(nrm(Xr - Xr_ref) / nrm(Xr_ref)), 1e-10)}
+    # the rest of the level-3 BLAS (test_level3_ext.py, test_variants.py)
+    Ah_, Bh_, C0 = rnd(40, 24, dtype=c128), rnd(40, 24, dtype=c128), \
+        rnd(40, 40, dtype=c128)
+    a = 0.7 - 0.2j
+    got = g(et.her2k("L", dm(Ah_), dm(Bh_), alpha=a, beta=0.5, C=dm(C0),
+                     nb=8))
+    want = a * Ah_ @ Bh_.mH + np.conj(a) * Bh_ @ Ah_.mH + 0.5 * C0
+    Hm = rnd(40, 40, dtype=c128)
+    Hm = Hm + Hm.mH
+    Bm_ = rnd(40, 16, dtype=c128)
+    got_hemm = g(et.hemm("L", "L", dm(torch.tril(Hm)), dm(Bm_), alpha=1.25))
+    Sm = rnd(40, 40, dtype=c128)
+    Sm = Sm + Sm.T
+    got_symm = g(et.symm("L", "U", dm(torch.triu(Sm)), dm(Bm_)))
+    Ta, Tb, Tc, Td = rnd(40, 16), rnd(16, 40), rnd(40, 16), rnd(16, 40)
+    E0 = rnd(40, 40)
+    got_trr2k = g(et.trr2k("L", 2.0, et.redistribute(dm(Ta), et.MC, et.STAR),
+                           et.redistribute(dm(Tb), et.STAR, et.MR), -1.0,
+                           et.redistribute(dm(Tc), et.MC, et.STAR),
+                           et.redistribute(dm(Td), et.STAR, et.MR), 0.5,
+                           dm(E0)))
+    want_trr2k = 2.0 * Ta @ Tb - Tc @ Td + 0.5 * E0
+    Tq = torch.triu(rnd(74, 74)) + 3 * eye(74)
+    for q in range(0, 72, 9):
+        Tq[q + 1, q + 1], Tq[q, q + 1], Tq[q + 1, q] = Tq[q, q], 1.5, -1.5
+    Bq = rnd(74, 5)
+    Xq = g(et.quasi_trsm("L", "N", dm(Tq), dm(Bq), nb=8))
+    Tms = torch.triu(rnd(48, 48, dtype=c128)) + 4 * eye(48, c128)
+    Bms = rnd(48, 14, dtype=c128)
+    shifts = rnd(14, dtype=c128) * 0.5
+    Xms = g(et.multishift_trsm("U", "C", dm(Tms), shifts, dm(Bms), nb=8))
+    ms_res = max(float(nrm((Tms.mH - shifts[j] * eye(48, c128)) @ Xms[:, j]
+                           - Bms[:, j])) for j in range(14))
+    rows["level3"] = {
+        "her2k": (float(nrm(torch.tril(got) - torch.tril(want))
+                        / nrm(torch.tril(want))), 1e-11),
+        "her2k_other_triangle": (bool((torch.triu(got, 1)
+                                       == torch.triu(C0, 1)).all()), True),
+        "hemm": (float(nrm(got_hemm - 1.25 * Hm @ Bm_) / nrm(Hm @ Bm_)),
+                 1e-11),
+        "symm": (float(nrm(got_symm - Sm @ Bm_) / nrm(Sm @ Bm_)), 1e-11),
+        "trr2k": (float(nrm(torch.tril(got_trr2k) - torch.tril(want_trr2k))
+                        / nrm(torch.tril(want_trr2k))), 1e-12),
+        "quasi_trsm": (float((Xq - torch.linalg.solve(Tq, Bq)).abs().max()),
+                       1e-9),
+        "multishift_trsm": (ms_res, 1e-10)}
+    torch.cuda.synchronize()
+    print("phase 4 ldl slice distributed " + json.dumps(
+        {"grid": "2x2", "dtype": "float64", "value_bound": rows}),
+        flush=True)
+    bad = {name: {k: vb for k, vb in row.items()
+                  if not (vb[0] < vb[1] if isinstance(vb[0], float)
+                          else vb[0] == vb[1])}
+           for name, row in rows.items()}
+    bad = {name: row for name, row in bad.items() if row}
+    if bad:
+        raise AssertionError(f"LDL slice on the 2x2 grid: {bad}")
+
 
 def phase_distributed(et) -> None:
     """hpd_solve on a virtual 2x2 grid on the card, against torch.linalg.solve."""
@@ -1410,21 +2282,33 @@ def main() -> int:
     common.build(["potrf_inv", "lu_panel", "qr_panel"])
     print(f"phase 1 build_s {time.perf_counter() - t0:.3f}", flush=True)
 
-    rows = phase_kernels(et)
-    lu_rows = phase_lu_panel()
-    qr_rows = phase_qr_panel()
-    main_path = phase_main_path(et, card)
-    lu_path = phase_lu_main_path(et, card)
-    qr_path = phase_qr_main_path(et, card)
-    eig_path = phase_eig_main_path(et, card)
-    svd_path = phase_svd_main_path(et, card)
-    svd_rest = phase_svd_rest(et, card)
+    def timed(label, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        print(f"phase {label} wall_s {time.perf_counter() - t:.1f}",
+              flush=True)
+        return out
+
+    rows = timed("2 potrf_inv", phase_kernels, et)
+    lu_rows = timed("2 lu_panel", phase_lu_panel)
+    qr_rows = timed("2 qr_panel", phase_qr_panel)
+    main_path = timed("3", phase_main_path, et, card)
+    lu_path = timed("3b", phase_lu_main_path, et, card)
+    qr_path = timed("3c", phase_qr_main_path, et, card)
+    eig_path = timed("3d", phase_eig_main_path, et, card)
+    svd_path = timed("3e", phase_svd_main_path, et, card)
+    svd_rest = timed("3f", phase_svd_rest, et, card)
+    ldl_path = timed("3g", phase_ldl_main_path, et, card)
+    ldl_rest = timed("3h", phase_ldl_rest, et, card)
+    t4 = time.perf_counter()
     phase_distributed(et)
     phase_lu_distributed(et)
     phase_qr_distributed(et)
     phase_eig_distributed(et)
     phase_svd_distributed(et)
+    phase_ldl_distributed(et)
     et.entry.dryrun_multichip(8)
+    print(f"phase 4 wall_s {time.perf_counter() - t4:.1f}", flush=True)
 
     at_path = next(r for r in rows if r["w"] == 2048 and r["dtype"] == "float32")
     at_eig = next(r for r in rows if r["w"] == 512 and r["dtype"] == "float32")
@@ -1438,16 +2322,30 @@ def main() -> int:
         {k: qr_svd[k] for k in ("kernel_ms", "plain_ms", "library_ms",
                                 "bound_ms", "bound_by", "max_abs_err")}
         | {"launches_3e": svd_path["qr_panel_launches"]}), flush=True)
+    keys = ("kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "max_abs_err")
+    qr_ridge = next(r for r in qr_rows if r["path"] == "3h")
+    print("phase 3h qr_panel at 40960 x 512 (ridge, tikhonov) " + json.dumps(
+        {k: qr_ridge[k] for k in keys}
+        | {f"launches_3h_{k}": ldl_rest[k]["launches"]["qr_panel"]
+           for k in ("ridge", "tikhonov")}), flush=True)
+    lu_det = next(r for r in lu_rows if r["M"] == 8192 and r["nbw"] == 512)
+    print("phase 3h lu_panel at 8192 x 512 (determinants) " + json.dumps(
+        {k: lu_det[k] for k in keys}
+        | {f"launches_3h_{k}": ldl_rest[k]["launches"]["lu_panel"]
+           for k in ("determinant", "safe_determinant")}), flush=True)
 
     def by_phase(name):
         """The kernel's launches on each path that runs it."""
         key = f"{name}_launches"
         out = {p: d[key] for p, d in (("3", main_path), ("3b", lu_path),
                                       ("3c", qr_path), ("3d", eig_path),
-                                      ("3e", svd_path)) if d.get(key)}
-        for step, d in svd_rest.items():
-            if isinstance(d, dict) and d["launches"].get(name):
-                out[f"3f {step}"] = d["launches"][name]
+                                      ("3e", svd_path), ("3g", ldl_path))
+               if d.get(key)}
+        for ph, rest in (("3f", svd_rest), ("3h", ldl_rest)):
+            for step, d in rest.items():
+                if isinstance(d, dict) and d["launches"].get(name):
+                    out[f"{ph} {step}"] = d["launches"][name]
         return out
 
     kernels = [{

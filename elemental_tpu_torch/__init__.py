@@ -21,7 +21,15 @@ SVD (``svd``: the Chan route, QDWH ``polar`` + ``herm_eig``, the
 Golub-Kahan route through ``bidiag``), the rest of the matrix functions
 (``sign``, the inverses, ``pseudoinverse``, the square roots),
 ``herm_eig(approach='qdwh')``, ``hessenberg``, the rank-k updates
-(``herk``, ``syrk``, ``trrk``) and the whole level-1 zoo.
+(``herk``, ``syrk``, ``trrk``) and the whole level-1 zoo; and the
+symmetric-indefinite solver (``ldl``, ``symmetric_solve``,
+``hermitian_solve``, ``inertia``), the Euclidean minimization solvers
+(``ridge``, ``tikhonov``, ``lse``, ``glm``), the matrix properties
+(``determinant`` ... ``two_norm``), the Schur decomposition (``schur``,
+``triang_eig``, ``eig``, ``pseudospectra``), the control solvers
+(``sylvester``, ``lyapunov``, ``riccati``), the rest of the level-3 BLAS
+(``her2k``, ``syr2k``, ``trr2k``, ``hemm``, ``symm``, ``quasi_trsm``,
+``multishift_trsm``), ``qr_col_piv`` and ``lu_full_pivot``.
 
 The package imports ``torch`` and numpy only -- never ``jax`` and nothing
 of ``elemental_tpu``.
@@ -36,8 +44,9 @@ from .core.view import view, update_view, pad_matrix
 from .redist.engine import (redistribute, transpose_dist, panel_spread,
                            move_rows, permute_rows_storage)
 from .redist.interior import interior_view, interior_update, vstack, hstack
-from .blas import (gemm, herk, syrk, trrk, trsm, trmm, two_sided_trsm,
-                   two_sided_trmm)
+from .blas import (gemm, herk, syrk, trrk, trsm, trr2k, her2k, syr2k,
+                   hemm, symm, trmm, two_sided_trsm, two_sided_trmm,
+                   multishift_trsm, quasi_trsm)
 from .blas import gemv, ger, hemv, symv, her2, trmv, trsv
 from .blas import (axpy, scale, fill, entrywise_map, hadamard,
                    index_dependent_map, index_dependent_fill,
@@ -49,16 +58,25 @@ from .blas import (axpy, scale, fill, entrywise_map, hadamard,
                    scale_trapezoid, axpy_trapezoid, safe_scale,
                    get_submatrix, set_submatrix)
 from .lapack import cholesky, hpd_solve, cholesky_solve_after
-from .lapack import lu, lu_solve, lu_solve_after, permute_rows, permute_cols
+from .lapack import (lu, lu_solve, lu_solve_after, permute_rows,
+                     permute_cols, lu_full_pivot)
 from .lapack import (qr, apply_q, explicit_q, least_squares, lq, apply_q_lq,
-                     explicit_l, rq)
+                     explicit_l, qr_col_piv, rq)
+from .lapack import ridge, tikhonov, lse, glm
 from .lapack import (hermitian_tridiag, apply_q_herm_tridiag, hessenberg,
                      apply_q_hessenberg, bidiag, apply_p_bidiag)
+from .lapack import (ldl, ldl_solve_after, symmetric_solve,
+                     hermitian_solve, inertia)
 from .lapack import (polar, sign, inverse, triangular_inverse, hpd_inverse,
                      pseudoinverse, square_root, hpd_square_root)
 from .lapack import (herm_eig, skew_herm_eig, herm_gen_def_eig, hermitian_svd,
                      svd, tridiag_eig)
+from .control import sylvester, lyapunov, riccati
+from .lapack.schur import schur, triang_eig, eig, pseudospectra
+from .lapack.props import (determinant, safe_determinant, hpd_determinant,
+                           two_norm_estimate, condition, nuclear_norm,
+                           schatten_norm, two_norm)
 from .matrices import identity
-from . import kernels, entry
+from . import blas, lapack, control, kernels, entry
 
 __version__ = "0.1.0"

@@ -1,5 +1,6 @@
 """BLAS: the level-1 zoo, level-2 matrix-vector products, SUMMA Gemm,
-the rank-k updates, blocked Trsm, Trmm and the two-sided transforms."""
+the rank-k and rank-2k updates, Hemm/Symm, blocked Trsm, QuasiTrsm,
+MultiShiftTrsm, Trmm and the two-sided transforms."""
 from . import level1
 from .level1 import (axpy, scale, zero, fill, entrywise_map, hadamard,
                      conjugate, index_dependent_map, index_dependent_fill,
@@ -13,5 +14,6 @@ from .level1 import (axpy, scale, zero, fill, entrywise_map, hadamard,
                      axpy_trapezoid, safe_scale, get_submatrix,
                      set_submatrix)
 from .level2 import gemv, ger, hemv, symv, her2, trmv, trsv
-from .level3 import (gemm, herk, syrk, trrk, trsm, trmm, two_sided_trsm,
-                     two_sided_trmm, local_rank_update)
+from .level3 import (gemm, herk, syrk, trrk, trsm, trr2k, her2k, syr2k,
+                     hemm, symm, trmm, two_sided_trsm, two_sided_trmm,
+                     multishift_trsm, quasi_trsm, local_rank_update)

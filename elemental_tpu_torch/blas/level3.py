@@ -1,14 +1,16 @@
 """Level-3 BLAS: SUMMA Gemm, the rank-k updates, blocked Trsm, Trmm and
 the two-sided transforms.
 
-PyTorch port of ``_check_mcmr``, ``_orient``, ``_mask_triangle``,
-``gemm`` with its SUMMA schedules (``_summa_c``, ``_summa_a``,
-``_summa_b``, ``_summa_dot``, ``_summa_slice`` and the ``'gspmd'``
-branch), ``_safe_astype``, ``trrk``, ``herk``, ``syrk``, ``trsm``,
-``_trsm_left``, ``local_rank_update``, ``trmm``, ``two_sided_trsm`` and
-``two_sided_trmm`` from ``elemental_tpu/blas/level3.py`` (Elemental
+PyTorch port of ``elemental_tpu/blas/level3.py``, whole: ``gemm`` with
+its SUMMA schedules (``_summa_c``, ``_summa_a``, ``_summa_b``,
+``_summa_dot``, ``_summa_slice`` and the ``'gspmd'`` branch), ``trrk``,
+``herk``, ``syrk``, ``trr2k``, ``her2k``, ``syr2k``, ``hemm``, ``symm``,
+``trsm``, ``quasi_trsm``, ``multishift_trsm``, ``local_rank_update``,
+``trmm``, ``two_sided_trsm`` and ``two_sided_trmm`` (Elemental
 ``src/blas_like/level3/``: ``Gemm``, ``Herk``/``Syrk``, ``Trrk``,
-``Trsm``, ``Trmm``, ``TwoSidedTrsm``, ``TwoSidedTrmm``).
+``Her2k``/``Syr2k``, ``Trr2k``, ``Hemm``/``Symm``, ``Trsm``,
+``QuasiTrsm``, ``MultiShiftTrsm``, ``Trmm``, ``TwoSidedTrsm``,
+``TwoSidedTrmm``).
 
 The stacked-storage array of a DistMatrix is a row/column permutation of
 the global matrix, so whenever two operands agree on the contraction
@@ -22,6 +24,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from ..core.dist import MC, MR, VC, VR, STAR
@@ -31,7 +34,7 @@ from ..core.view import view, update_view
 from ..obs.tracer import NULL_HOOK as _NULL_HOOK, phase_hook as _phase_hook
 from ..redist.engine import panel_spread, redistribute, transpose_dist
 from ..tune.policy import blocksize_policy as _blocksize
-from .level1 import _global_indices, make_symmetric
+from .level1 import _global_indices, get_diagonal, make_symmetric
 
 
 def _check_mcmr(*Ms: DistMatrix):
@@ -327,6 +330,124 @@ def syrk(uplo: str, A: DistMatrix, alpha=1.0, beta=0.0,
                 precision=precision, conj=False)
 
 
+# ---------------------------------------------------------------------
+# Trr2k / Her2k / Syr2k
+# ---------------------------------------------------------------------
+
+def trr2k(uplo: str, alpha, A_mc: DistMatrix, B_mr: DistMatrix,
+          beta, C_mc: DistMatrix, D_mr: DistMatrix, gamma, E: DistMatrix,
+          precision=None) -> DistMatrix:
+    """Triangular rank-2k: E(tri) := alpha A B + beta C D + gamma E(tri),
+    the other triangle untouched (``El::Trr2k`` with [MC,STAR] x [STAR,MR]
+    operand pairs, the reference's ``LocalTrr2k``)."""
+    for X, d in ((A_mc, (MC, STAR)), (C_mc, (MC, STAR)),
+                 (B_mr, (STAR, MR)), (D_mr, (STAR, MR))):
+        if X.dist != d:
+            raise ValueError(f"trr2k operand expected {d}, got {X.dist}")
+    _check_mcmr(E)
+    check_precision(precision, A_mc.local, C_mc.local, E.local)
+    full = alpha * (A_mc.local @ B_mr.local) + beta * (C_mc.local @ D_mr.local)
+    return E.with_local(torch.where(_mask_triangle(E, uplo),
+                                    _safe_astype(full + gamma * E.local,
+                                                 E.dtype), E.local))
+
+
+def _conj_scalar(x):
+    return x.conj() if torch.is_tensor(x) else x.conjugate()
+
+
+def her2k(uplo: str, A: DistMatrix, B: DistMatrix, alpha=1.0, beta=0.0,
+          C: DistMatrix | None = None, orient: str = "N", conj: bool = True,
+          nb: int | None = None, precision=None) -> DistMatrix:
+    """C(tri) := alpha op(A) op(B)^H + conj(alpha) op(B) op(A)^H + beta C(tri)
+    (``El::Her2k``; ``conj=False`` gives ``Syr2k``, with ^T and alpha on
+    both products).
+
+    :func:`herk`'s panel schedule: per k-panel, ``panel_spread`` of A1
+    and of B1, and two ``addmm_`` into ONE buffer in place; the triangle
+    is masked once at the end."""
+    check_precision(precision, A.local, B.local)
+    if orient != "N":
+        A = _orient(A, "C" if conj else "T")
+        B = _orient(B, "C" if conj else "T")
+    _check_mcmr(A, B)
+    m, k = A.gshape
+    if B.gshape != (m, k):
+        raise ValueError(f"her2k needs conformal A,B; got {A.gshape} vs "
+                         f"{B.gshape}")
+    g = A.grid
+    fresh = C is None
+    if fresh:
+        dt = torch.promote_types(A.dtype, B.dtype)
+        if isinstance(alpha, complex):
+            dt = torch.promote_types(dt, torch.complex64)
+        C = dm_zeros(m, m, MC, MR, g, dtype=dt)
+        beta = 0.0
+    else:
+        _check_mcmr(C)
+        if C.gshape != (m, m):
+            raise ValueError(f"C shape {C.gshape} != ({m},{m})")
+    kb = _blocksize(nb, g.width, k)
+    alpha2 = _conj_scalar(alpha) if conj else alpha
+    dt = torch.promote_types(torch.promote_types(A.dtype, B.dtype), C.dtype)
+    if isinstance(alpha, complex) or isinstance(beta, complex):
+        dt = torch.promote_types(dt, torch.complex64)
+    acc = (beta * C.local).to(dt) if _nonzero(beta) \
+        else torch.zeros(C.local.shape, dtype=dt, device=C.local.device)
+    for s in range(0, k, kb):
+        e = min(s + kb, k)
+        A1_mc, A1H_mr = panel_spread(
+            redistribute(view(A, cols=(s, e)), VC, STAR), conj=conj)
+        B1_mc, B1H_mr = panel_spread(
+            redistribute(view(B, cols=(s, e)), VC, STAR), conj=conj)
+        acc.addmm_(A1_mc.local.to(dt), B1H_mr.local.to(dt), alpha=alpha)
+        acc.addmm_(B1_mc.local.to(dt), A1H_mr.local.to(dt), alpha=alpha2)
+    acc = _safe_astype(acc, C.dtype)
+    if fresh and g.size == 1:
+        return C.with_local(acc.tril_() if uplo.upper().startswith("L")
+                            else acc.triu_())
+    return C.with_local(torch.where(_mask_triangle(C, uplo), acc, C.local))
+
+
+def syr2k(uplo: str, A: DistMatrix, B: DistMatrix, alpha=1.0, beta=0.0,
+          C: DistMatrix | None = None, orient: str = "N",
+          nb: int | None = None, precision=None) -> DistMatrix:
+    """C(tri) := alpha (op(A) op(B)^T + op(B) op(A)^T) + beta C(tri)
+    (``El::Syr2k``)."""
+    return her2k(uplo, A, B, alpha, beta, C, orient=orient, conj=False,
+                 nb=nb, precision=precision)
+
+
+# ---------------------------------------------------------------------
+# Symm / Hemm
+# ---------------------------------------------------------------------
+
+def hemm(side: str, uplo: str, A: DistMatrix, B: DistMatrix, alpha=1.0,
+         beta=0.0, C: DistMatrix | None = None, conj: bool = True,
+         nb: int | None = None, precision=None) -> DistMatrix:
+    """C := alpha A B + beta C (side 'L') or alpha B A + beta C ('R') with
+    Hermitian A stored in the ``uplo`` triangle (``El::Hemm``;
+    ``conj=False`` is ``Symm``): the full operand is formed once from the
+    stored triangle (``make_symmetric``, which reads only that triangle),
+    then one ``gemm``.  The JAX package lets the tuner pick the schedule;
+    the port names ``alg='dot'``, on 1x1 one matmul."""
+    _check_mcmr(A, B)
+    full = make_symmetric(A, uplo, conj=conj)
+    if side.upper().startswith("L"):
+        return gemm(full, B, alpha=alpha, beta=beta, C=C, alg="dot", nb=nb,
+                    precision=precision)
+    return gemm(B, full, alpha=alpha, beta=beta, C=C, alg="dot", nb=nb,
+                precision=precision)
+
+
+def symm(side: str, uplo: str, A: DistMatrix, B: DistMatrix, alpha=1.0,
+         beta=0.0, C: DistMatrix | None = None, nb: int | None = None,
+         precision=None) -> DistMatrix:
+    """``hemm`` without the conjugate (``El::Symm``)."""
+    return hemm(side, uplo, A, B, alpha, beta, C, conj=False, nb=nb,
+                precision=precision)
+
+
 def trsm(side: str, uplo: str, orient: str, A: DistMatrix, B: DistMatrix,
          alpha=1.0, unit: bool = False, nb: int | None = None,
          precision=None, comm_precision: str | None = None,
@@ -404,23 +525,31 @@ def _trsm_left(uplo: str, trans: bool, conj: bool, A: DistMatrix, B: DistMatrix,
         X1_mr = redistribute(X1, STAR, MR)
         X = update_view(X, redistribute(X1_mr, MC, MR), rows=(s, e))  # local filter
         tm.tick("solve", k, X.local)
-        # trailing update of the not-yet-solved rows
-        lo, hi = (e, m) if forward else (0, s)
-        if lo >= hi:
-            continue
-        if trans:
-            # T21 = op(A)[hi-part, s:e] = op(A[s:e, hi-part])
-            A1p = redistribute(view(A, rows=(s, e), cols=(lo, hi)), STAR, MC)
-            a_loc = A1p.local.mT           # [MC,STAR]-storage of A1p^T
-        else:
-            A1p = redistribute(view(A, rows=(lo, hi), cols=(s, e)), MC, STAR)
-            a_loc = A1p.local
-        if conj:
-            a_loc = a_loc.conj()
-        X = local_rank_update(X, a_loc, X1_mr.local, rows=(lo, hi),
-                              precision=precision)
-        tm.tick("update", k, X.local)
+        if e < m if forward else s > 0:
+            X = _sweep_update(A, X, X1_mr, s, e, forward, trans, conj,
+                              precision)
+            tm.tick("update", k, X.local)
     return X
+
+
+def _sweep_update(A: DistMatrix, X: DistMatrix, X1_mr: DistMatrix, s: int,
+                  e: int, forward: bool, trans: bool, conj: bool,
+                  precision) -> DistMatrix:
+    """The off-panel update of a blocked triangular sweep (:func:`trsm`,
+    :func:`quasi_trsm`, :func:`multishift_trsm`): the rows not yet solved
+    lose op(A)[rows, s:e] X1, one storage product."""
+    lo, hi = (e, X.gshape[0]) if forward else (0, s)
+    if trans:
+        # op(A)[hi-part, s:e] = op(A[s:e, hi-part])
+        A1p = redistribute(view(A, rows=(s, e), cols=(lo, hi)), STAR, MC)
+        a_loc = A1p.local.mT           # [MC,STAR]-storage of A1p^T
+    else:
+        A1p = redistribute(view(A, rows=(lo, hi), cols=(s, e)), MC, STAR)
+        a_loc = A1p.local
+    if conj:
+        a_loc = a_loc.conj()
+    return local_rank_update(X, a_loc, X1_mr.local, rows=(lo, hi),
+                             precision=precision)
 
 
 def local_rank_update(C: DistMatrix, A_loc, B_loc, rows=None, cols=None,
@@ -435,6 +564,72 @@ def local_rank_update(C: DistMatrix, A_loc, B_loc, rows=None, cols=None,
     upd = torch.matmul(A_loc, B_loc)
     new = sub.local + (alpha * upd).to(C.dtype)
     return update_view(C, sub.with_local(new), rows=rows, cols=cols)
+
+
+def quasi_trsm(side: str, orient: str, A: DistMatrix, B: DistMatrix,
+               alpha=1.0, nb: int | None = None, precision=None
+               ) -> DistMatrix:
+    """Solve op(T) X = alpha B (side 'L') or X op(T) = alpha B (side 'R')
+    with T UPPER QUASI-TRIANGULAR (real Schur form: 1x1 and 2x2 diagonal
+    blocks, an upper triangle plus isolated subdiagonal entries;
+    ``El::QuasiTrsm``).
+
+    One host read of T's subdiagonal places the panel splits so that no
+    2x2 block is cut; each replicated diagonal block is solved with
+    ``torch.linalg.solve`` (a quasi-triangular block is not
+    triangular-solvable), and the off-panel updates are :func:`trsm`'s
+    storage products."""
+    check_precision(precision, A.local, B.local)
+    trans = orient in ("T", "C")
+    conj = orient == "C"
+    if side.upper().startswith("R"):
+        BT = redistribute(transpose_dist(B), MC, MR)
+        XT = _quasi_trsm_left(not trans, conj, A, BT, alpha, nb, precision)
+        return redistribute(transpose_dist(XT), MC, MR)
+    return _quasi_trsm_left(trans, conj, A, B, alpha, nb, precision)
+
+
+def _quasi_trsm_left(trans: bool, conj: bool, A: DistMatrix, B: DistMatrix,
+                     alpha, nb: int | None, precision) -> DistMatrix:
+    _check_mcmr(A, B)
+    m, n = B.gshape
+    if A.gshape != (m, m):
+        raise ValueError(f"A {A.gshape} incompatible with B {B.gshape}")
+    r, c = A.grid.height, A.grid.width
+    grain = math.lcm(r, c)
+    ib = _blocksize(nb, grain, m)
+    # the bump map (one O(m) host read): a split at e is legal iff
+    # sub[e-1] == 0; splits stay on the distribution grain, so an illegal
+    # split moves on by a whole grain
+    sub = get_diagonal(A, offset=-1).local.cpu().numpy().ravel() if m > 1 \
+        else np.zeros(0)
+    starts = []
+    s = 0
+    while s < m:
+        e = min(s + ib, m)
+        while e < m and sub[e - 1] != 0:
+            e = min(e + grain, m)         # never cut a 2x2 block
+        starts.append((s, e))
+        s = e
+    X = B.with_local(alpha * B.local if _nonzero(alpha - 1) else B.local)
+    forward = trans                       # effective-upper sweep direction
+    if not forward:
+        starts = starts[::-1]
+    for s, e in starts:
+        A11 = redistribute(view(A, rows=(s, e), cols=(s, e)), STAR, STAR)
+        a11 = torch.triu(A11.local, -1)   # the upper triangle and the bumps
+        B1 = redistribute(view(X, rows=(s, e)), STAR, VR)
+        op = a11.mT if trans else a11
+        if conj:
+            op = op.conj()
+        x1 = torch.linalg.solve(op, B1.local)
+        X1 = DistMatrix(x1.to(X.dtype), B1.gshape, STAR, VR, 0, 0, A.grid)
+        X1_mr = redistribute(X1, STAR, MR)
+        X = update_view(X, redistribute(X1_mr, MC, MR), rows=(s, e))
+        if e < m if forward else s > 0:
+            X = _sweep_update(A, X, X1_mr, s, e, forward, trans, conj,
+                              precision)
+    return X
 
 
 def trmm(side: str, uplo: str, orient: str, A: DistMatrix, B: DistMatrix,
@@ -487,3 +682,94 @@ def two_sided_trmm(uplo: str, A: DistMatrix, L: DistMatrix,
         return trmm("R", "L", "N", L, Y, nb=nb, precision=precision)
     Y = trmm("L", "U", "N", L, full, nb=nb, precision=precision)
     return trmm("R", "U", "C", L, Y, nb=nb, precision=precision)
+
+
+# ---------------------------------------------------------------------
+# MultiShiftTrsm (the Pseudospectra / TriangEig engine)
+# ---------------------------------------------------------------------
+
+#: most elements of one batch of shifted diagonal blocks (b d^2): the
+#: multi-shift solve runs its (n, d, d) stack in chunks of this size
+_MS_BATCH = 1 << 24
+
+
+def _star_vr_colmap(n: int, p: int):
+    """Static [STAR,VR] storage-column -> global-column map (zero align):
+    (clipped global index per storage column, in-range mask), as CPU
+    tensors."""
+    lc = -(-n // p)
+    q = np.arange(p)[:, None]
+    jl = np.arange(lc)[None, :]
+    perm = (jl * p + q).reshape(-1)
+    return torch.as_tensor(np.clip(perm, 0, n - 1)), torch.as_tensor(perm < n)
+
+
+def multishift_trsm(uplo: str, orient: str, A: DistMatrix, shifts,
+                    B: DistMatrix, alpha=1.0, nb: int | None = None,
+                    precision=None, diag_hook=None) -> DistMatrix:
+    """Solve (op(tri(A)) - shifts[j] I) X[:, j] = alpha B[:, j] for all j at
+    once (``El::MultiShiftTrsm``).
+
+    :func:`trsm`'s blocked sweep; the diagonal-block solve becomes one
+    batched triangular solve over the (columns, d, d) stack of shifted
+    blocks of the [STAR,VR] panel (each storage column's shift picked by
+    the static cyclic column map), in chunks of at most ``_MS_BATCH``
+    elements; the trailing update is shift-free.
+
+    ``diag_hook(M, sigma, global_col, global_rows)``, if given, may rewrite
+    the shifted diagonal blocks before the solve, batched: ``M`` is
+    (b, d, d), ``sigma`` and ``global_col`` are (b,), ``global_rows``
+    (d,) (the JAX package's hook sees one column at a time under
+    ``vmap``).  TriangEig's identity-row replacement rides this."""
+    trans = orient in ("T", "C")
+    conj = orient == "C"
+    _check_mcmr(A, B)
+    check_precision(precision, A.local, B.local)
+    m, n = B.gshape
+    if A.gshape != (m, m):
+        raise ValueError(f"A {A.gshape} incompatible with B {B.gshape}")
+    dev = A.local.device
+    shifts = torch.as_tensor(shifts, device=dev)
+    if tuple(shifts.shape) != (n,):
+        raise ValueError(f"shifts must be ({n},), got {tuple(shifts.shape)}")
+    lower = uplo.upper().startswith("L")
+    g = A.grid
+    r, c = g.height, g.width
+    ib = _blocksize(nb, math.lcm(r, c), m)
+    gcol, in_range = _star_vr_colmap(n, r * c)
+    gcol, in_range = gcol.to(dev), in_range.to(dev)
+    sig_stor = torch.where(in_range, shifts.index_select(0, gcol), 0)
+    # (op(M) - sigma I) = op(M - sigma' I): untouched by T, conjugated by C
+    sig = (sig_stor.conj() if conj else sig_stor).to(A.dtype)
+
+    X = B.with_local(alpha * B.local if _nonzero(alpha - 1) else B.local)
+    starts = list(range(0, m, ib))
+    forward = lower != trans
+    if not forward:
+        starts = starts[::-1]
+    for s in starts:
+        e = min(s + ib, m)
+        A11 = redistribute(view(A, rows=(s, e), cols=(s, e)), STAR, STAR)
+        a11 = torch.tril(A11.local) if lower else torch.triu(A11.local)
+        B1 = redistribute(view(X, rows=(s, e)), STAR, VR)
+        d = a11.shape[0]
+        eye = torch.eye(d, dtype=a11.dtype, device=dev)
+        rowg = s + torch.arange(d, device=dev)
+        ncol = B1.local.shape[1]
+        step = max(1, _MS_BATCH // max(d * d, 1))
+        x1 = torch.empty_like(B1.local)
+        for c0 in range(0, ncol, step):
+            c1 = min(c0 + step, ncol)
+            M = a11 - sig[c0:c1, None, None] * eye
+            if diag_hook is not None:
+                M = diag_hook(M, sig[c0:c1], gcol[c0:c1], rowg)
+            xb = _solve_block(M, B1.local[:, c0:c1].mT[..., None], lower,
+                              trans, conj, False)
+            x1[:, c0:c1] = xb[..., 0].mT
+        X1 = DistMatrix(x1, B1.gshape, STAR, VR, 0, 0, g)
+        X1_mr = redistribute(X1, STAR, MR)
+        X = update_view(X, redistribute(X1_mr, MC, MR), rows=(s, e))
+        if e < m if forward else s > 0:
+            X = _sweep_update(A, X, X1_mr, s, e, forward, trans, conj,
+                              precision)
+    return X

@@ -29,6 +29,8 @@ sort instead of ``nonzero``.
 
 The packed L\\U layout and the permutation convention follow LAPACK getrf
 (perm[i] = original index of the row now at position i).
+:func:`lu_full_pivot` (complete pivoting) factors one replicated copy in
+place, its pivot search and both permutations on the device.
 """
 from __future__ import annotations
 
@@ -449,3 +451,45 @@ def lu_solve_after(LU_: DistMatrix, perm, B: DistMatrix,
     Bp = permute_rows(B, perm)
     Y = trsm("L", "L", "N", LU_, Bp, unit=True, nb=nb, precision=precision)
     return trsm("L", "U", "N", LU_, Y, nb=nb, precision=precision)
+
+
+def lu_full_pivot(A: DistMatrix, precision=None):
+    """LU with COMPLETE pivoting: ``P A Q = L U`` with the pivot the
+    largest remaining |entry| each step (``lu::Full``, Elemental
+    ``src/lapack_like/factor/LU/Full.hpp``).
+
+    Returns ``(LU, rperm, cperm)`` with the getrf-style packed factor and
+    row/column permutations: ``(P A Q)[i, j] = A[rperm[i], cperm[j]]``.
+
+    Runs REPLICATED on one gathered copy, in place, with the pivot search
+    (``argmax`` of the trailing block, the first index of a tie in
+    row-major order, as the JAX package's masked flat ``argmax``) and
+    both permutations on the device; each step updates only the trailing
+    block, which is all the JAX package's full-matrix outer product
+    changes.  The slow, maximum-stability path; use :func:`lu` for
+    speed."""
+    _check_mcmr(A)
+    check_precision(precision, A.local)
+    m, n = A.gshape
+    kend = min(m, n)
+    g = A.grid
+    a = redistribute(A, STAR, STAR).local.clone()
+    dev = a.device
+    rp = torch.arange(m, device=dev)
+    cp = torch.arange(n, device=dev)
+    for j in range(kend):
+        flat = a[j:, j:].abs().argmax().reshape(1)
+        jt = torch.full((1,), j, dtype=torch.long, device=dev)
+        pi, pj = jt + flat // (n - j), jt + flat % (n - j)
+        rows, rows_sw = torch.cat([jt, pi]), torch.cat([pi, jt])
+        a.index_copy_(0, rows, a.index_select(0, rows_sw))
+        rp.index_copy_(0, rows, rp.index_select(0, rows_sw))
+        cols, cols_sw = torch.cat([jt, pj]), torch.cat([pj, jt])
+        a.index_copy_(1, cols, a.index_select(1, cols_sw))
+        cp.index_copy_(0, cols, cp.index_select(0, cols_sw))
+        piv = a[j, j]
+        l = a[j + 1:, j] / torch.where(piv == 0, 1, piv)
+        a[j + 1:, j] = l
+        a[j + 1:, j + 1:] -= torch.outer(l, a[j, j + 1:])
+    LU_ = redistribute(DistMatrix(a, (m, n), STAR, STAR, 0, 0, g), MC, MR)
+    return LU_, rp, cp

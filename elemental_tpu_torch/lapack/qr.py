@@ -21,8 +21,10 @@ does the same on one clone of ``B``.  No driver changes its inputs.
 
 Packing follows LAPACK geqrf: R on/above the diagonal, the Householder
 vectors' tails below it (unit diagonal implicit), plus a tau vector.
-TSQR (``panel='tsqr'``, ``tsqr``), ``qr_col_piv`` and checksum-guarded
-QR belong to later slices.
+``qr_col_piv`` (Businger-Golub, LAPACK geqp3) is the JAX package's
+left-looking pivoted panel, its column loop run eagerly with the pivot
+index on the device.  TSQR (``panel='tsqr'``, ``tsqr``) and
+checksum-guarded QR belong to later slices.
 """
 from __future__ import annotations
 
@@ -320,3 +322,135 @@ def rq(A: DistMatrix, nb: int | None = None, precision=None):
     R = permute_cols(permute_rows(L, rev_m), rev_k)
     Q = permute_cols(permute_rows(W, rev_k), rev_n)
     return R, Q
+
+
+# ---------------------------------------------------------------------
+# Column-pivoted QR (Businger-Golub / geqp3)
+# ---------------------------------------------------------------------
+
+def _panel_qp(stor, colnorms, s: int, m: int, n: int, nbw: int,
+              Sc: int, Sr: int):
+    """One left-looking pivoted panel (LAPACK ``laqps`` analog).
+
+    Columns are identified by GLOBAL id throughout (the F accumulator is
+    indexed by global column), so no physical swaps happen inside the
+    panel; ``stor`` is the panel-start full storage snapshot.  Per column:
+    the max-norm pivot (``argmax`` on the device, first index of a tie),
+    one column fetch and one row fetch with their corrections, one
+    reflector and the norm downdates.  Returns (V, F, packed R+v panel,
+    tau, jpvt, updated colnorms)."""
+    from .condense import _larfg_at
+    mt = m - s
+    dtype = stor.dtype
+    dev = stor.device
+    rdtype = torch.empty((), dtype=dtype).real.dtype
+    ridx = torch.arange(mt, device=dev)
+    lr, lc = -(-m // Sc), -(-n // Sr)
+    grow = torch.arange(s, m, device=dev)
+    srow = (grow % Sc) * lr + grow // Sc
+    gcol = torch.arange(n, device=dev)
+    scol = (gcol % Sr) * lc + gcol // Sr
+    # the full-width row strip of the snapshot (rows [s, m) in global order)
+    strip = stor.index_select(0, srow).index_select(1, scol)
+    V = torch.zeros((mt, nbw), dtype=dtype, device=dev)
+    F = torch.zeros((n, nbw), dtype=dtype, device=dev)
+    P = torch.zeros((mt, nbw), dtype=dtype, device=dev)
+    tau = torch.zeros((nbw,), dtype=dtype, device=dev)
+    jpvt = torch.zeros((nbw,), dtype=torch.long, device=dev)
+    norms = colnorms.to(rdtype).clone()
+    for k in range(nbw):
+        gc = norms.argmax().reshape(1)
+        jpvt[k:k + 1] = gc
+        c = strip.index_select(1, gc)[:, 0] - V @ F.index_select(0, gc)[0].conj()
+        kt = torch.full((1,), k, dtype=torch.long, device=dev)
+        v, tq, beta = _larfg_at(c, kt, ridx)
+        # packed column: R above the pivot, beta on it, v's tail below
+        pc = torch.where(ridx < k, c, 0)
+        pc = torch.where(ridx == k, beta.to(dtype), pc)
+        P[:, k] = torch.where(ridx > k, v, pc)
+        V[:, k] = v
+        tau[k:k + 1] = tq
+        f = tq * (strip.mH @ v - F @ (V.mH @ v))
+        F[:, k] = f
+        # R row k across all columns (V and F now hold column k, whose
+        # V[k, k] = 1 carries the new reflector)
+        rowk = strip[k] - F.conj() @ V[k]
+        down = rowk.abs() ** 2
+        # downdate only live columns; used ones carry the -1 sentinel
+        norms = torch.where(norms < 0, norms,
+                            torch.sqrt(torch.clamp_min(norms ** 2 - down, 0.0)))
+        norms.index_fill_(0, gc, -1.0)
+    return V, F, P, tau, jpvt, norms
+
+
+def qr_col_piv(A: DistMatrix, nb: int | None = None, precision=None):
+    """Column-pivoted QR ``A[:, jpvt] = Q R`` (``El::qr::BusingerGolub`` /
+    LAPACK geqp3).  Returns ``(packed, tau, jpvt)`` in geqrf packing with
+    greedy max-norm pivot order (R's diagonal is non-increasing in
+    magnitude); ``jpvt`` is an int64 tensor on the grid's device.
+
+    Norm downdates use the squared recurrence with clamping but WITHOUT
+    LAPACK's cancellation-triggered exact recomputation (the JAX
+    package's documented deviation)."""
+    from ..blas.level1 import _global_indices
+    _check_mcmr(A)
+    check_precision(precision, A.local)
+    m, n = A.gshape
+    g = A.grid
+    r, c = g.height, g.width
+    Sc, Sr = A.col_stride, A.row_stride
+    ib = _blocksize(nb, math.lcm(r, c), min(m, n))
+    kend = min(m, n)
+    dev = A.local.device
+    # initial exact column norms (storage columns are global columns;
+    # padding columns land in a spare slot)
+    ns = torch.linalg.vector_norm(A.local, dim=0)
+    _, J = _global_indices(A)
+    colnorms = torch.zeros((n + 1,), dtype=ns.dtype, device=dev)
+    colnorms.index_copy_(0, torch.where(J < n, J, n), ns)
+    colnorms = colnorms[:n]
+    Awork = A
+    panels, taus, jps = [], [], []
+    for s in range(0, kend, ib):
+        e = min(s + ib, kend)
+        nbw = e - s
+        V, F, P, tau, jpvt, colnorms = _panel_qp(
+            Awork.local, colnorms, s, m, n, nbw, Sc, Sr)
+        panels.append(P)
+        taus.append(tau)
+        jps.append(jpvt)
+        if e < kend or e < n:
+            # trailing update of rows [s, m) across the full width
+            strip = view(Awork, rows=(s, m))
+            Vmc = redistribute(DistMatrix(V, (m - s, nbw), STAR, STAR, 0, 0,
+                                          g), MC, STAR)
+            FH = redistribute(DistMatrix(F.mH, (nbw, n), STAR, STAR, 0, 0,
+                                         g), STAR, MR)
+            upd = Vmc.local @ FH.local
+            Awork = update_view(Awork, strip.with_local(strip.local - upd),
+                                rows=(s, m))
+    jpvt = torch.cat(jps)
+    tau = torch.cat(taus)
+    # assemble: permute columns into pivot order, then overwrite each
+    # panel's rows with its packed block
+    full_perm = torch.cat([jpvt, _complement(jpvt, n)]) if n > kend else jpvt
+    Ap = permute_cols(Awork, full_perm)
+    for i, s in enumerate(range(0, kend, ib)):
+        e = min(s + ib, kend)
+        e_up = min(-(-e // c) * c, n)
+        P = panels[i]
+        if e_up > e:
+            P = torch.nn.functional.pad(P, (0, e_up - e))
+        blk = DistMatrix(P, (m - s, e_up - s), STAR, STAR, 0, 0, g)
+        Ap = _update_cols_lt(Ap, redistribute(blk, MC, MR), (s, m),
+                             (s, e_up), e)
+    _record_qr_nb(Ap, ib)
+    return Ap, tau, jpvt
+
+
+def _complement(jpvt, n: int):
+    """Global columns not chosen as pivots, ascending (a stable sort on
+    the "chosen" flag, with no host sync)."""
+    chosen = torch.zeros((n,), dtype=torch.int8, device=jpvt.device)
+    chosen.index_fill_(0, jpvt, 1)
+    return torch.argsort(chosen, stable=True)[:n - jpvt.shape[0]]

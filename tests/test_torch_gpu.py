@@ -20,7 +20,12 @@ below 16) and to the same call on the CPU; ``tridiag_eig`` on the card
 to the same call on the CPU (float64 eigenvalues to 1e-10).  ``svd`` is
 held to ``chip_smoke.py`` phase 3e's four gates and its launch counts at
 float32, and ``svd``, ``polar``, ``herk`` and ``bidiag`` to the same
-calls on the CPU."""
+calls on the CPU.  ``ldl`` (one CUDA graph of its column) is held to the
+same call on the CPU and ``symmetric_solve`` to ``chip_smoke.py`` phase
+3g's gates; ``determinant``, ``glm``, ``ridge`` and ``riccati`` launch
+their kernels as often as the drivers' blocking says."""
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -577,3 +582,117 @@ def test_bidiag_on_the_card_matches_the_cpu():
                          (ref[0].local,) + ref[1:]):
         np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0,
                                    atol=1e-10 * float(want.abs().max()))
+
+
+def test_ldl_on_the_card_matches_the_cpu():
+    """The card replays one CUDA graph of the Bunch-Kaufman column; the CPU
+    runs the same column eagerly.  float32 at N = 2048 (chip_smoke.py
+    phase 3g's KKT matrix, nb = 512): the same inertia, the factor and
+    solve residuals of 3g on the card's factor, and solutions within 1e-3
+    of each other (the two devices' sums round apart, so a near tie may
+    pivot differently; a wrong replay gives errors of order one).  float64
+    at N = 256, nb = 32 (ragged): the same permutation, and d, e and the
+    packed factor to 1e-10 of their largest entry."""
+    _need_card()
+    from chip_smoke import _kkt, _ldl_gates
+    K, gen = _kkt(1536, 512, seed=73)
+    B = torch.randn(2048, 4, generator=gen, device="cuda")
+    Kd = et.from_global(K, et.MC, et.MR, et.Grid())
+    Bd = et.from_global(B, et.MC, et.MR, et.Grid())
+    Lp, d, e, perm = et.ldl(Kd, conjugate=False, nb=512)
+    X = et.ldl_solve_after(Lp, d, e, perm, Bd, conjugate=False, nb=512)
+    cpu = et.Grid(device="cpu")
+    Lc, dc, ec, pc = et.ldl(et.from_global(K.cpu(), et.MC, et.MR, cpu),
+                            conjugate=False, nb=512)
+    Xc = et.ldl_solve_after(Lc, dc, ec, pc, et.from_global(B.cpu(), et.MC,
+                                                           et.MR, cpu),
+                            conjugate=False, nb=512)
+    assert et.inertia(d, e) == et.inertia(dc, ec) == (1536, 512, 0)
+    factor_res, solve_res = _ldl_gates(K, Lp.local, d, e, perm, X.local, B,
+                                       gen)
+    assert factor_res < 1e-5 and solve_res < 1e-5
+    x, xc = X.local.cpu(), Xc.local
+    assert float(torch.linalg.norm(x - xc) / torch.linalg.norm(xc)) < 1e-3
+    gen.manual_seed(74)
+    G = torch.randn(256, 256, generator=gen, device="cuda",
+                    dtype=torch.float64)
+    F = (G + G.T) / 2
+    out = et.ldl(et.from_global(F, et.MC, et.MR, et.Grid()), nb=32)
+    ref = et.ldl(et.from_global(F.cpu(), et.MC, et.MR, cpu), nb=32)
+    assert torch.equal(out[3].cpu(), ref[3])
+    for got, want in zip((out[0].local,) + out[1:3],
+                         (ref[0].local,) + ref[1:3]):
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0,
+                                   atol=1e-10 * float(want.abs().max()))
+
+
+def test_symmetric_solve_meets_the_3g_gates():
+    """chip_smoke.py phase 3g at N = 4096 (n = 3072, p = 1024, nb = 512):
+    the factor and solve residuals, the exact inertia, no kernel launch."""
+    _need_card()
+    from chip_smoke import _kkt, _ldl_gates
+    K, gen = _kkt(3072, 1024, seed=75)
+    B = torch.randn(4096, 8, generator=gen, device="cuda")
+    before = (potrf_inv.launches, lu_panel.launches, qr_panel.launches)
+    Kd = et.from_global(K, et.MC, et.MR, et.Grid())
+    Lp, d, e, perm = et.ldl(Kd, conjugate=False, nb=512)
+    X = et.ldl_solve_after(Lp, d, e, perm,
+                           et.from_global(B, et.MC, et.MR, et.Grid()),
+                           conjugate=False, nb=512)
+    torch.cuda.synchronize()
+    assert (potrf_inv.launches, lu_panel.launches, qr_panel.launches) \
+        == before
+    factor_res, solve_res = _ldl_gates(K, Lp.local, d, e, perm, X.local, B,
+                                       gen)
+    assert factor_res < 1e-3 and solve_res < 1e-4
+    assert et.inertia(d, e) == (3072, 1024, 0)
+
+
+def test_launch_counts_of_the_ldl_slice():
+    """determinant (lu_panel), glm (potrf_inv), ridge (qr_panel) and
+    riccati (lu_panel through sign's LU solves, qr_panel through
+    least_squares) launch their kernels as many times as the drivers'
+    blocking says, float32 on the 1x1 grid with nb = 128."""
+    _need_card()
+    funcs = sys.modules["elemental_tpu_torch.lapack.funcs"]
+    nb = 128
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(76)
+
+    def dm(x):
+        return et.from_global(x, et.MC, et.MR, et.Grid())
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    def counts(fn):
+        before = (potrf_inv.launches, lu_panel.launches, qr_panel.launches)
+        fn()
+        torch.cuda.synchronize()
+        return tuple(a - b for a, b in zip(
+            (potrf_inv.launches, lu_panel.launches, qr_panel.launches),
+            before))
+    A = rnd(1024, 1024) / 32
+    A.diagonal().add_(2.0)
+    assert counts(lambda: et.determinant(dm(A), nb=nb)) == (0, 8, 0)
+    assert counts(lambda: et.glm(dm(rnd(1024, 256)), dm(rnd(1024, 1536)),
+                                 dm(rnd(1024, 1)), nb=nb)) == (10, 0, 0)
+    assert counts(lambda: et.ridge(dm(rnd(2048, 512)), dm(rnd(2048, 2)),
+                                   1.5, nb=nb)) == (0, 0, 4)
+    n = 256
+    calls = [0]
+    real = funcs.lu_solve
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return real(*a, **k)
+    Bk = rnd(n, 64) / 8
+    Q = rnd(n, n)
+    funcs.lu_solve = counted
+    try:
+        got = counts(lambda: et.riccati(dm(rnd(n, n) / 16), dm(Bk @ Bk.T),
+                                        dm(Q @ Q.T / n + torch.eye(
+                                            n, device="cuda")), nb=nb))
+    finally:
+        funcs.lu_solve = real
+    assert calls[0] > 0 and got == (0, calls[0] * (2 * n // nb), n // nb)
