@@ -76,6 +76,18 @@ Phases, each of which raises on failure:
    ``pseudospectra``, ``sylvester``, ``lyapunov``, ``riccati``, ``hemm``
    and ``her2k`` (each beside ``torch.matmul``), ``quasi_trsm`` and
    ``multishift_trsm``;
+3i. CALU and TSQR on virtual grids at full width, float32: ``lu_solve(A,
+   B, nb=2048, panel='calu')`` and ``lu`` on a 4x1 grid at N = 32768
+   (phase 3b's matrix) with HPL's scaled residual, the factor residual,
+   the growth and the ratio to phase 3b's classic residual; the same
+   ``lu`` over the int8 wire (equal collective rounds, >= 1.9x fewer wire
+   bytes in ``redist_trace``); ``qr(A, nb=2048, panel='tsqr')`` and the
+   least-squares solve at 65536 x 32768 on 4x1 (phase 3c's gates); the
+   standalone ``tsqr`` of a 4194304 x 256 [VC,STAR] matrix on 2x2 beside
+   ``torch.linalg.qr``; the ``redist_trace`` label counts of the CALU
+   ``lu`` and the TSQR ``qr`` against the pins of the CPU tests; and
+   ``path='direct'`` against the chain (bit-equal, timed) for every
+   legal pair of a 4096 x 4096 matrix on 2x4;
 4. the distributed branches: ``hpd_solve`` and ``lu`` + ``lu_solve_after``
    on a virtual 2x2 grid on the card, N = 1024 float64, nb = 128, with
    and without the crossover, against ``torch.linalg.solve``;
@@ -125,6 +137,31 @@ LU_RES_TOL = {"float32": 1e-5, "float64": 1e-12}
 QR_RES_TOL = {"float32": 3e-6, "float64": 1e-12}
 QR_RES_CAP = {"float32": 1e-4, "float64": 1e-10}
 QR_T_TOL = {"float32": 1e-5, "float64": 1e-12}
+
+#: phase 3i's redistribution label counts of ``lu(A, nb=2048,
+#: panel='calu')`` at N = 32768 and of ``qr(A, nb=2048, panel='tsqr')`` at
+#: 65536 x 32768 on the 4x1 grid: 16 panels each, the CALU crossover tail
+#: at N / 8.  tests/test_torch_calu.py pins them to the JAX package's
+#: trace of the same drivers at the same panel count and crossover ratio.
+CALU_LU_COUNTS = {"[MC,MR]->[STAR,STAR]": 15, "[STAR,MR]->[MC,MR]": 14,
+                  "[STAR,STAR]->[MC,MR]": 15, "[STAR,STAR]->[MC,STAR]": 14}
+TSQR_QR_COUNTS = {"[MC,MR]->[STAR,STAR]": 16, "[STAR,STAR]->[MC,MR]": 16,
+                  "[STAR,STAR]->[MC,STAR]": 15}
+
+
+def wire_totals(log) -> tuple:
+    """(collective rounds, wire bytes) a real grid would spend on the
+    redistributions of a ``redist_trace`` log (entries whose cost is not
+    computed count zero)."""
+    return (sum(max(r.rounds, 0) for r in log),
+            sum(max(r.wire_bytes, 0) for r in log))
+
+
+def _labels(log) -> dict:
+    out: dict = {}
+    for r in log:
+        out[r.label] = out.get(r.label, 0) + 1
+    return dict(sorted(out.items()))
 
 
 def _card_line() -> str:
@@ -609,13 +646,54 @@ def phase_lu_main_path(et, card: str) -> dict:
     return out
 
 
+def _ls_gates(et, grid, a, ap, Ap, tau, x, b, gen, blk: int = 8192):
+    """The least-squares gates of phases 3c and 3i, reduced in float64
+    streaming the global A (``a``) in row blocks: the factor residual
+    ||A v - Q (R v)|| / (||A||_F ||v||) with ``ap`` the global packed
+    factor, Q's orthogonality ||Q^T (Q z) - z|| / ||z||, and the
+    normal-equations optimality ||A^T (B - A X)||_F / (||A|| (||A|| ||X||
+    + ||B||)) of the global solution ``x`` and right-hand sides ``b``."""
+    import torch
+    m, n = a.shape
+    x, b = x.double(), b.double()
+
+    def q_times(y, orient):
+        Y = et.from_global(y.float(), et.MC, et.MR, grid)
+        return et.to_global(et.apply_q(Ap, tau, Y, orient=orient)).double()
+
+    v = torch.randn(n, 1, generator=gen, device="cuda", dtype=torch.float64)
+    rv = torch.zeros(m, 1, device="cuda", dtype=torch.float64)
+    av = torch.empty(m, 1, device="cuda", dtype=torch.float64)
+    norm_a2 = 0.0
+    for i0 in range(0, m, blk):
+        ab = a[i0:i0 + blk].double()
+        av[i0:i0 + blk] = ab @ v
+        norm_a2 += float((ab * ab).sum())
+        if i0 < n:
+            rv[i0:i0 + blk] = torch.triu(ap[i0:i0 + blk].double(),
+                                         diagonal=i0) @ v
+    norm_a = norm_a2 ** 0.5
+    factor_res = float(torch.linalg.norm(av - q_times(rv, "N"))
+                       / (norm_a * torch.linalg.norm(v)))
+    z = torch.randn(m, 1, generator=gen, device="cuda", dtype=torch.float64)
+    qz = q_times(q_times(z.float(), "N"), "C")
+    orth = float(torch.linalg.norm(qz - z.float().double())
+                 / torch.linalg.norm(z.float().double()))
+    atr = torch.zeros(n, x.shape[1], device="cuda", dtype=torch.float64)
+    for i0 in range(0, m, blk):
+        ab = a[i0:i0 + blk].double()
+        atr += ab.T @ (b[i0:i0 + blk] - ab @ x)
+    optimality = float(torch.linalg.norm(atr) / (
+        norm_a * (norm_a * torch.linalg.norm(x) + torch.linalg.norm(b))))
+    return factor_res, orth, optimality
+
+
 def phase_qr_main_path(et, card: str) -> dict:
     """least_squares at full width on the 1x1 grid; returns its numbers.
     The gates' reductions run in float64, streaming A in row blocks."""
     import torch
     from elemental_tpu_torch.kernels import lu_panel, potrf_inv, qr_panel
     m, n, nb, nrhs = 65536, 32768, 2048, 8
-    blk = 8192
     grid = et.Grid()
     gen = torch.Generator(device="cuda")
     # warm-up at a small size (library handles, the kernel's first launch)
@@ -651,41 +729,9 @@ def phase_qr_main_path(et, card: str) -> dict:
     et.apply_q(Ap, tau, B, orient="C")
     torch.cuda.synchronize()
     t_apply = time.perf_counter() - t0
-    a, ap, x, b = A.local, Ap.local, X.local.double(), B.local.double()
-
-    def q_times(y, orient):
-        Y = et.from_global(y.float(), et.MC, et.MR, grid)
-        return et.apply_q(Ap, tau, Y, orient=orient).local.double()
-
-    # factor residual ||A v - Q (R v)|| / (||A||_F ||v||)
-    v = torch.randn(n, 1, generator=gen, device="cuda", dtype=torch.float64)
-    rv = torch.zeros(m, 1, device="cuda", dtype=torch.float64)
-    av = torch.empty(m, 1, device="cuda", dtype=torch.float64)
-    norm_a2 = 0.0
-    for i0 in range(0, m, blk):
-        ab = a[i0:i0 + blk].double()
-        av[i0:i0 + blk] = ab @ v
-        norm_a2 += float((ab * ab).sum())
-        if i0 < n:
-            rv[i0:i0 + blk] = torch.triu(ap[i0:i0 + blk].double(),
-                                         diagonal=i0) @ v
-    norm_a = norm_a2 ** 0.5
-    factor_res = float(torch.linalg.norm(av - q_times(rv, "N"))
-                       / (norm_a * torch.linalg.norm(v)))
-    # orthogonality ||Q^T (Q z) - z|| / ||z||
-    z = torch.randn(m, 1, generator=gen, device="cuda", dtype=torch.float64)
-    qz = q_times(q_times(z.float(), "N"), "C")
-    orth = float(torch.linalg.norm(qz - z.float().double())
-                 / torch.linalg.norm(z.float().double()))
-    # normal-equations optimality ||A^T (B - A X)||_F / (||A|| (||A|| ||X||
-    # + ||B||))
-    atr = torch.zeros(n, nrhs, device="cuda", dtype=torch.float64)
-    for i0 in range(0, m, blk):
-        ab = a[i0:i0 + blk].double()
-        atr += ab.T @ (b[i0:i0 + blk] - ab @ x)
-    del ab
-    optimality = float(torch.linalg.norm(atr) / (
-        norm_a * (norm_a * torch.linalg.norm(x) + torch.linalg.norm(b))))
+    a = A.local
+    factor_res, orth, optimality = _ls_gates(et, grid, a, Ap.local, Ap, tau,
+                                             X.local, B.local, gen)
     finite = bool(torch.isfinite(X.local).all())
     if not (factor_res < 1e-3 and orth < 1e-4 and optimality < 1e-4
             and finite and tuple(X.local.shape) == (n, nrhs)):
@@ -693,7 +739,7 @@ def phase_qr_main_path(et, card: str) -> dict:
             f"QR main path: factor residual {factor_res:.3e} (< 1e-3), "
             f"orthogonality {orth:.3e} (< 1e-4), normal-equations "
             f"optimality {optimality:.3e} (< 1e-4), finite {finite}")
-    del Ap, tau, rv, av, atr
+    del Ap, tau
     geqrf_ms = _time_ms(lambda: torch.geqrf(a), 1)
     print("phase 3c least_squares breakdown " + json.dumps(
         _device_breakdown(lambda: et.least_squares(A, B, nb=nb), top=14)),
@@ -2260,6 +2306,271 @@ def phase_qr_distributed(et) -> None:
          "lq_residual": lq_res, "rq_residual": rq_res}), flush=True)
 
 
+def _counts_now(lu_panel, potrf_inv, qr_panel) -> dict:
+    return {"lu_panel": lu_panel.launches, "potrf_inv": potrf_inv.launches,
+            "qr_panel": qr_panel.launches}
+
+
+def _lu_gates(et, Ag, LU, perm, X, Bg, gen):
+    """Phase 3b's gates on global tensors: bench.py's factor residual
+    ||A[perm] v - L (U v)|| / (||A||_F ||v||), HPL's scaled residual per
+    right-hand side, and the growth max|U| / max|A|."""
+    import torch
+    N = Ag.shape[0]
+    lu_ = et.to_global(LU)
+    v = torch.randn(N, 1, generator=gen, device="cuda")
+    uv = torch.triu(lu_) @ v
+    luv = torch.tril(lu_, -1) @ uv + uv
+    factor_res = float(torch.linalg.norm(Ag[perm] @ v - luv)
+                       / (torch.linalg.norm(Ag) * torch.linalg.norm(v)))
+    growth = float(torch.triu(lu_).abs().max() / Ag.abs().max())
+    del lu_, uv, luv
+    out = {"factor_residual": factor_res, "growth": growth}
+    if X is not None:
+        x = et.to_global(X)
+        eps = torch.finfo(torch.float32).eps
+        norm_a = float(Ag.abs().sum(dim=1).max())
+        r = (Ag @ x - Bg).abs().amax(dim=0)
+        out["hpl_scaled_residuals"] = (r / (
+            eps * (norm_a * x.abs().amax(dim=0) + Bg.abs().amax(dim=0))
+            * N)).tolist()
+        out["finite"] = bool(torch.isfinite(x).all())
+    return out
+
+
+def phase_calu_tsqr(et, card: str, lu_path: dict, qr_path: dict) -> dict:
+    """CALU and TSQR at full width on virtual grids on the card, f32:
+    ``lu_solve(panel='calu')`` at N = 32768 on 4x1 (phase 3b's matrix),
+    the same ``lu`` over the int8 wire, ``qr(panel='tsqr')`` + the
+    least-squares solve at 65536 x 32768 on 4x1 (phase 3c's matrix), the
+    standalone ``tsqr`` of a 4194304 x 256 [VC,STAR] matrix on 2x2, and
+    ``path='direct'`` against the chain for every legal pair on 2x4."""
+    import torch
+    from elemental_tpu_torch.kernels import lu_panel, potrf_inv, qr_panel
+    from elemental_tpu_torch.redist import engine
+    kern = (lu_panel, potrf_inv, qr_panel)
+
+    def zero():
+        lu_panel.launches = potrf_inv.launches = qr_panel.launches = 0
+
+    def sync_time(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    res: dict = {}
+    N, nb, nrhs = 32768, 2048, 8
+    xover = 4096
+    tail = N - next(e for e in range(nb, N, nb) if N - e <= xover)
+    want_lu = {"lu_panel": -(-tail // nb), "potrf_inv": 0, "qr_panel": 0}
+    g41 = et.Grid(4, 1)
+    gen = torch.Generator(device="cuda")
+    # warm-up at a small size: the tournament's column loop, the tail;
+    # its sweep graphs belong to the call, so none stays resident after
+    gen.manual_seed(1)
+    Aw = torch.randn(4096, 4096, generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    et.lu_solve(et.from_global(Aw, et.MC, et.MR, g41),
+                et.from_global(torch.ones(4096, nrhs, device="cuda"),
+                               et.MC, et.MR, g41), nb=nb, panel="calu")
+    torch.cuda.synchronize()
+    res["calu_resident_bytes_after_call"] = \
+        torch.cuda.memory_allocated() - mem0
+    if res["calu_resident_bytes_after_call"] > 8 << 20:
+        raise AssertionError(f"phase 3i CALU: lu_solve left "
+                             f"{res['calu_resident_bytes_after_call']} "
+                             f"bytes allocated on the card")
+    del Aw
+    # step 1: CALU lu_solve and lu
+    gen.manual_seed(0)
+    Ag = torch.randn(N, N, generator=gen, device="cuda")
+    Bg = torch.randn(N, nrhs, generator=gen, device="cuda")
+    A = et.from_global(Ag, et.MC, et.MR, g41)
+    B = et.from_global(Bg, et.MC, et.MR, g41)
+    zero()
+    X, t_solve = sync_time(lambda: et.lu_solve(A, B, nb=nb, panel="calu"))
+    res["calu_lu_solve"] = {"launches": _counts_now(*kern), "s": t_solve}
+    zero()
+    with engine.redist_trace() as log:
+        (LU, perm), t_lu = sync_time(lambda: et.lu(A, nb=nb, panel="calu"))
+    res["calu_lu"] = {"launches": _counts_now(*kern), "s": t_lu,
+                      "redist_counts": _labels(log)}
+    full_rounds, full_bytes = wire_totals(log)
+    del log
+    gates = _lu_gates(et, Ag, LU, perm, X, Bg, gen)
+    del LU, perm, X
+    ratio = gates["factor_residual"] / lu_path["factor_residual"]
+    res["calu_lu"].update(gates, classic_factor_residual=lu_path[
+        "factor_residual"], residual_ratio_to_classic=ratio,
+        classic_1x1_lu_s=lu_path["lu_s"],
+        classic_1x1_lu_solve_s=lu_path["lu_solve_s"],
+        wire_rounds=full_rounds, wire_bytes=full_bytes)
+    if not (gates["factor_residual"] < 1e-3
+            and max(gates["hpl_scaled_residuals"]) < 16 and gates["finite"]
+            and ratio < 64 and res["calu_lu"]["redist_counts"]
+            == CALU_LU_COUNTS
+            and res["calu_lu"]["launches"] == want_lu
+            and res["calu_lu_solve"]["launches"] == want_lu):
+        raise AssertionError(f"phase 3i CALU: {json.dumps(res)}; want "
+                             f"counts {CALU_LU_COUNTS}, launches {want_lu}")
+    # step 4: the same lu over the int8 wire
+    zero()
+    with engine.redist_trace() as log8:
+        (LU8, perm8), t_lu8 = sync_time(
+            lambda: et.lu(A, nb=nb, panel="calu", comm_precision="int8"))
+    q_rounds, q_bytes = wire_totals(log8)
+    res["calu_lu_int8"] = {"launches": _counts_now(*kern), "s": t_lu8,
+                           "wire_rounds": q_rounds, "wire_bytes": q_bytes,
+                           "wire_bytes_ratio": full_bytes / max(q_bytes, 1),
+                           "redist_counts": _labels(log8)}
+    del log8
+    g8 = _lu_gates(et, Ag, LU8, perm8, None, None, gen)
+    del LU8, perm8
+    res["calu_lu_int8"].update(g8)
+    if not (math.isfinite(g8["factor_residual"])
+            and g8["factor_residual"] < 5e-2 and q_rounds == full_rounds
+            and full_bytes >= 1.9 * q_bytes
+            and res["calu_lu_int8"]["launches"] == want_lu):
+        raise AssertionError(f"phase 3i CALU int8: "
+                             f"{json.dumps(res['calu_lu_int8'])}")
+    del A, B, Ag, Bg
+    torch.cuda.empty_cache()
+    print("phase 3i CALU " + json.dumps(
+        {k: res[k] for k in ("calu_lu_solve", "calu_lu", "calu_lu_int8",
+                             "calu_resident_bytes_after_call")}
+        | {"N": N, "nb": nb, "nrhs": nrhs, "grid": "4x1", "dtype": "float32",
+           "card": card}), flush=True)
+    # step 2: TSQR qr + least squares at 65536 x 32768 on 4x1
+    m, n = 65536, 32768
+    gen.manual_seed(1)
+    Aw = torch.randn(4096, 2048, generator=gen, device="cuda")
+    et.qr(et.from_global(Aw, et.MC, et.MR, g41), nb=nb, panel="tsqr")
+    del Aw
+    # the virtual grid's functional updates hold a few copies of the
+    # 8.6 GB matrix: the global A is made again for the gates
+    torch.cuda.empty_cache()
+    gen.manual_seed(0)
+    A = et.from_global(torch.randn(m, n, generator=gen, device="cuda"),
+                       et.MC, et.MR, g41)
+    Bg = torch.randn(m, nrhs, generator=gen, device="cuda")
+    B = et.from_global(Bg, et.MC, et.MR, g41)
+    zero()
+    with engine.redist_trace() as logq:
+        (Ap, tau), t_qr = sync_time(lambda: et.qr(A, nb=nb, panel="tsqr"))
+    counts_q = _labels(logq)
+    del logq
+
+    def solve():
+        Y = et.apply_q(Ap, tau, B, orient="C")
+        R = et.make_trapezoidal(et.interior_view(Ap, (0, n), (0, n)), "U")
+        return et.trsm("L", "U", "N", R, et.interior_view(Y, (0, n),
+                                                          (0, nrhs)), nb=nb)
+    X, t_ls = sync_time(solve)
+    launches_q = _counts_now(*kern)
+    del A
+    torch.cuda.empty_cache()
+    gen.manual_seed(0)
+    Ag = torch.randn(m, n, generator=gen, device="cuda")
+    ap = et.to_global(Ap)
+    xg = et.to_global(X)
+    f_res, orth, opt = _ls_gates(et, g41, Ag, ap, Ap, tau, xg, Bg, gen)
+    del ap
+    finite = bool(torch.isfinite(xg).all())
+    res["tsqr_least_squares"] = {
+        "launches": launches_q, "qr_s": t_qr, "solve_s": t_ls,
+        "least_squares_s": t_qr + t_ls, "redist_counts": counts_q,
+        "factor_residual": f_res, "orthogonality": orth,
+        "normal_equations_optimality": opt,
+        "classic_1x1_qr_s": qr_path["qr_s"],
+        "classic_1x1_least_squares_s": qr_path["least_squares_s"]}
+    if not (f_res < 1e-3 and orth < 1e-4 and opt < 1e-4 and finite
+            and tuple(xg.shape) == (n, nrhs) and counts_q == TSQR_QR_COUNTS
+            and launches_q == {"lu_panel": 0, "potrf_inv": 0,
+                               "qr_panel": 0}):
+        raise AssertionError(f"phase 3i TSQR: "
+                             f"{json.dumps(res['tsqr_least_squares'])}; "
+                             f"want counts {TSQR_QR_COUNTS}")
+    del B, Ag, Bg, Ap, tau, X, xg
+    torch.cuda.empty_cache()
+    print("phase 3i TSQR " + json.dumps(
+        res["tsqr_least_squares"] | {"m": m, "n": n, "nb": nb,
+                                     "grid": "4x1", "card": card}),
+        flush=True)
+    # step 3: standalone tsqr of a tall-skinny [VC,STAR] matrix on 2x2
+    m3, k3 = 4194304, 256
+    g22 = et.Grid(2, 2)
+    gen.manual_seed(5)
+    et.tsqr(et.from_global(torch.randn(8192, k3, device="cuda"), et.VC,
+                           et.STAR, g22))
+    Ag = torch.randn(m3, k3, generator=gen, device="cuda")
+    A = et.from_global(Ag, et.VC, et.STAR, g22)
+    zero()
+    (Q, R), t_ts = sync_time(lambda: et.tsqr(A))
+    launches_t = _counts_now(*kern)
+    del A
+    Qg, Rg = et.to_global(Q), et.to_global(R).double()
+    del Q
+    err2 = nrm2 = 0.0
+    qtq = torch.zeros(k3, k3, device="cuda", dtype=torch.float64)
+    for i0 in range(0, m3, 524288):
+        qb = Qg[i0:i0 + 524288].double()
+        ab = Ag[i0:i0 + 524288].double()
+        err2 += float(((ab - qb @ Rg) ** 2).sum())
+        nrm2 += float((ab * ab).sum())
+        qtq += qb.T @ qb
+    del qb, ab, Qg
+    rec = (err2 / nrm2) ** 0.5
+    orth_t = float((qtq - torch.eye(k3, device="cuda",
+                                    dtype=torch.float64)).abs().max())
+    torch_qr_ms = _time_ms(lambda: torch.linalg.qr(Ag), 1)
+    res["tsqr_standalone"] = {"launches": launches_t, "s": t_ts,
+                              "reconstruction": rec, "orthogonality": orth_t,
+                              "torch_linalg_qr_ms": torch_qr_ms}
+    if not (rec < 1e-4 and orth_t < 1e-4 and launches_t == {
+            "lu_panel": 0, "potrf_inv": 0, "qr_panel": 0}):
+        raise AssertionError(f"phase 3i tsqr: "
+                             f"{json.dumps(res['tsqr_standalone'])}")
+    del Ag
+    print("phase 3i tsqr standalone " + json.dumps(
+        res["tsqr_standalone"] | {"m": m3, "k": k3, "grid": "2x2",
+                                  "card": card}), flush=True)
+    # step 5: path='direct' against the chain, every legal pair on 2x4
+    g24 = et.Grid(2, 4)
+    gen.manual_seed(6)
+    F = torch.randn(4096, 4096, generator=gen, device="cuda")
+    times = {}
+    zero()
+    for src in et.LEGAL_PAIRS:
+        S = et.from_global(F, *src, g24)
+        for dst in et.LEGAL_PAIRS:
+            Bc = et.redistribute(S, *dst, path="chain")
+            Bd = et.redistribute(S, *dst, path="direct")
+            if not torch.equal(Bc.local, Bd.local):
+                raise AssertionError(f"phase 3i direct != chain for "
+                                     f"{src} -> {dst}")
+            del Bc, Bd
+            key = f"[{src[0].value},{src[1].value}]->" \
+                  f"[{dst[0].value},{dst[1].value}]"
+            times[key] = [
+                _time_ms(lambda: et.redistribute(S, *dst, path=p), 1,
+                         warm=False) for p in ("chain", "direct")]
+    res["direct_vs_chain"] = {
+        "launches": _counts_now(*kern), "pairs": len(times),
+        "chain_ms_total": sum(t[0] for t in times.values()),
+        "direct_ms_total": sum(t[1] for t in times.values())}
+    if res["direct_vs_chain"]["launches"] != {"lu_panel": 0, "potrf_inv": 0,
+                                              "qr_panel": 0}:
+        raise AssertionError(f"phase 3i direct vs chain: "
+                             f"{json.dumps(res['direct_vs_chain'])}")
+    print("phase 3i direct vs chain (4096 x 4096 f32, 2x4, bit-equal) "
+          + json.dumps(res["direct_vs_chain"] | {"ms": times,
+                                                  "card": card}), flush=True)
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2300,6 +2611,7 @@ def main() -> int:
     svd_rest = timed("3f", phase_svd_rest, et, card)
     ldl_path = timed("3g", phase_ldl_main_path, et, card)
     ldl_rest = timed("3h", phase_ldl_rest, et, card)
+    calu_tsqr = timed("3i", phase_calu_tsqr, et, card, lu_path, qr_path)
     t4 = time.perf_counter()
     phase_distributed(et)
     phase_lu_distributed(et)
@@ -2342,7 +2654,8 @@ def main() -> int:
                                       ("3c", qr_path), ("3d", eig_path),
                                       ("3e", svd_path), ("3g", ldl_path))
                if d.get(key)}
-        for ph, rest in (("3f", svd_rest), ("3h", ldl_rest)):
+        for ph, rest in (("3f", svd_rest), ("3h", ldl_rest),
+                         ("3i", calu_tsqr)):
             for step, d in rest.items():
                 if isinstance(d, dict) and d["launches"].get(name):
                     out[f"{ph} {step}"] = d["launches"][name]

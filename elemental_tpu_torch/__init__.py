@@ -29,7 +29,13 @@ symmetric-indefinite solver (``ldl``, ``symmetric_solve``,
 ``triang_eig``, ``eig``, ``pseudospectra``), the control solvers
 (``sylvester``, ``lyapunov``, ``riccati``), the rest of the level-3 BLAS
 (``her2k``, ``syr2k``, ``trr2k``, ``hemm``, ``symm``, ``quasi_trsm``,
-``multishift_trsm``), ``qr_col_piv`` and ``lu_full_pivot``.
+``multishift_trsm``), ``qr_col_piv`` and ``lu_full_pivot``; and the
+communication-avoiding panels on the virtual grid (``lu(panel='calu')``,
+tournament pivoting; ``qr(panel='tsqr')`` and ``tsqr``), with the
+redistribution engine's call counters and trace records
+(``redist_counts``, ``redist_trace``), its one-shot ``path='direct'``
+plans, the quantized wire (``comm_precision='bf16'`` / ``'int8'``) and
+``contract``.
 
 The package imports ``torch`` and numpy only -- never ``jax`` and nothing
 of ``elemental_tpu``.
@@ -42,7 +48,8 @@ from .core.distmatrix import (DistMatrix, from_global, to_global, zeros,
                               from_storage, storage_numpy)
 from .core.view import view, update_view, pad_matrix
 from .redist.engine import (redistribute, transpose_dist, panel_spread,
-                           move_rows, permute_rows_storage)
+                           move_rows, permute_rows_storage, contract,
+                           redist_counts, redist_trace)
 from .redist.interior import interior_view, interior_update, vstack, hstack
 from .blas import (gemm, herk, syrk, trrk, trsm, trr2k, her2k, syr2k,
                    hemm, symm, trmm, two_sided_trsm, two_sided_trmm,
@@ -60,8 +67,8 @@ from .blas import (axpy, scale, fill, entrywise_map, hadamard,
 from .lapack import cholesky, hpd_solve, cholesky_solve_after
 from .lapack import (lu, lu_solve, lu_solve_after, permute_rows,
                      permute_cols, lu_full_pivot)
-from .lapack import (qr, apply_q, explicit_q, least_squares, lq, apply_q_lq,
-                     explicit_l, qr_col_piv, rq)
+from .lapack import (qr, apply_q, explicit_q, least_squares, tsqr, lq,
+                     apply_q_lq, explicit_l, qr_col_piv, rq)
 from .lapack import ridge, tikhonov, lse, glm
 from .lapack import (hermitian_tridiag, apply_q_herm_tridiag, hessenberg,
                      apply_q_hessenberg, bidiag, apply_p_bidiag)

@@ -33,6 +33,8 @@ from ..core.environment import check_precision
 from ..core.view import view, update_view
 from ..obs.tracer import NULL_HOOK as _NULL_HOOK, phase_hook as _phase_hook
 from ..redist.engine import panel_spread, redistribute, transpose_dist
+from ..redist.plan import gemm_slice_plans
+from ..redist.quantize import check_comm_precision
 from ..tune.policy import blocksize_policy as _blocksize
 from .level1 import _global_indices, get_diagonal, make_symmetric
 
@@ -92,21 +94,23 @@ def gemm(A: DistMatrix, B: DistMatrix, alpha=1.0, beta=0.0,
     matmul) or 'slice' (one-sided slicing); 'dot', 'gspmd' and 'slice'
     ignore ``nb``.  On the virtual grid every schedule is storage
     matmuls on one device, so all give the same product up to the order
-    of the sums.  ``alg='auto'`` and ``nb='auto'`` need the tuner, and
-    ``comm_precision`` / ``redist_path`` the wire and route choices: all
-    belong to later slices and raise ``NotImplementedError``.  The
+    of the sums.  ``comm_precision`` (``None`` | ``'bf16'`` | ``'int8'``)
+    and ``redist_path`` (``None`` | ``'chain'`` | ``'direct'``) select the
+    wire precision and route of the panel moves, as in the JAX driver
+    ('slice' always takes the one-shot plans).  ``alg='auto'`` and
+    ``'auto'`` for ``nb`` / ``comm_precision`` / ``redist_path`` need the
+    tuner (a later slice) and raise ``NotImplementedError``.  The
     ``BlockMatrix`` read-proxy of the JAX package waits for
     ``core/block.py``."""
     check_precision(precision, A.local, B.local)
-    if alg == "auto" or isinstance(nb, str):
+    if alg == "auto" or isinstance(nb, str) or comm_precision == "auto" \
+            or redist_path == "auto":
         raise NotImplementedError(
-            f"gemm alg={alg!r} nb={nb!r}: 'auto' needs the tuner (a later "
+            f"gemm alg={alg!r} nb={nb!r} comm_precision={comm_precision!r} "
+            f"redist_path={redist_path!r}: 'auto' needs the tuner (a later "
             "slice); name an alg and an int nb")
-    for name, v in (("comm_precision", comm_precision),
-                    ("redist_path", redist_path)):
-        if v is not None:
-            raise NotImplementedError(
-                f"gemm {name}={v!r} is not ported yet (a later slice)")
+    check_comm_precision(comm_precision)
+    cp, rp = comm_precision, redist_path
     A = _orient(A, orient_a)
     B = _orient(B, orient_b)
     _check_mcmr(A, B)
@@ -125,19 +129,19 @@ def gemm(A: DistMatrix, B: DistMatrix, alpha=1.0, beta=0.0,
         if C.gshape != (m, n):
             raise ValueError(f"C shape {C.gshape} != ({m},{n})")
     if alg == "C":
-        return _summa_c(alpha, A, B, beta, C, nb)
+        return _summa_c(alpha, A, B, beta, C, nb, cp, rp)
     if alg == "A":
-        return _summa_a(alpha, A, B, beta, C, nb)
+        return _summa_a(alpha, A, B, beta, C, nb, cp, rp)
     if alg == "B":
-        return _summa_b(alpha, A, B, beta, C, nb)
+        return _summa_b(alpha, A, B, beta, C, nb, cp, rp)
     if alg == "dot":
-        return _summa_dot(alpha, A, B, beta, C)
+        return _summa_dot(alpha, A, B, beta, C, cp, rp)
     if alg == "slice":
-        return _summa_slice(alpha, A, B, beta, C)
+        return _summa_slice(alpha, A, B, beta, C, cp)
     if alg == "gspmd":
         # B's k-rows re-landed on A's k-column cyclic order ([MR,STAR]),
         # then one storage matmul
-        Bk = redistribute(B, MR, STAR)
+        Bk = redistribute(B, MR, STAR, comm_precision=cp)
         D = DistMatrix(A.local @ Bk.local, (m, n), MC, STAR, 0, 0, A.grid)
         return _finish(alpha, redistribute(D, MC, MR).local, beta, C)
     raise ValueError(f"unknown gemm alg {alg!r}")
@@ -156,7 +160,7 @@ def _init_acc(beta, C: DistMatrix):
         else torch.zeros_like(C.local)
 
 
-def _summa_c(alpha, A, B, beta, C, nb):
+def _summa_c(alpha, A, B, beta, C, nb, cp=None, rp=None):
     """Stationary-C (``gemm::SUMMA_NNC``): per k-panel, A1 -> [MC,STAR],
     B1 -> [STAR,MR], and a local product accumulates into C's storage."""
     k = A.gshape[1]
@@ -165,13 +169,15 @@ def _summa_c(alpha, A, B, beta, C, nb):
     acc = beta * C.local if _nonzero(beta) else torch.zeros_like(C.local)
     for s in range(0, k, kb):
         e = min(s + kb, k)
-        A1 = redistribute(view(A, cols=(s, e)), MC, STAR)
-        B1 = redistribute(view(B, rows=(s, e)), STAR, MR)
+        A1 = redistribute(view(A, cols=(s, e)), MC, STAR, comm_precision=cp,
+                          path=rp)
+        B1 = redistribute(view(B, rows=(s, e)), STAR, MR, comm_precision=cp,
+                          path=rp)
         acc = acc + alpha * (A1.local @ B1.local)
     return C.with_local(_safe_astype(acc, C.dtype))
 
 
-def _summa_a(alpha, A, B, beta, C, nb):
+def _summa_a(alpha, A, B, beta, C, nb, cp=None, rp=None):
     """Stationary-A (``gemm::SUMMA_NNA``): per C column panel, B1 ->
     [MR,STAR]; the storage product is the [MC,STAR] panel, filtered onto
     [MC,MR]."""
@@ -181,7 +187,8 @@ def _summa_a(alpha, A, B, beta, C, nb):
     out = C.with_local(_init_acc(beta, C))
     for s in range(0, n, jb):
         e = min(s + jb, n)
-        B1 = redistribute(view(B, cols=(s, e)), MR, STAR)
+        B1 = redistribute(view(B, cols=(s, e)), MR, STAR, comm_precision=cp,
+                          path=rp)
         D1 = DistMatrix(A.local @ B1.local, (m, e - s), MC, STAR, 0, 0, A.grid)
         panel = redistribute(D1, MC, MR)
         cur = view(out, cols=(s, e))
@@ -190,7 +197,7 @@ def _summa_a(alpha, A, B, beta, C, nb):
     return out
 
 
-def _summa_b(alpha, A, B, beta, C, nb):
+def _summa_b(alpha, A, B, beta, C, nb, cp=None, rp=None):
     """Stationary-B: per C row panel, A1^T -> [MC,STAR]; the storage
     product is the [STAR,MR] panel, filtered onto [MC,MR]."""
     m = A.gshape[0]
@@ -199,7 +206,8 @@ def _summa_b(alpha, A, B, beta, C, nb):
     out = C.with_local(_init_acc(beta, C))
     for s in range(0, m, ib):
         e = min(s + ib, m)
-        A1T = redistribute(transpose_dist(view(A, rows=(s, e))), MC, STAR)
+        A1T = redistribute(transpose_dist(view(A, rows=(s, e))), MC, STAR,
+                           comm_precision=cp, path=rp)
         D1 = DistMatrix(A1T.local.mT @ B.local, (e - s, n), STAR, MR, 0, 0,
                         A.grid)
         panel = redistribute(D1, MC, MR)
@@ -209,7 +217,7 @@ def _summa_b(alpha, A, B, beta, C, nb):
     return out
 
 
-def _summa_dot(alpha, A, B, beta, C):
+def _summa_dot(alpha, A, B, beta, C, cp=None, rp=None):
     """SUMMA-Dot (``gemm::SUMMA_NNDot``): the inner dimension 1-D cyclic
     on both operands ([STAR,VC] x [VC,STAR], the same permutation on each
     side), one storage product into the replicated C, filtered onto
@@ -218,36 +226,34 @@ def _summa_dot(alpha, A, B, beta, C):
     m, n = C.gshape
     if A.grid.size == 1:
         return _finish(alpha, A.local @ B.local, beta, C)
-    Avc = redistribute(A, STAR, VC)
-    Bvc = redistribute(B, VC, STAR)
+    Avc = redistribute(A, STAR, VC, comm_precision=cp, path=rp)
+    Bvc = redistribute(B, VC, STAR, comm_precision=cp, path=rp)
     D = DistMatrix(Avc.local @ Bvc.local, (m, n), STAR, STAR, 0, 0, A.grid)
     return _finish(alpha, redistribute(D, MC, MR).local, beta, C)
 
 
-def _slice_row_mode(m: int, n: int, grid_shape: tuple) -> bool:
-    """Row slices ([VC,STAR] output) for a tall output or an Nx1 grid,
-    column slices ([STAR,VR]) otherwise (``redist.plan.slice_row_mode``)."""
-    r, c = grid_shape
-    return c == 1 or (r != 1 and m >= n)
-
-
-def _summa_slice(alpha, A, B, beta, C):
+def _summa_slice(alpha, A, B, beta, C, cp=None):
     """Slicing one-sided gemm: every rank owns a 1-D cyclic slice of C's
     rows (A -> [VC,STAR], B -> [STAR,STAR]) or columns ([STAR,STAR] x
-    [STAR,VR]) and contracts locally; 1x1 is one local matmul."""
+    [STAR,VR]) and contracts locally; 1x1 is one local matmul.  The
+    slices move through the one-shot plans of ``gemm_slice_plans``
+    (``path='direct'``), so ``comm_precision`` applies per plan slot."""
     m, n = C.gshape
     g = A.grid
     if g.size == 1:
         return _finish(alpha, A.local @ B.local, beta, C)
-    if _slice_row_mode(m, n, (g.height, g.width)):
-        As = redistribute(A, VC, STAR)
-        Bs = redistribute(B, STAR, STAR)
+    k = A.gshape[1]
+    mode, _ = gemm_slice_plans(m, k, n, (g.height, g.width))
+    if mode == "rows":
+        As = redistribute(A, VC, STAR, comm_precision=cp, path="direct")
+        Bs = redistribute(B, STAR, STAR, comm_precision=cp, path="direct")
         D = DistMatrix(As.local @ Bs.local, (m, n), VC, STAR, 0, 0, g)
     else:
-        As = redistribute(A, STAR, STAR)
-        Bs = redistribute(B, STAR, VR)
+        As = redistribute(A, STAR, STAR, comm_precision=cp, path="direct")
+        Bs = redistribute(B, STAR, VR, comm_precision=cp, path="direct")
         D = DistMatrix(As.local @ Bs.local, (m, n), STAR, VR, 0, 0, g)
-    return _finish(alpha, redistribute(D, MC, MR).local, beta, C)
+    return _finish(alpha, redistribute(D, MC, MR, path="direct").local, beta,
+                   C)
 
 
 # ---------------------------------------------------------------------
@@ -279,17 +285,19 @@ def herk(uplo: str, A: DistMatrix, alpha=1.0, beta=0.0,
     [MC,STAR] panel and its [STAR,MR] adjoint, and one ``addmm_``
     accumulates their product into ONE buffer in place; the triangle is
     masked once at the end (in place when C starts at zero on a 1x1
-    grid).  ``nb='auto'``, ``comm_precision`` and ``redist_path`` belong
-    to later slices and raise ``NotImplementedError``."""
+    grid).  ``comm_precision`` selects the wire precision of the panel
+    moves; ``redist_path='direct'`` replaces the [VC,STAR] hop + spread
+    by one one-shot gather to [STAR,STAR] and two local filters.
+    ``'auto'`` for ``nb`` / ``comm_precision`` / ``redist_path`` needs
+    the tuner (a later slice) and raises ``NotImplementedError``."""
     check_precision(precision, A.local)
-    if isinstance(nb, str):
+    if isinstance(nb, str) or comm_precision == "auto" \
+            or redist_path == "auto":
         raise NotImplementedError(
-            f"herk nb={nb!r}: 'auto' needs the tuner (a later slice)")
-    for name, v in (("comm_precision", comm_precision),
-                    ("redist_path", redist_path)):
-        if v is not None:
-            raise NotImplementedError(
-                f"herk {name}={v!r} is not ported yet (a later slice)")
+            f"herk nb={nb!r} comm_precision={comm_precision!r} "
+            f"redist_path={redist_path!r}: 'auto' needs the tuner (a later "
+            "slice)")
+    check_comm_precision(comm_precision)
     if orient != "N":
         A = _orient(A, "C" if conj else "T")
     _check_mcmr(A)
@@ -311,8 +319,19 @@ def herk(uplo: str, A: DistMatrix, alpha=1.0, beta=0.0,
         else torch.zeros(C.local.shape, dtype=dt, device=C.local.device)
     for s in range(0, k, kb):
         e = min(s + kb, k)
-        A1_vc = redistribute(view(A, cols=(s, e)), VC, STAR)
-        A1_mc, A1H_mr = panel_spread(A1_vc, conj=conj)
+        if redist_path == "direct":
+            # one one-shot exchange per panel; the [MC,STAR] panel and its
+            # [STAR,MR] adjoint are then zero-round local filters
+            A1_ss = redistribute(view(A, cols=(s, e)), STAR, STAR,
+                                 comm_precision=comm_precision, path="direct")
+            A1_mc = redistribute(A1_ss, MC, STAR)
+            A1H_mr = redistribute(transpose_dist(A1_ss, conj=conj), STAR, MR)
+        else:
+            A1_vc = redistribute(view(A, cols=(s, e)), VC, STAR,
+                                 comm_precision=comm_precision,
+                                 path=redist_path)
+            A1_mc, A1H_mr = panel_spread(A1_vc, conj=conj,
+                                         comm_precision=comm_precision)
         acc.addmm_(A1_mc.local.to(dt), A1H_mr.local.to(dt), alpha=alpha)
     acc = _safe_astype(acc, C.dtype)
     if fresh and g.size == 1:
@@ -456,29 +475,32 @@ def trsm(side: str, uplo: str, orient: str, A: DistMatrix, B: DistMatrix,
     A triangular [MC,MR].  Reference: ``El::Trsm``.
 
     Right-side solves reduce to left solves of the transposed system
-    (X op(A) = B  <=>  op(A)^T X^T = B^T).  ``nb='auto'``,
-    ``comm_precision`` and ``redist_path`` belong to later slices and
-    raise ``NotImplementedError``."""
+    (X op(A) = B  <=>  op(A)^T X^T = B^T).  ``comm_precision`` selects
+    the wire precision of the panel moves and ``redist_path`` their route
+    (the entry/exit transposes of a right-side solve included).
+    ``'auto'`` for ``nb`` / ``comm_precision`` / ``redist_path`` needs
+    the tuner (a later slice) and raises ``NotImplementedError``."""
     check_precision(precision, A.local, B.local)
-    for name, v in (("comm_precision", comm_precision),
-                    ("redist_path", redist_path)):
-        if v is not None:
-            raise NotImplementedError(
-                f"trsm {name}={v!r} is not ported yet (a later slice)")
-    if isinstance(nb, str):
+    if isinstance(nb, str) or comm_precision == "auto" \
+            or redist_path == "auto":
         raise NotImplementedError(
-            f"trsm nb={nb!r}: 'auto' needs the tuner (a later slice)")
+            f"trsm nb={nb!r} comm_precision={comm_precision!r} "
+            f"redist_path={redist_path!r}: 'auto' needs the tuner (a later "
+            "slice)")
+    check_comm_precision(comm_precision)
+    cp, rp = comm_precision, redist_path
     tm = _phase_hook("trsm")
     tm.start()
     trans = orient in ("T", "C")
     conj = orient == "C"
     if side.upper().startswith("R"):
-        BT = redistribute(transpose_dist(B), MC, MR)
+        BT = redistribute(transpose_dist(B), MC, MR, path=rp)
         # op(A)^T: N -> T; T -> N; C -> conj-only (trans=False, conj=True)
         XT = _trsm_left(uplo, not trans, conj, A, BT, alpha, unit, nb,
-                        precision, tm)
-        return redistribute(transpose_dist(XT), MC, MR)
-    return _trsm_left(uplo, trans, conj, A, B, alpha, unit, nb, precision, tm)
+                        precision, tm, cp, rp)
+        return redistribute(transpose_dist(XT), MC, MR, path=rp)
+    return _trsm_left(uplo, trans, conj, A, B, alpha, unit, nb, precision, tm,
+                      cp, rp)
 
 
 def _solve_block(a11, b1, lower: bool, trans: bool, conj: bool,
@@ -495,7 +517,7 @@ def _solve_block(a11, b1, lower: bool, trans: bool, conj: bool,
 
 def _trsm_left(uplo: str, trans: bool, conj: bool, A: DistMatrix, B: DistMatrix,
                alpha, unit: bool, nb: int | None, precision,
-               tm=_NULL_HOOK) -> DistMatrix:
+               tm=_NULL_HOOK, cp=None, rp=None) -> DistMatrix:
     """All eight left cases.  Effective triangle: uplo XOR trans decides the
     sweep direction; per panel the diagonal block is replicated
     ([STAR,STAR]), the RHS panel goes 1-D cyclic ([STAR,VR]) for the local
@@ -515,36 +537,40 @@ def _trsm_left(uplo: str, trans: bool, conj: bool, A: DistMatrix, B: DistMatrix,
         starts = starts[::-1]
     for k, s in enumerate(starts):
         e = min(s + ib, m)
-        A11 = redistribute(view(A, rows=(s, e), cols=(s, e)), STAR, STAR)
+        A11 = redistribute(view(A, rows=(s, e), cols=(s, e)), STAR, STAR,
+                           comm_precision=cp, path=rp)
         # mask to the stored triangle so opposite-triangle garbage (e.g. the
         # packed L\U format of lu()) can never leak into the solve
         a11 = torch.tril(A11.local) if lower else torch.triu(A11.local)
-        B1 = redistribute(view(X, rows=(s, e)), STAR, VR)
+        B1 = redistribute(view(X, rows=(s, e)), STAR, VR, comm_precision=cp,
+                          path=rp)
         x1 = _solve_block(a11, B1.local, lower, trans, conj, unit)
         X1 = DistMatrix(x1, B1.gshape, STAR, VR, 0, 0, A.grid)
-        X1_mr = redistribute(X1, STAR, MR)
+        X1_mr = redistribute(X1, STAR, MR, comm_precision=cp, path=rp)
         X = update_view(X, redistribute(X1_mr, MC, MR), rows=(s, e))  # local filter
         tm.tick("solve", k, X.local)
         if e < m if forward else s > 0:
             X = _sweep_update(A, X, X1_mr, s, e, forward, trans, conj,
-                              precision)
+                              precision, cp, rp)
             tm.tick("update", k, X.local)
     return X
 
 
 def _sweep_update(A: DistMatrix, X: DistMatrix, X1_mr: DistMatrix, s: int,
                   e: int, forward: bool, trans: bool, conj: bool,
-                  precision) -> DistMatrix:
+                  precision, cp=None, rp=None) -> DistMatrix:
     """The off-panel update of a blocked triangular sweep (:func:`trsm`,
     :func:`quasi_trsm`, :func:`multishift_trsm`): the rows not yet solved
     lose op(A)[rows, s:e] X1, one storage product."""
     lo, hi = (e, X.gshape[0]) if forward else (0, s)
     if trans:
         # op(A)[hi-part, s:e] = op(A[s:e, hi-part])
-        A1p = redistribute(view(A, rows=(s, e), cols=(lo, hi)), STAR, MC)
+        A1p = redistribute(view(A, rows=(s, e), cols=(lo, hi)), STAR, MC,
+                           comm_precision=cp, path=rp)
         a_loc = A1p.local.mT           # [MC,STAR]-storage of A1p^T
     else:
-        A1p = redistribute(view(A, rows=(lo, hi), cols=(s, e)), MC, STAR)
+        A1p = redistribute(view(A, rows=(lo, hi), cols=(s, e)), MC, STAR,
+                           comm_precision=cp, path=rp)
         a_loc = A1p.local
     if conj:
         a_loc = a_loc.conj()

@@ -6,8 +6,8 @@ the SVD, the Schur decomposition and the matrix properties."""
 from .cholesky import cholesky, hpd_solve, cholesky_solve_after
 from .lu import (lu, lu_solve, lu_solve_after, permute_rows, permute_cols,
                  lu_full_pivot)
-from .qr import (qr, apply_q, explicit_q, least_squares, lq, apply_q_lq,
-                 explicit_l, qr_col_piv, rq)
+from .qr import (qr, apply_q, explicit_q, least_squares, tsqr, lq,
+                 apply_q_lq, explicit_l, qr_col_piv, rq)
 from .euclidean_min import ridge, tikhonov, lse, glm
 from .condense import (hermitian_tridiag, apply_q_herm_tridiag, hessenberg,
                        apply_q_hessenberg, bidiag, apply_p_bidiag)

@@ -41,8 +41,9 @@ from ..core.dist import MC, MR, VC, STAR
 from ..core.distmatrix import DistMatrix
 from ..core.environment import check_precision
 from ..core.view import view, update_view
-from ..redist.engine import (apply_fault, redistribute, transpose_dist,
-                             panel_spread)
+from ..redist.engine import (REDIST_PATHS, apply_fault, redistribute,
+                             transpose_dist, panel_spread)
+from ..redist.quantize import check_comm_precision
 from ..blas.level1 import make_trapezoidal, _global_indices
 from ..blas.level3 import _check_mcmr, _mask_triangle, trsm
 from ..kernels import potrf_inv as _kernel_potrf_inv
@@ -165,14 +166,21 @@ def _not_ported(name: str, value, what: str) -> None:
 
 def _check_knobs(nb, lookahead, crossover, comm_precision, redist_path,
                  timer, health, abft) -> None:
+    """Refuse the knobs of later slices -- ``'auto'`` (the tuner),
+    ``timer``, ``health``, ``abft`` -- and check the wire and route
+    knobs."""
     for name, v in (("nb", nb), ("lookahead", lookahead),
                     ("crossover", crossover)):
         if isinstance(v, str):
             _not_ported(name, v, "the tuner ('auto')")
-    if comm_precision is not None:
-        _not_ported("comm_precision", comm_precision, "wire quantization")
-    if redist_path is not None:
-        _not_ported("redist_path", redist_path, "route selection")
+    for name, v in (("comm_precision", comm_precision),
+                    ("redist_path", redist_path)):
+        if v == "auto":
+            _not_ported(name, v, "the tuner ('auto')")
+    check_comm_precision(comm_precision)
+    if redist_path not in REDIST_PATHS:
+        raise ValueError(f"redist_path must be one of {REDIST_PATHS}, got "
+                         f"{redist_path!r}")
     if timer is not None:
         _not_ported("timer", timer, "phase timing")
     if health is not None:
@@ -204,8 +212,13 @@ def cholesky(A: DistMatrix, uplo: str = "L", nb: int | None = None,
 
     ``precision`` is ``None`` or ``'highest'`` (full float32/float64
     arithmetic); on the card ``torch.backends.cuda.matmul.allow_tf32``
-    must be False.  The knobs of later slices -- ``'auto'`` for ``nb`` /
-    ``lookahead`` / ``crossover``, ``comm_precision``, ``redist_path``,
+    must be False.
+
+    ``comm_precision`` (``None`` | ``'bf16'`` | ``'int8'``) selects the
+    wire precision of the bulk moves (diagonal-block and panel gathers,
+    the panel spread, the crossover gather) and ``redist_path``
+    (``None`` | ``'chain'`` | ``'direct'``) their route, as in the JAX
+    driver.  The knobs of later slices -- ``'auto'`` for any knob,
     ``timer``, ``health``, ``abft`` -- raise ``NotImplementedError``.
     """
     _check_mcmr(A)
@@ -219,7 +232,8 @@ def cholesky(A: DistMatrix, uplo: str = "L", nb: int | None = None,
         Alow = redistribute(transpose_dist(A, conj=True), MC, MR)
         L = cholesky(Alow, "L", nb=nb, precision=precision,
                      lookahead=lookahead, crossover=crossover,
-                     panel_impl=panel_impl)
+                     panel_impl=panel_impl, comm_precision=comm_precision,
+                     redist_path=redist_path)
         return redistribute(transpose_dist(L, conj=True), MC, MR)
 
     m = A.gshape[0]
@@ -231,6 +245,7 @@ def cholesky(A: DistMatrix, uplo: str = "L", nb: int | None = None,
     if g.size == 1:
         return _local_cholesky(A, nb, precision, lookahead, tm, plan)
     r, c = g.height, g.width
+    cp, rp = comm_precision, redist_path
     ib = _blocksize(nb, math.lcm(r, c), m)
     xover = (_CROSSOVER if lookahead else 0) if crossover is None \
         else max(int(crossover), 0)
@@ -238,13 +253,14 @@ def cholesky(A: DistMatrix, uplo: str = "L", nb: int | None = None,
     if lookahead:
         # prologue: factor diag block 0 + solve panel 0 from the input
         e0 = min(ib, m)
-        A11 = redistribute(view(L, rows=(0, e0), cols=(0, e0)), STAR, STAR)
+        A11 = redistribute(view(L, rows=(0, e0), cols=(0, e0)), STAR, STAR,
+                           comm_precision=cp, path=rp)
         L11, Li11 = _potrf_inv(A11.local, precision, plan=plan)
         tm.tick("diag", 0, L11)
         L21_vc = None
         if e0 < m:
             A21_vc = redistribute(view(L, rows=(e0, m), cols=(0, e0)),
-                                  VC, STAR)
+                                  VC, STAR, comm_precision=cp, path=rp)
             x21 = A21_vc.local @ Li11.mH
             L21_vc = DistMatrix(x21, (m - e0, e0), VC, STAR, 0, 0, g)
             tm.tick("panel", 0, L21_vc)
@@ -254,7 +270,8 @@ def cholesky(A: DistMatrix, uplo: str = "L", nb: int | None = None,
         if lookahead:
             L11, Li11, L21_vc = nxt
         else:
-            A11 = redistribute(view(L, rows=(s, e), cols=(s, e)), STAR, STAR)
+            A11 = redistribute(view(L, rows=(s, e), cols=(s, e)), STAR, STAR,
+                               comm_precision=cp, path=rp)
             # replicated diagonal-block factor + inverse, so the panel
             # Trsm below is a matmul
             L11, Li11 = _potrf_inv(A11.local, precision, plan=plan)
@@ -264,11 +281,12 @@ def cholesky(A: DistMatrix, uplo: str = "L", nb: int | None = None,
         if e == m:
             break
         if not lookahead:
-            A21_vc = redistribute(view(L, rows=(e, m), cols=(s, e)), VC, STAR)
+            A21_vc = redistribute(view(L, rows=(e, m), cols=(s, e)), VC, STAR,
+                                  comm_precision=cp, path=rp)
             x21 = A21_vc.local @ Li11.mH                     # A21 L11^{-H}
             L21_vc = DistMatrix(x21, (m - e, e - s), VC, STAR, 0, 0, g)
             tm.tick("panel", k, L21_vc)
-        L21_mc, L21H_mr = panel_spread(L21_vc, conj=True)
+        L21_mc, L21H_mr = panel_spread(L21_vc, conj=True, comm_precision=cp)
         tm.tick("spread", k, L21_mc, L21H_mr)
         tail = bool(xover) and m - e <= xover
         if not lookahead:
@@ -290,13 +308,15 @@ def cholesky(A: DistMatrix, uplo: str = "L", nb: int | None = None,
             if not tail:
                 # factor diag block k+1 + solve panel k+1 from the strip
                 A11n = redistribute(view(stripD, rows=(0, e2 - e),
-                                         cols=(0, e2 - e)), STAR, STAR)
+                                         cols=(0, e2 - e)), STAR, STAR,
+                                    comm_precision=cp, path=rp)
                 L11n, Li11n = _potrf_inv(A11n.local, precision, plan=plan)
                 tm.tick("diag", k + 1, L11n)
                 L21n_vc = None
                 if e2 < m:
                     A21n = redistribute(view(stripD, rows=(e2 - e, m - e),
-                                             cols=(0, e2 - e)), VC, STAR)
+                                             cols=(0, e2 - e)), VC, STAR,
+                                        comm_precision=cp, path=rp)
                     x21n = A21n.local @ Li11n.mH
                     L21n_vc = DistMatrix(x21n, (m - e2, e2 - e), VC, STAR,
                                          0, 0, g)
@@ -320,7 +340,8 @@ def cholesky(A: DistMatrix, uplo: str = "L", nb: int | None = None,
         if tail:
             # crossover-to-local: one gather of the (fully updated) trailing
             # block, sequential finish, one scatter back
-            Atail = redistribute(view(L, rows=(e, m), cols=(e, m)), STAR, STAR)
+            Atail = redistribute(view(L, rows=(e, m), cols=(e, m)), STAR, STAR,
+                                 comm_precision=cp, path=rp)
             lt = _local_chol_array(Atail.local, m - e, ib, precision,
                                    lookahead=lookahead, plan=plan)
             Lt_ss = DistMatrix(lt, (m - e, m - e), STAR, STAR, 0, 0, g)

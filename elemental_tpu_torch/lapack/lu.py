@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from ..core.dist import MC, MR, STAR, VC, VR
@@ -44,6 +45,7 @@ from ..core.environment import check_precision
 from ..core.view import view, update_view
 from ..redist.engine import (apply_fault, move_rows, permute_rows_storage,
                              redistribute)
+from ..redist.quantize import quantizable
 from ..blas.level1 import _global_indices
 from ..blas.level3 import _check_mcmr, local_rank_update, trsm
 from ..kernels import lu_panel as _kernel_lu_panel
@@ -134,6 +136,264 @@ def _moved_rows(pperm, nbw: int):
     idx = torch.where(moved[order], order, M)
     src = pperm[idx.clamp(0, M - 1)]
     return idx, src
+
+
+# ---------------------------------------------------------------------
+# CALU tournament-pivoted panel (communication-avoiding LU, Grigori /
+# Demmel / Xiang): each grid row factors its cyclic slab of the panel with
+# partial pivoting, the per-slab candidate pivot blocks reduce in a
+# log-depth pairwise playoff, and the winners are applied as ONE composed
+# row permutation; the permuted panel then factors without pivoting
+# ---------------------------------------------------------------------
+
+def _sweep(V, piv, rows):
+    """In place: the partial-pivot sweep of each block of ``V`` (B, Mp, w)
+    over ``piv.shape[0]`` columns, the trailing block only (the JAX
+    package's ``fori_loop`` updates the masked whole block: the same
+    values).  ``piv[j]`` receives column j's pivot offset from j; ``rows``
+    (n, B) holds row j of each block in the flattened ``V``.  Twelve
+    plain kernels a column: the pivot search and its record, the row swap
+    as two row gathers and two row copies, the guarded division in place
+    and one rank-1 update; all-zero padding rows flow through as zeros."""
+    B, Mp, w = V.shape
+    Vf = V.view(B * Mp, w)
+    for j in range(piv.shape[0]):
+        rj = rows[j]
+        p = V[:, j:, j].abs().argmax(dim=1)
+        piv[j].copy_(p)
+        rp = rj + p
+        row_p, row_j = Vf.index_select(0, rp), Vf.index_select(0, rj)
+        Vf.index_copy_(0, rj, row_p)
+        Vf.index_copy_(0, rp, row_j)
+        d = V[:, j, j]
+        l = V[:, j + 1:, j]
+        l.div_(torch.where(d == 0, 1, d)[:, None])
+        V[:, j + 1:, j + 1:].addcmul_(l[:, :, None], V[:, j, None, j + 1:],
+                                      value=-1)
+
+
+#: most sweep graphs a cache holds: the current round-0 slab shape and
+#: the log2 r playoff shapes (r <= 8); the least recently used goes first
+_SWEEP_GRAPHS_MAX = 4
+
+
+def _sweep_pivots(V, n: int, graphs: dict | None = None):
+    """(n, B) pivot offsets of the sweep of ``V`` (left unchanged).  On
+    the CPU the sweep runs eagerly; on the card it is captured once per
+    block shape as one CUDA graph and replayed after, so a panel of the
+    tournament costs its kernels' device time, not ~10^5 launches from
+    the host.  ``graphs`` is the caller's cache, (B, Mp, w, n, dtype,
+    device) -> (graph, V, piv, rows) with the static tensors the graph
+    reads and writes; ``lu`` keeps one for the length of a call, so
+    nothing stays resident after it returns (``None``: a cache for this
+    call only)."""
+    B, Mp, w = V.shape
+    dev = V.device
+    if not V.is_cuda:
+        piv = torch.empty((n, B), dtype=torch.int64, device=dev)
+        rows = (torch.arange(B, device=dev)[None, :] * Mp
+                + torch.arange(n, device=dev)[:, None])
+        _sweep(V.clone(), piv, rows)
+        return piv
+    graphs = {} if graphs is None else graphs
+    key = (B, Mp, w, n, V.dtype, dev)
+    entry = graphs.pop(key, None)
+    if entry is None:
+        while len(graphs) >= _SWEEP_GRAPHS_MAX:
+            graphs.pop(next(iter(graphs)))
+        Vs = V.clone()
+        piv = torch.empty((n, B), dtype=torch.int64, device=dev)
+        rows = (torch.arange(B, device=dev)[None, :] * Mp
+                + torch.arange(n, device=dev)[:, None])
+        # two columns on a side stream are the warm-up capture needs
+        side = torch.cuda.Stream(device=dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            _sweep(V.clone(), piv[:min(n, 2)], rows)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            _sweep(Vs, piv, rows)
+        entry = (graph, Vs, piv, rows)
+    graphs[key] = entry                                  # most recent last
+    graph, Vs, piv, _ = entry
+    Vs.copy_(V)
+    graph.replay()
+    return piv
+
+
+def _playoff_perm(V, ncol: int, graphs: dict | None = None):
+    """Pivot ORDER of a partial-pivot LU sweep over each of a batch of
+    (possibly zero-padded) blocks ``V`` (B, Mp, w): the composed
+    permutations (B, Mp) as a host numpy array (the factor values are
+    discarded -- playoffs select rows).  The swaps are composed on the
+    host from the pivot list of :func:`_sweep_pivots`, one transfer per
+    call."""
+    B, Mp, w = V.shape
+    n = min(ncol, Mp)
+    perm = np.tile(np.arange(Mp), (B, 1))
+    if n == 0:
+        return perm
+    pv = _sweep_pivots(V, n, graphs).cpu().numpy().T + np.arange(n)[None, :]
+    ar = np.arange(B)
+    for j in range(n):
+        pj, pp = perm[ar, j].copy(), perm[ar, pv[:, j]].copy()
+        perm[ar, j] = pp
+        perm[ar, pv[:, j]] = pj
+    return perm
+
+
+def _tournament_pivots(P, nbw: int, r: int, graphs: dict | None = None):
+    """The CALU tournament: the composed panel permutation (perm[i] =
+    original row now at position i), a length-M int64 tensor whose first
+    ``nbw`` entries are the playoff winners.  Slab membership mirrors the
+    [MC,*] ownership map (global row i lives in grid row i % r), so the
+    tournament selects exactly the pivots a message-passing CALU over the
+    grid rows would.  ``graphs`` is the sweep-graph cache
+    (:func:`_sweep_pivots`)."""
+    M = P.shape[0]
+    dev = P.device
+    graphs = {} if graphs is None else graphs
+    # slabs padded with zero rows to a multiple of nbw: the sweep never
+    # prefers an appended zero row to an earlier one, so the winners are
+    # those of the unpadded slabs, and the card reuses one graph of the
+    # sweep for every panel height in a band of nbw r rows
+    lslab = -(-max(-(-M // r), nbw) // nbw) * nbw
+    sidx = (torch.arange(lslab, device=dev)[None, :] * r
+            + torch.arange(r, device=dev)[:, None])
+    ok = sidx < M                                        # (r, lslab)
+    vals = torch.where(ok[:, :, None], P[sidx.clamp(0, M - 1)], 0)
+    gidx = torch.where(ok, sidx, M)                      # sentinel M = padding
+    # round 0: every slab's local partial-pivot sweep
+    top = torch.as_tensor(_playoff_perm(vals, nbw, graphs)[:, :nbw], device=dev)
+    cvals = torch.take_along_dim(vals, top[:, :, None], dim=1)
+    cidx = torch.take_along_dim(gidx, top, dim=1)        # (r, nbw)
+    # log-depth pairwise playoffs (an odd participant gets a bye)
+    nblk = r
+    while nblk > 1:
+        half, odd = nblk // 2, nblk % 2
+        st_v = torch.cat([cvals[:half], cvals[half:2 * half]], dim=1)
+        st_i = torch.cat([cidx[:half], cidx[half:2 * half]], dim=1)
+        wtop = torch.as_tensor(_playoff_perm(st_v, nbw, graphs)[:, :nbw], device=dev)
+        wv = torch.take_along_dim(st_v, wtop[:, :, None], dim=1)
+        wi = torch.take_along_dim(st_i, wtop, dim=1)
+        if odd:
+            wv = torch.cat([wv, cvals[2 * half:]], dim=0)
+            wi = torch.cat([wi, cidx[2 * half:]], dim=0)
+        cvals, cidx = wv, wi
+        nblk = half + odd
+    # compose the one-shot permutation: winner j swaps into position j (a
+    # padding sentinel is a no-op swap; only on exactly-singular panels)
+    win = cidx[0].cpu().numpy()
+    perm, invp = np.arange(M), np.arange(M)
+    for j in range(nbw):
+        w = int(win[j]) if win[j] < M else int(perm[j])
+        tp, pj = int(invp[w]), int(perm[j])
+        perm[j], perm[tp] = w, pj
+        invp[w], invp[pj] = j, tp
+    return torch.as_tensor(perm, device=dev)
+
+
+def _lu_nopiv(W, bs: int = 256):
+    """Unpivoted blocked LU of a square block (packed L\\U, unit-lower L):
+    the tournament already fixed the pivot order, so diagonal blocks run
+    the plain recurrence, off-diagonal blocks are triangular solves and
+    one matmul per step."""
+    W = W.clone()
+    b = W.shape[0]
+
+    def unb(B):                                          # in place
+        for j in range(B.shape[0]):
+            l = B[j + 1:, j]
+            l.div_(B[j, j])
+            B[j + 1:, j + 1:].addcmul_(l[:, None], B[j, None, j + 1:],
+                                       value=-1)
+        return B
+
+    if b <= bs:
+        return unb(W)
+    for s in range(0, b, bs):
+        e = min(s + bs, b)
+        blk = unb(W[s:e, s:e])
+        if e < b:
+            W[s:e, e:] = torch.linalg.solve_triangular(
+                blk, W[s:e, e:], upper=False, unitriangular=True)
+            W[e:, s:e] = torch.linalg.solve_triangular(
+                torch.triu(blk), W[e:, s:e], upper=True, left=False)
+            W[e:, e:].addmm_(W[e:, s:e], W[s:e, e:], alpha=-1)
+    return W
+
+
+def _upper_inv(U, nbw: int, bs: int = 256):
+    """Inverse of a non-unit upper-triangular block, assembled by matmuls
+    with triangular solves only on ``bs`` diagonal blocks -- turns the
+    CALU ``L21 := A21 U11^{-1}`` panel solve into one matmul."""
+    eye = torch.eye(nbw, dtype=U.dtype, device=U.device)
+    if nbw <= bs:
+        return torch.linalg.solve_triangular(U, eye, upper=True)
+    Ui = torch.zeros_like(eye)
+    for s in range(0, nbw, bs):
+        e = min(s + bs, nbw)
+        Uikk = torch.linalg.solve_triangular(U[s:e, s:e], eye[s:e, s:e],
+                                             upper=True)
+        if s > 0:
+            Ui[:s, s:e] = -((Ui[:s, :s] @ U[:s, s:e]) @ Uikk)
+        Ui[s:e, s:e] = Uikk
+    return Ui
+
+
+def _nopiv_panel(Pp, nbw: int):
+    """Unpivoted factorization of an already-permuted (M, nbw) panel:
+    packed ``[L11\\U11; L21]`` with ``L21 = A21 U11^{-1}`` as one matmul.
+    Shared by the CALU panel (winners on top) and the TSQR Householder
+    reconstruction in ``qr.py`` (LU of ``Q1 - S``)."""
+    Wf = _lu_nopiv(Pp[:nbw])
+    Ui = _upper_inv(torch.triu(Wf), nbw)
+    return torch.cat([Wf, Pp[nbw:] @ Ui], dim=0)
+
+
+def _calu_panel(P, nbw: int, r: int, precision=None, plan=None,
+                graphs: dict | None = None, tm=_NULL_TIMER, step: int = 0):
+    """CALU panel factorization of a replicated (M, nbw) panel: the
+    tournament over ``r`` grid-row slabs, then the unpivoted factor of
+    the permuted panel; ``tm`` ticks the tournament phase between the
+    two.  Same ``(packed, perm)`` contract as the classic panel; with
+    ``r == 1`` (or a panel no taller than wide) the tournament IS partial
+    pivoting, so the classic panel runs through :func:`_panel_dispatch`
+    (``plan`` picks the CUDA kernel on the card)."""
+    M = P.shape[0]
+    if r <= 1 or M <= nbw:
+        return _panel_dispatch(P, nbw, precision, plan)
+    perm = _tournament_pivots(P, nbw, r, graphs)
+    tm.tick("tournament", step, perm)
+    return _nopiv_panel(P.index_select(0, perm), nbw), perm
+
+
+def _rowblock_solve(Ablk: DistMatrix, Li11, wire=None) -> DistMatrix:
+    """``U = Li11 @ Ablk`` for an (nbw, w) [MC,MR] row block, landing
+    [STAR,MR]: each grid row contracts the replicated ``Li11`` against only
+    the block rows it stores (columns ``mc + r * iLoc`` of ``Li11``), and
+    the r partial products are summed -- ONE psum over the grid column on
+    a real grid, where the classic schedule needs an all-to-all and an
+    all-gather.  ``wire='bf16'`` rounds each partial to bfloat16 and the
+    sum to bfloat16, as the JAX psum on a bfloat16 payload; the sum runs
+    in float32 in grid-row order (XLA's psum order may differ)."""
+    g = Ablk.grid
+    r = g.height
+    nbw = Ablk.gshape[0]
+    x = Ablk.local
+    lr = x.shape[0] // r
+    cols = (torch.arange(r, device=x.device)[:, None]
+            + r * torch.arange(lr, device=x.device)[None, :])   # (r, lr)
+    Lsub = Li11[:, cols.clamp(0, nbw - 1)].permute(1, 0, 2)    # (r, nbw, lr)
+    Lsub = torch.where((cols < nbw)[:, None, :], Lsub, 0)
+    parts = torch.bmm(Lsub, x.reshape(r, lr, x.shape[1]))       # (r, nbw, *)
+    if wire == "bf16":
+        out = parts.to(torch.bfloat16).to(torch.float32).sum(0) \
+            .to(torch.bfloat16).to(x.dtype)
+    else:
+        out = parts.sum(0)
+    return DistMatrix(out, Ablk.gshape, STAR, MR, 0, Ablk.ralign, g)
 
 
 # ---------------------------------------------------------------------
@@ -251,8 +511,6 @@ def _check_lu_knobs(nb, lookahead, crossover, panel, update_precision,
     if panel not in ("classic", "calu"):
         raise ValueError(f"lu: unknown panel strategy {panel!r}; "
                          "expected 'classic', 'calu', or 'auto'")
-    if panel == "calu" and r > 1:
-        _not_ported("panel", panel, "tournament pivoting (CALU)")
     check_precision(update_precision)
     return panel
 
@@ -273,9 +531,16 @@ def lu(A: DistMatrix, nb: int | None = None, precision=None,
     ``lookahead`` selects the pipelined schedule; ``crossover`` is the
     trailing-block size at which the distributed loop gathers the rest
     once and finishes it sequentially (``None`` = :data:`_CROSSOVER` with
-    look-ahead, disabled classic; 0 never crosses over).  ``panel`` is
-    ``'classic'``; ``'calu'`` on a single-row grid is the classic panel
-    (the tournament of one slab IS partial pivoting).
+    look-ahead, disabled classic; 0 never crosses over).
+
+    ``panel`` is ``'classic'`` (the replicated partial-pivot panel) or
+    ``'calu'``: tournament pivoting (:func:`_tournament_pivots`) over the
+    r grid-row slabs, one batched row permutation per panel, the
+    unpivoted refactorization (:func:`_nopiv_panel`) and the one-psum
+    row-block solve (:func:`_rowblock_solve`).  On a single-row grid
+    (r == 1, 1x1 included) the tournament of one slab IS partial
+    pivoting, so ``'calu'`` runs the classic panel; the crossover tail
+    finishes with the classic panel under either strategy.
 
     ``panel_impl`` (``None`` | ``'auto'`` | ``'torch'`` | ``'kernel'``)
     selects the panel implementation; ``None`` and ``'auto'`` take the
@@ -286,11 +551,15 @@ def lu(A: DistMatrix, nb: int | None = None, precision=None,
 
     ``precision`` and ``update_precision`` are ``None`` or ``'highest'``
     (full float32/float64 arithmetic); on the card
-    ``torch.backends.cuda.matmul.allow_tf32`` must be False.  The knobs
-    of later slices -- ``'auto'`` for ``nb`` / ``lookahead`` /
-    ``crossover`` / ``panel``, ``panel='calu'`` on a grid with r > 1,
-    ``comm_precision``, ``redist_path``, ``timer``, ``health``, ``abft``
-    -- raise ``NotImplementedError``."""
+    ``torch.backends.cuda.matmul.allow_tf32`` must be False.
+
+    ``comm_precision`` (``None`` | ``'bf16'`` | ``'int8'``) selects the
+    wire precision of the schedule's bulk moves (panel gathers, the U12
+    row-block transport, the crossover gather; the CALU row-block psum
+    rides ``'bf16'`` under either mode) and ``redist_path`` (``None`` |
+    ``'chain'`` | ``'direct'``) their route, as in the JAX driver.  The
+    knobs of later slices -- ``'auto'`` for any knob, ``timer``,
+    ``health``, ``abft`` -- raise ``NotImplementedError``."""
     _check_mcmr(A)
     g = A.grid
     r, c = g.height, g.width
@@ -304,9 +573,16 @@ def lu(A: DistMatrix, nb: int | None = None, precision=None,
     if g.size == 1:
         return _local_lu(A, nb, precision, update_precision, lookahead, tm,
                          plan)
+    calu = panel == "calu" and r > 1
+    cp, rp = comm_precision, redist_path
+    sweeps: dict = {}                # this call's sweep graphs (CALU, card)
 
-    def factor_panel(Ploc, w: int):
-        Pf, pperm = _panel_dispatch(Ploc, w, precision, plan)
+    def factor_panel(Ploc, w: int, step: int):
+        if calu:
+            Pf, pperm = _calu_panel(Ploc, w, r, precision, plan, sweeps, tm,
+                                    step)
+        else:
+            Pf, pperm = _panel_dispatch(Ploc, w, precision, plan)
         Pf, = apply_fault("compute", (Pf,))
         return Pf, pperm
 
@@ -326,8 +602,8 @@ def lu(A: DistMatrix, nb: int | None = None, precision=None,
     if lookahead:
         e0_up = col_up(min(ib, kend))
         panel0 = redistribute(view(A, rows=(0, m), cols=(0, e0_up)),
-                              STAR, STAR)
-        nxt = factor_panel(panel0.local[:, :min(ib, kend)], min(ib, kend))
+                              STAR, STAR, comm_precision=cp, path=rp)
+        nxt = factor_panel(panel0.local[:, :min(ib, kend)], min(ib, kend), 0)
         tm.tick("panel", 0, nxt)
     for k, s in enumerate(range(0, kend, ib)):
         e = min(s + ib, kend)
@@ -338,8 +614,8 @@ def lu(A: DistMatrix, nb: int | None = None, precision=None,
             Pf, pperm = nxt
         else:
             pan = redistribute(view(A, rows=(s, m), cols=(s, e_up)),
-                               STAR, STAR)
-            Pf, pperm = factor_panel(pan.local[:, :nbw], nbw)
+                               STAR, STAR, comm_precision=cp, path=rp)
+            Pf, pperm = factor_panel(pan.local[:, :nbw], nbw, k)
             tm.tick("panel", k, Pf, pperm)
         perm[s:] = perm[s:].index_select(0, pperm)
         # move only the rows the panel permutation displaced (<= 2 nbw)
@@ -359,9 +635,18 @@ def lu(A: DistMatrix, nb: int | None = None, precision=None,
         # U12 := L11^{-1} A12 over the legal column range (s, n); the
         # writeback keeps only cols >= e
         Li11 = _unit_lower_inv(Pf[:nbw], nbw, precision)
-        A1n = redistribute(view(A, rows=(s, e), cols=(s, n)), STAR, VR)
-        U1n = DistMatrix(Li11 @ A1n.local, (nbw, n - s), STAR, VR, 0, 0, g)
-        U1n_mr = redistribute(U1n, STAR, MR)
+        if calu:
+            # one-psum row-block solve in place of the all-to-all +
+            # all-gather pair below
+            U1n_mr = _rowblock_solve(
+                view(A, rows=(s, e), cols=(s, n)), Li11,
+                "bf16" if cp and quantizable(A.dtype) else None)
+        else:
+            A1n = redistribute(view(A, rows=(s, e), cols=(s, n)), STAR, VR,
+                               comm_precision=cp, path=rp)
+            U1n = DistMatrix(Li11 @ A1n.local, (nbw, n - s), STAR, VR, 0, 0,
+                             g)
+            U1n_mr = redistribute(U1n, STAR, MR, comm_precision=cp, path=rp)
         tm.tick("solve", k, U1n_mr)
         if not lookahead or e >= kend:
             A = _update_cols_ge(A, redistribute(U1n_mr, MC, MR), (s, e),
@@ -376,7 +661,8 @@ def lu(A: DistMatrix, nb: int | None = None, precision=None,
                 tm.tick("update", k, A)
             if tail:
                 A, perm = _lu_tail(A, perm, e, ib, precision,
-                                   update_precision, lookahead, tm, k, plan)
+                                   update_precision, lookahead, tm, k, cp,
+                                   rp, plan)
                 break
             continue
         # look-ahead: split the trailing update at the next panel boundary;
@@ -389,8 +675,9 @@ def lu(A: DistMatrix, nb: int | None = None, precision=None,
         A22a = view(A, rows=(e, m), cols=(e, e2_up))
         stripD = A22a.with_local(A22a.local - L21_mc.local @ U12a.local)
         if not tail:
-            strip_ss = redistribute(stripD, STAR, STAR)
-            nxt = factor_panel(strip_ss.local[:, :e2 - e], e2 - e)
+            strip_ss = redistribute(stripD, STAR, STAR, comm_precision=cp,
+                                    path=rp)
+            nxt = factor_panel(strip_ss.local[:, :e2 - e], e2 - e, k + 1)
             tm.tick("panel", k + 1, nxt)
         restD = None
         if e2_up < n:
@@ -405,20 +692,22 @@ def lu(A: DistMatrix, nb: int | None = None, precision=None,
         tm.tick("update", k, A)
         if tail:
             A, perm = _lu_tail(A, perm, e, ib, precision, update_precision,
-                               lookahead, tm, k, plan)
+                               lookahead, tm, k, cp, rp, plan)
             break
     return A, perm
 
 
 def _lu_tail(A: DistMatrix, perm, e: int, ib: int, precision,
-             update_precision, lookahead: bool, tm, k: int, plan=None):
+             update_precision, lookahead: bool, tm, k: int,
+             comm_precision=None, redist_path=None, plan=None):
     """Crossover-to-local finish of the (fully updated) trailing block:
     one [STAR,STAR] gather of rows/cols >= e, the sequential blocked
     kernel, one storage-level row permutation of the already-factored
     left columns, and the factored tail written back."""
     m, n = A.gshape
     g = A.grid
-    Atail = redistribute(view(A, rows=(e, m), cols=(e, n)), STAR, STAR)
+    Atail = redistribute(view(A, rows=(e, m), cols=(e, n)), STAR, STAR,
+                         comm_precision=comm_precision, path=redist_path)
     at, pt = _local_lu_array(Atail.local, m - e, n - e, ib, precision,
                              update_precision, lookahead, plan=plan)
     dev = A.local.device

@@ -32,7 +32,7 @@ import math
 
 import torch
 
-from ..core.dist import MC, MR, STAR
+from ..core.dist import MC, MR, STAR, VC
 from ..core.distmatrix import DistMatrix
 from ..core.environment import check_precision
 from ..core.view import view, update_view
@@ -46,7 +46,8 @@ from ..kernels.qr_panel import _larft, _panel_qr, _panel_v
 from ..matrices.basic import identity
 from ..tune.policy import blocksize_policy as _blocksize
 from .cholesky import _check_knobs, _not_ported
-from .lu import _update_cols_ge, _update_cols_lt, permute_cols, permute_rows
+from .lu import (_nopiv_panel, _update_cols_ge, _update_cols_lt,
+                 permute_cols, permute_rows)
 
 
 def _panel_qr_dispatch(P, plan=None):
@@ -61,36 +62,124 @@ def _panel_qr_dispatch(P, plan=None):
 
 
 def _check_qr_knobs(nb, panel, comm_precision, redist_path, timer, health,
-                    abft) -> None:
-    """Refuse the knobs of later slices and unknown panel strategies."""
+                    abft) -> str:
+    """Refuse the knobs of later slices and unknown panel strategies;
+    return the panel strategy."""
     _check_knobs(nb, None, None, comm_precision, redist_path, timer,
                  health, abft)
     if panel == "auto":
         _not_ported("panel", panel, "the tuner ('auto')")
-    if panel == "tsqr":
-        _not_ported("panel", panel, "the TSQR tree panel")
-    if panel not in (None, "classic"):
+    if panel is None:
+        panel = "classic"
+    if panel not in ("classic", "tsqr"):
         raise ValueError(f"qr: unknown panel strategy {panel!r}; "
                          "expected 'classic', 'tsqr', or 'auto'")
+    return panel
 
 
-def _local_qr_array(a, ib: int, plan):
-    """Blocked Householder QR of a plain (m, n) array on ONE clone of it:
-    returns ``(packed, tau)`` as new tensors.  Per panel the packed panel
-    is written back, then the trailing columns get the compact-WY update
-    in place."""
-    a = a.clone(memory_format=torch.contiguous_format)
+# ---------------------------------------------------------------------
+# TSQR/CAQR tree panel: local Householder QR per grid-row slab, a
+# log-depth pairwise reduction of the R factors, and the aggregated thin
+# Q converted back to geqrf packing by the LU-based Householder
+# reconstruction (Ballard/Demmel et al., "Reconstructing Householder
+# vectors from TSQR"), so every downstream consumer -- the compact-WY
+# updates, apply_q, least_squares -- is unchanged
+# ---------------------------------------------------------------------
+
+def _tsqr_tree(P, r: int):
+    """Replicated TSQR reduction of an (M, b) panel over ``r`` cyclic
+    grid-row slabs: returns ``(Q1, R)`` with Q1 the explicit thin
+    orthonormal factor (rows in original order) and R upper triangular.
+    The slab QRs are independent (one batched QR); ceil(log2 r) pairwise
+    stacked-QR playoffs combine the R factors, with each leaf's b x b
+    aggregated transform accumulated so Q1 is assembled by one matmul per
+    slab."""
+    M, b = P.shape
+    dev = P.device
+    lslab = max(-(-M // r), b)
+    sidx = (torch.arange(lslab, device=dev)[None, :] * r
+            + torch.arange(r, device=dev)[:, None])
+    ok = sidx < M                                        # (r, lslab)
+    vals = torch.where(ok[:, :, None], P[sidx.clamp(0, M - 1)], 0)
+    Qs, Rs = torch.linalg.qr(vals, mode="reduced")
+    Rlist = [Rs[i] for i in range(r)]
+    groups = [[i] for i in range(r)]
+    Ts = [None] * r                                      # None == identity
+    while len(Rlist) > 1:
+        nR, nG = [], []
+        for a in range(0, len(Rlist) - 1, 2):
+            q, rnew = torch.linalg.qr(torch.cat([Rlist[a], Rlist[a + 1]]),
+                                      mode="reduced")
+            for leaf, blk in ((groups[a], q[:b]), (groups[a + 1], q[b:])):
+                for i in leaf:
+                    Ts[i] = blk if Ts[i] is None else Ts[i] @ blk
+            nR.append(rnew)
+            nG.append(groups[a] + groups[a + 1])
+        if len(Rlist) % 2:
+            nR.append(Rlist[-1])
+            nG.append(groups[-1])
+        Rlist, groups = nR, nG
+    eye = torch.eye(b, dtype=P.dtype, device=dev)
+    T = torch.stack([eye if t is None else t for t in Ts])
+    Qfull = torch.bmm(Qs, T)                             # (r, lslab, b)
+    targets = torch.where(ok, sidx, M).reshape(-1)
+    Q1 = P.new_zeros((M + 1, b))                         # spare row: padding
+    Q1[targets] = Qfull.reshape(r * lslab, b)
+    return Q1[:M], Rlist[0]
+
+
+def _panel_qr_tsqr(P, r: int):
+    """TSQR tree panel in geqrf packing: ``(packed V\\R, tau)``, the
+    contract of the classic panel.
+
+    The tree (:func:`_tsqr_tree`) gives the explicit thin ``Q1`` and
+    ``R``; the Householder form follows from ``Q1 - [I; 0] = Y U`` (Y the
+    unit-lower-trapezoidal reflector panel, ``U = -T Y1^H``), i.e. ONE
+    unpivoted LU of ``Q1 - I`` (LU's :func:`_nopiv_panel`) with
+    ``tau_j = -U[j,j]``.  Columns are sign-flipped first so the diagonal
+    of ``Q1 - I`` stays away from zero."""
+    M, b = P.shape
+    Q1, R = _tsqr_tree(P, max(int(r), 1))
+    d = torch.diagonal(Q1[:b])
+    absd = d.abs()
+    s = torch.where(absd == 0, -torch.ones_like(d),
+                    -(d.conj() / torch.where(absd == 0, 1, absd)))
+    s = s.to(P.dtype)
+    Q1p = Q1 * s[None, :]
+    Rp = s.conj()[:, None] * R
+    B = Q1p.clone()
+    B[:b] -= torch.eye(b, dtype=P.dtype, device=P.device)
+    F = _nopiv_panel(B, b)
+    tau = -torch.diagonal(F[:b])
+    packed = torch.cat([torch.triu(Rp) + torch.tril(F[:b], -1), F[b:]])
+    return packed, tau
+
+
+def _local_qr_array(A: DistMatrix, ib: int, plan, redist_path=None):
+    """Blocked Householder QR of a 1x1-grid matrix on ONE clone of its
+    storage: returns ``(packed, tau)`` as new tensors.  Per panel the
+    packed panel is written back, then the trailing columns get the
+    compact-WY update in place.  The panel gather and the two relands of
+    the distributed loop are 1x1 retags, issued as such (no copy) so the
+    redistribution counts are the JAX driver's."""
+    a = A.local.clone(memory_format=torch.contiguous_format)
+    g = A.grid
     m, n = a.shape
     kend = min(m, n)
     taus = []
     for s in range(0, kend, ib):
         e = min(s + ib, kend)
-        Pf, tau, T = _panel_qr_dispatch(a[s:, s:e], plan)
+        blk = DistMatrix(a[s:, s:e], (m - s, e - s), MC, MR, 0, 0, g)
+        P = redistribute(blk, STAR, STAR, path=redist_path).local
+        Pf, tau, T = _panel_qr_dispatch(P, plan)
         Pf, = apply_fault("compute", (Pf,))
         taus.append(tau)
-        a[s:, s:e] = Pf
+        Pf_ss = DistMatrix(Pf, (m - s, e - s), STAR, STAR, 0, 0, g)
+        a[s:, s:e] = redistribute(Pf_ss, MC, MR).local
         if e < n:
-            V = _panel_v(Pf)
+            V_ss = DistMatrix(_panel_v(Pf), (m - s, e - s), STAR, STAR, 0, 0,
+                              g)
+            V = redistribute(V_ss, MC, STAR).local
             A2 = a[s:, e:]
             W = T.conj().mT @ (V.conj().mT @ A2)
             A2.addmm_(V, W, alpha=-1)
@@ -109,26 +198,36 @@ def qr(A: DistMatrix, nb: int | None = None, precision=None,
     reuses the factorization's blocking and a mismatching explicit ``nb``
     raises instead of silently producing a wrong Q.
 
+    ``panel`` is ``'classic'`` (the replicated larfg recurrence) or
+    ``'tsqr'``: the TSQR tree panel (:func:`_panel_qr_tsqr`) -- slab QRs
+    per grid row, a log-depth R reduction and the Householder
+    reconstruction into the same geqrf packing, so ``apply_q`` /
+    ``least_squares`` consume it unchanged (R's diagonal signs may differ
+    from classic).  The tree runs on every grid, one slab on a 1x1 grid,
+    as in the JAX package.
+
     ``panel_impl`` (``None`` | ``'auto'`` | ``'torch'`` | ``'kernel'``)
-    selects the panel implementation; ``None`` and ``'auto'`` take the
-    CUDA kernel for a real dtype on the card and the plain recurrence
-    elsewhere.  ``precision`` is ``None`` or ``'highest'`` (full
-    float32/float64 arithmetic; on the card
-    ``torch.backends.cuda.matmul.allow_tf32`` must be False).  The knobs
-    of later slices -- ``panel='tsqr'`` / ``'auto'``, ``nb='auto'``,
-    ``comm_precision``, ``redist_path``, ``timer``, ``health``, ``abft``
-    -- raise ``NotImplementedError``."""
+    selects the classic panel's implementation; ``None`` and ``'auto'``
+    take the CUDA kernel for a real dtype on the card and the plain
+    recurrence elsewhere; the tree panel keeps its slab QRs.
+    ``precision`` is ``None`` or ``'highest'`` (full float32/float64
+    arithmetic; on the card ``torch.backends.cuda.matmul.allow_tf32``
+    must be False).  ``comm_precision`` (``None`` | ``'bf16'`` |
+    ``'int8'``) and ``redist_path`` (``None`` | ``'chain'`` |
+    ``'direct'``) select the wire precision and route of the per-step
+    panel gathers.  The knobs of later slices -- ``'auto'`` for any knob,
+    ``timer``, ``health``, ``abft`` -- raise ``NotImplementedError``."""
     _check_mcmr(A)
-    _check_qr_knobs(nb, panel, comm_precision, redist_path, timer, health,
-                    abft)
+    panel = _check_qr_knobs(nb, panel, comm_precision, redist_path, timer,
+                            health, abft)
     check_precision(precision, A.local)
     plan = resolve_panel(panel_impl, dtype=A.dtype, device=A.local.device)
     m, n = A.gshape
     g = A.grid
     r, c = g.height, g.width
     ib = _blocksize(nb, math.lcm(r, c), min(m, n))
-    if g.size == 1:
-        a, tau = _local_qr_array(A.local, ib, plan)
+    if g.size == 1 and panel == "classic":
+        a, tau = _local_qr_array(A, ib, plan, redist_path)
         Ap = A.with_local(a)
         _record_qr_nb(Ap, ib)
         return Ap, tau
@@ -139,8 +238,13 @@ def qr(A: DistMatrix, nb: int | None = None, precision=None,
         nbw = e - s
         e_up = min(-(-e // c) * c, n)
         panel_ss = redistribute(view(A, rows=(s, m), cols=(s, e_up)),
-                                STAR, STAR)
-        Pf, tau, T = _panel_qr_dispatch(panel_ss.local[:, :nbw], plan)
+                                STAR, STAR, comm_precision=comm_precision,
+                                path=redist_path)
+        if panel == "tsqr":
+            Pf, tau = _panel_qr_tsqr(panel_ss.local[:, :nbw], r)
+            T = None
+        else:
+            Pf, tau, T = _panel_qr_dispatch(panel_ss.local[:, :nbw], plan)
         Pf, = apply_fault("compute", (Pf,))
         taus.append(tau)
         Pf_w = torch.nn.functional.pad(Pf, (0, e_up - e)) if e_up > e else Pf
@@ -149,14 +253,16 @@ def qr(A: DistMatrix, nb: int | None = None, precision=None,
                             (s, e_up), e)
         if e < n:
             V = _panel_v(Pf)
+            if T is None:
+                T = _larft(V, tau)
             V_ss = DistMatrix(V, (m - s, nbw), STAR, STAR, 0, 0, g)
             V_mc = redistribute(V_ss, MC, STAR)
             A2 = view(A, rows=(s, m), cols=(s, n))
             W = V_mc.local.conj().mT @ A2.local        # [STAR,MR] storage
             W = T.conj().mT @ W
-            upd = V_mc.local @ W
-            A = _update_cols_ge(A, A2.with_local(A2.local - upd), (s, m),
-                                (s, n), e)
+            A = _update_cols_ge(A, A2.with_local(
+                torch.addmm(A2.local, V_mc.local, W, alpha=-1)), (s, m),
+                (s, n), e)
     _record_qr_nb(A, ib)
     tau = torch.cat(taus) if taus else A.local.new_zeros((0,))
     return A, tau
@@ -213,20 +319,18 @@ def apply_q(Ap: DistMatrix, tau, B: DistMatrix, orient: str = "N",
     for s in starts:
         e = min(s + ib, kend)
         nbw = e - s
-        if local:
-            V = _panel_v(Ap.local[s:, s:e])
-        else:
-            e_up = min(-(-e // c) * c, n)
-            panel = redistribute(view(Ap, rows=(s, m), cols=(s, e_up)),
-                                 STAR, STAR)
-            V = _panel_v(panel.local[:, :nbw])
+        e_up = min(-(-e // c) * c, n)
+        # on a 1x1 grid both moves are retags of views (no copy)
+        panel = redistribute(view(Ap, rows=(s, m), cols=(s, e_up)),
+                             STAR, STAR)
+        V = _panel_v(panel.local[:, :nbw])
         T = _larft(V, tau[s:e])
         Tm = T.conj().mT if orient == "C" else T
+        V_ss = DistMatrix(V, (m - s, nbw), STAR, STAR, 0, 0, g)
+        V_mc = redistribute(V_ss, MC, STAR)
         if local:
             b[s:].addmm_(V, Tm @ (V.conj().mT @ b[s:]), alpha=-1)
             continue
-        V_ss = DistMatrix(V, (m - s, nbw), STAR, STAR, 0, 0, g)
-        V_mc = redistribute(V_ss, MC, STAR)
         B2 = view(B, rows=(s, m))
         W = V_mc.local.conj().mT @ B2.local
         W = Tm @ W
@@ -271,12 +375,12 @@ def lq(A: DistMatrix, nb: int | None = None, precision=None,
     """LQ factorization ``A = L Q`` (``El::LQ``), computed as the QR of
     ``A^H``.  Returns ``(packed, tau)``, the geqrf-packed QR of ``A^H``
     ((n, m)-shaped); use :func:`apply_q_lq` / :func:`explicit_l` to
-    consume it.  ``redist_path`` belongs to a later slice and raises
-    ``NotImplementedError``."""
-    if redist_path is not None:
-        _not_ported("redist_path", redist_path, "route selection")
-    Ah = redistribute(transpose_dist(A, conj=True), MC, MR)
-    return qr(Ah, nb=nb, precision=precision)
+    consume it.  ``redist_path`` routes the entry transpose and the QR
+    panel gathers (``'auto'`` raises: the tuner)."""
+    if redist_path == "auto":
+        _not_ported("redist_path", redist_path, "the tuner ('auto')")
+    Ah = redistribute(transpose_dist(A, conj=True), MC, MR, path=redist_path)
+    return qr(Ah, nb=nb, precision=precision, redist_path=redist_path)
 
 
 def apply_q_lq(Ap: DistMatrix, tau, B: DistMatrix, orient: str = "N",
@@ -454,3 +558,31 @@ def _complement(jpvt, n: int):
     chosen = torch.zeros((n,), dtype=torch.int8, device=jpvt.device)
     chosen.index_fill_(0, jpvt, 1)
     return torch.argsort(chosen, stable=True)[:n - jpvt.shape[0]]
+
+
+# ---------------------------------------------------------------------
+# TSQR (tall-skinny)
+# ---------------------------------------------------------------------
+
+def tsqr(A: DistMatrix):
+    """Tall-skinny QR of a [VC,STAR] matrix (``qr::TS``): every rank's
+    local QR (one batched QR over the p blocks of the storage), the p
+    small R factors stacked in VC rank order (one all-gather on a real
+    grid) and factored once more, and each rank's Q block times its
+    share of the second Q.  Returns (Q [VC,STAR] with orthonormal
+    columns, R [STAR,STAR])."""
+    if A.dist != (VC, STAR) or (A.calign, A.ralign) != (0, 0):
+        raise ValueError(f"tsqr expects zero-aligned [VC,STAR], got {A}")
+    m, k = A.gshape
+    g = A.grid
+    p = g.size
+    if m < k:
+        raise ValueError("tsqr needs m >= k")
+    check_precision(None, A.local)
+    lr = A.local.shape[0] // p
+    q1, r1 = torch.linalg.qr(A.local.reshape(p, lr, k), mode="reduced")
+    kk = r1.shape[1]
+    q2, R = torch.linalg.qr(r1.reshape(p * kk, k), mode="reduced")
+    Q = torch.bmm(q1, q2.reshape(p, kk, k)).reshape(p * lr, k)
+    return (DistMatrix(Q, (m, k), VC, STAR, 0, 0, g),
+            DistMatrix(R, (k, k), STAR, STAR, 0, 0, g))

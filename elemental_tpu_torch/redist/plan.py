@@ -1,0 +1,531 @@
+"""One-shot redistribution plan compiler (the COSTA direction).
+
+PyTorch-package copy of ``elemental_tpu/redist/plan.py``, whole: it is
+numpy-only, and the port keeps its own copy rather than importing the JAX
+package.  COSTA (arXiv 2106.06601) and arXiv 2112.01075 observe that an
+arbitrary src->dst distribution change factors into exactly one
+collective exchange once the shard intersections are computed
+statically:
+
+  ``compile_plan(src, dst, gshape, grid_shape) -> RedistPlan | None``
+
+The compiler works per mesh axis.  Each distribution pins some device
+coordinates as a residue function of the global index (MC pins ``mc`` to
+``i % r``; MR pins ``mr``; VC/VR pin both through the 1-D rank; STAR pins
+nothing).  For every entry a receiver needs under the destination pair
+there is a unique *canonical sender*: the device taking the source's
+pinned coordinates and copying the receiver's coordinates on the source's
+free axes.  An axis carries traffic iff the source pins it AND the
+destination's pin is not the identical residue function -- which yields
+three plan kinds:
+
+  * ``'local'``    -- no axis carries traffic: pure gather/scatter.
+  * ``'ppermute'`` -- every device exchanges its whole slot with exactly
+                      one peer: a wholesale relabeling (e.g. ``VC <-> VR``).
+  * ``'a2a'``      -- one all-to-all over exactly the traffic-carrying axes.
+
+Per (sender, receiver) pair the owned / needed index sets along each dim
+are congruence intersections solved by CRT.  The emitted index maps are
+dense ``(p, K, R)``/``(p, K, C)`` int32 tables, one row per device
+(``mc * c + mr``), with an out-of-range sentinel (the local extent) for
+padding; ``engine._direct_exec`` carries them out on the stacked storage
+of the virtual grid.  Nonzero alignments shift the congruence residues,
+``[MD,*]`` endpoints ride the same machinery, ``[CIRC,CIRC]`` endpoints
+compile to a costed ``'bridge'`` plan, and slots are ragged: trailing
+all-sentinel positions are trimmed per dim, and an a2a whose traffic
+graph decomposes into smaller components runs over equal-size subgroups.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+import math
+
+import numpy as np
+
+from ..core import indexing as ix
+from ..core.dist import (MC, MR, VC, VR, STAR, MD, CIRC, md_params,
+                         stride as dist_stride)
+
+#: mesh axis names in mesh order; linear device id = mc * c + mr
+MESH_AXES = ("mc", "mr")
+
+#: mesh axes whose device coordinate each dist pins
+_PINS = {MC: ("mc",), MR: ("mr",), VC: ("mc", "mr"), VR: ("mc", "mr"),
+         MD: ("mc", "mr"), STAR: ()}
+
+
+def _pin(d, g: int, r: int, c: int) -> dict:
+    """Device coordinates dist ``d`` forces for global index ``g``."""
+    if d is MC:
+        return {"mc": g % r}
+    if d is MR:
+        return {"mr": g % c}
+    if d is VC:
+        q = g % (r * c)
+        return {"mc": q % r, "mr": q // r}
+    if d is VR:
+        q = g % (r * c)
+        return {"mc": q // c, "mr": q % c}
+    if d is MD:
+        return {"mc": g % r, "mr": g % c}
+    return {}
+
+
+def _rank_under(d, mc: int, mr: int, r: int, c: int):
+    """The residue a device (mc, mr) owns under dist ``d`` (0 for STAR).
+
+    For MD the residue is k0, the first diagonal entry the device owns
+    (mod lcm(r, c)); devices outside the diagonal comm ((mc - mr) not a
+    multiple of gcd(r, c)) own the EMPTY residue set -- returned as None,
+    which the map-filling loop reads as "skip this (device, slot)"."""
+    if d is MC:
+        return mc
+    if d is MR:
+        return mr
+    if d is VC:
+        return mc + r * mr
+    if d is VR:
+        return mr + c * mc
+    if d is MD:
+        g, L, inv = md_params(r, c)
+        if (mc - mr) % g:
+            return None
+        return (mc + r * ((((mr - mc) // g) * inv) % (c // g))) % L
+    return 0
+
+
+def _axis_pinner(pair, axis: str):
+    """(dim, dist) of the pair member pinning ``axis``, or None (free)."""
+    for dim, d in enumerate(pair):
+        if axis in _PINS.get(d, ()):
+            return dim, d
+    return None
+
+
+def _lcm(a: int, b: int) -> int:
+    return a // math.gcd(a, b) * b
+
+
+def comm_axes_for(src, dst, r: int, c: int,
+                  src_align: tuple = (0, 0), dst_align: tuple = (0, 0)) -> tuple:
+    """Mesh axes that carry traffic for ``src -> dst`` on an r x c grid.
+
+    An axis moves data iff the source pins it and the destination does
+    not pin it with the identical residue function (same dim, same value
+    for every global index over one lcm period).  A dim alignment ``a``
+    shifts its residue function by ``a`` (the device owning global ``g``
+    is the zero-aligned owner of ``g + a``), so pins are compared at
+    ``g + align``.  Size-1 axes never carry traffic.
+    """
+    sizes = {"mc": r, "mr": c}
+    axes = []
+    for axis in MESH_AXES:
+        if sizes[axis] == 1:
+            continue
+        sp = _axis_pinner(src, axis)
+        if sp is None:
+            continue                      # free in src: sender copies q's coord
+        dp = _axis_pinner(dst, axis)
+        if dp is None or dp[0] != sp[0]:
+            axes.append(axis)
+            continue
+        period = _lcm(dist_stride(sp[1], r, c), dist_stride(dp[1], r, c))
+        s_al, d_al = src_align[sp[0]], dst_align[dp[0]]
+        if any(_pin(sp[1], g + s_al, r, c)[axis]
+               != _pin(dp[1], g + d_al, r, c)[axis]
+               for g in range(period)):
+            axes.append(axis)
+    return tuple(axes)
+
+
+def _crt(a1: int, n1: int, a2: int, n2: int):
+    """Solve x = a1 (mod n1), x = a2 (mod n2): (x0, lcm) or None (empty)."""
+    g = math.gcd(n1, n2)
+    if (a2 - a1) % g:
+        return None
+    lcm = n1 // g * n2
+    m = n2 // g
+    if m == 1:
+        return a1 % lcm, lcm
+    t = ((a2 - a1) // g * pow(n1 // g, -1, m)) % m
+    return (a1 + n1 * t) % lcm, lcm
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class RedistPlan:
+    """A compiled one-shot redistribution: one collective (or none) plus
+    static pre-gather / post-scatter index maps.
+
+    The maps are dense per-device tables (row 0 = device ``mc*c+mr == 0``)
+    with an out-of-range *sentinel* (== the local extent) marking padding:
+    the gather masks sentinels to zero, the scatter drops them
+    , which preserves the engine's padding-is-zero
+    storage invariant with no data-dependent shapes.
+    """
+    src: tuple                #: (cdist, rdist) source pair
+    dst: tuple                #: (cdist, rdist) destination pair
+    gshape: tuple             #: global (m, n)
+    grid_shape: tuple         #: (r, c)
+    kind: str                 #: 'local' | 'ppermute' | 'a2a' | 'bridge'
+    comm_axes: tuple          #: mesh axes the collective runs over
+    perm: tuple               #: ((src_id, dst_id), ...) for 'ppermute'
+    slot_shape: tuple         #: (R, C) of one exchange slot
+    send_rows: np.ndarray     #: (p, K, R) src-local row of slot element
+    send_cols: np.ndarray     #: (p, K, C) src-local col of slot element
+    recv_rows: np.ndarray     #: (p, K, R) dst-local row of slot element
+    recv_cols: np.ndarray     #: (p, K, C) dst-local col of slot element
+    src_local: tuple          #: (lr, lc) of one device's source block
+    dst_local: tuple          #: (lr, lc) of the destination block
+    groups: tuple = ()        #: equal-size a2a subgroups of participant
+                              #: indices (``the all-to-all`` axis_index_groups
+                              #: order), or () for the full comm product
+
+    @property
+    def nslots(self) -> int:
+        return self.send_rows.shape[1]
+
+    @property
+    def rounds(self) -> int:
+        """Collective rounds this plan issues (the chain's comparison unit)."""
+        return 0 if self.kind == "local" else 1
+
+    def wire_bytes(self, itemsize: int) -> int:
+        """Ring-model bytes RECEIVED per device for one execution.
+
+        Honest about residual slot padding: incompatible (sender,
+        receiver) residue pairs inside one subgroup still ship their
+        (zero) slots, so an inflated exchange prices higher than the
+        fused chain hop -- the chain-vs-direct arbitration keys off
+        exactly this number.  Ragged-slot trimming and subgroup packing
+        shrink ``slot_shape``/``nslots`` first, so this prices the wire
+        actually used, not the full padded rectangle.
+        """
+        R, C = self.slot_shape
+        slot = R * C * itemsize
+        if self.kind == "a2a":
+            return slot * (self.nslots - 1)       # K slots, keep 1/K
+        if self.kind == "ppermute":
+            return slot
+        if self.kind == "bridge":
+            return R * C * itemsize               # full matrix through root
+        return 0
+
+    def describe(self) -> str:
+        s = f"[{self.src[0].value},{self.src[1].value}]"
+        d = f"[{self.dst[0].value},{self.dst[1].value}]"
+        R, C = self.slot_shape
+        axes = ",".join(self.comm_axes) or "-"
+        grp = f", {len(self.groups)} group(s)" if self.groups else ""
+        return (f"{s}->{d}: {self.kind} over ({axes}), {self.rounds} "
+                f"round(s), {self.nslots} slot(s) of {R}x{C}{grp}")
+
+
+@functools.lru_cache(maxsize=None)
+def compile_plan(src: tuple, dst: tuple, gshape: tuple,
+                 grid_shape: tuple,
+                 src_align: tuple = (0, 0), dst_align: tuple = (0, 0)):
+    """Compile ``src -> dst`` on ``grid_shape`` into a one-shot plan.
+
+    Covers the full ``LEGAL_PAIRS x LEGAL_PAIRS`` matrix at arbitrary
+    legal alignments.  Returns None only for ``src == dst`` at identical
+    alignments (a true no-op -- whitelisted by the coverage gate) and
+    for MD endpoints at nonzero alignments (which the engine rejects
+    before planning).  ``[CIRC,CIRC]`` endpoints compile to a ``'bridge'``
+    plan: costed metadata (1 round, full-matrix bytes) executed by the
+    engine's eager root path.
+    """
+    src, dst = tuple(src), tuple(dst)
+    src_align, dst_align = tuple(src_align), tuple(dst_align)
+    r, c = grid_shape
+    p = r * c
+    if src == dst and src_align == dst_align:
+        return None
+    m, n = gshape
+    if CIRC in (*src, *dst):
+        empty = np.zeros((p, 1, 0), np.int32)
+        empty.setflags(write=False)
+        return RedistPlan(
+            src=src, dst=dst, gshape=(m, n), grid_shape=(r, c),
+            kind="bridge", comm_axes=(), perm=(), slot_shape=(m, n),
+            send_rows=empty, send_cols=empty, recv_rows=empty,
+            recv_cols=empty, src_local=(0, 0), dst_local=(0, 0))
+    if MD in (*src, *dst) and (src_align != (0, 0) or dst_align != (0, 0)):
+        return None                       # engine raises before planning
+    sizes = {"mc": r, "mr": c}
+    comm = comm_axes_for(src, dst, r, c, src_align, dst_align)
+    K = 1
+    for a in comm:
+        K *= sizes[a]
+
+    Ss_row, Sd_row = dist_stride(src[0], r, c), dist_stride(dst[0], r, c)
+    Ss_col, Sd_col = dist_stride(src[1], r, c), dist_stride(dst[1], r, c)
+    Lrow, Lcol = _lcm(Ss_row, Sd_row), _lcm(Ss_col, Sd_col)
+    R = max(1, -(-m // Lrow))
+    C = max(1, -(-n // Lcol))
+    src_lr, src_lc = ix.max_local_length(m, Ss_row), ix.max_local_length(n, Ss_col)
+    dst_lr, dst_lc = ix.max_local_length(m, Sd_row), ix.max_local_length(n, Sd_col)
+
+    send_rows = np.full((p, K, R), src_lr, np.int32)
+    send_cols = np.full((p, K, C), src_lc, np.int32)
+    recv_rows = np.full((p, K, R), dst_lr, np.int32)
+    recv_cols = np.full((p, K, C), dst_lc, np.int32)
+
+    def coords(d):
+        return d // c, d % c
+
+    def peer(d, k):
+        """Device at participant index k of d's comm group (the all_to_all
+        slot order: first comm axis major, matching the all-to-all's flattening)."""
+        mc_, mr_ = coords(d)
+        cs = {"mc": mc_, "mr": mr_}
+        for a in reversed(comm):
+            cs[a] = k % sizes[a]
+            k //= sizes[a]
+        return cs["mc"], cs["mr"]
+
+    def pidx(d):
+        """Participant index of device d within its own comm group."""
+        mc_, mr_ = coords(d)
+        cs = {"mc": mc_, "mr": mr_}
+        k = 0
+        for a in comm:
+            k = k * sizes[a] + cs[a]
+        return k
+
+    dims = ((m, Lrow, Ss_row, Sd_row, src_lr, dst_lr, send_rows, recv_rows, R),
+            (n, Lcol, Ss_col, Sd_col, src_lc, dst_lc, send_cols, recv_cols, C))
+
+    for d in range(p):
+        own = coords(d)
+        for k in range(K):
+            other = peer(d, k)
+            for dim, (ext, L, Ssrc, Sdst, s_len, d_len, smap, rmap, cnt) \
+                    in enumerate(dims):
+                ds_, dd_ = src[dim], dst[dim]
+                s_al, d_al = src_align[dim], dst_align[dim]
+                rs_own = _rank_under(ds_, *own, r, c)
+                rs_oth = _rank_under(ds_, *other, r, c)
+                rd_own = _rank_under(dd_, *own, r, c)
+                rd_oth = _rank_under(dd_, *other, r, c)
+                # d as SENDER to receiver `other`.  A dim alignment `a`
+                # shifts the owned residue set: device with residue rho
+                # owns i = (rho - a) (mod S).  None = owns nothing (MD
+                # off-diagonal): skip, the slot stays sentinel padding.
+                if rs_own is not None and rd_oth is not None:
+                    hit = _crt((rs_own - s_al) % Ssrc, Ssrc,
+                               (rd_oth - d_al) % Sdst, Sdst)
+                    if hit is not None:
+                        gi = hit[0] + np.arange(cnt, dtype=np.int64) * L
+                        smap[d, k, :] = np.where(gi < ext, gi // Ssrc, s_len)
+                # d as RECEIVER of slot k (sent by `other`)
+                if rs_oth is not None and rd_own is not None:
+                    hit = _crt((rs_oth - s_al) % Ssrc, Ssrc,
+                               (rd_own - d_al) % Sdst, Sdst)
+                    if hit is not None:
+                        gi = hit[0] + np.arange(cnt, dtype=np.int64) * L
+                        rmap[d, k, :] = np.where(gi < ext, gi // Sdst, d_len)
+
+    # Ragged slots, part 1: per-row valid entries are a front prefix
+    # (gi = hit0 + t*L is increasing), so the union of used positions is
+    # a prefix too -- trim the trailing all-sentinel tail of each dim.
+    # Sender slot position t and receiver slot position t address the
+    # same global element by construction (same CRT enumeration), so a
+    # joint trim preserves the correspondence.
+    def _prefix(mask_s: np.ndarray, mask_r: np.ndarray) -> int:
+        used = mask_s.any(axis=(0, 1)) | mask_r.any(axis=(0, 1))
+        nz = np.nonzero(used)[0]
+        return int(nz[-1]) + 1 if len(nz) else 1
+
+    R_used = _prefix(send_rows < src_lr, recv_rows < dst_lr)
+    C_used = _prefix(send_cols < src_lc, recv_cols < dst_lc)
+    if (R_used, C_used) != (R, C):
+        R, C = R_used, C_used
+        send_rows = np.ascontiguousarray(send_rows[:, :, :R])
+        recv_rows = np.ascontiguousarray(recv_rows[:, :, :R])
+        send_cols = np.ascontiguousarray(send_cols[:, :, :C])
+        recv_cols = np.ascontiguousarray(recv_cols[:, :, :C])
+
+    kind, perm, a2a_groups = ("local", (), ()) if not comm else ("a2a", (), ())
+    if comm:
+        ne_send = ((send_rows < src_lr).any(-1) & (send_cols < src_lc).any(-1))
+        ne_recv = ((recv_rows < dst_lr).any(-1) & (recv_cols < dst_lc).any(-1))
+        if (ne_send.sum(1) <= 1).all() and (ne_recv.sum(1) <= 1).all():
+            # wholesale relabeling candidate: one peer per device.  ppermute
+            # applies ONE perm to every group of the named axes, so demand
+            # the within-group perm be identical across groups.
+            groups: dict = {}
+            for d in range(p):
+                ks = np.nonzero(ne_send[d])[0]
+                if len(ks) == 0:
+                    continue
+                qc = peer(d, int(ks[0]))
+                q = qc[0] * c + qc[1]
+                gkey = tuple(v for a, v in zip(MESH_AXES, coords(d))
+                             if a not in comm)
+                groups.setdefault(gkey, set()).add((pidx(d), pidx(q)))
+            sets = list(groups.values())
+            if sets and all(s == sets[0] for s in sets):
+                kind = "ppermute"
+                perm = tuple(sorted(sets[0]))
+                sel_s = np.array([int(np.nonzero(ne_send[d])[0][0])
+                                  if ne_send[d].any() else 0
+                                  for d in range(p)])
+                sel_r = np.array([int(np.nonzero(ne_recv[d])[0][0])
+                                  if ne_recv[d].any() else 0
+                                  for d in range(p)])
+                ar = np.arange(p)
+                send_rows = send_rows[ar, sel_s][:, None, :]
+                send_cols = send_cols[ar, sel_s][:, None, :]
+                recv_rows = np.where(ne_recv[ar, sel_r][:, None],
+                                     recv_rows[ar, sel_r], dst_lr)[:, None, :]
+                recv_cols = np.where(ne_recv[ar, sel_r][:, None],
+                                     recv_cols[ar, sel_r], dst_lc)[:, None, :]
+        if kind == "a2a" and K > 1:
+            # Ragged slots, part 2: incompatible residue pairs (e.g. the
+            # MD diagonal talking only to itself) leave whole slots empty.
+            # Build the UNION traffic graph over participant indices
+            # (shared across outer mesh groups -- axis_index_groups applies
+            # one partition to every outer coordinate), take its connected
+            # components, and when they pack exactly into equal bins of
+            # K* = max component size, run the a2a over those subgroups
+            # with K* slots instead of K.
+            ne = ne_send | ne_recv
+            adj = [set() for _ in range(K)]
+            for d in range(p):
+                q = pidx(d)
+                for k in np.nonzero(ne[d])[0]:
+                    adj[q].add(int(k))
+                    adj[int(k)].add(q)
+            seen = [False] * K
+            comps = []
+            for s0 in range(K):
+                if seen[s0]:
+                    continue
+                stack, comp = [s0], []
+                seen[s0] = True
+                while stack:
+                    v = stack.pop()
+                    comp.append(v)
+                    for w in adj[v]:
+                        if not seen[w]:
+                            seen[w] = True
+                            stack.append(w)
+                comps.append(sorted(comp))
+            kstar = max(len(cm) for cm in comps)
+            if kstar < K:
+                bins, ok = [], True
+                for comp in sorted(comps, key=len, reverse=True):
+                    for b in bins:
+                        if len(b) + len(comp) <= kstar:
+                            b.extend(comp)
+                            break
+                    else:
+                        bins.append(list(comp))
+                ok = all(len(b) == kstar for b in bins) \
+                    and len(bins) * kstar == K
+                if ok:
+                    a2a_groups = tuple(tuple(sorted(b)) for b in bins)
+                    group_of = {}
+                    for b in a2a_groups:
+                        for q in b:
+                            group_of[q] = b
+                    sel = np.array([group_of[pidx(d)] for d in range(p)],
+                                   dtype=np.int64)       # (p, K*)
+                    ar = np.arange(p)[:, None]
+                    send_rows = np.ascontiguousarray(send_rows[ar, sel])
+                    send_cols = np.ascontiguousarray(send_cols[ar, sel])
+                    recv_rows = np.ascontiguousarray(recv_rows[ar, sel])
+                    recv_cols = np.ascontiguousarray(recv_cols[ar, sel])
+
+    for t in (send_rows, send_cols, recv_rows, recv_cols):
+        t.setflags(write=False)
+    return RedistPlan(
+        src=src, dst=dst, gshape=(m, n), grid_shape=(r, c), kind=kind,
+        comm_axes=comm, perm=perm, slot_shape=(R, C),
+        send_rows=send_rows, send_cols=send_cols,
+        recv_rows=recv_rows, recv_cols=recv_cols,
+        src_local=(src_lr, src_lc), dst_local=(dst_lr, dst_lc),
+        groups=a2a_groups)
+
+
+# ---------------------------------------------------------------------
+# Slice-set compilation (the slicing-gemm schedule)
+# ---------------------------------------------------------------------
+
+def slice_row_mode(m: int, n: int, grid_shape: tuple) -> bool:
+    """Which output dimension the slicing gemm slices 1-D cyclic.
+
+    Row slices ([VC,STAR] output) when the output is tall (``m >= n``)
+    or the grid is Nx1 (where [MC,MR] <-> [VC,STAR] is a pure local
+    relabeling, leaving the B broadcast as the ONLY collective); column
+    slices ([STAR,VR]) otherwise -- symmetrically free on 1xN grids.
+    One rule shared by the executor (``blas.level3._summa_slice``), the
+    cost model and the analysis drivers, so the tuner prices exactly the
+    plans the executor runs."""
+    r, c = grid_shape
+    return c == 1 or (r != 1 and m >= n)
+
+
+def compile_slice_plan(src: tuple, dst: tuple, gshape: tuple,
+                       grid_shape: tuple, rows: tuple | None = None,
+                       cols: tuple | None = None,
+                       src_align: tuple = (0, 0),
+                       dst_align: tuple = (0, 0)):
+    """Compile ``src -> dst`` for a contiguous SUB-RANGE of the operand.
+
+    ``rows=(r0, r1)`` / ``cols=(c0, c1)`` select the half-open global
+    slice ``A[r0:r1, c0:c1]`` (defaults: the full extent).  The view
+    identity makes this exact, not approximate: the device owning global
+    index ``g`` of a matrix aligned at ``a`` is the zero-aligned owner of
+    ``g + a``, so a sub-range starting at ``r0`` is itself a distributed
+    matrix of shape ``(r1-r0, c1-c0)`` aligned at
+    ``(align + offset) mod stride`` -- and the full ``compile_plan``
+    machinery (ragged trimming, FFD a2a packing, CRT intersections)
+    applies unchanged.  This is how per-block operand slices of the
+    slicing gemm (and any future blocked one-shot consumer) compile
+    without a full-matrix-endpoint detour.  lru-cached via
+    ``compile_plan``; returns None for a no-op exactly as it does."""
+    m, n = gshape
+    r0, r1 = (0, m) if rows is None else rows
+    c0, c1 = (0, n) if cols is None else cols
+    if not (0 <= r0 <= r1 <= m and 0 <= c0 <= c1 <= n):
+        raise ValueError(f"slice rows={rows} cols={cols} outside {gshape}")
+    r, c = grid_shape
+    sa = ((src_align[0] + r0) % dist_stride(src[0], r, c),
+          (src_align[1] + c0) % dist_stride(src[1], r, c))
+    da = ((dst_align[0] + r0) % dist_stride(dst[0], r, c),
+          (dst_align[1] + c0) % dist_stride(dst[1], r, c))
+    return compile_plan(tuple(src), tuple(dst), (r1 - r0, c1 - c0),
+                        (r, c), sa, da)
+
+
+def gemm_slice_plans(m: int, k: int, n: int, grid_shape: tuple):
+    """The compiled plan set of the slicing gemm at one geometry.
+
+    Returns ``(mode, plans)`` where mode is ``'local'`` (1x1: zero
+    collectives), ``'rows'`` or ``'cols'``, and plans is a tuple of
+    ``(tag, RedistPlan)`` -- the pure-relabeling degenerate legs (Nx1 /
+    1xN grids) come back as zero-round ``kind='local'`` plans.  Single
+    source of truth for the cost model's closed-form slot-byte pricing
+    and the analysis pins."""
+    r, c = grid_shape
+    if r * c == 1:
+        return "local", ()
+    if slice_row_mode(m, n, grid_shape):
+        return "rows", (
+            ("A->[VC,*]", compile_plan((MC, MR), (VC, STAR), (m, k),
+                                       grid_shape)),
+            ("B->[*,*]", compile_plan((MC, MR), (STAR, STAR), (k, n),
+                                      grid_shape)),
+            ("D->[MC,MR]", compile_plan((VC, STAR), (MC, MR), (m, n),
+                                        grid_shape)),
+        )
+    return "cols", (
+        ("A->[*,*]", compile_plan((MC, MR), (STAR, STAR), (m, k),
+                                  grid_shape)),
+        ("B->[*,VR]", compile_plan((MC, MR), (STAR, VR), (k, n),
+                                   grid_shape)),
+        ("D->[MC,MR]", compile_plan((STAR, VR), (MC, MR), (m, n),
+                                    grid_shape)),
+    )

@@ -99,7 +99,7 @@ def test_cholesky_reads_only_lower_triangle():
 
 @pytest.mark.parametrize("kw", [
     dict(nb="auto"), dict(lookahead="auto"), dict(crossover="auto"),
-    dict(comm_precision="bf16"), dict(redist_path="direct"),
+    dict(comm_precision="auto"), dict(redist_path="auto"),
     dict(timer=object()), dict(health=True), dict(abft=True),
     dict(precision="bf16")], ids=lambda kw: next(iter(kw)))
 def test_later_slice_knobs_raise(kw):

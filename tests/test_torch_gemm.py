@@ -94,7 +94,7 @@ def test_gemm_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError):
         et.gemm(A, A, alg="C", nb="auto")
     with pytest.raises(NotImplementedError):
-        et.gemm(A, A, alg="C", comm_precision="bf16")
+        et.gemm(A, A, alg="C", comm_precision="auto")
     with pytest.raises(ValueError):
         et.gemm(A, A, alg="nope")
     with pytest.raises(TypeError):

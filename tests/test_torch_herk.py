@@ -114,8 +114,8 @@ def test_trrk_matches_jax(rc, uplo):
 def test_herk_refuses_later_slice_knobs():
     rng = np.random.default_rng(10)
     _, tA = _both(rng.normal(size=(8, 4)), (1, 1))
-    for kw in ({"nb": "auto"}, {"comm_precision": "bf16"},
-               {"redist_path": "direct"}):
+    for kw in ({"nb": "auto"}, {"comm_precision": "auto"},
+               {"redist_path": "auto"}):
         with pytest.raises(NotImplementedError):
             et.herk("L", tA, **kw)
     with pytest.raises(ValueError, match="C shape"):

@@ -158,8 +158,8 @@ def test_panel_impl_torch_and_inners_match_default_on_cpu():
 
 @pytest.mark.parametrize("kw", [
     dict(nb="auto"), dict(lookahead="auto"), dict(crossover="auto"),
-    dict(panel="auto"), dict(comm_precision="bf16"),
-    dict(redist_path="direct"), dict(timer=object()), dict(health=True),
+    dict(panel="auto"), dict(comm_precision="auto"),
+    dict(redist_path="auto"), dict(timer=object()), dict(health=True),
     dict(abft=True), dict(precision="bf16"), dict(update_precision="bf16")],
     ids=lambda kw: next(iter(kw)))
 def test_later_slice_knobs_raise(kw):
@@ -172,8 +172,11 @@ def test_calu_on_a_multi_row_grid_and_info_raise():
     g = tgrid(2, 2)
     A = et.from_global(_mat((8, 8)), et.MC, et.MR, g)
     B = et.from_global(np.ones((8, 1)), et.MC, et.MR, g)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        et.lu(A, panel="calu")
+    # CALU runs on a multi-row grid: a valid factorization of A
+    LU_, perm = et.lu(A, panel="calu", nb=4)
+    F = et.to_global(LU_).numpy()
+    L, U = np.tril(F, -1) + np.eye(8), np.triu(F)
+    np.testing.assert_allclose(L @ U, _mat((8, 8))[perm.numpy()], atol=1e-12)
     with pytest.raises(NotImplementedError, match="later slice"):
         et.lu_solve(A, B, info=True)
     with pytest.raises(ValueError, match="panel strategy"):

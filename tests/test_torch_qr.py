@@ -195,8 +195,8 @@ def test_panel_impl_torch_matches_default_on_cpu():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(nb="auto"), dict(panel="tsqr"), dict(panel="auto"),
-    dict(comm_precision="bf16"), dict(redist_path="direct"),
+    dict(nb="auto"), dict(panel="tsqr", redist_path="auto"),
+    dict(panel="auto"), dict(comm_precision="auto"), dict(redist_path="auto"),
     dict(timer=object()), dict(health=True), dict(abft=True),
     dict(precision="bf16")], ids=lambda kw: f"{next(iter(kw))}")
 def test_later_slice_knobs_raise(kw):
@@ -212,6 +212,6 @@ def test_other_later_slice_knobs_and_bad_panel():
     with pytest.raises(NotImplementedError, match="later slice"):
         et.least_squares(A, B, abft=True)
     with pytest.raises(NotImplementedError, match="later slice"):
-        et.lq(A, redist_path="direct")
+        et.lq(A, redist_path="auto")
     with pytest.raises(ValueError, match="panel strategy"):
         et.qr(A, panel="tree")

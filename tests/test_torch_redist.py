@@ -97,15 +97,18 @@ def test_one_by_one_redistribute_retags_without_copy():
     F = np.arange(12.0).reshape(4, 3)
     A = et.from_global(F, et.MC, et.MR, tgrid(1, 1))
     B = et.redistribute(A, et.VC, et.STAR)
-    assert B.dist == (et.VC, et.STAR) and B.local is A.local
+    # a fresh view of the same storage: no copy, and the trace records an
+    # output object distinct from the input, as the JAX engine's
+    assert B.dist == (et.VC, et.STAR) and B.local is not A.local
+    assert B.local.data_ptr() == A.local.data_ptr()
 
 
 def test_later_slice_knobs_raise():
     A = et.from_global(np.eye(4), et.MC, et.MR, tgrid(2, 2))
     with pytest.raises(NotImplementedError, match="later slice"):
-        et.redistribute(A, et.STAR, et.STAR, comm_precision="bf16")
+        et.redistribute(A, et.STAR, et.STAR, comm_precision="auto")
     with pytest.raises(NotImplementedError, match="later slice"):
-        et.redistribute(A, et.STAR, et.STAR, path="direct")
+        et.redistribute(A, et.STAR, et.STAR, path="auto")
 
 
 @pytest.mark.parametrize("rc", [(1, 1)] + GRIDS,

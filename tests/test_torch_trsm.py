@@ -61,4 +61,4 @@ def test_trsm_later_slice_knobs_raise():
     with pytest.raises(NotImplementedError, match="later slice"):
         et.trsm("L", "L", "N", A, A, nb="auto")
     with pytest.raises(NotImplementedError, match="later slice"):
-        et.trsm("L", "L", "N", A, A, comm_precision="bf16")
+        et.trsm("L", "L", "N", A, A, comm_precision="auto")
