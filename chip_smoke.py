@@ -88,6 +88,23 @@ Phases, each of which raises on failure:
    ``lu`` and the TSQR ``qr`` against the pins of the CPU tests; and
    ``path='direct'`` against the chain (bit-equal, timed) for every
    legal pair of a 4096 x 4096 matrix on 2x4;
+3j. the resilience layer at full width on the 1x1 grid, float32: the
+   checksum-guarded ``lu`` (N = 32768, phase 3b's matrix), ``cholesky``
+   (phase 3's) and ``qr`` (65536 x 32768, phase 3c's), each clean (16
+   launches of its kernel, the ``abft_report/v1`` gates, the factor gates
+   of 3 / 3b / 3c; ``lu`` beside ``lookahead=False``) and recovered from
+   a one-shot fault at panel step 1 (17 launches, the factor bit-equal to
+   the clean one; ``lu`` under a scaled panel and a NaN on the
+   ``redistribute`` target; and a one-element bit flip that the guard's
+   threshold misses at nb = 2048, pinned as a miss: a clean report, 16
+   launches, a factor unlike the clean one); ``certified_solve`` of
+   both ops at N = 32768, nrhs = 8, with the factorization, the solves
+   and the host residual timed apart, and through the compute-target
+   escalation (NaNs in the first diagonal block of the first two
+   factorizations: 'quant', 'fast', 'refine', certified at 'abft'), each
+   certificate's backward error under phase 3's solve limit 1e-4;
+   ``hpd_solve`` / ``lu_solve`` with ``health=True, info=True`` beside
+   phases 3 and 3b;
 4. the distributed branches: ``hpd_solve`` and ``lu`` + ``lu_solve_after``
    on a virtual 2x2 grid on the card, N = 1024 float64, nb = 128, with
    and without the crossover, against ``torch.linalg.solve``;
@@ -2571,6 +2588,368 @@ def phase_calu_tsqr(et, card: str, lu_path: dict, qr_path: dict) -> dict:
     return res
 
 
+def _guarded_gates(rep: dict, launches: int, want: int,
+                   recovered: bool) -> bool:
+    """Phase 3j's report gates: ``ok``, 16 panels, no unrecovered panel,
+    ``want`` launches; a clean run has no violation and recomputes
+    nothing, a faulted one violates at step 1 only and recomputes it."""
+    ok = (rep["ok"] and rep["panels"] == 16 and launches == want
+          and rep["unrecovered_panels"] == [])
+    if recovered:
+        return ok and sorted({v["step"] for v in rep["violations"]}) == [1] \
+            and rep["recompute_count"] == 1 and rep["recovered_panels"] == [1]
+    return ok and rep["violations"] == [] and rep["recompute_count"] == 0
+
+
+def _report_brief(rep: dict) -> dict:
+    return {"ok": rep["ok"], "panels": rep["panels"],
+            "checks": rep["checks"],
+            "violation_steps": sorted({v["step"] for v in rep["violations"]}),
+            "violation_phases": sorted({v["phase"]
+                                        for v in rep["violations"]}),
+            "recompute_count": rep["recompute_count"],
+            "recovered_panels": rep["recovered_panels"]}
+
+
+def phase_resilience(et, card: str, main_path: dict, lu_path: dict,
+                     qr_path: dict) -> dict:
+    """The resilience layer at full width on the 1x1 grid, f32: the
+    checksum-guarded ``lu`` / ``cholesky`` (N = 32768) and ``qr`` (65536 x
+    32768), each clean and recovered from a one-shot fault at panel step
+    1 (one more launch of its kernel, the factor bit-equal to the clean
+    one); ``certified_solve`` of both ops, clean and through the
+    compute-target escalation; ``hpd_solve`` / ``lu_solve`` with
+    ``health=True, info=True``."""
+    import numpy as np
+    import torch
+    from elemental_tpu_torch.kernels import lu_panel, potrf_inv, qr_panel
+    from elemental_tpu_torch.resilience import (FaultPlan, FaultSpec,
+                                                certified_solve,
+                                                fault_injection,
+                                                last_abft_report,
+                                                last_health_report)
+    from elemental_tpu_torch.resilience import certify
+    kern = (lu_panel, potrf_inv, qr_panel)
+
+    def zero():
+        lu_panel.launches = potrf_inv.launches = qr_panel.launches = 0
+
+    def sync_time(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def one_shot(target, kind, nelem=2):
+        return FaultPlan(seed=7, faults=[FaultSpec(target, kind, nelem=nelem,
+                                                   window=(1, 2))])
+
+    def peak_gib():
+        return torch.cuda.max_memory_allocated() / 2 ** 30
+
+    def fresh_peak():
+        """Starts a new peak reading; returns the GiB resident now (the
+        guarded call's own room is the peak less this)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        return torch.cuda.memory_allocated() / 2 ** 30
+
+    res: dict = {}
+    N, nb, nrhs = 32768, 2048, 8
+    grid = et.Grid()
+    gen = torch.Generator(device="cuda")
+    # warm-up at a small size: every guarded driver and a certified solve
+    gen.manual_seed(1)
+    Aw = torch.randn(4096, 4096, generator=gen, device="cuda")
+    Sw, _ = _spd(4096, torch.float32, seed=1)
+    Bw = et.from_global(torch.ones(4096, nrhs, device="cuda"), et.MC, et.MR,
+                        grid)
+    et.lu(et.from_global(Aw, et.MC, et.MR, grid), nb=nb, abft=True)
+    et.cholesky(et.from_global(Sw, et.MC, et.MR, grid), nb=nb, abft=True)
+    et.qr(et.from_global(Aw, et.MC, et.MR, grid), nb=nb, abft=True)
+    certified_solve("hpd", et.from_global(Sw, et.MC, et.MR, grid), Bw,
+                    nb=nb)
+    del Aw, Sw, Bw
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # step 1: guarded LU on phase 3b's matrix
+    gen.manual_seed(0)
+    Ag = torch.randn(N, N, generator=gen, device="cuda")
+    Bg = torch.randn(N, nrhs, generator=gen, device="cuda")
+    A = et.from_global(Ag, et.MC, et.MR, grid)
+    B = et.from_global(Bg, et.MC, et.MR, grid)
+    _, t_plain = sync_time(lambda: et.lu(A, nb=nb))
+    (LU0, p0), t_classic = sync_time(lambda: et.lu(A, nb=nb,
+                                                    lookahead=False))
+    zero()
+    resident = fresh_peak()
+    (LU, perm), t_abft = sync_time(lambda: et.lu(A, nb=nb, abft=True))
+    clean = {"launches": _counts_now(*kern), "s": t_abft,
+             "report": _report_brief(last_abft_report("lu")),
+             "peak_gib": peak_gib(), "resident_gib": resident}
+    ok = _guarded_gates(last_abft_report("lu"), lu_panel.launches, 16,
+                        False)
+    gates = _lu_gates(et, Ag, LU, perm, None, Bg, gen)
+    # where the guarded schedule's extra time goes (its whole-matrix
+    # copies for rollback, the checksum reductions)
+    clean["breakdown"] = _device_breakdown(
+        lambda: et.lu(A, nb=nb, abft=True), top=10)
+    clean.update(gates, lu_s=t_plain, lu_3b_s=lu_path["lu_s"],
+                 lu_classic_s=t_classic,
+                 max_diff_vs_classic=float(
+                     (LU.local - LU0.local).abs().max()
+                     / LU0.local.abs().max()),
+                 perm_equal_to_classic=bool(torch.equal(perm, p0)))
+    del LU0, p0
+    ok = ok and gates["factor_residual"] < 1e-3
+    res["lu_abft"] = clean
+    for label, (target, kind) in (("lu_abft_compute_scale",
+                                   ("compute", "scale")),
+                                  ("lu_abft_redistribute_nan",
+                                   ("redistribute", "nan"))):
+        zero()
+        with fault_injection(one_shot(target, kind)) as plan:
+            (LUf, pf), t = sync_time(lambda: et.lu(A, nb=nb, abft=True))
+        rep = last_abft_report("lu")
+        same = bool(torch.equal(LUf.local, LU.local)
+                    and torch.equal(pf, perm))
+        res[label] = {"launches": _counts_now(*kern), "s": t,
+                      "fired": plan.fired(), "report": _report_brief(rep),
+                      "bit_equal_to_clean": same}
+        ok = ok and same and plan.fired() >= 1 and _guarded_gates(
+            rep, lu_panel.launches, 17, True)
+        del LUf, pf
+    # a one-element bit flip in a computed panel: the guard flags it
+    # only where its column-sum change exceeds the compute threshold,
+    # 64 eps (nb + sqrt(rows)) of the column's mass (the JAX package's).
+    # At nb = 2048 this flip stays under it; the miss is pinned, so that a
+    # change of the threshold shows either way: the flip fires once, the
+    # guard reports a clean run (16 launches, nothing recomputed) and the
+    # factor differs from the clean one
+    zero()
+    with fault_injection(one_shot("compute", "bitflip")) as plan:
+        (LUf, pf), t = sync_time(lambda: et.lu(A, nb=nb, abft=True))
+    rep = last_abft_report("lu")
+    res["lu_abft_compute_bitflip"] = {
+        "launches": _counts_now(*kern), "s": t, "fired": plan.fired(),
+        "report": _report_brief(rep), "flipped": [
+            [float(b), float(a)] for ev in plan.log
+            for b, a in zip(ev.before, ev.after)],
+        "panel_threshold": 64 * float(torch.finfo(torch.float32).eps)
+        * (nb + (N - nb) ** 0.5),
+        "bit_equal_to_clean": bool(torch.equal(LUf.local, LU.local)),
+        "max_diff_vs_clean": float((LUf.local - LU.local).abs().max()
+                                   / LU.local.abs().max())}
+    miss = res["lu_abft_compute_bitflip"]
+    ok = ok and plan.fired() == 1 and rep["ok"] and rep["violations"] == [] \
+        and rep["recompute_count"] == 0 and lu_panel.launches == 16 \
+        and not miss["bit_equal_to_clean"]
+    del LUf, pf
+    print("phase 3j guarded lu " + json.dumps(
+        {k: res[k] for k in res if k.startswith("lu_")}), flush=True)
+    if not ok:
+        raise AssertionError(f"phase 3j guarded LU: {json.dumps(res)}")
+    del LU, perm
+
+    # step 4 (on the same matrix): the certified LU solve, clean
+    zero()
+    (X, info), t_cert = sync_time(lambda: certified_solve("lu", A, B,
+                                                          nb=nb))
+    cert_lu = {"s": t_cert, "launches": _counts_now(*kern),
+               "certified": info["certified"],
+               "rung": info["rung"], "residual": info["residual"],
+               "refine_iters": info["refine_iters"], "tol": info["tol"]}
+    (LUc, pc), cert_lu["factor_s"] = sync_time(lambda: et.lu(
+        A, nb=nb, panel="calu", comm_precision="int8"))
+    _, cert_lu["solve_s"] = sync_time(lambda: et.lu_solve_after(
+        LUc, pc, B, nb=nb))
+    del LUc, pc
+    t0 = time.perf_counter()
+    An, Bn, Xn = certify._host(A), certify._host(B), certify._host(X)
+    cert_lu["host_copy_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    certify._residual(An, Bn, Xn, np.linalg.norm(An), np.linalg.norm(Bn))
+    cert_lu["host_residual_s"] = time.perf_counter() - t0
+    del An, Bn, Xn, X
+    res["certified_lu"] = cert_lu
+    # step 5: the monitors on lu_solve
+    (X, info), t = sync_time(lambda: et.lu_solve(A, B, nb=nb, health=True,
+                                                 info=True))
+    hrep = last_health_report("lu")
+    res["lu_solve_health"] = {"s": t, "lu_solve_s": lu_path["lu_solve_s"],
+                              "ok": hrep["ok"], "checks": hrep["checks"],
+                              "growth_estimate": hrep["growth_estimate"],
+                              "info": info}
+    # the certificate's own tolerance (64 n eps = 0.25 here) would pass a
+    # wrong solve: its backward error is held to phase 3's solve limit
+    ok = (cert_lu["certified"] and cert_lu["rung"] == "quant"
+          and cert_lu["residual"] < 1e-4 and hrep["ok"]
+          and info == {"singular": False, "diag_index": None,
+                       "finite": True})
+    del A, B, Ag, Bg, X
+    if not ok:
+        raise AssertionError(f"phase 3j certified / monitored LU: "
+                             f"{json.dumps(res)}")
+
+    # step 2: guarded Cholesky on phase 3's matrix
+    torch.cuda.empty_cache()
+    Sg, gen = _spd(N, torch.float32, seed=0)
+    Bg = torch.randn(N, nrhs, generator=gen, device="cuda")
+    S = et.from_global(Sg, et.MC, et.MR, grid)
+    B = et.from_global(Bg, et.MC, et.MR, grid)
+    del Sg
+    _, t_plain = sync_time(lambda: et.cholesky(S, nb=nb))
+    zero()
+    resident = fresh_peak()
+    L, t_abft = sync_time(lambda: et.cholesky(S, nb=nb, abft=True))
+    rep = last_abft_report("cholesky")
+    s, l = S.local, L.local
+    v = torch.randn(N, 1, generator=gen, device="cuda")
+    factor_res = float(torch.linalg.norm(s @ v - l @ (l.T @ v))
+                       / (torch.linalg.norm(s) * torch.linalg.norm(v)))
+    res["cholesky_abft"] = {"launches": _counts_now(*kern), "s": t_abft,
+                            "cholesky_s": t_plain,
+                            "peak_gib": peak_gib(),
+                            "resident_gib": resident,
+                            "report": _report_brief(rep),
+                            "factor_residual": factor_res}
+    ok = _guarded_gates(rep, potrf_inv.launches, 16, False) \
+        and factor_res < 1e-3
+    zero()
+    with fault_injection(one_shot("compute", "scale", nelem=1)) as plan:
+        Lf, t = sync_time(lambda: et.cholesky(S, nb=nb, abft=True))
+    rep = last_abft_report("cholesky")
+    same = bool(torch.equal(Lf.local, L.local))
+    res["cholesky_abft_compute_scale"] = {
+        "launches": _counts_now(*kern), "s": t, "fired": plan.fired(),
+        "report": _report_brief(rep), "bit_equal_to_clean": same}
+    ok = ok and same and plan.fired() >= 1 and _guarded_gates(
+        rep, potrf_inv.launches, 17, True)
+    del Lf, L, l
+    print("phase 3j guarded cholesky " + json.dumps(
+        {k: res[k] for k in res if k.startswith("cholesky_")}), flush=True)
+    if not ok:
+        raise AssertionError(f"phase 3j guarded Cholesky: {json.dumps(res)}")
+
+    # step 4: the certified HPD solve, clean and through the escalation
+    zero()
+    (X, info), t_cert = sync_time(lambda: certified_solve("hpd", S, B,
+                                                          nb=nb))
+    cert_hpd = {"s": t_cert, "launches": _counts_now(*kern),
+                "certified": info["certified"],
+                "rung": info["rung"], "residual": info["residual"],
+                "refine_iters": info["refine_iters"], "tol": info["tol"]}
+    F, cert_hpd["factor_s"] = sync_time(lambda: et.cholesky(S, nb=nb))
+    _, cert_hpd["solve_s"] = sync_time(lambda: et.cholesky_solve_after(
+        F, B, nb=nb))
+    del F, X
+    calls = FaultPlan(seed=0, faults=[])
+    with fault_injection(calls):
+        et.cholesky(S, nb=nb)
+    per_factor = calls.calls["compute"]
+    plan = FaultPlan(seed=5, faults=[FaultSpec("compute", "nan", call=0),
+                                     FaultSpec("compute", "nan",
+                                               call=per_factor)])
+    zero()
+    with fault_injection(plan):
+        (X, info), t_esc = sync_time(lambda: certified_solve("hpd", S, B,
+                                                             nb=nb))
+    res["certified_hpd_escalation"] = {"launches": _counts_now(*kern)}
+    cert_hpd["escalation"] = {
+        "s": t_esc, "potrf_calls_per_factorization": per_factor,
+        "fault_calls": sorted({e.call for e in plan.log}),
+        "certified": info["certified"], "rung": info["rung"],
+        "residual": info["residual"],
+        "attempts": [a["rung"] for a in info["attempts"]],
+        "health_ok": [None if a["health"] is None else a["health"]["ok"]
+                      for a in info["attempts"]]}
+    res["certified_hpd"] = cert_hpd
+    esc = cert_hpd["escalation"]
+    ok = (cert_hpd["certified"] and cert_hpd["rung"] == "quant"
+          and cert_hpd["residual"] < 1e-4 and esc["residual"] < 1e-4
+          and esc["certified"] and esc["rung"] == "abft"
+          and esc["attempts"] == ["quant", "fast", "refine", "abft"]
+          and esc["health_ok"][:2] == [False, False]
+          and per_factor == N // nb
+          and potrf_inv.launches == 3 * per_factor)
+    del X
+    # step 5: the monitors on hpd_solve
+    (X, info), t = sync_time(lambda: et.hpd_solve(S, B, nb=nb, health=True,
+                                                  info=True))
+    hrep = last_health_report("cholesky")
+    res["hpd_solve_health"] = {"s": t,
+                               "hpd_solve_s": main_path["hpd_solve_s"],
+                               "ok": hrep["ok"], "checks": hrep["checks"],
+                               "min_diag": hrep["min_diag"], "info": info}
+    ok = ok and hrep["ok"] and info == {"singular": False,
+                                        "diag_index": None, "finite": True}
+    del S, B, Bg, X
+    print("phase 3j certified and monitored solves " + json.dumps(
+        {k: res[k] for k in ("certified_lu", "certified_hpd",
+                             "lu_solve_health", "hpd_solve_health")}),
+        flush=True)
+    if not ok:
+        raise AssertionError(f"phase 3j certified / monitored HPD: "
+                             f"{json.dumps(res)}")
+
+    # step 3: guarded QR on phase 3c's matrix
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    m, n = 65536, 32768
+    gen.manual_seed(0)
+    A = et.from_global(torch.randn(m, n, generator=gen, device="cuda"),
+                       et.MC, et.MR, grid)
+    B = et.from_global(torch.randn(m, nrhs, generator=gen, device="cuda"),
+                       et.MC, et.MR, grid)
+    zero()
+    resident = fresh_peak()
+    (Ap, tau), t_abft = sync_time(lambda: et.qr(A, nb=nb, abft=True))
+    rep = last_abft_report("qr")
+    clean = {"launches": _counts_now(*kern), "s": t_abft,
+             "qr_s": qr_path["qr_s"], "report": _report_brief(rep),
+             "peak_gib": peak_gib(), "resident_gib": resident}
+    ok = _guarded_gates(rep, qr_panel.launches, 16, False)
+    Y = et.apply_q(Ap, tau, B, orient="C")
+    R = et.make_trapezoidal(et.interior_view(Ap, (0, n), (0, n)), "U")
+    X = et.trsm("L", "U", "N", R, et.interior_view(Y, (0, n), (0, nrhs)),
+                nb=nb)
+    del Y, R
+    factor_res, orth, optimality = _ls_gates(et, grid, A.local, Ap.local,
+                                             Ap, tau, X.local, B.local, gen)
+    clean.update(factor_residual=factor_res, orthogonality=orth,
+                 normal_equations_optimality=optimality)
+    ok = ok and factor_res < 1e-3 and orth < 1e-4 and optimality < 1e-4
+    res["qr_abft"] = clean
+    # the clean factor waits on the host: the faulted run's rollback
+    # state needs the room on the card (its peak read 68.8 GiB beside it)
+    ap_host, tau_host = Ap.local.cpu(), tau.cpu()
+    del X, Ap, tau
+    torch.cuda.empty_cache()
+    zero()
+    resident = fresh_peak()
+    with fault_injection(one_shot("compute", "scale")) as plan:
+        (Apf, tauf), t = sync_time(lambda: et.qr(A, nb=nb, abft=True))
+    rep = last_abft_report("qr")
+    same = bool(torch.equal(Apf.local.cpu(), ap_host)
+                and torch.equal(tauf.cpu(), tau_host))
+    res["qr_abft_compute_scale"] = {
+        "launches": _counts_now(*kern), "s": t, "fired": plan.fired(),
+        "report": _report_brief(rep), "bit_equal_to_clean": same,
+        "peak_gib": peak_gib(), "resident_gib": resident}
+    ok = ok and same and plan.fired() >= 1 and _guarded_gates(
+        rep, qr_panel.launches, 17, True)
+    del Apf, tauf, ap_host, tau_host, A, B
+    print("phase 3j guarded qr " + json.dumps(
+        {k: res[k] for k in res if k.startswith("qr_")}), flush=True)
+    if not ok:
+        raise AssertionError(f"phase 3j guarded QR: {json.dumps(res)}")
+    res["card"] = card
+    print("phase 3j resilience " + json.dumps(res), flush=True)
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2612,6 +2991,8 @@ def main() -> int:
     ldl_path = timed("3g", phase_ldl_main_path, et, card)
     ldl_rest = timed("3h", phase_ldl_rest, et, card)
     calu_tsqr = timed("3i", phase_calu_tsqr, et, card, lu_path, qr_path)
+    resilience = timed("3j", phase_resilience, et, card, main_path, lu_path,
+                       qr_path)
     t4 = time.perf_counter()
     phase_distributed(et)
     phase_lu_distributed(et)
@@ -2655,9 +3036,9 @@ def main() -> int:
                                       ("3e", svd_path), ("3g", ldl_path))
                if d.get(key)}
         for ph, rest in (("3f", svd_rest), ("3h", ldl_rest),
-                         ("3i", calu_tsqr)):
+                         ("3i", calu_tsqr), ("3j", resilience)):
             for step, d in rest.items():
-                if isinstance(d, dict) and d["launches"].get(name):
+                if isinstance(d, dict) and d.get("launches", {}).get(name):
                     out[f"{ph} {step}"] = d["launches"][name]
         return out
 

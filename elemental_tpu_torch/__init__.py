@@ -35,7 +35,11 @@ tournament pivoting; ``qr(panel='tsqr')`` and ``tsqr``), with the
 redistribution engine's call counters and trace records
 (``redist_counts``, ``redist_trace``), its one-shot ``path='direct'``
 plans, the quantized wire (``comm_precision='bf16'`` / ``'int8'``) and
-``contract``.
+``contract``; and the resilience layer (``resilience``: the health
+monitors behind ``health=``, the checksum-guarded ``lu`` / ``cholesky``
+/ ``qr`` behind ``abft=`` with per-panel rollback, seeded fault
+injection, and ``certified_solve``'s escalation ladder), with the obs
+metrics registry.
 
 The package imports ``torch`` and numpy only -- never ``jax`` and nothing
 of ``elemental_tpu``.
@@ -84,6 +88,6 @@ from .lapack.props import (determinant, safe_determinant, hpd_determinant,
                            two_norm_estimate, condition, nuclear_norm,
                            schatten_norm, two_norm)
 from .matrices import identity
-from . import blas, lapack, control, kernels, entry
+from . import blas, lapack, control, kernels, entry, obs, resilience
 
 __version__ = "0.1.0"

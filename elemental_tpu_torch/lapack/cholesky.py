@@ -165,10 +165,9 @@ def _not_ported(name: str, value, what: str) -> None:
 
 
 def _check_knobs(nb, lookahead, crossover, comm_precision, redist_path,
-                 timer, health, abft) -> None:
-    """Refuse the knobs of later slices -- ``'auto'`` (the tuner),
-    ``timer``, ``health``, ``abft`` -- and check the wire and route
-    knobs."""
+                 timer) -> None:
+    """Refuse the knobs of later slices -- ``'auto'`` (the tuner) and
+    ``timer`` -- and check the wire and route knobs."""
     for name, v in (("nb", nb), ("lookahead", lookahead),
                     ("crossover", crossover)):
         if isinstance(v, str):
@@ -183,10 +182,6 @@ def _check_knobs(nb, lookahead, crossover, comm_precision, redist_path,
                          f"{redist_path!r}")
     if timer is not None:
         _not_ported("timer", timer, "phase timing")
-    if health is not None:
-        _not_ported("health", health, "the resilience guards")
-    if abft is not None:
-        _not_ported("abft", abft, "checksum-guarded execution")
 
 
 def cholesky(A: DistMatrix, uplo: str = "L", nb: int | None = None,
@@ -218,12 +213,22 @@ def cholesky(A: DistMatrix, uplo: str = "L", nb: int | None = None,
     wire precision of the bulk moves (diagonal-block and panel gathers,
     the panel spread, the crossover gather) and ``redist_path``
     (``None`` | ``'chain'`` | ``'direct'``) their route, as in the JAX
-    driver.  The knobs of later slices -- ``'auto'`` for any knob,
-    ``timer``, ``health``, ``abft`` -- raise ``NotImplementedError``.
+    driver.
+
+    ``health`` attaches the numerical-health guards
+    (:mod:`..resilience.health`): a ``HealthMonitor`` (read
+    ``monitor.report()`` afterwards) or ``True`` (the report lands in
+    ``resilience.last_health_report('cholesky')``); ``None`` attaches
+    nothing.  ``abft`` (``True`` or an ``AbftGuard``) runs the
+    checksum-guarded schedule with per-panel rollback
+    (:func:`..resilience.abft.abft_cholesky`): the classic right-looking
+    order on every grid, 1x1 included, whatever ``lookahead`` and
+    ``crossover`` say.  The knobs of later slices -- ``'auto'`` for any
+    knob and ``timer`` -- raise ``NotImplementedError``.
     """
     _check_mcmr(A)
     _check_knobs(nb, lookahead, crossover, comm_precision, redist_path,
-                 timer, health, abft)
+                 timer)
     check_precision(precision, A.local)
     plan = resolve_panel(panel_impl, dtype=A.dtype, device=A.local.device)
     if uplo.upper().startswith("U"):
@@ -233,17 +238,29 @@ def cholesky(A: DistMatrix, uplo: str = "L", nb: int | None = None,
         L = cholesky(Alow, "L", nb=nb, precision=precision,
                      lookahead=lookahead, crossover=crossover,
                      panel_impl=panel_impl, comm_precision=comm_precision,
-                     redist_path=redist_path)
+                     redist_path=redist_path, health=health, abft=abft)
         return redistribute(transpose_dist(L, conj=True), MC, MR)
+    if abft:
+        from ..resilience.abft import abft_cholesky
+        return abft_cholesky(A, nb=nb, precision=precision,
+                             comm_precision=comm_precision, timer=timer,
+                             health=health, abft=abft, plan=plan)
 
     m = A.gshape[0]
     if A.gshape != (m, m):
         raise ValueError(f"cholesky needs square, got {A.gshape}")
     g = A.grid
     tm = _phase_hook("cholesky", timer)
+    hm = None
+    if health:
+        from ..resilience.health import attach_health
+        tm, hm = attach_health("cholesky", health, tm, scale_from=A)
     tm.start()
     if g.size == 1:
-        return _local_cholesky(A, nb, precision, lookahead, tm, plan)
+        out = _local_cholesky(A, nb, precision, lookahead, tm, plan)
+        if hm is not None:
+            hm.report()
+        return out
     r, c = g.height, g.width
     cp, rp = comm_precision, redist_path
     ib = _blocksize(nb, math.lcm(r, c), m)
@@ -349,6 +366,8 @@ def cholesky(A: DistMatrix, uplo: str = "L", nb: int | None = None,
                             rows=(e, m), cols=(e, m))
             tm.tick("tail", k, L)
             break
+    if hm is not None:
+        hm.report()
     return make_trapezoidal(L, "L")
 
 
@@ -356,13 +375,21 @@ def hpd_solve(A: DistMatrix, B: DistMatrix, uplo: str = "L",
               nb: int | None = None, precision=None, info: bool = False,
               health=None):
     """Solve A X = B for HPD A: Cholesky + forward/backward sweeps
-    (``El::HPDSolve``).  ``info=True`` and ``health`` belong to a later
-    slice and raise ``NotImplementedError``."""
-    if info:
-        _not_ported("info", info, "the singularity report")
+    (``El::HPDSolve``).
+
+    ``info=True`` returns ``(X, info)`` with the structured singularity
+    signal ``{"singular", "diag_index", "finite"}`` from the factor's
+    diagonal (a singular / non-PD A surfaces as a non-finite or
+    non-positive diagonal entry instead of a silently NaN X); ``health``
+    forwards to :func:`cholesky`.  For the residual-certified path use
+    ``elemental_tpu_torch.resilience.certified_solve('hpd', A, B)``."""
     uplo = "U" if uplo.upper().startswith("U") else "L"
     F = cholesky(A, uplo, nb=nb, precision=precision, health=health)
-    return cholesky_solve_after(F, B, uplo, nb=nb, precision=precision)
+    X = cholesky_solve_after(F, B, uplo, nb=nb, precision=precision)
+    if not info:
+        return X
+    from ..resilience.health import factor_diag_info
+    return X, factor_diag_info("hpd", F)
 
 
 def cholesky_solve_after(L: DistMatrix, B: DistMatrix, uplo: str = "L",

@@ -499,11 +499,10 @@ def _update_cols_ge(A, block, rows, cols, e):
 
 
 def _check_lu_knobs(nb, lookahead, crossover, panel, update_precision,
-                    comm_precision, redist_path, timer, health, abft,
-                    r: int) -> str:
+                    comm_precision, redist_path, timer) -> str:
     """Refuse the knobs of later slices; return the panel strategy."""
     _check_knobs(nb, lookahead, crossover, comm_precision, redist_path,
-                 timer, health, abft)
+                 timer)
     if panel == "auto":
         _not_ported("panel", panel, "the tuner ('auto')")
     if panel is None:
@@ -557,22 +556,46 @@ def lu(A: DistMatrix, nb: int | None = None, precision=None,
     wire precision of the schedule's bulk moves (panel gathers, the U12
     row-block transport, the crossover gather; the CALU row-block psum
     rides ``'bf16'`` under either mode) and ``redist_path`` (``None`` |
-    ``'chain'`` | ``'direct'``) their route, as in the JAX driver.  The
-    knobs of later slices -- ``'auto'`` for any knob, ``timer``,
-    ``health``, ``abft`` -- raise ``NotImplementedError``."""
+    ``'chain'`` | ``'direct'``) their route, as in the JAX driver.
+
+    ``health`` attaches the numerical-health guards
+    (:mod:`..resilience.health`): a ``HealthMonitor`` (read
+    ``monitor.report()`` afterwards) or ``True`` (the report lands in
+    ``resilience.last_health_report('lu')``); ``None`` attaches nothing.
+    ``abft`` (``True`` or an ``AbftGuard``) runs the checksum-guarded
+    schedule with per-panel rollback
+    (:func:`..resilience.abft.abft_lu`): the classic right-looking order
+    on every grid, 1x1 included (``lookahead``, ``crossover`` and
+    ``panel='calu'`` are ignored).  The knobs of later slices --
+    ``'auto'`` for any knob and ``timer`` -- raise
+    ``NotImplementedError``."""
     _check_mcmr(A)
     g = A.grid
     r, c = g.height, g.width
-    _check_lu_knobs(nb, lookahead, crossover, panel, update_precision,
-                    comm_precision, redist_path, timer, health, abft, r)
+    panel = _check_lu_knobs(nb, lookahead, crossover, panel,
+                            update_precision, comm_precision, redist_path,
+                            timer)
     check_precision(precision, A.local)
     plan = resolve_panel(panel_impl, dtype=A.dtype, device=A.local.device,
                          inners=inners)
+    if abft:
+        from ..resilience.abft import abft_lu
+        return abft_lu(A, nb=nb, precision=precision,
+                       update_precision=update_precision,
+                       comm_precision=comm_precision, timer=timer,
+                       health=health, abft=abft, plan=plan)
     m, n = A.gshape
     tm = _phase_hook("lu", timer)
+    hm = None
+    if health:
+        from ..resilience.health import attach_health
+        tm, hm = attach_health("lu", health, tm, scale_from=A)
     if g.size == 1:
-        return _local_lu(A, nb, precision, update_precision, lookahead, tm,
-                         plan)
+        out = _local_lu(A, nb, precision, update_precision, lookahead, tm,
+                        plan)
+        if hm is not None:
+            hm.report()
+        return out
     calu = panel == "calu" and r > 1
     cp, rp = comm_precision, redist_path
     sweeps: dict = {}                # this call's sweep graphs (CALU, card)
@@ -694,6 +717,8 @@ def lu(A: DistMatrix, nb: int | None = None, precision=None,
             A, perm = _lu_tail(A, perm, e, ib, precision, update_precision,
                                lookahead, tm, k, cp, rp, plan)
             break
+    if hm is not None:
+        hm.report()
     return A, perm
 
 
@@ -726,12 +751,20 @@ def lu_solve(A: DistMatrix, B: DistMatrix, nb: int | None = None,
              precision=None, panel: str = "classic", info: bool = False,
              health=None):
     """Solve A X = B via LU with partial pivoting (``El::LinearSolve``:
-    LU + SolveAfter).  ``info=True`` and ``health`` belong to a later
-    slice and raise ``NotImplementedError``."""
-    if info:
-        _not_ported("info", info, "the singularity report")
+    LU + SolveAfter).
+
+    ``info=True`` returns ``(X, info)`` where ``info`` is the structured
+    singularity signal ``{"singular", "diag_index", "finite"}`` from the
+    factor's diagonal (an exactly-singular A surfaces as a zero pivot
+    instead of a silently NaN/Inf X); ``health`` forwards to :func:`lu`.
+    For the residual-certified path use
+    ``elemental_tpu_torch.resilience.certified_solve('lu', A, B)``."""
     LU_, perm = lu(A, nb=nb, precision=precision, panel=panel, health=health)
-    return lu_solve_after(LU_, perm, B, nb=nb, precision=precision)
+    X = lu_solve_after(LU_, perm, B, nb=nb, precision=precision)
+    if not info:
+        return X
+    from ..resilience.health import factor_diag_info
+    return X, factor_diag_info("lu", LU_)
 
 
 def lu_solve_after(LU_: DistMatrix, perm, B: DistMatrix,

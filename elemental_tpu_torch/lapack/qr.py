@@ -44,6 +44,7 @@ from ..kernels import qr_panel as _kernel_qr_panel
 from ..kernels import resolve_panel
 from ..kernels.qr_panel import _larft, _panel_qr, _panel_v
 from ..matrices.basic import identity
+from ..obs.tracer import NULL_HOOK as _NULL_TIMER, phase_hook as _phase_hook
 from ..tune.policy import blocksize_policy as _blocksize
 from .cholesky import _check_knobs, _not_ported
 from .lu import (_nopiv_panel, _update_cols_ge, _update_cols_lt,
@@ -52,21 +53,21 @@ from .lu import (_nopiv_panel, _update_cols_ge, _update_cols_lt,
 
 def _panel_qr_dispatch(P, plan=None):
     """One classic replicated panel through the resolved ``panel_impl``
-    plan: ``(packed, tau, T)``, from the kernel when the plan selects it
-    for the panel's dtype, else from the plain recurrence with T from
-    :func:`_larft`."""
+    plan: ``(packed, tau, T)``, with ``T`` the kernel's block-reflector
+    triangle when the plan selects the kernel for the panel's dtype, else
+    ``None`` after the plain recurrence: the caller then builds T with
+    :func:`_larft` from the packed panel as it leaves the ``'compute'``
+    fault seam, as the JAX package's plain path does."""
     if plan is not None and plan.use_kernel(P.dtype):
         return _kernel_qr_panel(P)
     Pf, tau = _panel_qr(P)
-    return Pf, tau, _larft(_panel_v(Pf), tau)
+    return Pf, tau, None
 
 
-def _check_qr_knobs(nb, panel, comm_precision, redist_path, timer, health,
-                    abft) -> str:
+def _check_qr_knobs(nb, panel, comm_precision, redist_path, timer) -> str:
     """Refuse the knobs of later slices and unknown panel strategies;
     return the panel strategy."""
-    _check_knobs(nb, None, None, comm_precision, redist_path, timer,
-                 health, abft)
+    _check_knobs(nb, None, None, comm_precision, redist_path, timer)
     if panel == "auto":
         _not_ported("panel", panel, "the tuner ('auto')")
     if panel is None:
@@ -155,13 +156,16 @@ def _panel_qr_tsqr(P, r: int):
     return packed, tau
 
 
-def _local_qr_array(A: DistMatrix, ib: int, plan, redist_path=None):
+def _local_qr_array(A: DistMatrix, ib: int, plan, redist_path=None,
+                    tm=_NULL_TIMER):
     """Blocked Householder QR of a 1x1-grid matrix on ONE clone of its
     storage: returns ``(packed, tau)`` as new tensors.  Per panel the
     packed panel is written back, then the trailing columns get the
     compact-WY update in place.  The panel gather and the two relands of
     the distributed loop are 1x1 retags, issued as such (no copy) so the
-    redistribution counts are the JAX driver's."""
+    redistribution counts are the JAX driver's; ``tm`` gets the
+    distributed loop's ticks ("panel", then "update" with the whole
+    storage)."""
     a = A.local.clone(memory_format=torch.contiguous_format)
     g = A.grid
     m, n = a.shape
@@ -174,15 +178,19 @@ def _local_qr_array(A: DistMatrix, ib: int, plan, redist_path=None):
         Pf, tau, T = _panel_qr_dispatch(P, plan)
         Pf, = apply_fault("compute", (Pf,))
         taus.append(tau)
+        tm.tick("panel", s // ib, Pf, tau)
         Pf_ss = DistMatrix(Pf, (m - s, e - s), STAR, STAR, 0, 0, g)
         a[s:, s:e] = redistribute(Pf_ss, MC, MR).local
         if e < n:
-            V_ss = DistMatrix(_panel_v(Pf), (m - s, e - s), STAR, STAR, 0, 0,
-                              g)
+            Vp = _panel_v(Pf)
+            if T is None:
+                T = _larft(Vp, tau)
+            V_ss = DistMatrix(Vp, (m - s, e - s), STAR, STAR, 0, 0, g)
             V = redistribute(V_ss, MC, STAR).local
             A2 = a[s:, e:]
             W = T.conj().mT @ (V.conj().mT @ A2)
             A2.addmm_(V, W, alpha=-1)
+            tm.tick("update", s // ib, a)
     tau = torch.cat(taus) if taus else a.new_zeros((0,))
     return a, tau
 
@@ -215,25 +223,45 @@ def qr(A: DistMatrix, nb: int | None = None, precision=None,
     must be False).  ``comm_precision`` (``None`` | ``'bf16'`` |
     ``'int8'``) and ``redist_path`` (``None`` | ``'chain'`` |
     ``'direct'``) select the wire precision and route of the per-step
-    panel gathers.  The knobs of later slices -- ``'auto'`` for any knob,
-    ``timer``, ``health``, ``abft`` -- raise ``NotImplementedError``."""
+    panel gathers.
+
+    ``health`` attaches the numerical-health guards
+    (:mod:`..resilience.health`; ``True`` lands the report in
+    ``resilience.last_health_report('qr')``).  ``abft`` (``True`` or an
+    ``AbftGuard``) runs the checksum-guarded schedule with per-panel
+    rollback (:func:`..resilience.abft.abft_qr`) under either ``panel``,
+    on every grid, 1x1 included.  The knobs of later slices --
+    ``'auto'`` for any knob and ``timer`` -- raise
+    ``NotImplementedError``."""
     _check_mcmr(A)
-    panel = _check_qr_knobs(nb, panel, comm_precision, redist_path, timer,
-                            health, abft)
+    panel = _check_qr_knobs(nb, panel, comm_precision, redist_path, timer)
     check_precision(precision, A.local)
     plan = resolve_panel(panel_impl, dtype=A.dtype, device=A.local.device)
+    if abft:
+        from ..resilience.abft import abft_qr
+        return abft_qr(A, nb=nb, precision=precision, panel=panel,
+                       comm_precision=comm_precision, timer=timer,
+                       health=health, abft=abft, plan=plan)
     m, n = A.gshape
     g = A.grid
     r, c = g.height, g.width
     ib = _blocksize(nb, math.lcm(r, c), min(m, n))
+    tm = _phase_hook("qr", timer)
+    hm = None
+    if health:
+        from ..resilience.health import attach_health
+        tm, hm = attach_health("qr", health, tm, scale_from=A)
+    tm.start()
     if g.size == 1 and panel == "classic":
-        a, tau = _local_qr_array(A, ib, plan, redist_path)
+        a, tau = _local_qr_array(A, ib, plan, redist_path, tm)
         Ap = A.with_local(a)
         _record_qr_nb(Ap, ib)
+        if hm is not None:
+            hm.report()
         return Ap, tau
     kend = min(m, n)
     taus = []
-    for s in range(0, kend, ib):
+    for k, s in enumerate(range(0, kend, ib)):
         e = min(s + ib, kend)
         nbw = e - s
         e_up = min(-(-e // c) * c, n)
@@ -247,6 +275,7 @@ def qr(A: DistMatrix, nb: int | None = None, precision=None,
             Pf, tau, T = _panel_qr_dispatch(panel_ss.local[:, :nbw], plan)
         Pf, = apply_fault("compute", (Pf,))
         taus.append(tau)
+        tm.tick("panel", k, Pf, tau)
         Pf_w = torch.nn.functional.pad(Pf, (0, e_up - e)) if e_up > e else Pf
         Pf_ss = DistMatrix(Pf_w, (m - s, e_up - s), STAR, STAR, 0, 0, g)
         A = _update_cols_lt(A, redistribute(Pf_ss, MC, MR), (s, m),
@@ -263,7 +292,10 @@ def qr(A: DistMatrix, nb: int | None = None, precision=None,
             A = _update_cols_ge(A, A2.with_local(
                 torch.addmm(A2.local, V_mc.local, W, alpha=-1)), (s, m),
                 (s, n), e)
+            tm.tick("update", k, A)
     _record_qr_nb(A, ib)
+    if hm is not None:
+        hm.report()
     tau = torch.cat(taus) if taus else A.local.new_zeros((0,))
     return A, tau
 
@@ -351,15 +383,13 @@ def least_squares(A: DistMatrix, B: DistMatrix, nb: int | None = None,
     """Minimize ||A X - B||_F for m >= n via QR (``El::LeastSquares``,
     dense path of ``src/lapack_like/euclidean_min/LeastSquares.cpp``):
     Q^H B via the packed reflectors, then a triangular solve against the
-    interior-extracted R.  ``abft`` belongs to a later slice and raises
-    ``NotImplementedError``."""
-    if abft is not None:
-        _not_ported("abft", abft, "checksum-guarded execution")
+    interior-extracted R.  ``abft`` threads through to :func:`qr`: the
+    factorization runs checksum-guarded with per-panel rollback."""
     _check_mcmr(A, B)
     m, n = A.gshape
     if m < n:
         raise ValueError("least_squares requires m >= n (tall)")
-    Ap, tau = qr(A, nb=nb, precision=precision)
+    Ap, tau = qr(A, nb=nb, precision=precision, abft=abft)
     Y = apply_q(Ap, tau, B, orient="C", nb=nb, precision=precision)
     R = make_trapezoidal(interior_view(Ap, (0, n), (0, n)), "U")
     Y1 = interior_view(Y, (0, n), (0, B.gshape[1]))

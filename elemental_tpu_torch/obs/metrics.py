@@ -1,0 +1,223 @@
+"""Metrics registry: counters, gauges, histograms -> ``obs_metrics/v1``.
+
+PyTorch port of ``elemental_tpu/obs/metrics.py``, whole (it is pure
+Python).  One :class:`MetricsRegistry` holds three families:
+
+  * counters   -- monotonically increasing totals (the resilience layer's
+                  ``health_checks`` / ``health_flags`` and the
+                  ``abft_checks`` / ``abft_violations`` /
+                  ``abft_recovered_panels`` family labelled by ``driver``
+                  in {lu, cholesky, qr});
+  * gauges     -- last-written values;
+  * histograms -- summary stats + a fixed log-ladder bucket table.
+
+Every series is keyed by (name, labels); labels are plain JSON-able
+scalars.  The process-global default registry (:data:`REGISTRY`) is what
+module-level :func:`inc` / :func:`observe` / :func:`set_gauge` write to;
+:func:`scoped` swaps a fresh registry in for a ``with`` block (the same
+isolation pattern as ``engine.redist_counts``), so tests read a clean
+slate without clearing global state.
+
+The JSON document (``obs_metrics/v1``) is the JAX package's::
+
+    {"schema": "obs_metrics/v1",
+     "counters":   [{"name": ..., "labels": {...}, "value": N}, ...],
+     "gauges":     [{"name": ..., "labels": {...}, "value": X}, ...],
+     "histograms": [{"name": ..., "labels": {...}, "count": N,
+                     "sum": S, "min": m, "max": M, "mean": S/N,
+                     "buckets": [{"le": sec|"+Inf", "count": cum}, ...]},
+                    ...],
+     ...caller metadata}
+
+Entries are sorted by (name, labels) so documents diff cleanly.
+"""
+from __future__ import annotations
+
+import contextlib
+import json
+import threading
+
+SCHEMA = "obs_metrics/v1"
+
+#: histogram bucket upper bounds, seconds (log ladder; +Inf is implicit)
+BUCKETS = (1e-6, 1e-5, 1e-4, 1e-3, 1e-2, 1e-1, 1.0, 10.0, 100.0)
+
+#: per-family ladders: byte-valued observations
+#: (``*_bytes``) and count-valued ones (``*_count``) get ladders in
+#: their own units instead of landing in the seconds ladder's top bucket
+BYTE_BUCKETS = (256, 4096, 65536, 1 << 20, 16 << 20, 256 << 20,
+                4 << 30, 64 << 30)
+COUNT_BUCKETS = (1, 2, 5, 10, 20, 50, 100, 1000, 10000)
+
+FAMILIES = {"seconds": BUCKETS, "bytes": BYTE_BUCKETS,
+            "count": COUNT_BUCKETS}
+
+#: explicit metric-name -> family registrations (suffix rules otherwise)
+_FAMILY_OVERRIDES: dict = {}
+
+
+def set_hist_family(name: str, family: str) -> None:
+    """Pin metric ``name``'s histogram ladder to ``family`` (one of
+    :data:`FAMILIES`); overrides the suffix-based default."""
+    if family not in FAMILIES:
+        raise ValueError(f"unknown family {family!r}; "
+                         f"expected one of {sorted(FAMILIES)}")
+    _FAMILY_OVERRIDES[name] = family
+
+
+def hist_family(name: str) -> str:
+    """Resolve a metric name's bucket family: explicit registration
+    first, then suffix convention (``*_bytes`` -> bytes, ``*_count`` /
+    ``*_calls`` -> count), else seconds."""
+    fam = _FAMILY_OVERRIDES.get(name)
+    if fam is not None:
+        return fam
+    if name.endswith("_bytes"):
+        return "bytes"
+    if name.endswith(("_count", "_calls")):
+        return "count"
+    return "seconds"
+
+
+def _label_key(labels: dict) -> tuple:
+    return tuple(sorted((str(k), v) for k, v in labels.items()))
+
+
+def _coerce(v):
+    """Labels must survive JSON round-trips losslessly."""
+    return v if isinstance(v, (str, int, float, bool)) or v is None else str(v)
+
+
+class MetricsRegistry:
+    """One in-process sink for counters/gauges/histograms.
+
+    Thread-safe: worker threads may write concurrently with the
+    submitting thread, so every read-modify-write
+    -- the counter add, the lazy histogram init, the bucket bump --
+    happens under one registry lock.  Reads snapshot under the same
+    lock, so ``to_doc`` never sees a half-updated histogram.
+    """
+
+    def __init__(self):
+        self._counters: dict = {}
+        self._gauges: dict = {}
+        # key -> [count, sum, min, max, [bucket counts], ladder, family]
+        self._hists: dict = {}
+        self._lock = threading.Lock()
+
+    # ---- writes ------------------------------------------------------
+    def inc(self, name: str, value: float = 1, **labels) -> None:
+        key = (name, _label_key(labels))
+        with self._lock:
+            self._counters[key] = self._counters.get(key, 0) + value
+
+    def set_gauge(self, name: str, value: float, **labels) -> None:
+        with self._lock:
+            self._gauges[(name, _label_key(labels))] = value
+
+    def observe(self, name: str, value: float, family: str | None = None,
+                **labels) -> None:
+        key = (name, _label_key(labels))
+        with self._lock:
+            h = self._hists.get(key)
+            if h is None:
+                fam = family if family is not None else hist_family(name)
+                ladder = FAMILIES.get(fam, BUCKETS)
+                h = self._hists[key] = [0, 0.0, None, None,
+                                        [0] * (len(ladder) + 1), ladder,
+                                        fam]
+            h[0] += 1
+            h[1] += value
+            h[2] = value if h[2] is None else min(h[2], value)
+            h[3] = value if h[3] is None else max(h[3], value)
+            for i, le in enumerate(h[5]):
+                if value <= le:
+                    h[4][i] += 1
+                    break
+            else:
+                h[4][-1] += 1
+
+    # ---- reads -------------------------------------------------------
+    def counter_value(self, name: str, **labels) -> float:
+        with self._lock:
+            return self._counters.get((name, _label_key(labels)), 0)
+
+    def counters(self, name: str | None = None) -> dict:
+        """{(name, labels-tuple): value}, optionally filtered by name."""
+        with self._lock:
+            return {k: v for k, v in self._counters.items()
+                    if name is None or k[0] == name}
+
+    def to_doc(self, **meta) -> dict:
+        """The stable ``obs_metrics/v1`` document (meta merges at top level)."""
+        def rows(table):
+            out = []
+            for (name, lk), v in sorted(table.items(), key=lambda kv: repr(kv[0])):
+                out.append({"name": name,
+                            "labels": {k: _coerce(v2) for k, v2 in lk},
+                            "value": v})
+            return out
+
+        with self._lock:
+            counters = dict(self._counters)
+            gauges = dict(self._gauges)
+            hist_snap = [(k, [h[0], h[1], h[2], h[3], list(h[4]), h[5],
+                              h[6]])
+                         for k, h in self._hists.items()]
+        hists = []
+        for (name, lk), h in sorted(hist_snap, key=lambda kv: repr(kv[0])):
+            cum, buckets = 0, []
+            for le, cnt in zip(h[5], h[4]):
+                cum += cnt
+                buckets.append({"le": le, "count": cum})
+            buckets.append({"le": "+Inf", "count": cum + h[4][-1]})
+            hists.append({"name": name,
+                          "labels": {k: _coerce(v) for k, v in lk},
+                          "count": h[0], "sum": h[1],
+                          "min": h[2], "max": h[3],
+                          "mean": (h[1] / h[0]) if h[0] else None,
+                          "family": h[6],
+                          "buckets": buckets})
+        doc = {"schema": SCHEMA, "counters": rows(counters),
+               "gauges": rows(gauges), "histograms": hists}
+        doc.update(meta)
+        return doc
+
+    def to_json(self, indent: int | None = None, **meta) -> str:
+        return json.dumps(self.to_doc(**meta), indent=indent)
+
+
+#: the process-global default registry
+REGISTRY = MetricsRegistry()
+
+_CURRENT: MetricsRegistry = REGISTRY
+
+
+def current() -> MetricsRegistry:
+    """The registry module-level writes currently target."""
+    return _CURRENT
+
+
+@contextlib.contextmanager
+def scoped(registry: MetricsRegistry | None = None):
+    """Swap a fresh (or given) registry in for the block and yield it."""
+    global _CURRENT
+    prev = _CURRENT
+    _CURRENT = registry if registry is not None else MetricsRegistry()
+    try:
+        yield _CURRENT
+    finally:
+        _CURRENT = prev
+
+
+def inc(name: str, value: float = 1, **labels) -> None:
+    _CURRENT.inc(name, value, **labels)
+
+
+def set_gauge(name: str, value: float, **labels) -> None:
+    _CURRENT.set_gauge(name, value, **labels)
+
+
+def observe(name: str, value: float, family: str | None = None,
+            **labels) -> None:
+    _CURRENT.observe(name, value, family=family, **labels)

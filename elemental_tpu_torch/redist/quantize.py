@@ -51,11 +51,24 @@ def _tile_counts(shape, tile: int):
 
 def _tiles(x, tile: int):
     """``x`` (..., lr, lc) zero-padded to whole tiles, as
-    (..., tr, tile, tc, tile)."""
+    (..., tr, tile, tc, tile).  A dimension that fits in one tile is its
+    own tile and is not padded: zero padding changes no tile's max |x|
+    and is cut off again, so the codec gives the same bits, and a small
+    block (a direct plan's slot) costs its own size, not a tile's."""
     lr, lc = x.shape[-2:]
     tr, tc = _tile_counts(x.shape, tile)
-    xp = torch.nn.functional.pad(x, (0, tc * tile - lc, 0, tr * tile - lr))
-    return xp.reshape(*x.shape[:-2], tr, tile, tc, tile)
+    hr = lr if tr == 1 else tile
+    hc = lc if tc == 1 else tile
+    xp = torch.nn.functional.pad(x, (0, tc * hc - lc, 0, tr * hr - lr))
+    return xp.reshape(*x.shape[:-2], tr, hr, tc, hc)
+
+
+def _untile(xb, shape):
+    """Inverse of :func:`_tiles`: (..., tr, hr, tc, hc) back to
+    (..., lr, lc)."""
+    tr, hr, tc, hc = xb.shape[-4:]
+    return xb.reshape(*xb.shape[:-4], tr * hr, tc * hc)[
+        ..., :shape[-2], :shape[-1]]
 
 
 def q8_encode(x, tile: int = QUANT_TILE, reciprocal: bool = False):
@@ -70,27 +83,20 @@ def q8_encode(x, tile: int = QUANT_TILE, reciprocal: bool = False):
     rewrites the division by the constant so inside the JAX engine's
     compiled programs, and the port's engine follows it to stay
     bit-equal (the JAX codec called op by op divides)."""
-    lr, lc = x.shape[-2:]
     xb = _tiles(x, tile)
     amax = xb.abs().amax(dim=(-3, -1)).to(torch.float32)
     # keep NaN/Inf amax (NaN == 0 is False): decode must not mask a tile
     amax = torch.where(amax == 0, torch.ones_like(amax), amax)
     scale = amax * _RECIP_127 if reciprocal else amax / 127.0
     q = torch.round(xb / scale[..., :, None, :, None].to(x.dtype))
-    q = q.clamp(-127, 127).to(torch.int8)
-    tr, tc = scale.shape[-2:]
-    q = q.reshape(*x.shape[:-2], tr * tile, tc * tile)[..., :lr, :lc]
+    q = _untile(q.clamp(-127, 127).to(torch.int8), x.shape)
     return q, scale
 
 
 def q8_decode(q, scales, dtype, tile: int = QUANT_TILE):
     """Inverse of :func:`q8_encode` (up to the documented error bound)."""
-    lr, lc = q.shape[-2:]
     qb = _tiles(q, tile).to(torch.float32)
-    xb = qb * scales[..., :, None, :, None]
-    tr, tc = scales.shape[-2:]
-    xb = xb.reshape(*q.shape[:-2], tr * tile, tc * tile)[..., :lr, :lc]
-    return xb.to(dtype)
+    return _untile(qb * scales[..., :, None, :, None], q.shape).to(dtype)
 
 
 def q8_packed_rows(shape, tile: int = QUANT_TILE) -> int:

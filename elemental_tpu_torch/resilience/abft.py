@@ -1,0 +1,813 @@
+"""ABFT checksum-guarded factorizations (Huang-Abraham).
+
+PyTorch port of ``elemental_tpu/resilience/abft.py``.  Every panel step
+of the guarded LU / Cholesky / QR maintains PER-COLUMN checksum vectors
+through the same redistribute / ``panel_spread`` / trailing-matmul path
+the unguarded schedule uses, and verifies the checksum invariants with
+one cheap reduction per region per panel.  A violated invariant marks
+the panel CORRUPTED; the :mod:`.recovery` panel-transaction layer then
+rolls the step back and re-executes only that panel (bounded retries),
+so a one-shot transient fault costs ONE recomputed panel -- one more
+launch of the panel's kernel -- instead of a whole O(n^3) re-solve.
+
+The invariants (all per-column sums, evaluated in global column order so
+any two distributions compare elementwise):
+
+  * **transport** -- ``colsum(X)`` is preserved by every redistribute /
+    ``panel_spread`` (data motion moves elements, it never changes
+    them); the ``[STAR,MR]`` adjoint of a spread satisfies
+    ``colsum(L21^H) == conj(rowsum(L21))``.
+  * **factor (LU)** -- ``colsum(P . panel) == colsum(L) @ U``: column
+    sums are invariant under row permutation, so the packed panel's
+    unit-lower/upper split must reproduce the gathered panel's sums.
+  * **factor (Cholesky)** -- ``colsum(L11 L11^H) == colsum(L11) @
+    L11^H`` against the symmetrized diagonal block.
+  * **factor (QR)** -- ``c(A) = c(Q R)``: the packed panel is the
+    compact-WY image ``(I - V T V^H) [R; 0]`` of the gathered columns,
+    so ``colsum(panel) == colsum(R) - cV @ (T @ (V1^H R))`` with
+    ``cV = 1^T V`` -- valid for BOTH the classic larfg recurrence and
+    the TSQR tree (the tree preserves column sums leaf-to-root, so one
+    check at reconstruction covers it; the packed ``(V, tau, R)`` is
+    self-consistent whichever panel produced it).
+  * **solve** -- ``colsum(L11 @ U12) == colsum(A12)`` (LU row-block
+    solve) / ``colsum(L21 L11^H) == colsum(A21)`` (Cholesky panel).
+  * **trailing update (Huang-Abraham)** -- ``colsum(A22') ==
+    colsum(A22) - colsum(L21) @ U12``, with ``colsum(L21)`` taken from
+    the REPLICATED packed panel so the prediction is independent of the
+    transported operands the update itself consumed.  QR's compact-WY
+    form obeys the same separable identity: ``1^T (V_mc W) == cV @ W``
+    with ``W = T^H (V^H A2)``, so the trailing colsums are pinned by
+    ``c(A2) - cV @ W`` with ``cV`` again from the replicated panel,
+    independent of the transported ``V_mc``.  (Cholesky's
+    masked-lower update has no separable column identity; its trailing
+    check is consistency-grade -- the predicted delta is reduced from
+    the update product itself -- while its fault surface is covered by
+    the transport/factor/solve checks above.)
+
+Per-column sums (not one scalar sum) are the detection contract: a
+single bit flip in an (m x n) region moves one COLUMN's sum by the
+element-scale change, a ~1/eps factor above the reduction-order noise
+floor of that column, where a whole-matrix scalar sum would bury the
+same signal under sqrt(m*n) accumulated rounding.
+
+Thresholds are relative to per-column mass (``sum |x|``): ``transport``
+checks use ``tol_factor * eps * sqrt(rows)`` (reduction-order noise
+only), ``compute`` checks ``tol_factor * eps * (nb + sqrt(rows))``
+(one blocked matmul of rounding).  With ``comm_precision`` set the wire
+is int8/bf16 block-scaled and every check widens by ``quant_slack``
+(default 0.25 relative) so quantization never false-positives --
+documented trade: quantized wire keeps nan/scale-class detection but
+may miss single-bitflip-class faults below the slack.
+
+Every check of an attempt stays on the device until
+:meth:`AbftGuard.end_attempt`, which stacks the attempt's prediction,
+actual and mass vectors and brings them to the host in ONE transfer;
+the comparison itself is the JAX package's, in float64 numpy.
+
+The JAX package also traces the guarded drivers under jit (its
+``_is_tracer`` branches count a traced check and never compare it, for
+the ``*_abft`` comm-plan goldens).  The port has no jit, so it has no
+such branch: every check is evaluated.
+
+``lu(..., abft=True)`` / ``cholesky(..., abft=True)`` /
+``qr(..., abft=True)`` dispatch here (``abft=`` also accepts a
+caller-owned :class:`AbftGuard`); ``abft=None`` never reaches this
+module.  The guarded schedule is the CLASSIC right-looking one on every
+grid, 1x1 included (lookahead / crossover / calu do not compose with
+per-panel transactions and are ignored; qr keeps its ``panel=`` choice
+-- both 'classic' and 'tsqr' are guarded).  Every write of a step is
+functional, so the step's input state survives a rolled-back attempt
+(see :mod:`.recovery`).
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+ABFT_SCHEMA = "abft_report/v1"
+
+#: base threshold multiple on eps (see module docstring)
+TOL_FACTOR = 64.0
+
+#: flat relative slack added to every check under quantized wire
+QUANT_SLACK = 0.25
+
+#: bounded retries per panel transaction (attempts = 1 + max_retries)
+MAX_RETRIES = 2
+
+
+# ---------------------------------------------------------------------
+# distribution-agnostic checksum reductions.  All return vectors in
+# GLOBAL column (or row) order, so sums of the same logical region under
+# different distributions compare elementwise; padding rows/cols are
+# masked out (the engine only guarantees padding stays zero on the paths
+# it owns).  Every global index appears once in the storage, so a
+# storage extent equal to the global one holds no padding and needs no
+# mask.
+# ---------------------------------------------------------------------
+
+def _indices(dm):
+    from ..blas.level1 import _global_indices
+    return _global_indices(dm)
+
+
+def _colsum(dm, absval: bool = False):
+    """Global-order per-column sums of a DistMatrix (any distribution)."""
+    I, J = _indices(dm)
+    gm, gn = dm.gshape
+    loc = dm.local
+    if loc.shape[0] != gm:
+        loc = torch.where((I < gm)[:, None], loc, 0)
+    part = torch.linalg.vector_norm(loc, 1, dim=0) if absval \
+        else loc.sum(0)
+    return _scatter_cols(part, J, gn)
+
+
+def _rowsum(dm):
+    """Global-order per-row sums of a DistMatrix."""
+    I, J = _indices(dm)
+    gm, gn = dm.gshape
+    loc = dm.local
+    if loc.shape[1] != gn:
+        loc = torch.where((J < gn)[None, :], loc, 0)
+    return _scatter_cols(loc.sum(1), I, gm)
+
+
+def _wcolsum(dm, w, absval: bool = False):
+    """``w @ dm`` in global column order: the checksum-row image of a
+    row-replicated operand (``[STAR,VR]`` / ``[STAR,MR]`` row blocks,
+    where local rows == global rows)."""
+    _, J = _indices(dm)
+    gn = dm.gshape[1]
+    loc = dm.local[:w.shape[0], :]
+    if absval:
+        part = w.abs() @ loc.abs()
+    else:
+        part = w @ loc
+    return _scatter_cols(part, J, gn)
+
+
+def _scatter_cols(partial, J, gn: int):
+    """Sum ``partial`` (one entry per storage column) into global order;
+    entries at padding indices (>= ``gn``) are dropped."""
+    ok = J < gn
+    return partial.new_zeros((gn,)).index_add_(
+        0, torch.where(ok, J, 0), torch.where(ok, partial, 0))
+
+
+def _arr_colsum(arr, rows: int, absval: bool = False):
+    """Per-column sums of a replicated storage tensor's first ``rows``
+    rows (replicated blocks carry their logical region contiguously)."""
+    a = arr[:rows, :]
+    return torch.linalg.vector_norm(a, 1, dim=0) if absval else a.sum(0)
+
+
+# ---------------------------------------------------------------------
+# the guard
+# ---------------------------------------------------------------------
+
+class _DeferredCheck:
+    """One recorded invariant: device vectors until host evaluation."""
+    __slots__ = ("name", "pred", "actual", "mass", "kind", "rows", "nb")
+
+    def __init__(self, name, pred, actual, mass, kind, rows, nb):
+        self.name = name
+        self.pred = pred
+        self.actual = actual
+        self.mass = mass
+        self.kind = kind
+        self.rows = rows
+        self.nb = nb
+
+
+class AbftGuard:
+    """Checksum bookkeeping + thresholds + the ``abft_report/v1`` doc.
+
+    Reusable as the ``abft=`` argument of ``lu`` / ``cholesky`` / ``qr``
+    (pass ``True`` for a driver-internal guard; the report then lands in
+    :func:`last_abft_report`).  One guard covers one driver invocation
+    (:meth:`begin` resets it)."""
+
+    def __init__(self, *, tol_factor: float = TOL_FACTOR,
+                 quant_slack: float = QUANT_SLACK,
+                 max_retries: int = MAX_RETRIES):
+        self.tol_factor = float(tol_factor)
+        self.quant_slack = float(quant_slack)
+        self.max_retries = max(int(max_retries), 0)
+        self.driver: str | None = None
+        self._eps = 1e-7
+        self._quant = False
+        self._report = None
+        self._reset_counters()
+
+    def _reset_counters(self):
+        self._pending: list[_DeferredCheck] = []
+        self._checks = 0
+        self._panels = 0
+        self._violations: list[dict] = []
+        self._recovered: list[int] = []
+        self._unrecovered: list[int] = []
+        self._recomputes = 0
+
+    # ---- driver binding ---------------------------------------------
+    def begin(self, driver: str, A, comm_precision=None) -> "AbftGuard":
+        from .health import _eps_of
+        self.driver = str(driver)
+        self._report = None
+        self._reset_counters()
+        dt = A.dtype
+        self._eps = _eps_of(dt) if dt.is_floating_point or dt.is_complex \
+            else 1e-7
+        # as in the JAX package: set by the knob, even on a 1x1 grid
+        # where the wire does nothing
+        self._quant = comm_precision is not None
+        return self
+
+    # ---- per-attempt recording --------------------------------------
+    def start_attempt(self) -> None:
+        self._pending = []
+
+    def check(self, name: str, pred, actual, mass=None,
+              kind: str = "transport", rows: int = 1, nb: int = 1) -> None:
+        """Record one deferred invariant: ``pred`` vs ``actual`` (global-
+        order checksum vectors), denominated by per-column ``mass``."""
+        self._checks += 1
+        self._pending.append(_DeferredCheck(name, pred, actual, mass,
+                                            kind, int(rows), int(nb)))
+
+    def end_attempt(self, step: int, attempt: int) -> list[dict]:
+        """Evaluate the attempt's checks on the host -> violation dicts.
+        The attempt's vectors cross to the host in one transfer."""
+        pending, self._pending = self._pending, []
+        if not pending:
+            return []
+        cplx = any(t.is_complex() for ck in pending
+                   for t in (ck.pred, ck.actual))
+        wide = torch.complex128 if cplx else torch.float64
+        parts = []
+        for ck in pending:
+            parts += [ck.pred.reshape(-1).to(wide),
+                      ck.actual.reshape(-1).to(wide)]
+            if ck.mass is not None:
+                parts.append(ck.mass.reshape(-1).to(wide))
+        flat = torch.cat(parts).cpu().numpy()
+        viols = []
+        at = 0
+        for ck in pending:
+            n = ck.pred.numel()
+            pred, actual = flat[at:at + n], flat[at + n:at + 2 * n]
+            at += 2 * n
+            mass = None
+            if ck.mass is not None:
+                mass = flat[at:at + n].real
+                at += n
+            if cplx and not ck.pred.is_complex():
+                pred, actual = pred.real, actual.real
+            v = self._evaluate(ck, pred, actual, mass, step, attempt)
+            if v is not None:
+                viols.append(v)
+        return viols
+
+    def _rtol(self, ck: _DeferredCheck) -> float:
+        base = self.tol_factor * self._eps
+        if ck.kind == "compute":
+            rtol = base * (ck.nb + math.sqrt(max(ck.rows, 1)))
+        else:
+            rtol = base * math.sqrt(max(ck.rows, 1))
+        if self._quant:
+            rtol += self.quant_slack
+        return rtol
+
+    def _evaluate(self, ck: _DeferredCheck, pred, actual, mass, step: int,
+                  attempt: int) -> dict | None:
+        mass = np.abs(mass) if mass is not None \
+            else np.zeros_like(np.abs(pred))
+        with np.errstate(over="ignore", invalid="ignore"):
+            err = np.abs(pred - actual)
+            floor = mass + np.abs(actual) + np.abs(pred)
+            den = floor + 1e-3 * (float(np.mean(floor))
+                                  if floor.size else 0.0) + 1e-30
+            rel = err / den
+        bad = ~np.isfinite(rel) | (rel > self._rtol(ck))
+        if not bool(bad.any()):
+            return None
+        finite = bool(np.isfinite(err).all())
+        worst = None if not finite else float(np.nanmax(rel))
+        return {"step": int(step), "attempt": int(attempt),
+                "phase": ck.name, "kind": ck.kind,
+                "value": worst, "nonfinite": not finite,
+                "columns": int(np.count_nonzero(bad))}
+
+    # ---- transaction outcomes (recovery.py drives these) -------------
+    def note_violation(self, viols: list[dict]) -> None:
+        self._violations.extend(viols)
+
+    def note_recompute(self) -> None:
+        self._recomputes += 1
+
+    def note_recovered(self, step: int) -> None:
+        self._recovered.append(int(step))
+
+    def note_unrecovered(self, step: int) -> None:
+        self._unrecovered.append(int(step))
+
+    def note_panel(self) -> None:
+        self._panels += 1
+
+    # ---- report ------------------------------------------------------
+    @property
+    def checks(self) -> int:
+        return self._checks
+
+    @property
+    def recompute_count(self) -> int:
+        """Panel re-executions (1 for a single recovered one-shot
+        fault)."""
+        return self._recomputes
+
+    def report(self, emit: bool = True) -> dict:
+        """The ``abft_report/v1`` document.  First emitting call bumps
+        ``abft_checks`` / ``abft_violations`` / ``abft_recovered_panels``
+        on the obs metrics registry; later calls return the cache."""
+        if self._report is not None:
+            return self._report
+        doc = {"schema": ABFT_SCHEMA, "driver": self.driver,
+               "ok": not self._unrecovered,
+               "panels": self._panels, "checks": self._checks,
+               "violations": list(self._violations),
+               "recovered_panels": sorted(set(self._recovered)),
+               "unrecovered_panels": sorted(set(self._unrecovered)),
+               "recompute_count": self._recomputes,
+               "max_retries": self.max_retries,
+               "quantized_wire": self._quant}
+        self._report = doc
+        if emit:
+            self._emit(doc)
+        return doc
+
+    def _emit(self, doc: dict) -> None:
+        from ..obs import metrics as _metrics
+        drv = doc["driver"] or "?"
+        _metrics.inc("abft_checks", doc["checks"], driver=drv)
+        if doc["violations"]:
+            _metrics.inc("abft_violations", len(doc["violations"]),
+                         driver=drv)
+        if doc["recovered_panels"]:
+            _metrics.inc("abft_recovered_panels",
+                         len(doc["recovered_panels"]), driver=drv)
+        _LAST[drv] = doc
+        _LAST["_latest"] = doc
+
+    def flag_health(self, monitor) -> None:
+        """Push unrecovered violations into a bound HealthMonitor so they
+        surface through the ``health_report/v1`` path (and from there
+        through ``certified_solve``)."""
+        if monitor is None or not self._unrecovered:
+            return
+        for v in self._violations:
+            if v["step"] in self._unrecovered:
+                monitor.flag("abft", v["phase"], v["step"], v["value"])
+
+
+#: most recent emitted abft report per driver (+ "_latest")
+_LAST: dict = {}
+
+
+def last_abft_report(driver: str | None = None) -> dict | None:
+    """The most recently emitted ``abft_report/v1`` (per driver, or the
+    latest overall with ``driver=None``)."""
+    return _LAST.get(driver if driver is not None else "_latest")
+
+
+def resolve_abft(abft) -> AbftGuard:
+    """The driver-facing ``abft=`` resolver: a caller-owned
+    :class:`AbftGuard` passes through, any other truthy value makes a
+    fresh driver-internal guard."""
+    return abft if isinstance(abft, AbftGuard) else AbftGuard()
+
+
+class _Ticks(list):
+    """One step's ticks, buffered per attempt and replayed after the step
+    commits, so health never sees a rolled-back attempt.  With no hook
+    attached (``keep=False``) nothing is buffered: a buffered tick would
+    hold a whole copy of the matrix alive until the step ends."""
+
+    def __init__(self, keep: bool):
+        super().__init__()
+        self.keep = keep
+
+    def add(self, phase: str, *arrays) -> None:
+        if self.keep:
+            self.append((phase, arrays))
+
+
+def _pad_cols(P, width: int):
+    return torch.nn.functional.pad(P, (0, width - P.shape[1])) \
+        if width > P.shape[1] else P
+
+
+# ---------------------------------------------------------------------
+# guarded LU (classic right-looking schedule + per-panel transactions)
+# ---------------------------------------------------------------------
+
+def abft_lu(A, nb=None, precision=None, update_precision=None,
+            comm_precision=None, timer=None, health=None, abft=True,
+            plan=None):
+    """Checksum-guarded LU with partial pivoting (see module docstring).
+
+    Same ``(packed LU, perm)`` contract as ``lapack.lu``; the schedule
+    is the classic right-looking one on every grid, and each operation
+    is the one ``lu(..., lookahead=False)`` runs on an r x c grid, so the
+    guarded factor is bit-equal to it there.  Reached via
+    ``lu(..., abft=)``."""
+    from ..core.dist import MC, MR, STAR, VR
+    from ..core.distmatrix import DistMatrix
+    from ..core.view import view
+    from ..redist.engine import apply_fault, redistribute
+    from ..blas.level3 import local_rank_update
+    from ..lapack.lu import (_apply_swaps_moved, _moved_rows,
+                             _panel_dispatch, _phase_hook,
+                             _unit_lower_inv, _update_cols_ge,
+                             _update_cols_lt)
+    from ..tune.policy import blocksize_policy as _blocksize
+    from ..obs.tracer import NULL_HOOK
+    from .recovery import run_step
+    from .health import attach_health
+
+    guard = resolve_abft(abft)
+    m, n = A.gshape
+    g = A.grid
+    guard.begin("lu", A, comm_precision=comm_precision)
+    tm = _phase_hook("lu", timer)
+    hm = None
+    if health:
+        tm, hm = attach_health("lu", health, tm, scale_from=A)
+    r, c = g.height, g.width
+    ib = _blocksize(nb, math.lcm(r, c), min(m, n))
+    kend = min(m, n)
+    upd = precision if update_precision is None else update_precision
+    cp = comm_precision
+    perm0 = torch.arange(m, device=A.local.device)
+    keep = tm is not NULL_HOOK
+    tm.start()
+
+    def col_up(e):
+        return min(-(-e // c) * c, n)
+
+    def step_fn(state, k, s):
+        A, perm = state
+        ticks = _Ticks(keep)
+        e = min(s + ib, kend)
+        nbw = e - s
+        e_up = col_up(e)
+        pan_v = view(A, rows=(s, m), cols=(s, e_up))
+        pan_sum = _colsum(pan_v)
+        pan_mass = _colsum(pan_v, absval=True)
+        panel = redistribute(pan_v, STAR, STAR, comm_precision=cp)
+        ploc = panel.local[:m - s, :e_up - s]
+        guard.check("panel_gather", pan_sum, ploc.sum(0),
+                    mass=pan_mass, kind="transport", rows=m - s)
+        Pf, pperm = _panel_dispatch(ploc[:, :nbw], nbw, precision, plan)
+        Pf, = apply_fault("compute", (Pf,))
+        # factor invariant: colsums survive the panel's row permutation
+        cL = Pf[:nbw].tril(-1).sum(0) + Pf[nbw:].sum(0) + 1.0
+        guard.check("panel", cL @ Pf[:nbw].triu(), ploc[:, :nbw].sum(0),
+                    mass=torch.linalg.vector_norm(ploc[:, :nbw], 1, dim=0),
+                    kind="compute", rows=m - s, nb=nbw)
+        perm = torch.cat((perm[:s], perm[s:].index_select(0, pperm)))
+        idx, src = _moved_rows(pperm, nbw)
+        valid = idx < (m - s)
+        A = _apply_swaps_moved(A, idx + s, src.clamp(0, m - s - 1) + s,
+                               valid)
+        ticks.add("swap", A)
+        Pf_w = _pad_cols(Pf, e_up - s)
+        Pf_ss = DistMatrix(Pf_w, (m - s, e_up - s), STAR, STAR, 0, 0, g)
+        pf_w = redistribute(Pf_ss, MC, MR)
+        guard.check("panel_write", Pf_w.sum(0), _colsum(pf_w),
+                    mass=torch.linalg.vector_norm(Pf_w, 1, dim=0),
+                    kind="transport", rows=m - s)
+        A = _update_cols_lt(A, pf_w, (s, m), (s, e_up), e)
+        if e >= n:
+            return (A, perm), Pf, pperm, ticks
+        Li11 = _unit_lower_inv(Pf[:nbw], nbw, precision)
+        a1n_v = view(A, rows=(s, e), cols=(s, n))
+        a1n_sum = _colsum(a1n_v)
+        a1n_mass = _colsum(a1n_v, absval=True)
+        A1n = redistribute(a1n_v, STAR, VR, comm_precision=cp)
+        guard.check("solve_gather", a1n_sum, _colsum(A1n),
+                    mass=a1n_mass, kind="transport", rows=nbw)
+        U1n = DistMatrix(Li11 @ A1n.local, (nbw, n - s), STAR, VR, 0, 0, g)
+        cL11 = Pf[:nbw].tril(-1).sum(0) + 1.0
+        guard.check("solve", _wcolsum(U1n, cL11), _colsum(A1n),
+                    mass=_wcolsum(U1n, cL11, absval=True) + a1n_mass,
+                    kind="compute", rows=nbw, nb=nbw)
+        del a1n_v, A1n          # views of this A: free it when A moves on
+        U1n_mr = redistribute(U1n, STAR, MR, comm_precision=cp)
+        guard.check("solve_move", _colsum(U1n), _colsum(U1n_mr),
+                    mass=_colsum(U1n, absval=True), kind="transport",
+                    rows=nbw)
+        u_w = redistribute(U1n_mr, MC, MR)
+        guard.check("u_write", _colsum(U1n_mr), _colsum(u_w),
+                    mass=_colsum(U1n_mr, absval=True), kind="transport",
+                    rows=nbw)
+        A = _update_cols_ge(A, u_w, (s, e), (s, n), e)
+        ticks.add("solve", U1n_mr)
+        if e < m:
+            t_view = view(A, rows=(e, m), cols=(e, n))
+            t_pre = _colsum(t_view)
+            t_mass = _colsum(t_view, absval=True)
+            del t_view
+            U12_mr = view(U1n_mr, cols=(e - s, n - s))
+            L21_ss = DistMatrix(Pf[nbw:], (m - e, nbw), STAR, STAR,
+                                0, 0, g)
+            L21_mc = redistribute(L21_ss, MC, STAR)
+            cL21 = Pf[nbw:].sum(0)
+            guard.check("l21_move", cL21, _colsum(L21_mc),
+                        mass=torch.linalg.vector_norm(Pf[nbw:], 1, dim=0),
+                        kind="transport", rows=m - e)
+            A = local_rank_update(A, L21_mc.local, U12_mr.local,
+                                  rows=(e, m), cols=(e, n), precision=upd)
+            # Huang-Abraham: predicted trailing colsums from the
+            # REPLICATED panel, measured against the updated block
+            delta = _wcolsum(U12_mr, cL21)
+            dmass = _wcolsum(U12_mr, cL21, absval=True)
+            guard.check("update", t_pre - delta,
+                        _colsum(view(A, rows=(e, m), cols=(e, n))),
+                        mass=t_mass + dmass, kind="compute",
+                        rows=m - e, nb=nbw)
+            ticks.add("update", A)
+        return (A, perm), Pf, pperm, ticks
+
+    state = (A, perm0)
+    for k, s in enumerate(range(0, kend, ib)):
+        state, Pf, pperm, ticks = run_step(
+            guard, k, lambda st: step_fn(st, k, s), state)
+        tm.tick("panel", k, Pf, pperm)
+        for phase, arrs in ticks:
+            tm.tick(phase, k, *arrs)
+        del ticks
+    guard.flag_health(hm)
+    guard.report()
+    if hm is not None:
+        hm.report()
+    return state
+
+
+# ---------------------------------------------------------------------
+# guarded Cholesky (classic LVar3 schedule + per-panel transactions)
+# ---------------------------------------------------------------------
+
+def abft_cholesky(A, nb=None, precision=None, comm_precision=None,
+                  timer=None, health=None, abft=True, plan=None):
+    """Checksum-guarded lower Cholesky (see module docstring).  Same
+    contract as ``lapack.cholesky(..., uplo='L')``, bit-equal to its
+    ``lookahead=False`` schedule on an r x c grid; reached via
+    ``cholesky(..., abft=)``."""
+    from ..core.dist import MC, MR, STAR, VC
+    from ..core.distmatrix import DistMatrix
+    from ..core.view import view, update_view
+    from ..redist.engine import panel_spread, redistribute
+    from ..blas.level1 import make_trapezoidal
+    from ..blas.level3 import _mask_triangle
+    from ..lapack.cholesky import _phase_hook, _potrf_inv
+    from ..tune.policy import blocksize_policy as _blocksize
+    from ..obs.tracer import NULL_HOOK
+    from .recovery import run_step
+    from .health import attach_health
+
+    guard = resolve_abft(abft)
+    m = A.gshape[0]
+    g = A.grid
+    guard.begin("cholesky", A, comm_precision=comm_precision)
+    tm = _phase_hook("cholesky", timer)
+    hm = None
+    if health:
+        tm, hm = attach_health("cholesky", health, tm, scale_from=A)
+    r, c = g.height, g.width
+    ib = _blocksize(nb, math.lcm(r, c), m)
+    cp = comm_precision
+    keep = tm is not NULL_HOOK
+    tm.start()
+
+    def step_fn(L, k, s):
+        ticks = _Ticks(keep)
+        e = min(s + ib, m)
+        w = e - s
+        a11_v = view(L, rows=(s, e), cols=(s, e))
+        a11_sum = _colsum(a11_v)
+        a11_mass = _colsum(a11_v, absval=True)
+        A11 = redistribute(a11_v, STAR, STAR, comm_precision=cp)
+        aloc = A11.local[:w, :w]
+        guard.check("diag_gather", a11_sum, aloc.sum(0),
+                    mass=a11_mass, kind="transport", rows=w)
+        L11, Li11 = _potrf_inv(A11.local, precision, plan=plan)
+        d = aloc.tril()
+        d = d + d.tril(-1).conj().mT
+        guard.check("diag", L11.sum(0) @ L11.mH, d.sum(0),
+                    mass=torch.linalg.vector_norm(d, 1, dim=0),
+                    kind="compute", rows=w, nb=w)
+        L11_ss = DistMatrix(L11, (w, w), STAR, STAR, 0, 0, g)
+        l11_w = redistribute(L11_ss, MC, MR)
+        guard.check("diag_write", L11.sum(0), _colsum(l11_w),
+                    mass=torch.linalg.vector_norm(L11, 1, dim=0),
+                    kind="transport", rows=w)
+        L = update_view(L, l11_w, rows=(s, e), cols=(s, e))
+        if e == m:
+            return L, L11, ticks
+        a21_v = view(L, rows=(e, m), cols=(s, e))
+        a21_sum = _colsum(a21_v)
+        a21_mass = _colsum(a21_v, absval=True)
+        A21_vc = redistribute(a21_v, VC, STAR, comm_precision=cp)
+        guard.check("panel_gather", a21_sum, _colsum(A21_vc),
+                    mass=a21_mass, kind="transport", rows=m - e)
+        x21 = A21_vc.local @ Li11.mH
+        L21_vc = DistMatrix(x21, (m - e, w), VC, STAR, 0, 0, g)
+        cx = _colsum(L21_vc)
+        cx_mass = _colsum(L21_vc, absval=True)
+        # panel solve invariant: colsum(L21 L11^H) == colsum(A21) --
+        # the check that catches a corrupted Li11 (the second output of
+        # the 'compute' fault seam)
+        guard.check("panel", cx @ L11.mH, _colsum(A21_vc),
+                    mass=a21_mass + cx_mass,
+                    kind="compute", rows=m - e, nb=w)
+        del a21_v, A21_vc       # views of this L: free it when L moves on
+        ticks.add("panel", L21_vc)
+        L21_mc, L21H_mr = panel_spread(L21_vc, conj=True,
+                                       comm_precision=cp)
+        guard.check("spread_mc", cx, _colsum(L21_mc), mass=cx_mass,
+                    kind="transport", rows=m - e)
+        guard.check("spread_mr", _rowsum(L21_vc).conj(),
+                    _colsum(L21H_mr), mass=_colsum(L21H_mr, absval=True),
+                    kind="transport", rows=w)
+        ticks.add("spread", L21_mc, L21H_mr)
+        A22 = view(L, rows=(e, m), cols=(e, m))
+        t_pre = _colsum(A22)
+        t_mass = _colsum(A22, absval=True)
+        upd = L21_mc.local @ L21H_mr.local
+        mask = _mask_triangle(A22, "L")
+        mupd = torch.where(mask, upd, 0)
+        # masked-lower update: no separable column identity, so the
+        # predicted delta reduces the update product itself
+        # (consistency-grade; operands are transport/solve-checked above)
+        delta = _colsum(A22.with_local(mupd))
+        dmass = _colsum(A22.with_local(mupd), absval=True)
+        del mupd
+        A22new = torch.where(mask, A22.local - upd, A22.local)
+        del upd, mask
+        L = update_view(L, A22.with_local(A22new), rows=(e, m),
+                        cols=(e, m))
+        del A22, A22new
+        guard.check("update", t_pre - delta,
+                    _colsum(view(L, rows=(e, m), cols=(e, m))),
+                    mass=t_mass + dmass, kind="compute",
+                    rows=m - e, nb=w)
+        l21_w = redistribute(L21_mc, MC, MR)
+        guard.check("panel_write", _colsum(L21_mc), _colsum(l21_w),
+                    mass=cx_mass, kind="transport", rows=m - e)
+        L = update_view(L, l21_w, rows=(e, m), cols=(s, e))
+        ticks.add("update", L)
+        return L, L11, ticks
+
+    L = A
+    for k, s in enumerate(range(0, m, ib)):
+        L, L11, ticks = run_step(guard, k, lambda st: step_fn(st, k, s), L)
+        tm.tick("diag", k, L11)
+        for phase, arrs in ticks:
+            tm.tick(phase, k, *arrs)
+        del ticks
+    guard.flag_health(hm)
+    guard.report()
+    if hm is not None:
+        hm.report()
+    return make_trapezoidal(L, "L")
+
+
+# ---------------------------------------------------------------------
+# guarded QR (blocked Householder schedule + per-panel transactions)
+# ---------------------------------------------------------------------
+
+def abft_qr(A, nb=None, precision=None, panel="classic",
+            comm_precision=None, timer=None, health=None, abft=True,
+            plan=None):
+    """Checksum-guarded blocked Householder QR (see module docstring).
+
+    Same ``(packed, tau)`` geqrf contract as ``lapack.qr``, bit-equal to
+    its r x c grid schedule; reached via ``qr(..., abft=)``.  ``panel``
+    keeps its 'classic'/'tsqr' meaning (the factor invariant only
+    consumes the self-consistent packed ``(V, tau, R)``, so the TSQR tree
+    is guarded by the same single reconstruction check); the panel
+    gathers ride the default route (``redist_path`` does not compose with
+    per-panel transactions and is ignored)."""
+    from ..core.dist import MC, MR, STAR
+    from ..core.distmatrix import DistMatrix
+    from ..core.view import view
+    from ..redist.engine import apply_fault, redistribute
+    from ..lapack.lu import _phase_hook, _update_cols_ge, _update_cols_lt
+    from ..lapack.qr import (_larft, _panel_qr_dispatch, _panel_qr_tsqr,
+                             _panel_v, _record_qr_nb)
+    from ..tune.policy import blocksize_policy as _blocksize
+    from ..obs.tracer import NULL_HOOK
+    from .recovery import run_step
+    from .health import attach_health
+
+    guard = resolve_abft(abft)
+    m, n = A.gshape
+    g = A.grid
+    guard.begin("qr", A, comm_precision=comm_precision)
+    tm = _phase_hook("qr", timer)
+    hm = None
+    if health:
+        tm, hm = attach_health("qr", health, tm, scale_from=A)
+    r, c = g.height, g.width
+    ib = _blocksize(nb, math.lcm(r, c), min(m, n))
+    kend = min(m, n)
+    cp = comm_precision
+    keep = tm is not NULL_HOOK
+    tm.start()
+
+    def step_fn(A, k, s):
+        ticks = _Ticks(keep)
+        e = min(s + ib, kend)
+        nbw = e - s
+        e_up = min(-(-e // c) * c, n)
+        pan_v = view(A, rows=(s, m), cols=(s, e_up))
+        pan_sum = _colsum(pan_v)
+        pan_mass = _colsum(pan_v, absval=True)
+        panel_ss = redistribute(pan_v, STAR, STAR, comm_precision=cp)
+        ploc = panel_ss.local[:m - s, :e_up - s]
+        guard.check("panel_gather", pan_sum, ploc.sum(0),
+                    mass=pan_mass, kind="transport", rows=m - s)
+        Tk = None
+        if panel == "tsqr":
+            Pf, tau = _panel_qr_tsqr(ploc[:, :nbw], r)
+        else:
+            Pf, tau, Tk = _panel_qr_dispatch(ploc[:, :nbw], plan)
+        Pf, = apply_fault("compute", (Pf,))
+        # factor invariant: panel = (I - V T V^H) [R; 0], so
+        # colsum(panel) == colsum(R) - cV @ (T @ (V1^H R))
+        V = _panel_v(Pf)
+        T = Tk if Tk is not None else _larft(V, tau)
+        R11 = Pf[:nbw].triu()
+        cV = V.sum(0)
+        rpred = R11.sum(0) - cV @ (T @ (V[:nbw].mH @ R11))
+        guard.check("panel", rpred, ploc[:, :nbw].sum(0),
+                    mass=torch.linalg.vector_norm(ploc[:, :nbw], 1, dim=0),
+                    kind="compute", rows=m - s, nb=nbw)
+        Pf_w = _pad_cols(Pf, e_up - s)
+        Pf_ss = DistMatrix(Pf_w, (m - s, e_up - s), STAR, STAR, 0, 0, g)
+        pf_w = redistribute(Pf_ss, MC, MR)
+        guard.check("panel_write", Pf_w.sum(0), _colsum(pf_w),
+                    mass=torch.linalg.vector_norm(Pf_w, 1, dim=0),
+                    kind="transport", rows=m - s)
+        A = _update_cols_lt(A, pf_w, (s, m), (s, e_up), e)
+        if e < n:
+            V_ss = DistMatrix(V, (m - s, nbw), STAR, STAR, 0, 0, g)
+            V_mc = redistribute(V_ss, MC, STAR)
+            guard.check("v_move", cV, _colsum(V_mc),
+                        mass=torch.linalg.vector_norm(V, 1, dim=0),
+                        kind="transport", rows=m - s)
+            A2 = view(A, rows=(s, m), cols=(s, n))
+            t_pre = _colsum(A2)
+            t_mass = _colsum(A2, absval=True)
+            W = V_mc.local.mH @ A2.local            # [STAR,MR] storage
+            W = T.mH @ W
+            # Huang-Abraham: 1^T (V_mc W) == cV @ W, cV from the
+            # REPLICATED panel -- independent of the transported V_mc.
+            # The strip's first nbw global columns hold the already-
+            # written packed panel; _update_cols_ge leaves them
+            # untouched, so their predicted delta is exactly zero.
+            _, J = _indices(A2)
+            beyond = torch.arange(n - s, device=W.device) >= nbw
+            delta = torch.where(beyond, _scatter_cols(cV @ W, J, n - s), 0)
+            dmass = torch.where(
+                beyond, _scatter_cols(cV.abs() @ W.abs(), J, n - s), 0)
+            A = _update_cols_ge(A, A2.with_local(
+                torch.addmm(A2.local, V_mc.local, W, alpha=-1)), (s, m),
+                (s, n), e)
+            del A2
+            guard.check("update", t_pre - delta,
+                        _colsum(view(A, rows=(s, m), cols=(s, n))),
+                        mass=t_mass + dmass, kind="compute",
+                        rows=m - s, nb=nbw)
+            ticks.add("update", A)
+        return A, Pf, tau, ticks
+
+    taus = []
+    for k, s in enumerate(range(0, kend, ib)):
+        # taus accumulate in the COMMIT loop, never inside the
+        # transaction body: a retried attempt must not double-append
+        A, Pf, tau, ticks = run_step(
+            guard, k, lambda st: step_fn(st, k, s), A)
+        taus.append(tau)
+        tm.tick("panel", k, Pf, tau)
+        for phase, arrs in ticks:
+            tm.tick(phase, k, *arrs)
+        del ticks
+    _record_qr_nb(A, ib)
+    guard.flag_health(hm)
+    guard.report()
+    if hm is not None:
+        hm.report()
+    return A, torch.cat(taus) if taus else A.local.new_zeros((0,))

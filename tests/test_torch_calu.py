@@ -44,6 +44,13 @@ def tgrid(r, c):
     return et.Grid(r, c, device="cpu")
 
 
+def _whole(fn, *args):
+    """A JAX reference compiled as one program.  Run eagerly, each op of
+    the blocked loops compiles on its own, which took most of this file's
+    time on the CPU; the compiled program gives the same numbers."""
+    return jax.jit(fn)(*args)
+
+
 def _resid(F, LUd, perm):
     LUh = et.to_global(LUd).numpy()
     m, n = LUh.shape
@@ -60,7 +67,8 @@ def _resid(F, LUd, perm):
                                        ((64, 16), 16), ((12, 6), 6)])
 def test_tournament_permutation_is_jax_exactly(r, shape, nbw):
     P = np.random.default_rng(60 + r).normal(size=shape)
-    want = np.asarray(jlu._tournament_pivots(jnp.asarray(P), nbw, r))
+    want = np.asarray(_whole(lambda p: jlu._tournament_pivots(p, nbw, r),
+                             jnp.asarray(P)))
     got = tlu._tournament_pivots(torch.as_tensor(P), nbw, r)
     assert got.dtype == torch.int64
     assert np.array_equal(got.numpy(), want)
@@ -74,7 +82,8 @@ def test_tournament_on_singular_and_padded_panels():
     P[:, 2] = 0.0
     P[::4] = 0.0
     for r in (2, 4, 7):
-        want = np.asarray(jlu._tournament_pivots(jnp.asarray(P), 6, r))
+        want = np.asarray(_whole(lambda p: jlu._tournament_pivots(p, 6, r),
+                                 jnp.asarray(P)))
         assert np.array_equal(
             tlu._tournament_pivots(torch.as_tensor(P), 6, r).numpy(), want)
 
@@ -89,7 +98,7 @@ def test_playoff_sweep_is_jax_exactly():
 @pytest.mark.parametrize("r", [1, 2, 4])
 def test_calu_panel_matches_jax(r):
     P = np.random.default_rng(5).normal(size=(48, 8))
-    jPf, jperm = jlu._calu_panel(jnp.asarray(P), 8, r)
+    jPf, jperm = _whole(lambda p: jlu._calu_panel(p, 8, r), jnp.asarray(P))
     tPf, tperm = tlu._calu_panel(torch.as_tensor(P), 8, r)
     assert np.array_equal(tperm.numpy(), np.asarray(jperm))
     np.testing.assert_allclose(tPf.numpy(), np.asarray(jPf), rtol=0,
@@ -102,8 +111,8 @@ def test_calu_panel_matches_jax(r):
 @pytest.mark.parametrize("shape", [(24, 24), (32, 20), (20, 32), (19, 19)])
 def test_calu_lu_matches_jax_on_2x2(kw, shape):
     F = np.random.default_rng(61).normal(size=shape)
-    jLU, jp = jlu.lu(el.from_global(F, el.MC, el.MR, jgrid(2, 2)), nb=8,
-                     panel="calu", **kw)
+    jLU, jp = _whole(lambda a: jlu.lu(a, nb=8, panel="calu", **kw),
+                     el.from_global(F, el.MC, el.MR, jgrid(2, 2)))
     tLU, tp = et.lu(et.from_global(F, et.MC, et.MR, tgrid(2, 2)), nb=8,
                     panel="calu", **kw)
     assert np.array_equal(tp.numpy(), np.asarray(jp))

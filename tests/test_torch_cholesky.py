@@ -100,17 +100,34 @@ def test_cholesky_reads_only_lower_triangle():
 @pytest.mark.parametrize("kw", [
     dict(nb="auto"), dict(lookahead="auto"), dict(crossover="auto"),
     dict(comm_precision="auto"), dict(redist_path="auto"),
-    dict(timer=object()), dict(health=True), dict(abft=True),
+    dict(timer=object()), dict(health=True, timer=object()),
+    dict(abft=True, timer=object()),
     dict(precision="bf16")], ids=lambda kw: next(iter(kw)))
 def test_later_slice_knobs_raise(kw):
+    """``timer`` and the ``'auto'`` knobs raise.  ``health`` and ``abft``
+    are ported: beside ``timer`` the call still raises (the guarded driver
+    would otherwise take it as its hook), and alone each knob reaches its
+    monitor or its guarded driver, which files a fresh report."""
     A = et.from_global(_hpd(8, np.float64), et.MC, et.MR, tgrid(1, 1))
     with pytest.raises(NotImplementedError, match="later slice"):
         et.cholesky(A, **kw)
+    knob = next(iter(kw))
+    if knob in ("health", "abft"):
+        last = {"health": et.resilience.last_health_report,
+                "abft": et.resilience.last_abft_report}[knob]
+        before = last("cholesky")
+        et.cholesky(A, **{knob: True})
+        rep = last("cholesky")
+        assert rep is not before and rep["driver"] == "cholesky" and rep["ok"]
 
 
 def test_hpd_solve_info_raises():
+    """``info=True`` is ported; it does not get a refused knob past the
+    driver."""
     g = tgrid(1, 1)
     A = et.from_global(_hpd(8, np.float64), et.MC, et.MR, g)
     B = et.from_global(np.ones((8, 1)), et.MC, et.MR, g)
     with pytest.raises(NotImplementedError, match="later slice"):
-        et.hpd_solve(A, B, info=True)
+        et.hpd_solve(A, B, nb="auto", info=True)
+    X, info = et.hpd_solve(A, B, info=True)
+    assert info == {"singular": False, "diag_index": None, "finite": True}

@@ -1,13 +1,13 @@
-"""Driver call-count parity: for every comm-plan golden whose driver and
-variant the port has (all but the ``*_abft`` ones, which wait for the
-resilience slice), the port's ``redist_trace`` label counts of the same
-call on the same grid equal the ``redistributes`` map of the JAX
-package's live trace of that call (``analysis.drivers.trace_driver``,
+"""Driver call-count parity: for every comm-plan golden (the ``*_abft``
+ones of the checksum-guarded drivers included), the port's
+``redist_trace`` label counts of the same call on the same grid equal
+the ``redistributes`` map of the JAX package's live trace of that call (``analysis.drivers.trace_driver``,
 which traces under ``jax.make_jaxpr`` and runs no collective).
 
 The live trace, not the golden file, is the reference: where a golden's
 map disagrees with it, that is a finding of the JAX package
 (ROADMAP section 3), and the golden stays as it is."""
+import functools
 import json
 import pathlib
 from collections import Counter
@@ -23,11 +23,11 @@ from elemental_tpu.analysis.drivers import (DEFAULT_N, DEFAULT_NB, DRIVERS,
 from elemental_tpu_torch.redist import engine as t_engine
 
 GOLDEN = pathlib.Path(__file__).parent / "golden" / "comm_plans"
-NAMES = sorted({p.name.split("__")[0] for p in GOLDEN.glob("*.json")
-                if "_abft" not in p.name.split("__")[0]})
+NAMES = sorted({p.name.split("__")[0] for p in GOLDEN.glob("*.json")})
 GRIDS = [(1, 1), (2, 2)]
 
 
+@functools.cache
 def _jax_labels(name, rc):
     grid = el.Grid(jax.devices()[: rc[0] * rc[1]], height=rc[0])
     _, _, log = trace_driver(name, grid)
@@ -73,15 +73,18 @@ def _port_call(name, rc):
         return et.cholesky(dm(_mat(n, kind="hpd")), nb=nb,
                            lookahead=meta["lookahead"],
                            crossover=meta["crossover"],
-                           comm_precision=meta["comm_precision"])
+                           comm_precision=meta["comm_precision"],
+                           abft=meta["abft"] or None)
     if name.startswith("lu"):
         return et.lu(dm(_mat(n)), nb=nb, lookahead=meta["lookahead"],
                      crossover=meta["crossover"], panel=meta["panel"],
-                     comm_precision=meta["comm_precision"])
+                     comm_precision=meta["comm_precision"],
+                     abft=meta["abft"] or None)
     if name.startswith("qr_lq"):
         return et.lq(dm(_mat(n)), nb=nb, redist_path=rp)
     if name.startswith("qr"):
-        return et.qr(dm(_mat(n)), nb=nb, panel=meta["panel"])
+        return et.qr(dm(_mat(n)), nb=nb, panel=meta["panel"],
+                     abft=meta.get("abft") or None)
     if name.startswith("redist_md"):
         m_, n_ = meta["extents"]
         B = et.redistribute(dm(_mat(m_, n_)), et.MD, et.STAR, path=rp)
@@ -94,7 +97,7 @@ def _port_call(name, rc):
 
 def test_every_golden_driver_has_a_port_twin():
     assert NAMES and set(NAMES) <= set(DRIVERS)
-    assert not [n for n in NAMES if "abft" in n]
+    assert {"lu_abft", "cholesky_abft", "qr_abft"} <= set(NAMES)
 
 
 @pytest.mark.parametrize("rc", GRIDS, ids=lambda rc: f"{rc[0]}x{rc[1]}")

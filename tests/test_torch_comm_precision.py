@@ -229,9 +229,10 @@ def test_lu_quantized_matches_jax_and_residual_class(mode, panel):
     bytes) equals the JAX package's record of the same call, in order."""
     n = 64
     F = np.random.default_rng(7).normal(size=(n, n)).astype(np.float32)
-    with j_engine.redist_trace() as jlog:
-        jLU, jp = el.lu(el.from_global(F, el.MC, el.MR, jgrid(2, 2)),
-                        nb=16, panel=panel, comm_precision=mode)
+    with j_engine.redist_trace() as jlog:      # records at trace time
+        jLU, jp = jax.jit(lambda a: el.lu(a, nb=16, panel=panel,
+                                          comm_precision=mode))(
+            el.from_global(F, el.MC, el.MR, jgrid(2, 2)))
     with t_engine.redist_trace() as tlog:
         tLU, tp = et.lu(et.from_global(F, et.MC, et.MR, tgrid(2, 2)),
                         nb=16, panel=panel, comm_precision=mode)

@@ -23,7 +23,11 @@ float32, and ``svd``, ``polar``, ``herk`` and ``bidiag`` to the same
 calls on the CPU.  ``ldl`` (one CUDA graph of its column) is held to the
 same call on the CPU and ``symmetric_solve`` to ``chip_smoke.py`` phase
 3g's gates; ``determinant``, ``glm``, ``ridge`` and ``riccati`` launch
-their kernels as often as the drivers' blocking says."""
+their kernels as often as the drivers' blocking says.  The guarded
+``lu`` / ``cholesky`` / ``qr`` recover from a one-shot fault with one
+more launch of their kernel and a factor bit-equal to the clean guarded
+run's, and ``certified_solve``'s compute-target escalation certifies at
+'abft' (n = 4096, as ``chip_smoke.py`` phase 3j does at full width)."""
 import sys
 
 import numpy as np
@@ -816,3 +820,114 @@ def test_direct_and_quantized_routes_on_the_card_match_the_cpu(cp):
                 Bc = et.redistribute(Sc, *dst, comm_precision=cp, path=path)
                 assert np.array_equal(et.storage_numpy(Bd),
                                       et.storage_numpy(Bc)), (src, dst, path)
+
+
+# ---------------------------------------------------------------------
+# the resilience layer on the card: each guarded driver recovers from a
+# one-shot fault at panel step 1 with one more launch of its kernel, its
+# factor bit-equal to the clean guarded run's; the compute-target
+# escalation of certified_solve certifies at 'abft'; a bit flip under
+# the compute threshold goes unseen
+# ---------------------------------------------------------------------
+
+_GUARDED_N, _GUARDED_NB = 4096, 512
+
+
+def _guarded_run(rc, op):
+    """A guarded run of ``op`` at n = 4096, nb = 512 on the card: returns
+    a function giving (factor storage, pivots or tau, kernel launches,
+    abft report) for a fresh call."""
+    from elemental_tpu_torch.resilience import last_abft_report
+    n = _GUARDED_N
+    kern = {"lu": lu_panel, "hpd": potrf_inv, "qr": qr_panel}[op]
+    driver = {"lu": "lu", "hpd": "cholesky", "qr": "qr"}[op]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    M = torch.randn(n, n, generator=gen, device="cuda")
+    if op == "hpd":
+        M = M @ M.T / n + n * torch.eye(n, device="cuda")
+    A = et.from_global(M, et.MC, et.MR, et.Grid(*rc))
+
+    def run():
+        kern.launches = 0
+        out = getattr(et, driver)(A, nb=_GUARDED_NB, abft=True)
+        F = out[0] if isinstance(out, tuple) else out
+        extra = out[1] if isinstance(out, tuple) else None
+        return F.local, extra, kern.launches, last_abft_report(driver)
+    return run
+
+
+@pytest.mark.parametrize("op,target,kind", [
+    ("lu", "compute", "scale"), ("lu", "redistribute", "nan"),
+    ("hpd", "compute", "scale"), ("qr", "compute", "scale"),
+    ("qr", "redistribute", "nan")])
+@pytest.mark.parametrize("rc", [(1, 1), (2, 2)],
+                         ids=lambda rc: f"{rc[0]}x{rc[1]}")
+def test_guarded_driver_recovers_on_the_card(rc, op, target, kind):
+    _need_card()
+    from elemental_tpu_torch.resilience import (FaultPlan, FaultSpec,
+                                                fault_injection)
+    n, nb = _GUARDED_N, _GUARDED_NB
+    run = _guarded_run(rc, op)
+    F0, x0, k0, rep0 = run()
+    assert k0 == n // nb and rep0["ok"] and rep0["violations"] == []
+    plan = FaultPlan(seed=7, faults=[FaultSpec(target, kind, nelem=2,
+                                               window=(1, 2))])
+    with fault_injection(plan):
+        F1, x1, k1, rep1 = run()
+    assert plan.fired() >= 1
+    assert k1 == n // nb + 1
+    assert sorted({v["step"] for v in rep1["violations"]}) == [1]
+    assert rep1["recompute_count"] == 1 and rep1["recovered_panels"] == [1]
+    assert torch.equal(F0, F1)
+    if x0 is not None:
+        assert torch.equal(x0, x1)
+
+
+@pytest.mark.parametrize("op", ["lu", "qr"])
+@pytest.mark.parametrize("rc", [(1, 1), (2, 2)],
+                         ids=lambda rc: f"{rc[0]}x{rc[1]}")
+def test_guarded_driver_misses_a_small_bitflip_on_the_card(rc, op):
+    """A two-element bit flip in computed panel 1 moves its columns' sums
+    by less than the compute threshold, 64 eps (nb + sqrt(rows)) of a
+    column's mass (the JAX package's): the guard reports a clean run,
+    recomputes nothing, and hands back a factor unlike the clean one.
+    Pinned, so that a change of the threshold shows either way."""
+    _need_card()
+    from elemental_tpu_torch.resilience import (FaultPlan, FaultSpec,
+                                                fault_injection)
+    n, nb = _GUARDED_N, _GUARDED_NB
+    run = _guarded_run(rc, op)
+    F0, _, _, _ = run()
+    plan = FaultPlan(seed=7, faults=[FaultSpec("compute", "bitflip",
+                                               nelem=2, window=(1, 2))])
+    with fault_injection(plan):
+        F1, _, k1, rep1 = run()
+    assert plan.fired() == 1 and k1 == n // nb
+    assert rep1["ok"] and rep1["violations"] == []
+    assert rep1["recompute_count"] == 0
+    assert not torch.equal(F0, F1)
+
+
+def test_compute_escalation_certifies_at_abft_on_the_card():
+    _need_card()
+    from elemental_tpu_torch.resilience import (FaultPlan, FaultSpec,
+                                                certified_solve,
+                                                fault_injection)
+    n, nb = 4096, 512
+    S = _spd(n, torch.float32)
+    g = et.Grid()
+    A = et.from_global(S, et.MC, et.MR, g)
+    B = et.from_global(torch.ones(n, 4, device="cuda"), et.MC, et.MR, g)
+    per = n // nb
+    plan = FaultPlan(seed=5, faults=[FaultSpec("compute", "nan", call=0),
+                                     FaultSpec("compute", "nan", call=per)])
+    potrf_inv.launches = 0
+    with fault_injection(plan):
+        X, info = certified_solve("hpd", A, B, nb=nb)
+    assert info["certified"] and info["rung"] == "abft"
+    assert [a["rung"] for a in info["attempts"]] == ["quant", "fast",
+                                                     "refine", "abft"]
+    assert [a["health"]["ok"] for a in info["attempts"][:2]] == [False,
+                                                                 False]
+    assert potrf_inv.launches == 3 * per

@@ -159,13 +159,26 @@ def test_panel_impl_torch_and_inners_match_default_on_cpu():
 @pytest.mark.parametrize("kw", [
     dict(nb="auto"), dict(lookahead="auto"), dict(crossover="auto"),
     dict(panel="auto"), dict(comm_precision="auto"),
-    dict(redist_path="auto"), dict(timer=object()), dict(health=True),
-    dict(abft=True), dict(precision="bf16"), dict(update_precision="bf16")],
+    dict(redist_path="auto"), dict(timer=object()),
+    dict(health=True, timer=object()), dict(abft=True, timer=object()),
+    dict(precision="bf16"), dict(update_precision="bf16")],
     ids=lambda kw: next(iter(kw)))
 def test_later_slice_knobs_raise(kw):
+    """``timer`` and the ``'auto'`` knobs raise.  ``health`` and ``abft``
+    are ported: beside ``timer`` the call still raises (the guarded driver
+    would otherwise take it as its hook), and alone each knob reaches its
+    monitor or its guarded driver, which files a fresh report."""
     A = et.from_global(_mat((8, 8)), et.MC, et.MR, tgrid(1, 1))
     with pytest.raises(NotImplementedError, match="later slice"):
         et.lu(A, **kw)
+    knob = next(iter(kw))
+    if knob in ("health", "abft"):
+        last = {"health": et.resilience.last_health_report,
+                "abft": et.resilience.last_abft_report}[knob]
+        before = last("lu")
+        et.lu(A, **{knob: True})
+        rep = last("lu")
+        assert rep is not before and rep["driver"] == "lu" and rep["ok"]
 
 
 def test_calu_on_a_multi_row_grid_and_info_raise():
@@ -178,6 +191,6 @@ def test_calu_on_a_multi_row_grid_and_info_raise():
     L, U = np.tril(F, -1) + np.eye(8), np.triu(F)
     np.testing.assert_allclose(L @ U, _mat((8, 8))[perm.numpy()], atol=1e-12)
     with pytest.raises(NotImplementedError, match="later slice"):
-        et.lu_solve(A, B, info=True)
+        et.lu_solve(A, B, nb="auto", info=True)
     with pytest.raises(ValueError, match="panel strategy"):
         et.lu(A, panel="tree")

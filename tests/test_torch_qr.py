@@ -197,12 +197,25 @@ def test_panel_impl_torch_matches_default_on_cpu():
 @pytest.mark.parametrize("kw", [
     dict(nb="auto"), dict(panel="tsqr", redist_path="auto"),
     dict(panel="auto"), dict(comm_precision="auto"), dict(redist_path="auto"),
-    dict(timer=object()), dict(health=True), dict(abft=True),
+    dict(timer=object()), dict(health=True, timer=object()),
+    dict(abft=True, timer=object()),
     dict(precision="bf16")], ids=lambda kw: f"{next(iter(kw))}")
 def test_later_slice_knobs_raise(kw):
+    """``timer`` and the ``'auto'`` knobs raise.  ``health`` and ``abft``
+    are ported: beside ``timer`` the call still raises (the guarded driver
+    would otherwise take it as its hook), and alone each knob reaches its
+    monitor or its guarded driver, which files a fresh report."""
     A = et.from_global(_mat((8, 8)), et.MC, et.MR, tgrid(1, 1))
     with pytest.raises(NotImplementedError, match="later slice"):
         et.qr(A, **kw)
+    knob = next(iter(kw))
+    if knob in ("health", "abft"):
+        last = {"health": et.resilience.last_health_report,
+                "abft": et.resilience.last_abft_report}[knob]
+        before = last("qr")
+        et.qr(A, **{knob: True})
+        rep = last("qr")
+        assert rep is not before and rep["driver"] == "qr" and rep["ok"]
 
 
 def test_other_later_slice_knobs_and_bad_panel():
@@ -210,7 +223,7 @@ def test_other_later_slice_knobs_and_bad_panel():
     A = et.from_global(_mat((8, 4)), et.MC, et.MR, g)
     B = et.from_global(_mat((8, 1)), et.MC, et.MR, g)
     with pytest.raises(NotImplementedError, match="later slice"):
-        et.least_squares(A, B, abft=True)
+        et.least_squares(A, B, nb="auto", abft=True)
     with pytest.raises(NotImplementedError, match="later slice"):
         et.lq(A, redist_path="auto")
     with pytest.raises(ValueError, match="panel strategy"):

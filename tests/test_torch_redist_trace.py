@@ -8,6 +8,7 @@ record (label, path, rounds, wire_bytes, wire_dtype, fallback_reason,
 dtype, shapes) equal the JAX engine's.  The JAX side is traced under
 ``jax.make_jaxpr`` (the records are trace-time metadata), so no
 collective runs."""
+import functools
 from collections import Counter
 
 import jax
@@ -59,20 +60,35 @@ def _aligns(src, dst, r, c, aligned):
     return one(src, True), one(dst, False)
 
 
-def _jax_entry(rc, src, dst, cp, path, aligned, dtype=np.float64):
-    """(counts, record) of one JAX redistribute entry, traced."""
+@functools.cache
+def _jax_entries(rc, src, cp, path, aligned, dtype):
+    """{dst: (counts, record)} of the JAX engine's redistribute from
+    ``src`` to every legal pair, traced in ONE ``jax.make_jaxpr`` (once
+    per module): each entry runs in its own counting and recording scope,
+    so it counts and records exactly as a trace of it alone does."""
     g = jgrid(*rc)
-    sal, dal = _aligns(src, dst, *rc, aligned)
     shp = storage_shape(*SHAPE, *_jp(src), g)
     spec = jax.ShapeDtypeStruct(shp, dtype)
+    out = {}
 
     def fn(a):
-        A = JDM(a, SHAPE, *_jp(src), *sal, g)
-        return jax_engine.redistribute(A, *_jp(dst), *dal, comm_precision=cp,
-                                       path=path).local
-    with jax_engine.redist_counts() as cnt, jax_engine.redist_trace() as log:
-        jax.make_jaxpr(fn)(spec)
-    return cnt, log[0]
+        res = []
+        for dst in PAIRS:
+            sal, dal = _aligns(src, dst, *rc, aligned)
+            A = JDM(a, SHAPE, *_jp(src), *sal, g)
+            with jax_engine.redist_counts() as cnt, \
+                    jax_engine.redist_trace() as log:
+                res.append(jax_engine.redistribute(
+                    A, *_jp(dst), *dal, comm_precision=cp, path=path).local)
+            out[dst] = (cnt, log[0])
+        return res
+    jax.make_jaxpr(fn)(spec)
+    return out
+
+
+def _jax_entry(rc, src, dst, cp, path, aligned, dtype=np.float64):
+    """(counts, record) of one JAX redistribute entry, traced."""
+    return _jax_entries(rc, src, cp, path, aligned, np.dtype(dtype))[dst]
 
 
 def _port_entry(rc, src, dst, cp, path, aligned, dtype=torch.float64):

@@ -36,6 +36,13 @@ def tgrid(r, c):
     return et.Grid(r, c, device="cpu")
 
 
+def _whole(fn, *args):
+    """A JAX reference compiled as one program.  Run eagerly, each op of
+    the blocked loops compiles on its own, which took most of this file's
+    time on the CPU; the compiled program gives the same numbers."""
+    return jax.jit(fn)(*args)
+
+
 def _close(a, b, tol=1e-12):
     a, b = np.asarray(a), np.asarray(b)
     assert a.shape == b.shape
@@ -47,11 +54,11 @@ def _close(a, b, tol=1e-12):
 @pytest.mark.parametrize("shape", [(24, 8), (19, 13), (30, 6)])
 def test_tree_and_panel_match_jax(r, shape):
     P = np.random.default_rng(70 + r).normal(size=shape)
-    jQ1, jR = jqr._tsqr_tree(jnp.asarray(P), r)
+    jQ1, jR = _whole(lambda p: jqr._tsqr_tree(p, r), jnp.asarray(P))
     tQ1, tR = tqr._tsqr_tree(torch.as_tensor(P), r)
     _close(tQ1.numpy(), jQ1)
     _close(tR.numpy(), jR)
-    jpk, jtau = jqr._panel_qr_tsqr(jnp.asarray(P), r)
+    jpk, jtau = _whole(lambda p: jqr._panel_qr_tsqr(p, r), jnp.asarray(P))
     tpk, ttau = tqr._panel_qr_tsqr(torch.as_tensor(P), r)
     _close(tpk.numpy(), jpk)
     _close(ttau.numpy(), jtau)
@@ -60,7 +67,7 @@ def test_tree_and_panel_match_jax(r, shape):
 def test_complex_panel_matches_jax():
     rng = np.random.default_rng(73)
     P = rng.normal(size=(20, 6)) + 1j * rng.normal(size=(20, 6))
-    jpk, jtau = jqr._panel_qr_tsqr(jnp.asarray(P), 2)
+    jpk, jtau = _whole(lambda p: jqr._panel_qr_tsqr(p, 2), jnp.asarray(P))
     tpk, ttau = tqr._panel_qr_tsqr(torch.as_tensor(P), 2)
     _close(tpk.numpy(), jpk)
     _close(ttau.numpy(), jtau)
@@ -74,12 +81,12 @@ def test_reconstruction_lu_matches_jax(n):
     W = rng.normal(size=(n + 9, n)) + np.vstack([n * np.eye(n),
                                                  np.zeros((9, n))])
     _close(tlu._lu_nopiv(torch.as_tensor(W[:n])).numpy(),
-           jlu._lu_nopiv(jnp.asarray(W[:n])))
+           _whole(jlu._lu_nopiv, jnp.asarray(W[:n])))
     U = np.triu(W[:n])
     _close(tlu._upper_inv(torch.as_tensor(U), n).numpy(),
-           jlu._upper_inv(jnp.asarray(U), n))
+           _whole(lambda u: jlu._upper_inv(u, n), jnp.asarray(U)))
     _close(tlu._nopiv_panel(torch.as_tensor(W), n).numpy(),
-           jlu._nopiv_panel(jnp.asarray(W), n))
+           _whole(lambda w: jlu._nopiv_panel(w, n), jnp.asarray(W)))
 
 
 @pytest.mark.parametrize("rc", [(1, 1), (2, 2)],
@@ -88,8 +95,8 @@ def test_reconstruction_lu_matches_jax(n):
                                       ((19, 13), 4)])
 def test_blocked_tsqr_matches_jax(rc, shape, nb):
     F = np.random.default_rng(71).normal(size=shape)
-    jAp, jtau = jqr.qr(el.from_global(F, el.MC, el.MR, jgrid(*rc)), nb=nb,
-                       panel="tsqr")
+    jAp, jtau = _whole(lambda a: jqr.qr(a, nb=nb, panel="tsqr"),
+                       el.from_global(F, el.MC, el.MR, jgrid(*rc)))
     tAp, ttau = et.qr(et.from_global(F, et.MC, et.MR, tgrid(*rc)), nb=nb,
                       panel="tsqr")
     _close(et.storage_numpy(tAp), jAp.local)
@@ -170,10 +177,12 @@ def test_tsqr_least_squares_matches_jax_on_2x2():
     rng = np.random.default_rng(76)
     F, B = rng.normal(size=(30, 10)), rng.normal(size=(30, 2))
     jg, tg = jgrid(2, 2), tgrid(2, 2)
-    jAp, jtau = jqr.qr(el.from_global(F, el.MC, el.MR, jg), nb=4,
-                       panel="tsqr")
-    jY = jqr.apply_q(jAp, jtau, el.from_global(B, el.MC, el.MR, jg),
-                     orient="C")
+
+    def ref(a, b):
+        jAp, jtau = jqr.qr(a, nb=4, panel="tsqr")
+        return jqr.apply_q(jAp, jtau, b, orient="C")
+    jY = _whole(ref, el.from_global(F, el.MC, el.MR, jg),
+                el.from_global(B, el.MC, el.MR, jg))
     tAp, ttau = et.qr(et.from_global(F, et.MC, et.MR, tg), nb=4, panel="tsqr")
     tY = et.apply_q(tAp, ttau, et.from_global(B, et.MC, et.MR, tg),
                     orient="C")
@@ -212,7 +221,7 @@ def test_tree_panel_never_reaches_the_panel_kernel(monkeypatch):
 @pytest.mark.parametrize("shape", [(40, 6), (23, 5), (9, 4)])
 def test_standalone_tsqr_matches_jax(rc, shape):
     F = np.random.default_rng(80).normal(size=shape)
-    jQ, jR = jqr.tsqr(el.from_global(F, el.VC, el.STAR, jgrid(*rc)))
+    jQ, jR = _whole(jqr.tsqr, el.from_global(F, el.VC, el.STAR, jgrid(*rc)))
     tQ, tR = et.tsqr(et.from_global(F, et.VC, et.STAR, tgrid(*rc)))
     assert tQ.dist == (et.VC, et.STAR) and tR.dist == (et.STAR, et.STAR)
     _close(et.storage_numpy(tQ), jQ.local)
