@@ -105,6 +105,20 @@ Phases, each of which raises on failure:
    certificate's backward error under phase 3's solve limit 1e-4;
    ``hpd_solve`` / ``lu_solve`` with ``health=True, info=True`` beside
    phases 3 and 3b;
+3k. the tuner on the card, against an empty cache in a temporary
+   directory: cold resolutions of every knob ``'auto'`` for ``cholesky``,
+   ``lu``, ``qr``, ``trsm``, ``herk`` and ``gemm`` on the 1x1 grid at the
+   flagship sizes, each equal to the config the CPU computes for a 'gpu'
+   context (:data:`TUNER_PINS`), timed cold and on a memo hit;
+   ``hpd_solve`` / ``lu_solve`` / ``least_squares`` with ``nb='auto'`` on
+   phase 3 / 3b / 3c's inputs (16 launches of their kernel, bit-equal to
+   ``nb=2048``, the gates of 3 / 3b / 3c) and ``cholesky`` with four
+   ``'auto'`` knobs (bit-equal to 3's factor); ``gemm(A, B)`` with its
+   defaults at 65536 x 512 x 512 (bit-equal to ``alg='dot'``, timed
+   beside ``torch.matmul``); the card's full-f32 matmul rate and memory
+   beside the tuner's 'gpu' row; and ``measure.search`` of ``cholesky``
+   and ``lu`` (top 4, 2 reps) whose winner the next resolution reads
+   back from the cache and ``hpd_solve(nb='auto')`` then runs under;
 4. the distributed branches: ``hpd_solve`` and ``lu`` + ``lu_solve_after``
    on a virtual 2x2 grid on the card, N = 1024 float64, nb = 128, with
    and without the crossover, against ``torch.linalg.solve``;
@@ -2950,6 +2964,357 @@ def phase_resilience(et, card: str, main_path: dict, lu_path: dict,
     return res
 
 
+#: phase 3k's cold resolutions on the 1x1 CUDA grid, every knob of the op
+#: 'auto' (bench.py's requested dicts): the op, its dims and the config
+#: the tuner must pick.  tests/test_torch_tune_cost_model.py computes the
+#: same resolutions on the CPU (a 'gpu' context) and pins them here.
+TUNER_PINS = {
+    "cholesky": ((32768, 32768),
+                 {"nb": 2048, "lookahead": True, "crossover": 4096,
+                  "comm_precision": None, "redist_path": None,
+                  "panel_impl": "kernel"}),
+    "lu": ((32768, 32768),
+           {"nb": 2048, "lookahead": True, "crossover": 4096,
+            "panel": "classic", "comm_precision": None, "redist_path": None,
+            "panel_impl": "kernel"}),
+    "qr": ((65536, 32768),
+           {"nb": 2048, "panel": "classic", "comm_precision": None,
+            "redist_path": None, "panel_impl": "kernel"}),
+    "trsm": ((32768, 8), {"nb": 2048, "comm_precision": None,
+                          "redist_path": None}),
+    "herk": ((32768, 2048), {"nb": 512, "comm_precision": None,
+                             "redist_path": None}),
+    "gemm": ((65536, 512, 512), {"alg": "dot", "nb": 64,
+                                 "comm_precision": None,
+                                 "redist_path": None}),
+}
+
+
+def _resolve_timed(et, op, dims, grid, requested) -> tuple:
+    """(resolution, cold seconds, memo-hit seconds) of one resolve."""
+    import torch
+    t0 = time.perf_counter()
+    res = et.tune.resolve(op, gshape=dims, dtype=torch.float32, grid=grid,
+                          requested=requested)
+    cold = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again = et.tune.resolve(op, gshape=dims, dtype=torch.float32, grid=grid,
+                            requested=requested)
+    hit = time.perf_counter() - t0
+    if again is not res:
+        raise AssertionError(f"3k: the second resolve of {op} missed the "
+                             "memo")
+    return res, cold, hit
+
+
+def _same(x, y) -> bool:
+    """Bit equality of two results that are tensors or DistMatrix es."""
+    import torch
+    x, y = getattr(x, "local", x), getattr(y, "local", y)
+    return torch.equal(x, y)
+
+
+def _solve_pair(fn_auto, fn_explicit, kern, want: dict, label: str) -> tuple:
+    """Run the 'auto' call with every launch counter at 0, gate its
+    launches, then the explicit call; returns (auto result, explicit
+    result, auto seconds, launches)."""
+    import torch
+    for k in kern:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn_auto()
+    torch.cuda.synchronize()
+    t_auto = time.perf_counter() - t0
+    launches = _counts_now(*kern)
+    if launches != want:
+        raise AssertionError(f"3k {label}: launches {launches}, expected "
+                             f"{want}")
+    ref = fn_explicit()
+    torch.cuda.synchronize()
+    return out, ref, t_auto, launches
+
+
+def phase_tuner(et, card: str, main_path: dict, lu_path: dict,
+                qr_path: dict) -> dict:
+    """The tuner on the card: cold resolutions pinned to the CPU's, the
+    three flagships and gemm with 'auto' knobs (launch counts, bit-equal
+    to the explicit calls, the gates of 3 / 3b / 3c), and a measured
+    search whose winner the next resolution reads back from the cache."""
+    import os
+    import shutil
+    import tempfile
+    import torch
+    from elemental_tpu_torch.kernels import lu_panel, potrf_inv, qr_panel
+    from elemental_tpu_torch.tune import cache as tcache
+    from elemental_tpu_torch.tune import measure
+    from elemental_tpu_torch.tune.cost_model import machine_for
+    kern = (lu_panel, potrf_inv, qr_panel)
+    grid = et.Grid()
+    res: dict = {}
+    tmp = tempfile.mkdtemp(prefix="tune_cache_")
+    old = os.environ.get(tcache.ENV_DIR)
+    os.environ[tcache.ENV_DIR] = tmp
+    et.tune.clear_memo()
+    try:
+        # 1. cold resolutions, every knob 'auto', then a memo hit
+        for op, (dims, pin) in TUNER_PINS.items():
+            requested = {k: "auto" for k in et.tune.OPS[op].knobs}
+            r, cold, hit = _resolve_timed(et, op, dims, grid, requested)
+            row = {"dims": list(dims), "config": r.config,
+                   "source": r.source, "cold_s": cold, "memo_hit_s": hit}
+            print(f"phase 3k resolve {op} " + json.dumps(row), flush=True)
+            if r.source != "cost_model" or r.config != pin:
+                raise AssertionError(f"3k: {op} resolved {r.config} "
+                                     f"({r.source}), the CPU pins {pin}")
+            res[f"resolve_{op}"] = row
+
+        # 2. the flagships through 'auto' (phase 3 / 3b / 3c's inputs)
+        (N, _), chol = TUNER_PINS["cholesky"]
+        nrhs, nb = 8, chol["nb"]
+        Ag, gen = _spd(N, torch.float32, seed=0)
+        Bg = torch.randn(N, nrhs, generator=gen, device="cuda")
+        A = et.from_global(Ag, et.MC, et.MR, grid)
+        B = et.from_global(Bg, et.MC, et.MR, grid)
+        del Ag
+        X, Xe, t, n = _solve_pair(
+            lambda: et.hpd_solve(A, B, nb="auto"),
+            lambda: et.hpd_solve(A, B, nb=nb), kern,
+            {"lu_panel": 0, "potrf_inv": N // nb, "qr_panel": 0},
+            "hpd_solve")
+        if not torch.equal(X.local, Xe.local):
+            raise AssertionError(f"3k: hpd_solve(nb='auto') differs from "
+                                 f"nb={nb}")
+        del Xe
+        for k in kern:
+            k.launches = 0
+        F = et.cholesky(A, nb="auto", lookahead="auto", crossover="auto",
+                        panel_impl="auto")
+        torch.cuda.synchronize()
+        chol_launches = _counts_now(*kern)
+        if not torch.equal(F.local, et.cholesky(A, nb=nb).local):
+            raise AssertionError(f"3k: cholesky('auto' x4) differs from "
+                                 f"nb={nb}")
+        a, l, x = A.local, F.local, X.local
+        v = torch.randn(N, 1, generator=gen, device="cuda")
+        norm_a = torch.linalg.norm(a)
+        factor_res = float(torch.linalg.norm(a @ v - l @ (l.T @ v))
+                           / (norm_a * torch.linalg.norm(v)))
+        solve_res = float(torch.linalg.norm(a @ x - B.local)
+                          / (norm_a * torch.linalg.norm(x)))
+        if not (factor_res < 1e-3 and solve_res < 1e-4
+                and bool(torch.isfinite(x).all())):
+            raise AssertionError(f"3k hpd_solve: factor residual "
+                                 f"{factor_res:.3e}, solve residual "
+                                 f"{solve_res:.3e}")
+        res["hpd_solve"] = {"launches": n, "s": t,
+                            "phase3_s": main_path.get("hpd_solve_s"),
+                            "factor_residual": factor_res,
+                            "solve_residual": solve_res, "bit_equal": True,
+                            "cholesky_launches": chol_launches}
+        print("phase 3k hpd_solve " + json.dumps(res["hpd_solve"]),
+              flush=True)
+        del F, X, A, B, a, l, x
+
+        (N, _), lu_pin = TUNER_PINS["lu"]
+        nb = lu_pin["nb"]
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        Ag = torch.randn(N, N, generator=gen, device="cuda")
+        Bg = torch.randn(N, nrhs, generator=gen, device="cuda")
+        A = et.from_global(Ag, et.MC, et.MR, grid)
+        B = et.from_global(Bg, et.MC, et.MR, grid)
+        X, Xe, t, n = _solve_pair(
+            lambda: et.lu_solve(A, B, nb="auto", panel="auto"),
+            lambda: et.lu_solve(A, B, nb=nb), kern,
+            {"lu_panel": N // nb, "potrf_inv": 0, "qr_panel": 0},
+            "lu_solve")
+        if not torch.equal(X.local, Xe.local):
+            raise AssertionError(f"3k: lu_solve(nb='auto') differs from "
+                                 f"nb={nb}")
+        del Xe
+        # every knob 'auto' but the wire and the route, which stay pinned
+        # to None: its own resolution, held to the explicit pinned call
+        (LU, perm), (LUe, perme), t_lu, n_lu = _solve_pair(
+            lambda: et.lu(A, nb="auto", lookahead="auto", crossover="auto",
+                          panel="auto", panel_impl="auto"),
+            lambda: et.lu(A, **lu_pin), kern,
+            {"lu_panel": N // nb, "potrf_inv": 0, "qr_panel": 0},
+            "lu('auto' x5)")
+        if not (torch.equal(LU.local, LUe.local) and _same(perm, perme)):
+            raise AssertionError(f"3k: lu('auto' x5) differs from {lu_pin}")
+        del LUe, perme
+        g = _lu_gates(et, Ag, LU, perm, X, Bg, gen)
+        if not (g["factor_residual"] < 1e-3
+                and max(g["hpl_scaled_residuals"]) < 16 and g["finite"]):
+            raise AssertionError(f"3k lu_solve gates {g}")
+        res["lu_solve"] = {"launches": n, "s": t,
+                           "phase3b_s": lu_path.get("lu_solve_s"),
+                           "bit_equal": True, "lu_auto_launches": n_lu,
+                           "lu_auto_s": t_lu, **g}
+        print("phase 3k lu_solve " + json.dumps(res["lu_solve"]), flush=True)
+        del LU, perm, X, A, B, Ag, Bg
+
+        (m, n_), qr_pin = TUNER_PINS["qr"]
+        nb = qr_pin["nb"]
+        gen.manual_seed(0)
+        A = et.from_global(torch.randn(m, n_, generator=gen, device="cuda"),
+                           et.MC, et.MR, grid)
+        B = et.from_global(torch.randn(m, nrhs, generator=gen, device="cuda"),
+                           et.MC, et.MR, grid)
+        X, Xe, t, n = _solve_pair(
+            lambda: et.least_squares(A, B, nb="auto"),
+            lambda: et.least_squares(A, B, nb=nb), kern,
+            {"lu_panel": 0, "potrf_inv": 0, "qr_panel": n_ // nb},
+            "least_squares")
+        if not torch.equal(X.local, Xe.local):
+            raise AssertionError(f"3k: least_squares(nb='auto') differs "
+                                 f"from nb={nb}")
+        del Xe
+        (Ap, tau), (Ape, taue), t_qr, n_qr = _solve_pair(
+            lambda: et.qr(A, nb="auto", panel="auto", panel_impl="auto"),
+            lambda: et.qr(A, **qr_pin), kern,
+            {"lu_panel": 0, "potrf_inv": 0, "qr_panel": n_ // nb},
+            "qr('auto' x3)")
+        if Ap._qr_nb != nb:
+            raise AssertionError(f"3k: qr('auto') blocked at {Ap._qr_nb}")
+        if not (torch.equal(Ap.local, Ape.local) and _same(tau, taue)):
+            raise AssertionError(f"3k: qr('auto' x3) differs from {qr_pin}")
+        del Ape, taue
+        factor_res, orth, optimality = _ls_gates(
+            et, grid, A.local, Ap.local, Ap, tau, X.local, B.local, gen)
+        if not (factor_res < 1e-3 and orth < 1e-4 and optimality < 1e-4
+                and bool(torch.isfinite(X.local).all())):
+            raise AssertionError(f"3k least_squares: factor residual "
+                                 f"{factor_res:.3e}, orthogonality "
+                                 f"{orth:.3e}, optimality {optimality:.3e}")
+        res["least_squares"] = {"launches": n, "s": t,
+                                "phase3c_s": qr_path.get("least_squares_s"),
+                                "bit_equal": True, "qr_auto_launches": n_qr,
+                                "qr_auto_s": t_qr,
+                                "factor_residual": factor_res,
+                                "orthogonality": orth,
+                                "normal_equations_optimality": optimality}
+        print("phase 3k least_squares " + json.dumps(res["least_squares"]),
+              flush=True)
+        del Ap, tau, X, A, B
+
+        # 3. gemm with its defaults (alg='auto' -> 'dot' on 1x1)
+        mg, kg, ng = TUNER_PINS["gemm"][0]
+        gen.manual_seed(4)
+        a = torch.randn(mg, kg, generator=gen, device="cuda")
+        b = torch.randn(kg, ng, generator=gen, device="cuda")
+        Ad = et.from_global(a, et.MC, et.MR, grid)
+        Bd = et.from_global(b, et.MC, et.MR, grid)
+        for k in kern:
+            k.launches = 0
+        C = et.gemm(Ad, Bd)
+        gemm_launches = _counts_now(*kern)
+        if not torch.equal(C.local, et.gemm(Ad, Bd, alg="dot").local):
+            raise AssertionError("3k: gemm(A, B) differs from alg='dot'")
+        rel = float(torch.linalg.norm(C.local - a @ b)
+                    / torch.linalg.norm(a @ b))
+        # where the default call's time goes: the resolver on the host
+        # (default against alg='dot'), the wrapper on the device ('dot'
+        # against one matmul: C's zero fill and the alpha scaling, timed
+        # alone on tensors of the product's shape)
+        d = a @ b
+        calls = {"default": lambda: et.gemm(Ad, Bd),
+                 "dot": lambda: et.gemm(Ad, Bd, alg="dot"),
+                 "matmul": lambda: torch.matmul(a, b),
+                 "zeros_C": lambda: torch.zeros(mg, ng, device="cuda"),
+                 "alpha_scale": lambda: 1.0 * d}
+        ms = {k: [] for k in calls}
+        for k in list(calls) + list(calls)[::-1]:
+            ms[k].append(_time_ms(calls[k], 5))
+        knobs = {"alg": "auto", "nb": None, "comm_precision": None,
+                 "redist_path": None}
+        et.tune.resolve_knobs("gemm", gshape=(mg, kg, ng), dtype=C.dtype,
+                              grid=grid, knobs=knobs)
+        t0 = time.perf_counter()
+        for _ in range(1000):
+            et.tune.resolve_knobs("gemm", gshape=(mg, kg, ng), dtype=C.dtype,
+                                  grid=grid, knobs=knobs)
+        hit_us = (time.perf_counter() - t0) * 1e3
+        res["gemm"] = {"ms": ms["default"], "dot_ms": ms["dot"],
+                       "matmul_ms": ms["matmul"],
+                       "zeros_C_ms": ms["zeros_C"],
+                       "alpha_scale_ms": ms["alpha_scale"],
+                       "resolve_hit_us": hit_us,
+                       "rel_to_matmul": rel, "bit_equal": True,
+                       "launches": gemm_launches}
+        print("phase 3k gemm(A, B) " + json.dumps(res["gemm"]), flush=True)
+        del a, b, d, Ad, Bd, C
+
+        # the card against the 'gpu' row of the machine model
+        lat = measure._latency(torch.device("cuda"))
+        mm = machine_for("gpu")
+        res["card_vs_model"] = {
+            "matmul_f32_tflops_n8192": measure._roofline(
+                lat, torch.device("cuda"), n=8192),
+            "model_peak_tflops": mm.peak_flops / 1e12,
+            "total_memory_bytes": torch.cuda.get_device_properties(
+                0).total_memory,
+            "model_hbm_bytes": mm.hbm_bytes}
+        print("phase 3k card vs model " + json.dumps(res["card_vs_model"]),
+              flush=True)
+
+        # 4. measure, record, read back from the cache, then clear
+        for op in ("cholesky", "lu"):
+            dims = TUNER_PINS[op][0]
+            t0 = time.perf_counter()
+            winner, measured, key = measure.search(
+                op, dims, grid, torch.float32, top=4, reps=2)
+            t_search = time.perf_counter() - t0
+            table = [[m_.config, m_.seconds * 1e3, m_.tflops,
+                      m_.roofline_tflops] for m_ in measured]
+            print(f"phase 3k search {op} " + json.dumps(
+                {"s": t_search, "key": key.filename(),
+                 "table (config, ms, TFLOP/s, roofline TFLOP/s)": table}),
+                flush=True)
+            requested = {k: "auto" for k in et.tune.OPS[op].knobs}
+            back = et.tune.resolve(op, gshape=dims, dtype=torch.float32,
+                                   grid=grid, requested=requested)
+            if back.source != "cache" or back.config != winner.config:
+                raise AssertionError(f"3k: {op} resolved {back.config} "
+                                     f"({back.source}) after the search, "
+                                     f"winner {winner.config}")
+            res[f"search_{op}"] = {"s": t_search, "winner": winner.config,
+                                   "winner_ms": winner.seconds * 1e3,
+                                   "measured": len(measured)}
+        N = TUNER_PINS["cholesky"][0][0]
+        nb_w = res["search_cholesky"]["winner"]["nb"]
+        Ag, gen = _spd(N, torch.float32, seed=0)
+        Bg = torch.randn(N, nrhs, generator=gen, device="cuda")
+        A = et.from_global(Ag, et.MC, et.MR, grid)
+        B = et.from_global(Bg, et.MC, et.MR, grid)
+        del Ag
+        for k in kern:
+            k.launches = 0
+        X = et.hpd_solve(A, B, nb="auto")
+        torch.cuda.synchronize()
+        want = {"lu_panel": 0, "potrf_inv": -(-N // nb_w), "qr_panel": 0}
+        if _counts_now(*kern) != want:
+            raise AssertionError(f"3k: hpd_solve under the measured winner "
+                                 f"launched {_counts_now(*kern)}, expected "
+                                 f"{want}")
+        res["hpd_solve_cached"] = {"launches": _counts_now(*kern),
+                                   "nb": nb_w}
+        del X, A, B
+        removed = et.tune.clear_cache()
+        if removed != 2 or et.tune.cache_entries():
+            raise AssertionError(f"3k: clear_cache removed {removed}")
+        res["cleared"] = removed
+    finally:
+        if old is None:
+            os.environ.pop(tcache.ENV_DIR, None)
+        else:
+            os.environ[tcache.ENV_DIR] = old
+        et.tune.clear_memo()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2993,6 +3358,7 @@ def main() -> int:
     calu_tsqr = timed("3i", phase_calu_tsqr, et, card, lu_path, qr_path)
     resilience = timed("3j", phase_resilience, et, card, main_path, lu_path,
                        qr_path)
+    tuner = timed("3k", phase_tuner, et, card, main_path, lu_path, qr_path)
     t4 = time.perf_counter()
     phase_distributed(et)
     phase_lu_distributed(et)
@@ -3036,7 +3402,8 @@ def main() -> int:
                                       ("3e", svd_path), ("3g", ldl_path))
                if d.get(key)}
         for ph, rest in (("3f", svd_rest), ("3h", ldl_rest),
-                         ("3i", calu_tsqr), ("3j", resilience)):
+                         ("3i", calu_tsqr), ("3j", resilience),
+                         ("3k", tuner)):
             for step, d in rest.items():
                 if isinstance(d, dict) and d.get("launches", {}).get(name):
                     out[f"{ph} {step}"] = d["launches"][name]

@@ -39,7 +39,10 @@ plans, the quantized wire (``comm_precision='bf16'`` / ``'int8'``) and
 monitors behind ``health=``, the checksum-guarded ``lu`` / ``cholesky``
 / ``qr`` behind ``abft=`` with per-panel rollback, seeded fault
 injection, and ``certified_solve``'s escalation ladder), with the obs
-metrics registry.
+metrics registry; and the tuner (``tune``: every ``'auto'`` knob of the
+drivers and the engine resolves through the knob spaces, the persistent
+tuning cache and an analytic cost model, with measurement on the card and
+``python -m elemental_tpu_torch.tune``).
 
 The package imports ``torch`` and numpy only -- never ``jax`` and nothing
 of ``elemental_tpu``.
@@ -88,6 +91,6 @@ from .lapack.props import (determinant, safe_determinant, hpd_determinant,
                            two_norm_estimate, condition, nuclear_norm,
                            schatten_norm, two_norm)
 from .matrices import identity
-from . import blas, lapack, control, kernels, entry, obs, resilience
+from . import blas, lapack, control, kernels, entry, obs, resilience, tune
 
 __version__ = "0.1.0"

@@ -35,7 +35,7 @@ from ..obs.tracer import NULL_HOOK as _NULL_HOOK, phase_hook as _phase_hook
 from ..redist.engine import panel_spread, redistribute, transpose_dist
 from ..redist.plan import gemm_slice_plans
 from ..redist.quantize import check_comm_precision
-from ..tune.policy import blocksize_policy as _blocksize
+from ..tune.policy import blocksize_policy as _blocksize, resolve_auto
 from .level1 import _global_indices, get_diagonal, make_symmetric
 
 
@@ -97,20 +97,13 @@ def gemm(A: DistMatrix, B: DistMatrix, alpha=1.0, beta=0.0,
     of the sums.  ``comm_precision`` (``None`` | ``'bf16'`` | ``'int8'``)
     and ``redist_path`` (``None`` | ``'chain'`` | ``'direct'``) select the
     wire precision and route of the panel moves, as in the JAX driver
-    ('slice' always takes the one-shot plans).  ``alg='auto'`` and
-    ``'auto'`` for ``nb`` / ``comm_precision`` / ``redist_path`` need the
-    tuner (a later slice) and raise ``NotImplementedError``.  The
-    ``BlockMatrix`` read-proxy of the JAX package waits for
-    ``core/block.py``."""
+    ('slice' always takes the one-shot plans).  ``alg='auto'`` (the
+    default) and ``'auto'`` for ``nb`` / ``comm_precision`` /
+    ``redist_path`` resolve through the tuner (:mod:`..tune`: measured
+    cache first, analytic cost model cold; on a 1x1 grid ``'dot'``, one
+    local matmul).  The ``BlockMatrix`` read-proxy of the JAX package
+    waits for ``core/block.py``."""
     check_precision(precision, A.local, B.local)
-    if alg == "auto" or isinstance(nb, str) or comm_precision == "auto" \
-            or redist_path == "auto":
-        raise NotImplementedError(
-            f"gemm alg={alg!r} nb={nb!r} comm_precision={comm_precision!r} "
-            f"redist_path={redist_path!r}: 'auto' needs the tuner (a later "
-            "slice); name an alg and an int nb")
-    check_comm_precision(comm_precision)
-    cp, rp = comm_precision, redist_path
     A = _orient(A, orient_a)
     B = _orient(B, orient_b)
     _check_mcmr(A, B)
@@ -128,6 +121,11 @@ def gemm(A: DistMatrix, B: DistMatrix, alpha=1.0, beta=0.0,
         _check_mcmr(A, B, C)
         if C.gshape != (m, n):
             raise ValueError(f"C shape {C.gshape} != ({m},{n})")
+    alg, nb, comm_precision, redist_path = resolve_auto(
+        "gemm", (m, k, n), C.dtype, A.grid, alg=alg, nb=nb,
+        comm_precision=comm_precision, redist_path=redist_path).values()
+    check_comm_precision(comm_precision)
+    cp, rp = comm_precision, redist_path
     if alg == "C":
         return _summa_c(alpha, A, B, beta, C, nb, cp, rp)
     if alg == "A":
@@ -288,20 +286,17 @@ def herk(uplo: str, A: DistMatrix, alpha=1.0, beta=0.0,
     grid).  ``comm_precision`` selects the wire precision of the panel
     moves; ``redist_path='direct'`` replaces the [VC,STAR] hop + spread
     by one one-shot gather to [STAR,STAR] and two local filters.
-    ``'auto'`` for ``nb`` / ``comm_precision`` / ``redist_path`` needs
-    the tuner (a later slice) and raises ``NotImplementedError``."""
+    ``'auto'`` for ``nb`` / ``comm_precision`` / ``redist_path`` resolves
+    through the tuner (:mod:`..tune`)."""
     check_precision(precision, A.local)
-    if isinstance(nb, str) or comm_precision == "auto" \
-            or redist_path == "auto":
-        raise NotImplementedError(
-            f"herk nb={nb!r} comm_precision={comm_precision!r} "
-            f"redist_path={redist_path!r}: 'auto' needs the tuner (a later "
-            "slice)")
-    check_comm_precision(comm_precision)
     if orient != "N":
         A = _orient(A, "C" if conj else "T")
     _check_mcmr(A)
     m, k = A.gshape
+    nb, comm_precision, redist_path = resolve_auto(
+        "herk", (m, k), A.dtype, A.grid, nb=nb,
+        comm_precision=comm_precision, redist_path=redist_path).values()
+    check_comm_precision(comm_precision)
     g = A.grid
     fresh = C is None
     if fresh:
@@ -478,15 +473,12 @@ def trsm(side: str, uplo: str, orient: str, A: DistMatrix, B: DistMatrix,
     (X op(A) = B  <=>  op(A)^T X^T = B^T).  ``comm_precision`` selects
     the wire precision of the panel moves and ``redist_path`` their route
     (the entry/exit transposes of a right-side solve included).
-    ``'auto'`` for ``nb`` / ``comm_precision`` / ``redist_path`` needs
-    the tuner (a later slice) and raises ``NotImplementedError``."""
+    ``'auto'`` for ``nb`` / ``comm_precision`` / ``redist_path`` resolves
+    through the tuner (:mod:`..tune`) as op ``'trsm'`` on B's shape."""
     check_precision(precision, A.local, B.local)
-    if isinstance(nb, str) or comm_precision == "auto" \
-            or redist_path == "auto":
-        raise NotImplementedError(
-            f"trsm nb={nb!r} comm_precision={comm_precision!r} "
-            f"redist_path={redist_path!r}: 'auto' needs the tuner (a later "
-            "slice)")
+    nb, comm_precision, redist_path = resolve_auto(
+        "trsm", B.gshape, B.dtype, B.grid, nb=nb,
+        comm_precision=comm_precision, redist_path=redist_path).values()
     check_comm_precision(comm_precision)
     cp, rp = comm_precision, redist_path
     tm = _phase_hook("trsm")

@@ -49,7 +49,7 @@ from ..blas.level3 import _check_mcmr, _mask_triangle, trsm
 from ..kernels import potrf_inv as _kernel_potrf_inv
 from ..kernels import potrf_inv_reference, resolve_panel
 from ..obs.tracer import NULL_HOOK as _NULL_TIMER, phase_hook as _phase_hook
-from ..tune.policy import blocksize_policy as _blocksize
+from ..tune.policy import blocksize_policy as _blocksize, resolve_auto
 
 #: Trailing-matrix size at which the distributed loop gathers the tail and
 #: finishes locally (look-ahead schedule only, unless overridden).
@@ -166,16 +166,9 @@ def _not_ported(name: str, value, what: str) -> None:
 
 def _check_knobs(nb, lookahead, crossover, comm_precision, redist_path,
                  timer) -> None:
-    """Refuse the knobs of later slices -- ``'auto'`` (the tuner) and
-    ``timer`` -- and check the wire and route knobs."""
-    for name, v in (("nb", nb), ("lookahead", lookahead),
-                    ("crossover", crossover)):
-        if isinstance(v, str):
-            _not_ported(name, v, "the tuner ('auto')")
-    for name, v in (("comm_precision", comm_precision),
-                    ("redist_path", redist_path)):
-        if v == "auto":
-            _not_ported(name, v, "the tuner ('auto')")
+    """Check the wire and route knobs (``'auto'`` is resolved by the
+    caller before this) and refuse ``timer``, the phase tracer of a later
+    slice."""
     check_comm_precision(comm_precision)
     if redist_path not in REDIST_PATHS:
         raise ValueError(f"redist_path must be one of {REDIST_PATHS}, got "
@@ -203,7 +196,8 @@ def cholesky(A: DistMatrix, uplo: str = "L", nb: int | None = None,
     ``panel_impl`` (``None`` | ``'auto'`` | ``'torch'`` | ``'kernel'``)
     selects the diagonal-block factor/inverse implementation; ``None`` and
     ``'auto'`` take the CUDA kernel for a real dtype on the card and the
-    plain PyTorch version elsewhere (see :mod:`..kernels`).
+    plain PyTorch version elsewhere (``None`` by device, see
+    :mod:`..kernels`; ``'auto'`` through the tuner).
 
     ``precision`` is ``None`` or ``'highest'`` (full float32/float64
     arithmetic); on the card ``torch.backends.cuda.matmul.allow_tf32``
@@ -223,10 +217,22 @@ def cholesky(A: DistMatrix, uplo: str = "L", nb: int | None = None,
     checksum-guarded schedule with per-panel rollback
     (:func:`..resilience.abft.abft_cholesky`): the classic right-looking
     order on every grid, 1x1 included, whatever ``lookahead`` and
-    ``crossover`` say.  The knobs of later slices -- ``'auto'`` for any
-    knob and ``timer`` -- raise ``NotImplementedError``.
+    ``crossover`` say.
+
+    Any of ``nb`` / ``lookahead`` / ``crossover`` / ``comm_precision`` /
+    ``redist_path`` / ``panel_impl`` may be ``'auto'``: the tuner
+    (:mod:`..tune`) resolves them per (shape, dtype, grid, backend) --
+    measured-cache winner first, analytic cost model cold; explicit values
+    always win.  On the card it resolves ``panel_impl`` to ``'kernel'``
+    for a real dtype.  ``timer`` raises ``NotImplementedError`` (the
+    phase tracer is a later slice).
     """
     _check_mcmr(A)
+    nb, lookahead, crossover, panel_impl, comm_precision, redist_path = \
+        resolve_auto("cholesky", A.gshape, A.dtype, A.grid, nb=nb,
+                     lookahead=lookahead, crossover=crossover,
+                     panel_impl=panel_impl, comm_precision=comm_precision,
+                     redist_path=redist_path).values()
     _check_knobs(nb, lookahead, crossover, comm_precision, redist_path,
                  timer)
     check_precision(precision, A.local)

@@ -43,8 +43,8 @@ from ..core.dist import MC, MR, STAR, VC, VR
 from ..core.distmatrix import DistMatrix
 from ..core.environment import check_precision
 from ..core.view import view, update_view
-from ..redist.engine import (apply_fault, move_rows, permute_rows_storage,
-                             redistribute)
+from ..redist.engine import (apply_fault, move_rows, note_collective,
+                             permute_rows_storage, redistribute)
 from ..redist.quantize import quantizable
 from ..blas.level1 import _global_indices
 from ..blas.level3 import _check_mcmr, local_rank_update, trsm
@@ -52,8 +52,8 @@ from ..kernels import lu_panel as _kernel_lu_panel
 from ..kernels import default_inners, resolve_panel
 from ..kernels.lu_panel import _panel_lu, _panel_lu_unb  # noqa: F401
 from ..obs.tracer import NULL_HOOK as _NULL_TIMER, phase_hook as _phase_hook
-from ..tune.policy import blocksize_policy as _blocksize
-from .cholesky import _check_knobs, _not_ported
+from ..tune.policy import blocksize_policy as _blocksize, resolve_auto
+from .cholesky import _check_knobs
 
 #: Trailing-block size at which the distributed loop gathers the tail and
 #: finishes locally (look-ahead schedule only, unless overridden).
@@ -388,6 +388,8 @@ def _rowblock_solve(Ablk: DistMatrix, Li11, wire=None) -> DistMatrix:
     Lsub = Li11[:, cols.clamp(0, nbw - 1)].permute(1, 0, 2)    # (r, nbw, lr)
     Lsub = torch.where((cols < nbw)[:, None, :], Lsub, 0)
     parts = torch.bmm(Lsub, x.reshape(r, lr, x.shape[1]))       # (r, nbw, *)
+    note_collective("psum", r, (nbw, x.shape[1] // g.width),
+                    2 if wire == "bf16" else x.element_size())
     if wire == "bf16":
         out = parts.to(torch.bfloat16).to(torch.float32).sum(0) \
             .to(torch.bfloat16).to(x.dtype)
@@ -500,11 +502,10 @@ def _update_cols_ge(A, block, rows, cols, e):
 
 def _check_lu_knobs(nb, lookahead, crossover, panel, update_precision,
                     comm_precision, redist_path, timer) -> str:
-    """Refuse the knobs of later slices; return the panel strategy."""
+    """Check the knobs (``'auto'`` already resolved); return the panel
+    strategy."""
     _check_knobs(nb, lookahead, crossover, comm_precision, redist_path,
                  timer)
-    if panel == "auto":
-        _not_ported("panel", panel, "the tuner ('auto')")
     if panel is None:
         panel = "classic"
     if panel not in ("classic", "calu"):
@@ -544,7 +545,8 @@ def lu(A: DistMatrix, nb: int | None = None, precision=None,
     ``panel_impl`` (``None`` | ``'auto'`` | ``'torch'`` | ``'kernel'``)
     selects the panel implementation; ``None`` and ``'auto'`` take the
     CUDA kernel for a real dtype on the card and the plain chunk ladder
-    elsewhere.  ``inners`` overrides the ladder
+    elsewhere (``None`` by device, ``'auto'`` through the tuner).
+    ``inners`` overrides the ladder
     (:data:`~elemental_tpu_torch.kernels.DEFAULT_INNERS`); the kernel
     chunks at its finest rung.
 
@@ -566,10 +568,19 @@ def lu(A: DistMatrix, nb: int | None = None, precision=None,
     schedule with per-panel rollback
     (:func:`..resilience.abft.abft_lu`): the classic right-looking order
     on every grid, 1x1 included (``lookahead``, ``crossover`` and
-    ``panel='calu'`` are ignored).  The knobs of later slices --
-    ``'auto'`` for any knob and ``timer`` -- raise
-    ``NotImplementedError``."""
+    ``panel='calu'`` are ignored).
+
+    Any of ``nb`` / ``lookahead`` / ``crossover`` / ``panel`` /
+    ``comm_precision`` / ``redist_path`` / ``panel_impl`` may be
+    ``'auto'``: the tuner (:mod:`..tune`) resolves them (measured cache
+    first, analytic cost model cold; explicit values always win).
+    ``timer`` raises ``NotImplementedError`` (a later slice)."""
     _check_mcmr(A)
+    nb, lookahead, crossover, panel, panel_impl, comm_precision, \
+        redist_path = resolve_auto(
+            "lu", A.gshape, A.dtype, A.grid, nb=nb, lookahead=lookahead,
+            crossover=crossover, panel=panel, panel_impl=panel_impl,
+            comm_precision=comm_precision, redist_path=redist_path).values()
     g = A.grid
     r, c = g.height, g.width
     panel = _check_lu_knobs(nb, lookahead, crossover, panel,

@@ -45,8 +45,8 @@ from ..kernels import resolve_panel
 from ..kernels.qr_panel import _larft, _panel_qr, _panel_v
 from ..matrices.basic import identity
 from ..obs.tracer import NULL_HOOK as _NULL_TIMER, phase_hook as _phase_hook
-from ..tune.policy import blocksize_policy as _blocksize
-from .cholesky import _check_knobs, _not_ported
+from ..tune.policy import blocksize_policy as _blocksize, resolve_auto
+from .cholesky import _check_knobs
 from .lu import (_nopiv_panel, _update_cols_ge, _update_cols_lt,
                  permute_cols, permute_rows)
 
@@ -65,11 +65,9 @@ def _panel_qr_dispatch(P, plan=None):
 
 
 def _check_qr_knobs(nb, panel, comm_precision, redist_path, timer) -> str:
-    """Refuse the knobs of later slices and unknown panel strategies;
-    return the panel strategy."""
+    """Check the knobs (``'auto'`` already resolved) and refuse unknown
+    panel strategies; return the panel strategy."""
     _check_knobs(nb, None, None, comm_precision, redist_path, timer)
-    if panel == "auto":
-        _not_ported("panel", panel, "the tuner ('auto')")
     if panel is None:
         panel = "classic"
     if panel not in ("classic", "tsqr"):
@@ -230,10 +228,18 @@ def qr(A: DistMatrix, nb: int | None = None, precision=None,
     ``resilience.last_health_report('qr')``).  ``abft`` (``True`` or an
     ``AbftGuard``) runs the checksum-guarded schedule with per-panel
     rollback (:func:`..resilience.abft.abft_qr`) under either ``panel``,
-    on every grid, 1x1 included.  The knobs of later slices --
-    ``'auto'`` for any knob and ``timer`` -- raise
-    ``NotImplementedError``."""
+    on every grid, 1x1 included.
+
+    Any of ``nb`` / ``panel`` / ``comm_precision`` / ``redist_path`` /
+    ``panel_impl`` may be ``'auto'``: the tuner (:mod:`..tune`) resolves
+    them (measured cache first, analytic cost model cold; explicit values
+    always win).  ``timer`` raises ``NotImplementedError`` (a later
+    slice)."""
     _check_mcmr(A)
+    nb, panel, panel_impl, comm_precision, redist_path = resolve_auto(
+        "qr", A.gshape, A.dtype, A.grid, nb=nb, panel=panel,
+        panel_impl=panel_impl, comm_precision=comm_precision,
+        redist_path=redist_path).values()
     panel = _check_qr_knobs(nb, panel, comm_precision, redist_path, timer)
     check_precision(precision, A.local)
     plan = resolve_panel(panel_impl, dtype=A.dtype, device=A.local.device)
@@ -314,6 +320,7 @@ def _applyq_blocksize(Ap: DistMatrix, nb, grain: int, kend: int) -> int:
     rec = getattr(Ap, "_qr_nb", None)
     if nb is None:
         return rec if rec is not None else _blocksize(None, grain, kend)
+    nb, = resolve_auto("qr", Ap.gshape, Ap.dtype, Ap.grid, nb=nb).values()
     ib = _blocksize(nb, grain, kend)
     if rec is not None and ib != rec:
         raise ValueError(
@@ -406,9 +413,8 @@ def lq(A: DistMatrix, nb: int | None = None, precision=None,
     ``A^H``.  Returns ``(packed, tau)``, the geqrf-packed QR of ``A^H``
     ((n, m)-shaped); use :func:`apply_q_lq` / :func:`explicit_l` to
     consume it.  ``redist_path`` routes the entry transpose and the QR
-    panel gathers (``'auto'`` raises: the tuner)."""
-    if redist_path == "auto":
-        _not_ported("redist_path", redist_path, "the tuner ('auto')")
+    panel gathers (``'auto'``: the engine's arbitration for the transpose,
+    the tuner for the QR)."""
     Ah = redistribute(transpose_dist(A, conj=True), MC, MR, path=redist_path)
     return qr(Ah, nb=nb, precision=precision, redist_path=redist_path)
 

@@ -29,8 +29,14 @@ index maps on the stacked storage, which tests the plan compiler rather
 than bypassing it.  ``comm_precision`` (``'bf16'`` / ``'int8'``, the
 codec of :mod:`.quantize`) rounds the payload as the JAX wire would: a
 bf16 cast of every rank's whole block, or the int8 block-scale round trip
-of each block a rank sends, tile by tile.  ``'auto'`` for either knob
-needs the tuner and raises.
+of each block a rank sends, tile by tile.  ``path='auto'`` arbitrates
+chain against direct with the tuner's machine constants;
+``comm_precision='auto'`` is not a wire and raises ``ValueError``.
+
+:func:`collective_sites` names, for any entry, the collectives the JAX
+engine's lowering issues on a real grid (primitive, participants, block,
+ring-model bytes): the tuner's comm term reads them off a probe's
+``redist_trace``.
 
 The fault seam (:func:`fault_injection`, :func:`set_fault_step`,
 :func:`apply_fault`) routes the outputs of every public entry, and the
@@ -40,6 +46,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 from collections import Counter
 from functools import lru_cache
 
@@ -55,7 +62,7 @@ from .quantize import QUANT_TILE, check_comm_precision, q8_roundtrip, quantizabl
 
 #: legal values of :func:`redistribute`'s ``path`` argument.  ``None`` and
 #: ``'chain'`` are the default route; ``'direct'`` executes the one-shot
-#: compiled plan; ``'auto'`` needs the tuner's cost model (a later slice).
+#: compiled plan; ``'auto'`` arbitrates per call with the alpha-beta cost.
 REDIST_PATHS = (None, "chain", "direct", "auto")
 
 #: Public-entry call counts, keyed by ``(src_dist_pair, dst_dist_pair)``
@@ -106,9 +113,13 @@ class RedistRecord:
     #: ring-model bytes received per device by the resolved route (-1 =
     #: not computed)
     wire_bytes: int = -1
-    #: why a ``path='direct'`` request resolved to the chain ("" = it did
-    #: not): "noop" or "no_plan"
+    #: why a ``path='direct'`` / ``'auto'`` request resolved to the chain
+    #: ("" = it did not): "noop", "no_plan" or "arbitration"
     fallback_reason: str = ""
+    #: ((calign, ralign) of the source, (calign, ralign) of the target):
+    #: what :func:`collective_sites` needs to price a misaligned entry
+    aligns: tuple = dataclasses.field(default=((0, 0), (0, 0)),
+                                      compare=False)
     # live references keep the ids above unambiguous (no id reuse after GC)
     refs: tuple = dataclasses.field(default=(), repr=False, compare=False)
 
@@ -205,7 +216,8 @@ def _dtype_name(dtype) -> str:
 
 def _trace_record(kind, src, dst, gshape, dtype, objs_in, objs_out,
                   grid_shape=(), wire_dtype=None, path="chain", rounds=-1,
-                  wire_bytes=-1, fallback_reason="", observers_only=False):
+                  wire_bytes=-1, fallback_reason="", observers_only=False,
+                  aligns=((0, 0), (0, 0))):
     """Build + publish one RedistRecord.  ``observers_only`` keeps it out
     of the ``redist_trace`` list (the row-permute path)."""
     if _REDIST_TRACE is None and not _REDIST_OBSERVERS:
@@ -216,7 +228,7 @@ def _trace_record(kind, src, dst, gshape, dtype, objs_in, objs_out,
         out_ids=tuple(id(o) for o in objs_out), grid_shape=tuple(grid_shape),
         wire_dtype=wire_dtype or _dtype_name(dtype), path=path,
         rounds=rounds, wire_bytes=wire_bytes,
-        fallback_reason=fallback_reason,
+        fallback_reason=fallback_reason, aligns=tuple(aligns),
         refs=(objs_in,) + tuple(objs_out))
     if _REDIST_TRACE is not None and not observers_only:
         _REDIST_TRACE.append(rec)
@@ -367,6 +379,318 @@ def chain_cost(src, dst, gshape, grid_shape, itemsize):
 
 
 # ---------------------------------------------------------------------
+# collective sites: the collectives the JAX engine's lowering emits for
+# one entry, with their operand blocks and ring-model bytes (what the
+# tuner's comm term prices; no jaxpr needed)
+# ---------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class CollectiveSite:
+    """One collective of a redistribution on a real r x c grid."""
+    prim: str            # all_gather | all_to_all | ppermute | psum
+    axis_size: int       # participants (a subgroup's size when grouped)
+    shape: tuple         # per-rank operand block
+    itemsize: int        # bytes per operand element on the wire
+    bytes: int           # ring-model bytes received per rank, one call
+
+
+def ring_bytes(prim: str, nbytes: int, axis_size: int) -> int:
+    """Ring-algorithm per-rank received bytes of one collective on an
+    ``nbytes`` operand over ``axis_size`` participants (the JAX package's
+    ``analysis.jaxpr_walk.estimate_bytes``)."""
+    if axis_size <= 1:
+        return 0
+    if prim == "all_gather":
+        return nbytes * (axis_size - 1)
+    if prim == "reduce_scatter":
+        return nbytes * (axis_size - 1) // axis_size
+    if prim == "psum":
+        return 2 * nbytes * (axis_size - 1) // axis_size
+    if prim == "all_to_all":
+        return nbytes * (axis_size - 1) // axis_size
+    return nbytes                                  # ppermute
+
+
+def _site(out: list, prim: str, S: int, shape, z: int) -> None:
+    shape = tuple(int(v) for v in shape)
+    nbytes = z * math.prod(shape)
+    out.append(CollectiveSite(prim, int(S), shape, int(z),
+                              ring_bytes(prim, nbytes, S)))
+
+
+def _lshape(pair, gshape, r, c) -> tuple:
+    return (ix.max_local_length(gshape[0], dist_stride(pair[0], r, c)),
+            ix.max_local_length(gshape[1], dist_stride(pair[1], r, c)))
+
+
+def _q8_rows(shape) -> int:
+    """Rows of an int8-packed block: the payload plus the f32 tile scales
+    bitcast to int8 and appended as whole rows."""
+    lr, lc = shape
+    tr, tc = -(-lr // QUANT_TILE), -(-lc // QUANT_TILE)
+    return lr + -(-tr * tc * 4 // lc)
+
+
+def _gather_sites(out, pair, dim, gshape, r, c, z, q8=False) -> None:
+    """``_gather_dim`` of the JAX engine: one all_gather of the current
+    block over the dimension's ranks (none when it is not split)."""
+    d = pair[dim]
+    S = r * c if d is MD else dist_stride(d, r, c)
+    if S == 1:
+        return
+    shape = _lshape(pair, gshape, r, c)
+    if q8:
+        _site(out, "all_gather", S, (_q8_rows(shape), shape[1]), 1)
+    else:
+        _site(out, "all_gather", S, shape, z)
+
+
+def _star_star_sites(out, src, gshape, r, c, z) -> None:
+    _gather_sites(out, src, 0, gshape, r, c, z)
+    _gather_sites(out, (STAR, src[1]), 1, gshape, r, c, z)
+
+
+def _realign_sites(out, pair, gshape, r, c, z, a_old, a_new) -> None:
+    for dim in (0, 1):
+        S = dist_stride(pair[dim], r, c)
+        if S == 1 or a_old[dim] == a_new[dim]:
+            continue
+        _site(out, "ppermute", S, _lshape(pair, gshape, r, c), z)
+
+
+def _fused_sites(out, src, dst, gshape, r, c, z) -> bool:
+    """The fused fast paths (one collective each); False when none
+    applies."""
+    m, n = gshape
+    p = r * c
+    if src in ((MC, MR), (MR, MC)) and dst == (STAR, STAR):
+        if r == 1 or c == 1:
+            return False
+        _site(out, "all_gather", p, _lshape(src, gshape, r, c), z)
+        return True
+    if (src, dst) in (((MC, MR), (STAR, VR)), ((MR, MC), (STAR, VC)),
+                      ((STAR, VR), (MC, MR)), ((STAR, VC), (MR, MC))):
+        # the column forms ride the row kernels on the local transpose
+        t = (src[1], src[0]), (dst[1], dst[0])
+        return _fused_sites(out, *t, (n, m), r, c, z)
+    if (src, dst) in (((MC, MR), (VC, STAR)), ((MR, MC), (VR, STAR))):
+        other = c if src[0] is MC else r
+        if other > 1:
+            lt = ix.max_local_length(m, p)
+            lc = _lshape(src, gshape, r, c)[1]
+            _site(out, "all_to_all", other, (lt, other, lc), z)
+        return True
+    if (src, dst) in (((VC, STAR), (MC, MR)), ((VR, STAR), (MR, MC))):
+        other = c if src[0] is VC else r
+        if other > 1:
+            lp = ix.max_local_length(m, p)
+            lcd = ix.max_local_length(n, other)
+            _site(out, "all_to_all", other, (lp, lcd, other), z)
+        return True
+    return False
+
+
+def _dim_sites(out, pair, dim, new, gshape, r, c, z) -> bool:
+    """A single-dim change (gather, filter, or the V <-> M ladder); False
+    when no fast path applies."""
+    src_d = pair[dim]
+    if src_d is new or src_d is STAR:
+        return True                                # nothing / a filter
+    if new is STAR:
+        _gather_sites(out, pair, dim, gshape, r, c, z)
+        return True
+    if (src_d, new) in ((VC, MC), (VR, MR)):
+        nb = c if src_d is VC else r
+        if nb > 1:
+            _site(out, "all_gather", nb, _lshape(pair, gshape, r, c), z)
+        return True
+    if (src_d, new) in ((MC, VC), (MR, VR)):
+        return True
+    if {src_d, new} == {VC, VR}:
+        if r > 1 and c > 1:
+            _site(out, "ppermute", r * c, _lshape(pair, gshape, r, c), z)
+        return True
+    return False
+
+
+def _to_dist_sites(out, src, dst, gshape, r, c, z, a_src, a_dst) -> None:
+    """Static mirror of the JAX engine's ``to_dist`` dispatch."""
+    if src == dst and a_src == a_dst:
+        return
+    if MD in src + dst:
+        _star_star_sites(out, src, gshape, r, c, z)
+        return
+    if src == dst:
+        _realign_sites(out, src, gshape, r, c, z, a_src, a_dst)
+        return
+    if a_src != (0, 0):
+        _realign_sites(out, src, gshape, r, c, z, a_src, (0, 0))
+        _to_dist_sites(out, src, dst, gshape, r, c, z, (0, 0), a_dst)
+        return
+    if a_dst != (0, 0):
+        _to_dist_sites(out, src, dst, gshape, r, c, z, (0, 0), (0, 0))
+        _realign_sites(out, dst, gshape, r, c, z, (0, 0), a_dst)
+        return
+    if _fused_sites(out, src, dst, gshape, r, c, z):
+        return
+    if src[0] is dst[0] and _dim_sites(out, src, 1, dst[1], gshape, r, c, z):
+        return
+    if src[1] is dst[1] and _dim_sites(out, src, 0, dst[0], gshape, r, c, z):
+        return
+    route = _CHAINS.get((src, dst))
+    if route is not None:
+        cur = src
+        for hop in route:
+            _to_dist_sites(out, cur, hop, gshape, r, c, z, (0, 0), (0, 0))
+            cur = hop
+        return
+    _star_star_sites(out, src, gshape, r, c, z)
+
+
+def _plan_sites(out, plan, z, wire) -> None:
+    """The one collective of a compiled direct plan (none when local)."""
+    K = plan.nslots
+    R, C = plan.slot_shape
+    if plan.kind == "local":
+        return
+    shape, zz = (K, R, C), z
+    if wire == "int8":
+        shape, zz = (K, _q8_rows((R, C)), C), 1
+    r, c = plan.grid_shape
+    S = math.prod(r if a == "mc" else c for a in plan.comm_axes)
+    if plan.kind == "a2a":
+        _site(out, "all_to_all", len(plan.groups[0]) if plan.groups else S,
+              shape, zz)
+    else:
+        _site(out, "ppermute", S, shape, zz)
+
+
+def _wire_for(src, grid_shape, mode, q8_ok: bool):
+    """The JAX engine's ``_wire_mode`` on metadata alone, for a real
+    float payload."""
+    check_comm_precision(mode)
+    if mode is None or grid_shape[0] * grid_shape[1] == 1 \
+            or tuple(src) == (STAR, STAR):
+        return None
+    if mode == "int8":
+        return "int8" if q8_ok else "bf16"
+    return "bf16"
+
+
+def collective_sites(src, dst, gshape, grid_shape, itemsize, path=None,
+                     comm_precision=None, aligns=((0, 0), (0, 0))) -> list:
+    """The collectives the JAX engine issues for ``redistribute(A[src] ->
+    dst)`` on a real ``grid_shape`` grid, as :class:`CollectiveSite` s.
+
+    ``path`` is a resolved route (a record holds the one it ran): a no-op
+    issues none; ``'direct'`` runs the compiled plan's one collective
+    where there is a plan; otherwise the factored hops of the ``to_dist``
+    dispatch, each with the block it moves.  A CIRC target gathers to
+    [STAR,STAR]; a CIRC source is a local filter.  ``comm_precision``
+    narrows the wire of a real float payload as ``_wire_mode`` does (an
+    int8 gather moves the packed block, scales included)."""
+    src, dst = tuple(src), tuple(dst)
+    r, c = grid_shape
+    a_src, a_dst = tuple(aligns[0]), tuple(aligns[1])
+    z = int(itemsize)
+    out: list = []
+    noop = src == dst and a_src == a_dst
+    circ = src[0] is CIRC or dst[0] is CIRC
+    if path == "direct" and not noop:
+        plan = compile_plan(src, dst, tuple(gshape), (r, c), a_src, a_dst)
+        if plan is not None and not circ:
+            wire = None if plan.kind == "local" else _wire_for(
+                src, grid_shape, comm_precision, True)
+            zw = {"bf16": 2}.get(wire, z)
+            _plan_sites(out, plan, zw, wire)
+            return out
+    if circ:
+        if src[0] is CIRC and dst[0] is CIRC:
+            return out
+        if dst[0] is CIRC:
+            _to_dist_sites(out, src, (STAR, STAR), gshape, r, c, z, a_src,
+                           (0, 0))
+        else:
+            _to_dist_sites(out, (STAR, STAR), dst, gshape, r, c, z, (0, 0),
+                           a_dst)
+        return out
+    if noop:
+        return out
+    q8_ok = (dst == (STAR, STAR) and a_dst == (0, 0) and a_src == (0, 0)
+             and set(src) <= _Q8_DISTS)
+    wire = _wire_for(src, grid_shape, comm_precision, q8_ok)
+    if wire == "int8":
+        if src in ((MC, MR), (MR, MC)) and r > 1 and c > 1:
+            sh = _lshape(src, gshape, r, c)
+            _site(out, "all_gather", r * c, (_q8_rows(sh), sh[1]), 1)
+        else:
+            _gather_sites(out, src, 0, gshape, r, c, z, q8=True)
+            _gather_sites(out, (STAR, src[1]), 1, gshape, r, c, z, q8=True)
+        return out
+    _to_dist_sites(out, src, dst, gshape, r, c,
+                   2 if wire == "bf16" else z, a_src, a_dst)
+    return out
+
+
+def panel_spread_sites(gshape, grid_shape, itemsize,
+                       comm_precision=None) -> list:
+    """The one all_gather of :func:`panel_spread` on a real grid: the
+    [VC,STAR] panel gathered over all p ranks."""
+    r, c = grid_shape
+    wire = _wire_for((VC, STAR), grid_shape, comm_precision, True)
+    out: list = []
+    _gather_sites(out, (VC, STAR), 0, gshape, r, c,
+                  2 if wire == "bf16" else int(itemsize), q8=wire == "int8")
+    return out
+
+
+def record_sites(rec) -> list:
+    """:func:`collective_sites` of one :class:`RedistRecord`, at the wire
+    the entry ran."""
+    itemsize = getattr(torch, rec.dtype).itemsize
+    mode = {"bfloat16": "bf16", "int8": "int8"}.get(rec.wire_dtype)
+    if rec.kind == "panel_spread":
+        return panel_spread_sites(rec.gshape, rec.grid_shape, itemsize, mode)
+    if rec.kind != "redistribute":
+        return []
+    path = rec.path if rec.path == "direct" else None
+    return collective_sites(rec.src, rec.dst, rec.gshape, rec.grid_shape,
+                            itemsize, path=path, comm_precision=mode,
+                            aligns=rec.aligns)
+
+
+#: explicit collectives of the drivers themselves (CALU's row-block psum),
+#: collected by :func:`collectives_log`; None = not collecting
+_COLLECTIVE_LOG: list | None = None
+
+
+def note_collective(prim: str, axis_size: int, shape, itemsize: int) -> None:
+    """Announce a driver-level collective a real grid would run (no-op
+    unless a :func:`collectives_log` block is collecting)."""
+    if _COLLECTIVE_LOG is not None:
+        _site(_COLLECTIVE_LOG, prim, axis_size, shape, itemsize)
+
+
+@contextlib.contextmanager
+def isolated_probe():
+    """Run a probe call unseen: fresh ``redist_counts`` and
+    ``redist_trace`` (yielded with the driver-level collective log as
+    ``(trace, log)``), no redistribution observers, no installed fault
+    plan, and a throwaway metrics registry; the caller's state comes back
+    untouched on exit."""
+    global _REDIST_OBSERVERS, _FAULT_INJECTOR, _COLLECTIVE_LOG
+    from ..obs import metrics as _metrics
+    saved = (_REDIST_OBSERVERS, _FAULT_INJECTOR, _COLLECTIVE_LOG)
+    _REDIST_OBSERVERS, _FAULT_INJECTOR, _COLLECTIVE_LOG = [], None, []
+    log = _COLLECTIVE_LOG
+    try:
+        with redist_counts(), redist_trace() as trace, _metrics.scoped():
+            yield trace, log
+    finally:
+        _REDIST_OBSERVERS, _FAULT_INJECTOR, _COLLECTIVE_LOG = saved
+
+
+# ---------------------------------------------------------------------
 # the default route: through the global matrix
 # ---------------------------------------------------------------------
 
@@ -487,6 +811,37 @@ def direct_plan_for(A: DistMatrix, cdist: Dist, rdist: Dist,
     return compile_plan(A.dist, (cdist, rdist), A.gshape,
                         (A.grid.height, A.grid.width),
                         (A.calign, A.ralign), (calign, ralign))
+
+
+def _machine_terms(grid_shape=None, backend: str = "cpu"):
+    """(latency_s, bw_bytes_per_s) of the alpha-beta arbitration.
+
+    Measured ``redist_constants/v1`` for this (grid, backend) take
+    precedence over the tuner's static machine model
+    (:func:`..tune.cost_model.machine_for`)."""
+    if grid_shape is not None:
+        from ..tune.cache import load_redist_constants
+        doc = load_redist_constants(tuple(grid_shape), backend)
+        if doc is not None:
+            return float(doc["alpha_s"]), float(doc["bw_bytes_per_s"])
+    from ..tune.cost_model import machine_for
+    mm = machine_for(backend)
+    return mm.latency_s, mm.bw_bytes_per_s
+
+
+def _direct_wins(plan, gshape, itemsize, backend: str = "cpu") -> bool:
+    """``path='auto'`` arbitration: alpha-beta (latency x rounds + bytes /
+    bandwidth) of the one-shot plan against the chained route, with the
+    measured per-(grid, backend) constants when they are recorded; ties go
+    to the chain (the bit-identical default)."""
+    rounds_c, bytes_c = chain_cost(plan.src, plan.dst, gshape,
+                                   plan.grid_shape, itemsize)
+    if rounds_c == 0:
+        return False
+    lat, bw = _machine_terms(plan.grid_shape, backend)
+    t_direct = lat * plan.rounds + plan.wire_bytes(itemsize) / bw
+    t_chain = lat * rounds_c + bytes_c / bw
+    return t_direct < t_chain
 
 
 def _tile_of(d: Dist, mc: int, mr: int, r: int, c: int) -> int:
@@ -617,17 +972,6 @@ def _direct_exec(A: DistMatrix, plan, wire, cdist, rdist, calign,
 # public entry points
 # ---------------------------------------------------------------------
 
-def _check_auto(comm_precision, path) -> None:
-    if path == "auto":
-        raise NotImplementedError(
-            "redist_path='auto': the chain-vs-direct arbitration reads the "
-            "tuner's cost model, which is not ported yet (a later slice)")
-    if comm_precision == "auto":
-        raise NotImplementedError(
-            "comm_precision='auto' needs the tuner, which is not ported yet "
-            "(a later slice)")
-
-
 def redistribute(A: DistMatrix, cdist: Dist, rdist: Dist,
                  calign: int = 0, ralign: int = 0,
                  comm_precision=None, path=None) -> DistMatrix:
@@ -641,11 +985,17 @@ def redistribute(A: DistMatrix, cdist: Dist, rdist: Dist,
     and replicated sources.  ``path`` (:data:`REDIST_PATHS`): ``None`` /
     ``'chain'`` take the global route, ``'direct'`` executes the one-shot
     compiled plan (a no-op falls back to the chain with
-    ``fallback_reason='noop'``), ``'auto'`` raises (the tuner)."""
+    ``fallback_reason='noop'``), ``'auto'`` compiles the plan and takes it
+    only where the alpha-beta cost (:func:`_direct_wins`: measured
+    ``redist_constants/v1`` for this grid and backend, else the tuner's
+    machine model) says it beats the chain
+    (``fallback_reason='arbitration'`` otherwise).  Every fallback
+    increments the ``redist_fallbacks{reason}`` counter of
+    :mod:`..obs.metrics`.  ``comm_precision='auto'`` raises
+    ``ValueError``: the tuner resolves that knob inside the drivers."""
     _check_pair(cdist, rdist)
     if path not in REDIST_PATHS:
         raise ValueError(f"path must be one of {REDIST_PATHS}, got {path!r}")
-    _check_auto(comm_precision, path)
     check_comm_precision(comm_precision)
     REDIST_COUNTS[(A.dist, (cdist, rdist))] += 1
     grid_shape = (A.grid.height, A.grid.width)
@@ -655,13 +1005,21 @@ def redistribute(A: DistMatrix, cdist: Dist, rdist: Dist,
         and (A.calign, A.ralign) == (calign, ralign)
     plan = None
     fallback_reason = ""
-    if path == "direct":
+    if path in ("direct", "auto"):
         if noop:
             fallback_reason = "noop"
         else:
             plan = direct_plan_for(A, cdist, rdist, calign, ralign)
             if plan is None:
                 fallback_reason = "no_plan"
+            elif path == "auto" and plan.kind != "bridge" and \
+                    not _direct_wins(plan, A.gshape, itemsize,
+                                     backend_of(A.grid)):
+                plan, fallback_reason = None, "arbitration"
+    if fallback_reason:
+        from ..obs import metrics as _metrics
+        _metrics.inc("redist_fallbacks", reason=fallback_reason)
+    aligns = ((A.calign, A.ralign), (calign, ralign))
     if plan is not None and not circ:
         wire = None if plan.kind == "local" \
             else _wire_mode(A, comm_precision, q8_ok=True)
@@ -671,7 +1029,8 @@ def redistribute(A: DistMatrix, cdist: Dist, rdist: Dist,
         _trace_record("redistribute", A.dist, (cdist, rdist), A.gshape,
                       A.dtype, A.local, (out.local,), grid_shape=grid_shape,
                       wire_dtype=_WIRE_DTYPES.get(wire), path="direct",
-                      rounds=plan.rounds, wire_bytes=plan.wire_bytes(wire_sz))
+                      rounds=plan.rounds, wire_bytes=plan.wire_bytes(wire_sz),
+                      aligns=aligns)
         return out
     wire = None
     if circ:
@@ -695,7 +1054,8 @@ def redistribute(A: DistMatrix, cdist: Dist, rdist: Dist,
         _trace_record("redistribute", A.dist, (cdist, rdist), A.gshape,
                       A.dtype, A.local, (out.local,), grid_shape=grid_shape,
                       wire_dtype=_WIRE_DTYPES.get(wire), path="direct",
-                      rounds=plan.rounds, wire_bytes=plan.wire_bytes(itemsize))
+                      rounds=plan.rounds, wire_bytes=plan.wire_bytes(itemsize),
+                      aligns=aligns)
         return out
     rounds = wire_bytes = -1
     if not circ and not noop and _zero_aligned(A) and (calign, ralign) == (0, 0):
@@ -706,8 +1066,15 @@ def redistribute(A: DistMatrix, cdist: Dist, rdist: Dist,
                   A.dtype, A.local, (out.local,), grid_shape=grid_shape,
                   wire_dtype=_WIRE_DTYPES.get(wire), path="chain",
                   rounds=rounds, wire_bytes=wire_bytes,
-                  fallback_reason=fallback_reason)
+                  fallback_reason=fallback_reason, aligns=aligns)
     return out
+
+
+def backend_of(grid) -> str:
+    """The backend word of a grid's device, the JAX package's: ``'gpu'``
+    for a CUDA device, ``'cpu'`` for the CPU (the tuner's cache file
+    names and machine rows use these words)."""
+    return "gpu" if grid.device.type == "cuda" else grid.device.type
 
 
 def _zero_aligned(A: DistMatrix) -> bool:
@@ -734,7 +1101,6 @@ def panel_spread(A: DistMatrix, conj: bool = True, comm_precision=None):
     if A.dist != (VC, STAR) or (A.calign, A.ralign) != (0, 0):
         raise ValueError(f"panel_spread needs a zero-aligned [VC,STAR] "
                          f"panel, got {A}")
-    _check_auto(comm_precision, None)
     REDIST_COUNTS["panel_spread"] += 1
     wire = _wire_mode(A, comm_precision, q8_ok=True)
     g = A.grid

@@ -1,4 +1,40 @@
-"""Tuning: the blocksize rule and the knob words the resilience ladder
-reads (``knobs.COMM_PRECISIONS``, ``knobs.LU_PANELS``)."""
-from .policy import blocksize_policy
-from .knobs import COMM_PRECISIONS, LU_PANELS
+"""Autotuning: pick driver knobs per problem instead of per call site.
+
+PyTorch port of ``elemental_tpu/tune/``.  Four layers, consulted in order
+by a driver that receives ``'auto'``:
+
+  :mod:`.knobs`       what is tunable and which configs are legal
+  :mod:`.cache`       persistent ``tuning_cache/v1`` measured winners
+                      (``$ELEMENTAL_TPU_TORCH_TUNE_CACHE`` overrides the
+                      directory)
+  :mod:`.cost_model`  analytic scoring -- the collectives a probe of the
+                      driver on a CPU grid would issue on a real grid
+                      (ring-model bytes) + a roofline flop term; works
+                      cold with nothing run on the card
+  :mod:`.policy`      resolution: explicit wins > cache > cost model; also
+                      the canonical :func:`blocksize_policy`
+
+:mod:`.measure` (imported lazily; it runs on the card) times candidates
+and records winners.  Command line:
+``python -m elemental_tpu_torch.tune {explain,search,show,clear}``.
+"""
+from .knobs import (COMM_PRECISIONS, DEFAULT_CROSSOVER, GEMM_ALGS, LU_PANELS,
+                    NB_LADDER, OPS, TuneContext, candidate_configs,
+                    nb_candidates, op_names)
+from .cache import (SCHEMA as CACHE_SCHEMA, ENV_DIR as CACHE_ENV_DIR,
+                    CacheKey, cache_dir, clear as clear_cache,
+                    entries as cache_entries, load as cache_load,
+                    make_key, save as cache_save, scan as cache_scan,
+                    shape_bucket)
+from .policy import (Resolution, blocksize_policy, clear_memo, explain,
+                     is_auto, resolve, resolve_knobs, wants_auto)
+
+__all__ = [
+    "DEFAULT_CROSSOVER", "GEMM_ALGS", "NB_LADDER", "OPS", "TuneContext",
+    "candidate_configs", "nb_candidates", "op_names",
+    "CACHE_SCHEMA", "CACHE_ENV_DIR", "CacheKey", "cache_dir", "clear_cache",
+    "cache_entries", "cache_load", "make_key", "cache_save", "cache_scan",
+    "shape_bucket",
+    "Resolution", "blocksize_policy", "clear_memo", "explain", "is_auto",
+    "resolve", "resolve_knobs", "wants_auto",
+]

@@ -1,0 +1,394 @@
+"""Persistent tuning cache: versioned ``tuning_cache/v1`` JSON entries.
+
+PyTorch port of ``elemental_tpu/tune/cache.py``: the same schema, the
+same file names and the same document layout, in the port's own
+directory, so a winner measured for the JAX package (whose configs name
+``'xla'`` / ``'pallas'``) never reaches the port's resolver.
+
+One JSON file per key under the cache directory; the key is
+``(op, shape-bucket, dtype, grid, backend)`` -- shape dims are bucketed to
+the next power of two so near-identical problems share an entry.  Layout:
+
+    ~/.cache/elemental_tpu_torch/tuning/        (default; override with
+    $ELEMENTAL_TPU_TORCH_TUNE_CACHE)
+      cholesky__b32768x32768__float32__g1x1__gpu.json
+
+    {"schema": "tuning_cache/v1",
+     "op": "cholesky", "bucket": [32768, 32768], "dtype": "float32",
+     "grid": [1, 1], "backend": "gpu",
+     "config": {"nb": 2048, "lookahead": true, "crossover": 4096},
+     "source": "measured",            # who wrote it (measured | manual)
+     "metric": {"seconds": ..., "tflops": ...},       # optional
+     "created": 1754300000.0}
+
+Writes are ATOMIC (same-directory temp file + ``os.replace``).  Reads are
+defensive: a missing file, unparsable JSON, a schema-version mismatch, or
+key fields that do not match the request all return ``None`` (the
+resolver then falls back to the cost model).
+
+Every :func:`load` outcome is counted on the current metrics registry
+(:mod:`..obs.metrics`) as ``tune_cache_events{op, event}`` with event one
+of ``hit`` / ``miss`` / ``unparsable`` / ``stale_schema`` /
+``key_mismatch`` (writes count as ``write``), and :func:`scan` reports
+per-file validity.
+
+An unwritable directory never fails a solve: :func:`save` warns ONCE per
+directory (``RuntimeWarning``) and falls back to an in-process memory
+cache, which :func:`load` consults after a file miss (``write_fallback``
+/ ``mem_hit`` events).
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import tempfile
+import time
+import warnings
+
+from ..obs import metrics as _metrics
+
+SCHEMA = "tuning_cache/v1"
+
+#: schema tag of measured redistribution machine constants:
+#: per-(grid, backend) alpha (seconds/round) and bandwidth (bytes/s),
+#: consulted by the engine's ``path='auto'`` arbitration before the
+#: static ring model
+REDIST_SCHEMA = "redist_constants/v1"
+
+#: environment override for the cache directory
+ENV_DIR = "ELEMENTAL_TPU_TORCH_TUNE_CACHE"
+
+_DEFAULT_DIR = os.path.join("~", ".cache", "elemental_tpu_torch", "tuning")
+
+
+def cache_dir() -> str:
+    """The active cache directory (env override first; not created here)."""
+    return os.path.expanduser(os.environ.get(ENV_DIR, _DEFAULT_DIR))
+
+
+def shape_bucket(dims) -> tuple:
+    """Per-dimension next-power-of-two bucket (>= 1)."""
+    return tuple(1 << max(0, int(d) - 1).bit_length() if d > 1 else 1
+                 for d in dims)
+
+
+@dataclasses.dataclass(frozen=True)
+class CacheKey:
+    op: str
+    bucket: tuple
+    dtype: str
+    grid_shape: tuple
+    backend: str
+    #: optional namespace: a fleet member's tuner constants
+    #: live under its own prefix so two same-shaped grids in one pool
+    #: can hold DIFFERENT measured winners (e.g. one grid re-swept after
+    #: a breaker trip).  Filename-only -- the document body is unchanged
+    #: and an un-namespaced reader never sees namespaced entries.
+    ns: str = ""
+
+    def filename(self) -> str:
+        b = "x".join(str(d) for d in self.bucket)
+        r, c = self.grid_shape
+        base = f"{self.op}__b{b}__{self.dtype}__g{r}x{c}__{self.backend}.json"
+        return f"{self.ns}__{base}" if self.ns else base
+
+    def path(self) -> str:
+        return os.path.join(cache_dir(), self.filename())
+
+
+def make_key(op: str, dims, dtype: str, grid_shape, backend: str,
+             ns: str = "") -> CacheKey:
+    return CacheKey(op=op, bucket=shape_bucket(dims), dtype=str(dtype),
+                    grid_shape=tuple(grid_shape), backend=str(backend),
+                    ns=str(ns))
+
+
+#: in-process fallback entries (keyed by filename) for sessions whose
+#: cache directory is unwritable; loads consult it after a file miss
+_MEM_FALLBACK: dict = {}
+
+#: monotone in-process write generation: bumped by every :func:`save` /
+#: :func:`clear` so consumers that MEMOIZE derived state (the serve
+#: executor's tuner-provenance executable keys) can detect a
+#: tuner re-sweep cheaply without re-reading cache files on every call
+_EPOCH: int = 0
+
+
+def epoch() -> int:
+    """The in-process tuning-cache write generation (see ``_EPOCH``)."""
+    return _EPOCH
+
+
+def _bump_epoch() -> None:
+    global _EPOCH
+    _EPOCH += 1
+
+#: directories already warned about (warn ONCE per dir per process)
+_WARNED_DIRS: set = set()
+
+
+def _warn_unwritable(d: str, exc: OSError) -> None:
+    if d in _WARNED_DIRS:
+        return
+    _WARNED_DIRS.add(d)
+    warnings.warn(
+        f"elemental_tpu_torch tuning cache directory {d!r} is not writable "
+        f"({exc!s}); falling back to an in-process memory cache for this "
+        f"session (set ${ENV_DIR} to a writable path to persist winners)",
+        RuntimeWarning, stacklevel=3)
+
+
+def save(key: CacheKey, config: dict, source: str = "measured",
+         metric: dict | None = None) -> str:
+    """Atomically persist a winner config for ``key``; returns the path.
+
+    NEVER raises on an unwritable directory: the entry falls back to the
+    in-process memory cache (warn-once + ``write_fallback`` event) so a
+    mid-solve measured-winner write cannot take the solve down."""
+    _bump_epoch()
+    doc = {"schema": SCHEMA, "op": key.op, "bucket": list(key.bucket),
+           "dtype": key.dtype, "grid": list(key.grid_shape),
+           "backend": key.backend, "config": dict(config), "source": source,
+           "created": time.time()}
+    if metric:
+        doc["metric"] = dict(metric)
+    d = cache_dir()
+    path = key.path()
+    try:
+        os.makedirs(d, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(dir=d, prefix=".tune_", suffix=".tmp")
+    except OSError as exc:
+        _warn_unwritable(d, exc)
+        _MEM_FALLBACK[key.filename()] = doc
+        _metrics.inc("tune_cache_events", op=key.op, event="write_fallback")
+        return path
+    try:
+        with os.fdopen(fd, "w") as f:
+            json.dump(doc, f, indent=1, sort_keys=False)
+            f.write("\n")
+        os.replace(tmp, path)            # atomic on POSIX
+    except OSError as exc:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        _warn_unwritable(d, exc)
+        _MEM_FALLBACK[key.filename()] = doc
+        _metrics.inc("tune_cache_events", op=key.op, event="write_fallback")
+        return path
+    except BaseException:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        raise
+    _metrics.inc("tune_cache_events", op=key.op, event="write")
+    return path
+
+
+def load(key: CacheKey) -> dict | None:
+    """The cached document for ``key``, or None when absent/invalid.
+
+    Rejected (returning None, never raising): unreadable or unparsable
+    files, a ``schema`` other than ``tuning_cache/v1``, and documents whose
+    op/bucket/dtype/grid/backend fields disagree with the key (e.g. a file
+    copied between machines or renamed by hand).  Each outcome is counted
+    as ``tune_cache_events{op, event}`` on the current metrics registry."""
+    path = key.path()
+    try:
+        with open(path) as f:
+            doc = json.load(f)
+    except OSError:
+        mem = _MEM_FALLBACK.get(key.filename())
+        if mem is not None:
+            _metrics.inc("tune_cache_events", op=key.op, event="mem_hit")
+            return mem
+        _metrics.inc("tune_cache_events", op=key.op, event="miss")
+        return None
+    except ValueError:
+        _metrics.inc("tune_cache_events", op=key.op, event="unparsable")
+        return None
+    if not isinstance(doc, dict) or doc.get("schema") != SCHEMA:
+        _metrics.inc("tune_cache_events", op=key.op, event="stale_schema")
+        return None
+    if (doc.get("op") != key.op
+            or tuple(doc.get("bucket", ())) != key.bucket
+            or doc.get("dtype") != key.dtype
+            or tuple(doc.get("grid", ())) != key.grid_shape
+            or doc.get("backend") != key.backend
+            or not isinstance(doc.get("config"), dict)):
+        _metrics.inc("tune_cache_events", op=key.op, event="key_mismatch")
+        return None
+    _metrics.inc("tune_cache_events", op=key.op, event="hit")
+    return doc
+
+
+# ---------------------------------------------------------------------
+# measured redistribution constants (redist_constants/v1)
+# ---------------------------------------------------------------------
+
+#: per-process memo of loaded constants docs, keyed (dir, filename);
+#: invalidated by save_redist_constants so a freshly recorded fit takes
+#: effect immediately (the engine consults these on EVERY 'auto' call)
+_REDIST_MEMO: dict = {}
+
+
+def redist_constants_filename(grid_shape, backend: str) -> str:
+    r, c = grid_shape
+    return f"redist_constants__g{r}x{c}__{backend}.json"
+
+
+def save_redist_constants(grid_shape, backend: str, alpha_s: float,
+                          bw_bytes_per_s: float, nsamples: int = 0,
+                          metric: dict | None = None) -> str:
+    """Atomically persist measured alpha/beta machine constants for one
+    (grid, backend); returns the path.  Same unwritable-directory
+    degradation as :func:`save` (warn once, in-process fallback)."""
+    grid_shape = tuple(int(v) for v in grid_shape)
+    doc = {"schema": REDIST_SCHEMA, "grid": list(grid_shape),
+           "backend": str(backend), "alpha_s": float(alpha_s),
+           "bw_bytes_per_s": float(bw_bytes_per_s),
+           "nsamples": int(nsamples), "created": time.time()}
+    if metric:
+        doc["metric"] = dict(metric)
+    d = cache_dir()
+    name = redist_constants_filename(grid_shape, backend)
+    path = os.path.join(d, name)
+    _REDIST_MEMO.pop((d, name), None)
+    try:
+        os.makedirs(d, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(dir=d, prefix=".redist_", suffix=".tmp")
+        with os.fdopen(fd, "w") as f:
+            json.dump(doc, f, indent=1)
+            f.write("\n")
+        os.replace(tmp, path)            # atomic on POSIX
+    except OSError as exc:
+        _warn_unwritable(d, exc)
+        _MEM_FALLBACK[name] = doc
+        _metrics.inc("tune_cache_events", op="redist_constants",
+                     event="write_fallback")
+        return path
+    _metrics.inc("tune_cache_events", op="redist_constants", event="write")
+    return path
+
+
+def load_redist_constants(grid_shape, backend: str) -> dict | None:
+    """The measured constants doc for (grid, backend), or None.
+
+    Defensive like :func:`load`: unreadable/unparsable files, a schema
+    other than ``redist_constants/v1``, mismatched grid/backend fields,
+    or non-finite/non-positive constants all return None (the engine then
+    falls back to the static ring model).  Results are memoized per
+    (directory, file) -- 'auto' arbitration consults this on every call."""
+    grid_shape = tuple(int(v) for v in grid_shape)
+    d = cache_dir()
+    name = redist_constants_filename(grid_shape, backend)
+    memo_key = (d, name)
+    if memo_key in _REDIST_MEMO:
+        return _REDIST_MEMO[memo_key]
+    doc = None
+    try:
+        with open(os.path.join(d, name)) as f:
+            doc = json.load(f)
+    except OSError:
+        doc = _MEM_FALLBACK.get(name)
+    except ValueError:
+        _metrics.inc("tune_cache_events", op="redist_constants",
+                     event="unparsable")
+        doc = None
+    if doc is not None:
+        if (not isinstance(doc, dict)
+                or doc.get("schema") != REDIST_SCHEMA
+                or tuple(doc.get("grid", ())) != grid_shape
+                or doc.get("backend") != backend):
+            _metrics.inc("tune_cache_events", op="redist_constants",
+                         event="stale_schema")
+            doc = None
+        else:
+            try:
+                a, bw = float(doc["alpha_s"]), float(doc["bw_bytes_per_s"])
+                ok = a >= 0 and bw > 0 and a == a and bw == bw \
+                    and a != float("inf") and bw != float("inf")
+            except (KeyError, TypeError, ValueError):
+                ok = False
+            if not ok:
+                _metrics.inc("tune_cache_events", op="redist_constants",
+                             event="key_mismatch")
+                doc = None
+    _REDIST_MEMO[memo_key] = doc
+    return doc
+
+
+def clear_redist_constants_memo() -> None:
+    """Drop the in-process constants memo (tests that swap cache dirs or
+    rewrite files out-of-band call this between phases)."""
+    _REDIST_MEMO.clear()
+
+
+def scan() -> tuple:
+    """(valid docs, rejects) across the whole cache directory.
+
+    Valid docs carry a ``_file`` key; rejects are ``{"file", "reason"}``
+    with reason ``unparsable`` / ``stale_schema`` (per-file validity for
+    ``python -m elemental_tpu_torch.tune show`` -- the key-field check needs a request key, so a
+    renamed-but-well-formed file only surfaces as ``key_mismatch`` at
+    :func:`load` time).  Rejects are also counted on the metrics
+    registry."""
+    d = cache_dir()
+    out, rejects = [], []
+    try:
+        names = sorted(os.listdir(d))
+    except OSError:
+        return out, rejects
+    for name in names:
+        if not name.endswith(".json"):
+            continue
+        if name.startswith("redist_constants__"):
+            continue                     # machine constants, not winners
+        op = name.split("__", 1)[0]
+        try:
+            with open(os.path.join(d, name)) as f:
+                doc = json.load(f)
+        except (OSError, ValueError):
+            rejects.append({"file": name, "reason": "unparsable"})
+            _metrics.inc("tune_cache_events", op=op, event="unparsable")
+            continue
+        if not isinstance(doc, dict) or doc.get("schema") != SCHEMA:
+            rejects.append({"file": name, "reason": "stale_schema"})
+            _metrics.inc("tune_cache_events", op=op, event="stale_schema")
+            continue
+        doc["_file"] = name
+        out.append(doc)
+    return out, rejects
+
+
+def entries() -> list:
+    """All valid cache documents currently on disk (sorted by filename)."""
+    return scan()[0]
+
+
+def clear(op: str | None = None) -> int:
+    """Delete cache entries (all, or only those of ``op``); returns count.
+    In-process fallback entries (unwritable-dir sessions) clear too."""
+    _bump_epoch()
+    for name in [n for n in _MEM_FALLBACK
+                 if op is None or n.startswith(f"{op}__")]:
+        del _MEM_FALLBACK[name]
+    d = cache_dir()
+    removed = 0
+    try:
+        names = os.listdir(d)
+    except OSError:
+        return 0
+    for name in names:
+        if not name.endswith(".json"):
+            continue
+        if op is not None and not name.startswith(f"{op}__"):
+            continue
+        try:
+            os.unlink(os.path.join(d, name))
+            removed += 1
+        except OSError:
+            pass
+    return removed

@@ -1,12 +1,299 @@
-"""Knob vocabularies of the tuner: the two the resilience ladder reads.
+"""Knob-space registry: which knobs each distributed driver exposes and
+which configurations of them are legal.
 
-From ``elemental_tpu/tune/knobs.py``: the legal wire precisions
-(``redist.quantize.COMM_PRECISIONS``) and LU panel strategies.
-``certified_solve``'s rungs are written in these words.  The rest of the
-tuner (search spaces, cache, cost model) is not ported yet.
+PyTorch port of ``elemental_tpu/tune/knobs.py``, whole (it imports
+nothing of JAX; the port keeps its own copy).  One :class:`OpSpace` per
+tunable driver (``cholesky``, ``lu``, ``qr``, ``gemm``, ``trsm``,
+``herk``) describes
+
+  * the knob names the driver accepts as ``'auto'`` (``nb``, and for the
+    factorizations ``lookahead``/``crossover``, for gemm ``alg``),
+  * a candidate enumerator producing the LEGAL configurations for a
+    concrete problem context (shape, dtype, grid) -- grain-aligned ``nb``
+    ladders clamped to the extent, the replicated-C memory guard on
+    ``gemm(alg='dot')``, and so on.
+
+The registry is pure metadata: no tracing, no device execution.  The
+cost model (:mod:`.cost_model`) scores these candidates; the resolver
+(:mod:`.policy`) picks one; explicit (non-``'auto'``) knob values pin
+their dimension of the product space and always win.  The candidate
+order of every dimension is the tie-break, as in the JAX package.
 """
-from ..redist.quantize import COMM_PRECISIONS  # noqa: F401  (None, bf16, int8)
+from __future__ import annotations
 
-#: LU panel strategies: the replicated partial-pivot panel and CALU's
-#: tournament
+import dataclasses
+import itertools
+import math
+
+from ..core.view import round_up
+
+#: the nb ladder every blocked driver sweeps
+NB_LADDER = (64, 128, 256, 512, 1024, 2048, 4096)
+
+#: default tail crossover-to-local threshold of the look-ahead schedules
+#: (``lapack.cholesky._CROSSOVER`` == ``lapack.lu._CROSSOVER`` == 4096;
+#: kept literal so the registry stays import-light -- re-pinned by the
+#: tests against the driver constants)
+DEFAULT_CROSSOVER = 4096
+
+#: replicated-C element cap for ``gemm(alg='dot')`` on p > 1 (the
+#: SUMMA-Dot schedule replicates the full C on every rank)
+DOT_ELEMENT_CAP = 1 << 22
+
+
+@dataclasses.dataclass(frozen=True)
+class TuneContext:
+    """The concrete problem a resolution runs against."""
+    op: str
+    dims: tuple            # driver dims: (n, n) / (m, n) / gemm (m, k, n)
+    dtype: str             # canonical dtype name ("float32", ...)
+    grid_shape: tuple      # (r, c)
+    backend: str           # "cpu" / "gpu"
+
+    @property
+    def grid_size(self) -> int:
+        r, c = self.grid_shape
+        return r * c
+
+    @property
+    def grain(self) -> int:
+        r, c = self.grid_shape
+        return math.lcm(r, c)
+
+    @property
+    def extent(self) -> int:
+        """The panel-sweep extent the nb ladder is clamped against."""
+        if self.op == "gemm":
+            return max(self.dims)
+        if self.op == "herk":
+            return self.dims[1]           # k-panel sweep
+        if self.op in ("cholesky", "trsm"):
+            return self.dims[0]           # row sweep
+        return min(self.dims)             # lu/qr: min(m, n) diagonal sweep
+
+
+def nb_candidates(ctx: TuneContext) -> tuple:
+    """Grain-aligned nb ladder clamped to the problem extent (plus the
+    extent/2 and extent/4 rungs so small problems still have a sweep)."""
+    grain = ctx.grain
+    cap = round_up(max(ctx.extent, 1), grain)
+    raw = list(NB_LADDER) + [cap, cap // 2, cap // 4]
+    vals = {min(round_up(max(v, grain), grain), cap) for v in raw if v >= 1}
+    return tuple(sorted(vals))
+
+
+def _factorization_space(ctx: TuneContext, pinned: dict) -> list:
+    nbs = (pinned["nb"],) if "nb" in pinned else nb_candidates(ctx)
+    las = (pinned["lookahead"],) if "lookahead" in pinned else (True, False)
+    xos = (pinned["crossover"],) if "crossover" in pinned \
+        else (DEFAULT_CROSSOVER, 0)
+    out = []
+    for nb, la, xo in itertools.product(nbs, las, xos):
+        if not la and xo not in (0, None):
+            continue                # classic never crosses over (driver default)
+        out.append({"nb": nb, "lookahead": la, "crossover": xo})
+    return out
+
+
+def _nb_only_space(ctx: TuneContext, pinned: dict) -> list:
+    nbs = (pinned["nb"],) if "nb" in pinned else nb_candidates(ctx)
+    return [{"nb": nb} for nb in nbs]
+
+
+#: wire-precision modes of the quantized-collective path: ``None`` = full
+#: precision (bit-identical, the candidate-order tie-break leader),
+#: 'bf16' = cast wire, 'int8' = block-scaled wire.  Kept in sync with
+#: ``redist.quantize.COMM_PRECISIONS`` (pinned by the tests).
+COMM_PRECISIONS = (None, "bf16", "int8")
+
+
+def _with_comm_precision(space: list, ctx: TuneContext, pinned: dict) -> list:
+    """Cross every candidate with the legal comm_precision values.
+
+    An explicitly pinned value (INCLUDING ``None``) freezes the
+    dimension; otherwise single-rank grids enumerate only ``None`` (no
+    collective runs, so quantization would cost accuracy for zero byte
+    savings) and multi-rank grids sweep the full mode set."""
+    if "comm_precision" in pinned:
+        chosen = (pinned["comm_precision"],)
+    elif ctx.grid_size <= 1:
+        chosen = (None,)
+    else:
+        chosen = COMM_PRECISIONS
+    return [{**cfg, "comm_precision": cp} for cfg in space for cp in chosen]
+
+
+#: redistribution routes of the one-shot plan compiler: ``None`` = the
+#: factored multi-hop chain (the tie-break leader), ``'direct'`` = the
+#: compiled single-collective plan (``redist.plan``)
+REDIST_PATHS = (None, "direct")
+
+
+def _with_redist_path(space: list, ctx: TuneContext, pinned: dict) -> list:
+    """Cross every candidate with the legal redist_path values (pinned
+    freezes; single-rank grids enumerate only ``None``, where every plan
+    is local)."""
+    if "redist_path" in pinned:
+        chosen = (pinned["redist_path"],)
+    elif ctx.grid_size <= 1:
+        chosen = (None,)
+    else:
+        chosen = REDIST_PATHS
+    return [{**cfg, "redist_path": rp} for cfg in space for rp in chosen]
+
+
+#: panel implementations of the factorization critical path: 'torch' =
+#: the plain PyTorch panels (the counterpart of the JAX package's 'xla',
+#: the candidate-order tie-break leader), 'kernel' = the hand-written
+#: CUDA kernels of :mod:`..kernels` (the counterpart of 'pallas').  Kept
+#: in sync with ``kernels.PANEL_IMPLS`` (pinned by the tests).
+PANEL_IMPLS = ("torch", "kernel")
+
+
+def _with_panel_impl(space: list, ctx: TuneContext, pinned: dict) -> list:
+    """Cross every candidate with the legal panel_impl values.
+
+    An explicitly pinned value (INCLUDING ``None``) freezes the
+    dimension; otherwise complex dtypes enumerate only 'torch' (the
+    kernels are real-only) and real dtypes sweep both -- the cost
+    model's launch-count term decides per backend (the kernel wins on
+    'gpu'; off the card the wrapper runs the plain version)."""
+    if "panel_impl" in pinned:
+        chosen = (pinned["panel_impl"],)
+    elif "complex" in str(ctx.dtype):
+        chosen = ("torch",)
+    else:
+        chosen = PANEL_IMPLS
+    return [{**cfg, "panel_impl": pi} for cfg in space for pi in chosen]
+
+
+#: panel strategies of the pivoted/reflector factorizations: 'classic'
+#: = replicated column-at-a-time panel, the alternative = the
+#: communication-avoiding tree panel.  'classic' leads so the tie-break
+#: keeps it on grids where the tree panel degenerates (single grid row).
 LU_PANELS = ("classic", "calu")
+QR_PANELS = ("classic", "tsqr")
+
+
+def _with_panels(space: list, ctx: TuneContext, pinned: dict,
+                 panels: tuple) -> list:
+    chosen = (pinned["panel"],) if "panel" in pinned else panels
+    out = []
+    for cfg in space:
+        for pan in chosen:
+            if pan not in (panels[0],) and ctx.grid_shape[0] <= 1 \
+                    and "panel" not in pinned:
+                continue        # tree panel == classic on single-row grids
+            out.append({**cfg, "panel": pan})
+    return out
+
+
+def _cholesky_space(ctx: TuneContext, pinned: dict) -> list:
+    return _with_panel_impl(
+        _with_redist_path(
+            _with_comm_precision(_factorization_space(ctx, pinned), ctx,
+                                 pinned), ctx, pinned), ctx, pinned)
+
+
+def _lu_space(ctx: TuneContext, pinned: dict) -> list:
+    base = {k: v for k, v in pinned.items()
+            if k not in ("panel", "panel_impl")}
+    return _with_panel_impl(
+        _with_redist_path(
+            _with_comm_precision(
+                _with_panels(_factorization_space(ctx, base), ctx, pinned,
+                             LU_PANELS), ctx, pinned), ctx, pinned),
+        ctx, pinned)
+
+
+def _qr_space(ctx: TuneContext, pinned: dict) -> list:
+    base = {k: v for k, v in pinned.items()
+            if k not in ("panel", "panel_impl")}
+    return _with_panel_impl(
+        _with_redist_path(
+            _with_comm_precision(
+                _with_panels(_nb_only_space(ctx, base), ctx, pinned,
+                             QR_PANELS), ctx, pinned), ctx, pinned),
+        ctx, pinned)
+
+
+def _nb_comm_space(ctx: TuneContext, pinned: dict) -> list:
+    return _with_redist_path(
+        _with_comm_precision(_nb_only_space(ctx, pinned), ctx, pinned),
+        ctx, pinned)
+
+
+#: gemm candidate order doubles as the tie-break: on a 1x1 grid every
+#: alg has zero comm cost and 'dot' is ONE local matmul, so it leads;
+#: 'slice' comes last so it only takes geometries it strictly wins.
+GEMM_ALGS = ("dot", "C", "A", "B", "gspmd", "slice")
+
+
+def _gemm_space(ctx: TuneContext, pinned: dict) -> list:
+    m, k, n = ctx.dims
+    algs = (pinned["alg"],) if "alg" in pinned else GEMM_ALGS
+    nbs = (pinned["nb"],) if "nb" in pinned else nb_candidates(ctx)
+    out = []
+    for alg in algs:
+        if alg == "dot" and ctx.grid_size > 1 and m * n > DOT_ELEMENT_CAP \
+                and "alg" not in pinned:
+            continue                      # replicated-C memory guard
+        if alg == "slice" and ctx.grid_size > 1 and "alg" not in pinned:
+            # replicated-operand memory guard: the mode rule broadcasts
+            # the small operand ([STAR,STAR]); skip when even that is
+            # too large to replicate per rank
+            from ..redist.plan import slice_row_mode
+            repl = k * n if slice_row_mode(m, n, ctx.grid_shape) else m * k
+            if repl > DOT_ELEMENT_CAP:
+                continue
+        for nb in nbs:
+            out.append({"alg": alg, "nb": nb})
+            if alg in ("dot", "gspmd", "slice"):
+                break                     # nb is dead for the one-shot algs
+    return _with_redist_path(_with_comm_precision(out, ctx, pinned), ctx,
+                             pinned)
+
+
+@dataclasses.dataclass(frozen=True)
+class OpSpace:
+    """Registry entry: the knobs of one driver + its candidate enumerator."""
+    op: str
+    knobs: tuple                   # knob names accepted as 'auto'
+    space: callable                # (ctx, pinned) -> list[config dict]
+
+
+OPS = {
+    "cholesky": OpSpace("cholesky",
+                        ("nb", "lookahead", "crossover", "comm_precision",
+                         "redist_path", "panel_impl"),
+                        _cholesky_space),
+    "lu": OpSpace("lu", ("nb", "lookahead", "crossover", "panel",
+                         "comm_precision", "redist_path", "panel_impl"),
+                  _lu_space),
+    "qr": OpSpace("qr", ("nb", "panel", "comm_precision", "redist_path",
+                         "panel_impl"), _qr_space),
+    "gemm": OpSpace("gemm", ("alg", "nb", "comm_precision", "redist_path"),
+                    _gemm_space),
+    "trsm": OpSpace("trsm", ("nb", "comm_precision", "redist_path"),
+                    _nb_comm_space),
+    "herk": OpSpace("herk", ("nb", "comm_precision", "redist_path"),
+                    _nb_comm_space),
+}
+
+
+def op_names() -> list:
+    return sorted(OPS)
+
+
+def candidate_configs(ctx: TuneContext, pinned: dict | None = None) -> list:
+    """All legal configurations of ``ctx.op`` with the ``pinned`` knobs
+    (explicit, non-'auto' values) frozen at their requested value."""
+    spec = OPS.get(ctx.op)
+    if spec is None:
+        raise KeyError(f"unknown tunable op {ctx.op!r}; known: {op_names()}")
+    pinned = dict(pinned or {})
+    unknown = set(pinned) - set(spec.knobs)
+    if unknown:
+        raise KeyError(f"{ctx.op} has no knob(s) {sorted(unknown)}; "
+                       f"knobs: {spec.knobs}")
+    return spec.space(ctx, pinned)

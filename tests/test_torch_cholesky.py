@@ -97,21 +97,54 @@ def test_cholesky_reads_only_lower_triangle():
                                    np.linalg.cholesky(F), rtol=1e-10)
 
 
+@pytest.fixture
+def empty_tune_cache(tmp_path, monkeypatch):
+    """Both packages' tuners on an empty cache (the cost model decides)."""
+    from elemental_tpu.tune import cache as jc, policy as jp
+    from elemental_tpu_torch.tune import cache as tc, policy as tp
+    monkeypatch.setenv(jc.ENV_DIR, str(tmp_path / "jax"))
+    monkeypatch.setenv(tc.ENV_DIR, str(tmp_path / "torch"))
+    jp.clear_memo()
+    tp.clear_memo()
+    yield
+    jp.clear_memo()
+    tp.clear_memo()
+
+
+_CHOL_KNOBS = {"nb": None, "lookahead": True, "crossover": None,
+               "panel_impl": None, "comm_precision": None,
+               "redist_path": None}
+
+
 @pytest.mark.parametrize("kw", [
     dict(nb="auto"), dict(lookahead="auto"), dict(crossover="auto"),
     dict(comm_precision="auto"), dict(redist_path="auto"),
     dict(timer=object()), dict(health=True, timer=object()),
     dict(abft=True, timer=object()),
     dict(precision="bf16")], ids=lambda kw: next(iter(kw)))
-def test_later_slice_knobs_raise(kw):
-    """``timer`` and the ``'auto'`` knobs raise.  ``health`` and ``abft``
+def test_later_slice_knobs_raise(kw, empty_tune_cache):
+    """``timer`` raises.  Each ``'auto'`` knob resolves through the tuner,
+    as in the JAX package, to the JAX package's value, and the call equals
+    the explicit call with the resolved value.  ``health`` and ``abft``
     are ported: beside ``timer`` the call still raises (the guarded driver
     would otherwise take it as its hook), and alone each knob reaches its
     monitor or its guarded driver, which files a fresh report."""
     A = et.from_global(_hpd(8, np.float64), et.MC, et.MR, tgrid(1, 1))
+    knob = next(iter(kw))
+    if kw[knob] == "auto":
+        knobs = {**_CHOL_KNOBS, **kw}
+        kn = et.tune.resolve_knobs("cholesky", gshape=A.gshape,
+                                   dtype=A.dtype, grid=A.grid, knobs=knobs)
+        jn = el.tune.resolve_knobs("cholesky", gshape=A.gshape,
+                                   dtype=np.float64, grid=jgrid(1, 1),
+                                   knobs=knobs)
+        assert kn[knob] == jn[knob] and kn[knob] != "auto"
+        got = et.cholesky(A, **kw)
+        assert torch.equal(got.local,
+                           et.cholesky(A, **{knob: kn[knob]}).local)
+        return
     with pytest.raises(NotImplementedError, match="later slice"):
         et.cholesky(A, **kw)
-    knob = next(iter(kw))
     if knob in ("health", "abft"):
         last = {"health": et.resilience.last_health_report,
                 "abft": et.resilience.last_abft_report}[knob]
@@ -121,13 +154,23 @@ def test_later_slice_knobs_raise(kw):
         assert rep is not before and rep["driver"] == "cholesky" and rep["ok"]
 
 
-def test_hpd_solve_info_raises():
-    """``info=True`` is ported; it does not get a refused knob past the
-    driver."""
+def test_hpd_solve_info_raises(empty_tune_cache):
+    """``info=True`` is ported, and ``nb='auto'`` beside it resolves as in
+    the JAX package: the factor as op ``'cholesky'``, the two sweeps as op
+    ``'trsm'``, each equal to the explicit call."""
     g = tgrid(1, 1)
     A = et.from_global(_hpd(8, np.float64), et.MC, et.MR, g)
     B = et.from_global(np.ones((8, 1)), et.MC, et.MR, g)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        et.hpd_solve(A, B, nb="auto", info=True)
+    Xa, info_a = et.hpd_solve(A, B, nb="auto", info=True)
+    nb_c = et.tune.resolve_knobs("cholesky", gshape=A.gshape, dtype=A.dtype,
+                                 grid=g, knobs={**_CHOL_KNOBS, "nb": "auto"})
+    nb_t = et.tune.resolve_knobs("trsm", gshape=B.gshape, dtype=B.dtype,
+                                 grid=g, knobs={"nb": "auto",
+                                                "comm_precision": None,
+                                                "redist_path": None})
+    L = et.cholesky(A, nb=nb_c["nb"])
+    want = et.cholesky_solve_after(L, B, nb=nb_t["nb"])
+    assert torch.equal(Xa.local, want.local)
+    assert info_a == {"singular": False, "diag_index": None, "finite": True}
     X, info = et.hpd_solve(A, B, info=True)
     assert info == {"singular": False, "diag_index": None, "finite": True}

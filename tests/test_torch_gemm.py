@@ -86,15 +86,42 @@ def test_gemm_beta_and_c_match_jax(rc, alg):
     _close(outr, el.gemm(jAr, jBr, beta=0j, C=jCr, alg=alg, nb=4))
 
 
-def test_gemm_refuses_what_is_not_ported():
+@pytest.fixture
+def empty_tune_cache(tmp_path, monkeypatch):
+    """Both packages' tuners on an empty cache (the cost model decides)."""
+    from elemental_tpu.tune import cache as jc, policy as jp
+    from elemental_tpu_torch.tune import cache as tc, policy as tp
+    monkeypatch.setenv(jc.ENV_DIR, str(tmp_path / "jax"))
+    monkeypatch.setenv(tc.ENV_DIR, str(tmp_path / "torch"))
+    jp.clear_memo()
+    tp.clear_memo()
+    yield
+    jp.clear_memo()
+    tp.clear_memo()
+
+
+def test_gemm_refuses_what_is_not_ported(empty_tune_cache):
+    """The defaults (``alg='auto'``) resolve to ``'dot'`` on a 1x1 grid,
+    as in the JAX package, and ``'auto'`` for ``nb`` / ``comm_precision``
+    resolves to the JAX package's value; each equals the explicit call."""
     g = tgrid(1, 1)
     A = et.from_global(_mat((4, 4), 0), et.MC, et.MR, g)
-    with pytest.raises(NotImplementedError):
-        et.gemm(A, A)                               # alg='auto'
-    with pytest.raises(NotImplementedError):
-        et.gemm(A, A, alg="C", nb="auto")
-    with pytest.raises(NotImplementedError):
-        et.gemm(A, A, alg="C", comm_precision="auto")
+    jA = el.from_global(_mat((4, 4), 0), el.MC, el.MR, jgrid(1, 1))
+    assert np.array_equal(et.gemm(A, A).local.numpy(),
+                          et.gemm(A, A, alg="dot").local.numpy())
+    base = {"alg": "C", "nb": None, "comm_precision": None,
+            "redist_path": None}
+    for kw in ({"nb": "auto"}, {"comm_precision": "auto"}):
+        (k, _), = kw.items()
+        kn = et.tune.resolve_knobs("gemm", gshape=(4, 4, 4), dtype=A.dtype,
+                                   grid=g, knobs={**base, **kw})
+        jn = el.tune.resolve_knobs("gemm", gshape=(4, 4, 4),
+                                   dtype=np.float64, grid=jA.grid,
+                                   knobs={**base, **kw})
+        assert kn[k] == jn[k] and kn[k] != "auto"
+        assert np.array_equal(
+            et.gemm(A, A, alg="C", **kw).local.numpy(),
+            et.gemm(A, A, alg="C", **{k: kn[k]}).local.numpy())
     with pytest.raises(ValueError):
         et.gemm(A, A, alg="nope")
     with pytest.raises(TypeError):

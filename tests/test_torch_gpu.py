@@ -931,3 +931,66 @@ def test_compute_escalation_certifies_at_abft_on_the_card():
     assert [a["health"]["ok"] for a in info["attempts"][:2]] == [False,
                                                                  False]
     assert potrf_inv.launches == 3 * per
+
+
+# ---------------------------------------------------------------------
+# the tuner on the card
+# ---------------------------------------------------------------------
+
+@pytest.fixture
+def empty_tune_cache(tmp_path, monkeypatch):
+    from elemental_tpu_torch.tune import cache as tc, policy as tp
+    monkeypatch.setenv(tc.ENV_DIR, str(tmp_path))
+    tp.clear_memo()
+    yield tmp_path
+    tp.clear_memo()
+
+
+def test_gemm_defaults_on_the_card_equal_dot(empty_tune_cache):
+    """``gemm(A, B)`` with its defaults (``alg='auto'``) resolves to
+    'dot' on the card's 1x1 grid and is bit-equal to ``alg='dot'``."""
+    _need_card()
+    g = et.Grid()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    A = et.from_global(torch.randn(4096, 256, generator=gen, device="cuda"),
+                       et.MC, et.MR, g)
+    B = et.from_global(torch.randn(256, 128, generator=gen, device="cuda"),
+                       et.MC, et.MR, g)
+    assert torch.equal(et.gemm(A, B).local, et.gemm(A, B, alg="dot").local)
+
+
+def test_every_op_resolves_the_kernel_on_a_cuda_grid(empty_tune_cache):
+    _need_card()
+    g = et.Grid()
+    for op in ("cholesky", "lu", "qr"):
+        res = et.tune.resolve(op, gshape=(4096, 4096), dtype=torch.float32,
+                              grid=g, requested={k: "auto" for k in
+                                                 et.tune.OPS[op].knobs})
+        assert res.config["panel_impl"] == "kernel", op
+        assert res.key.backend == "gpu"
+
+
+def test_measured_search_is_read_back(empty_tune_cache):
+    """``measure.search`` on the card writes the winner; the next
+    ``resolve`` reads it back (source 'cache'), and ``cholesky`` with
+    ``nb='auto'`` then launches N / nb kernels."""
+    _need_card()
+    from elemental_tpu_torch.tune import measure
+    g = et.Grid()
+    winner, measured, key = measure.search("cholesky", (4096, 4096), g,
+                                           torch.float32, top=2, reps=1)
+    assert len(measured) == 2 and winner.seconds > 0
+    assert all(m.config["panel_impl"] == "kernel" for m in measured)
+    assert (empty_tune_cache / key.filename()).exists()
+    res = et.tune.resolve("cholesky", gshape=(4096, 4096),
+                          dtype=torch.float32, grid=g,
+                          requested={"nb": "auto", "lookahead": "auto",
+                                     "crossover": "auto"})
+    assert res.source == "cache"
+    assert res.config == {k: winner.config[k]
+                          for k in ("nb", "lookahead", "crossover")}
+    A = et.from_global(_spd(4096, torch.float32), et.MC, et.MR, g)
+    potrf_inv.launches = 0
+    et.cholesky(A, nb="auto")
+    torch.cuda.synchronize()
+    assert potrf_inv.launches == -(-4096 // winner.config["nb"])

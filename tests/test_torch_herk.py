@@ -111,13 +111,38 @@ def test_trrk_matches_jax(rc, uplo):
         et.trrk(uplo, 1.0, tC, tB, 0.0, tC)
 
 
-def test_herk_refuses_later_slice_knobs():
+@pytest.fixture
+def empty_tune_cache(tmp_path, monkeypatch):
+    """Both packages' tuners on an empty cache (the cost model decides)."""
+    from elemental_tpu.tune import cache as jc, policy as jp
+    from elemental_tpu_torch.tune import cache as tc, policy as tp
+    monkeypatch.setenv(jc.ENV_DIR, str(tmp_path / "jax"))
+    monkeypatch.setenv(tc.ENV_DIR, str(tmp_path / "torch"))
+    jp.clear_memo()
+    tp.clear_memo()
+    yield
+    jp.clear_memo()
+    tp.clear_memo()
+
+
+def test_herk_refuses_later_slice_knobs(empty_tune_cache):
+    """Each ``'auto'`` knob resolves through the tuner to the JAX
+    package's value, and the call equals the explicit one."""
     rng = np.random.default_rng(10)
-    _, tA = _both(rng.normal(size=(8, 4)), (1, 1))
+    jA, tA = _both(rng.normal(size=(8, 4)), (1, 1))
+    base = {"nb": None, "comm_precision": None, "redist_path": None}
     for kw in ({"nb": "auto"}, {"comm_precision": "auto"},
                {"redist_path": "auto"}):
-        with pytest.raises(NotImplementedError):
-            et.herk("L", tA, **kw)
+        (k, _), = kw.items()
+        kn = et.tune.resolve_knobs("herk", gshape=tA.gshape, dtype=tA.dtype,
+                                   grid=tA.grid, knobs={**base, **kw})
+        jn = el.tune.resolve_knobs("herk", gshape=tA.gshape,
+                                   dtype=np.float64, grid=jA.grid,
+                                   knobs={**base, **kw})
+        assert kn[k] == jn[k] and kn[k] != "auto"
+        got = et.herk("L", tA, **kw)
+        assert np.array_equal(got.local.numpy(),
+                              et.herk("L", tA, **{k: kn[k]}).local.numpy())
     with pytest.raises(ValueError, match="C shape"):
         et.herk("L", tA, C=et.from_global(np.zeros((4, 4)), et.MC, et.MR,
                                           grid=tgrid(1, 1)))

@@ -156,6 +156,25 @@ def test_panel_impl_torch_and_inners_match_default_on_cpu():
     _close(Lb.local.numpy(), La.local.numpy())
 
 
+@pytest.fixture
+def empty_tune_cache(tmp_path, monkeypatch):
+    """Both packages' tuners on an empty cache (the cost model decides)."""
+    from elemental_tpu.tune import cache as jc, policy as jp
+    from elemental_tpu_torch.tune import cache as tc, policy as tp
+    monkeypatch.setenv(jc.ENV_DIR, str(tmp_path / "jax"))
+    monkeypatch.setenv(tc.ENV_DIR, str(tmp_path / "torch"))
+    jp.clear_memo()
+    tp.clear_memo()
+    yield
+    jp.clear_memo()
+    tp.clear_memo()
+
+
+_LU_KNOBS = {"nb": None, "lookahead": True, "crossover": None,
+             "panel": "classic", "panel_impl": None, "comm_precision": None,
+             "redist_path": None}
+
+
 @pytest.mark.parametrize("kw", [
     dict(nb="auto"), dict(lookahead="auto"), dict(crossover="auto"),
     dict(panel="auto"), dict(comm_precision="auto"),
@@ -163,15 +182,28 @@ def test_panel_impl_torch_and_inners_match_default_on_cpu():
     dict(health=True, timer=object()), dict(abft=True, timer=object()),
     dict(precision="bf16"), dict(update_precision="bf16")],
     ids=lambda kw: next(iter(kw)))
-def test_later_slice_knobs_raise(kw):
-    """``timer`` and the ``'auto'`` knobs raise.  ``health`` and ``abft``
+def test_later_slice_knobs_raise(kw, empty_tune_cache):
+    """``timer`` raises.  Each ``'auto'`` knob resolves through the tuner,
+    as in the JAX package, to the JAX package's value, and the call equals
+    the explicit call with the resolved value.  ``health`` and ``abft``
     are ported: beside ``timer`` the call still raises (the guarded driver
     would otherwise take it as its hook), and alone each knob reaches its
     monitor or its guarded driver, which files a fresh report."""
     A = et.from_global(_mat((8, 8)), et.MC, et.MR, tgrid(1, 1))
+    knob = next(iter(kw))
+    if kw[knob] == "auto":
+        knobs = {**_LU_KNOBS, **kw}
+        kn = et.tune.resolve_knobs("lu", gshape=A.gshape, dtype=A.dtype,
+                                   grid=A.grid, knobs=knobs)
+        jn = el.tune.resolve_knobs("lu", gshape=A.gshape, dtype=np.float64,
+                                   grid=jgrid(1, 1), knobs=knobs)
+        assert kn[knob] == jn[knob] and kn[knob] != "auto"
+        LUa, pa = et.lu(A, **kw)
+        LUe, pe = et.lu(A, **{knob: kn[knob]})
+        assert torch.equal(pa, pe) and torch.equal(LUa.local, LUe.local)
+        return
     with pytest.raises(NotImplementedError, match="later slice"):
         et.lu(A, **kw)
-    knob = next(iter(kw))
     if knob in ("health", "abft"):
         last = {"health": et.resilience.last_health_report,
                 "abft": et.resilience.last_abft_report}[knob]
@@ -181,7 +213,7 @@ def test_later_slice_knobs_raise(kw):
         assert rep is not before and rep["driver"] == "lu" and rep["ok"]
 
 
-def test_calu_on_a_multi_row_grid_and_info_raise():
+def test_calu_on_a_multi_row_grid_and_info_raise(empty_tune_cache):
     g = tgrid(2, 2)
     A = et.from_global(_mat((8, 8)), et.MC, et.MR, g)
     B = et.from_global(np.ones((8, 1)), et.MC, et.MR, g)
@@ -190,7 +222,17 @@ def test_calu_on_a_multi_row_grid_and_info_raise():
     F = et.to_global(LU_).numpy()
     L, U = np.tril(F, -1) + np.eye(8), np.triu(F)
     np.testing.assert_allclose(L @ U, _mat((8, 8))[perm.numpy()], atol=1e-12)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        et.lu_solve(A, B, nb="auto", info=True)
+    # nb='auto' beside info=True resolves as in the JAX package: the
+    # factor as op 'lu', the sweeps as op 'trsm'
+    Xa, info = et.lu_solve(A, B, nb="auto", info=True)
+    nb_l = et.tune.resolve_knobs("lu", gshape=A.gshape, dtype=A.dtype,
+                                 grid=g, knobs={**_LU_KNOBS, "nb": "auto"})
+    nb_t = et.tune.resolve_knobs("trsm", gshape=B.gshape, dtype=B.dtype,
+                                 grid=g, knobs={"nb": "auto",
+                                                "comm_precision": None,
+                                                "redist_path": None})
+    LUe, pe = et.lu(A, nb=nb_l["nb"])
+    Xe = et.lu_solve_after(LUe, pe, B, nb=nb_t["nb"])
+    assert torch.equal(Xa.local, Xe.local) and not info["singular"]
     with pytest.raises(ValueError, match="panel strategy"):
         et.lu(A, panel="tree")

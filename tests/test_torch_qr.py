@@ -194,21 +194,55 @@ def test_panel_impl_torch_matches_default_on_cpu():
     _close(tc.numpy(), ta.numpy())
 
 
+@pytest.fixture
+def empty_tune_cache(tmp_path, monkeypatch):
+    """Both packages' tuners on an empty cache (the cost model decides)."""
+    from elemental_tpu.tune import cache as jc, policy as jp
+    from elemental_tpu_torch.tune import cache as tc, policy as tp
+    monkeypatch.setenv(jc.ENV_DIR, str(tmp_path / "jax"))
+    monkeypatch.setenv(tc.ENV_DIR, str(tmp_path / "torch"))
+    jp.clear_memo()
+    tp.clear_memo()
+    yield
+    jp.clear_memo()
+    tp.clear_memo()
+
+
+_QR_KNOBS = {"nb": None, "panel": "classic", "panel_impl": None,
+             "comm_precision": None, "redist_path": None}
+
+
 @pytest.mark.parametrize("kw", [
     dict(nb="auto"), dict(panel="tsqr", redist_path="auto"),
     dict(panel="auto"), dict(comm_precision="auto"), dict(redist_path="auto"),
     dict(timer=object()), dict(health=True, timer=object()),
     dict(abft=True, timer=object()),
     dict(precision="bf16")], ids=lambda kw: f"{next(iter(kw))}")
-def test_later_slice_knobs_raise(kw):
-    """``timer`` and the ``'auto'`` knobs raise.  ``health`` and ``abft``
-    are ported: beside ``timer`` the call still raises (the guarded driver
-    would otherwise take it as its hook), and alone each knob reaches its
-    monitor or its guarded driver, which files a fresh report."""
+def test_later_slice_knobs_raise(kw, empty_tune_cache):
+    """``timer`` raises.  Each ``'auto'`` knob resolves through the tuner,
+    as in the JAX package, to the JAX package's value, and the call equals
+    the explicit call with the resolved value (the recorded block size
+    too).  ``health`` and ``abft`` are ported: beside ``timer`` the call
+    still raises (the guarded driver would otherwise take it as its hook),
+    and alone each knob reaches its monitor or its guarded driver, which
+    files a fresh report."""
     A = et.from_global(_mat((8, 8)), et.MC, et.MR, tgrid(1, 1))
+    knob = next(iter(kw))
+    autos = [k for k, v in kw.items() if v == "auto"]
+    if autos:
+        knobs = {**_QR_KNOBS, **kw}
+        kn = et.tune.resolve_knobs("qr", gshape=A.gshape, dtype=A.dtype,
+                                   grid=A.grid, knobs=knobs)
+        jn = el.tune.resolve_knobs("qr", gshape=A.gshape, dtype=np.float64,
+                                   grid=jgrid(1, 1), knobs=knobs)
+        assert all(kn[k] == jn[k] and kn[k] != "auto" for k in autos)
+        Pa, ta = et.qr(A, **kw)
+        Pe, te = et.qr(A, **{k: kn[k] for k in kw})
+        assert torch.equal(Pa.local, Pe.local) and torch.equal(ta, te)
+        assert Pa._qr_nb == Pe._qr_nb
+        return
     with pytest.raises(NotImplementedError, match="later slice"):
         et.qr(A, **kw)
-    knob = next(iter(kw))
     if knob in ("health", "abft"):
         last = {"health": et.resilience.last_health_report,
                 "abft": et.resilience.last_abft_report}[knob]
@@ -218,13 +252,22 @@ def test_later_slice_knobs_raise(kw):
         assert rep is not before and rep["driver"] == "qr" and rep["ok"]
 
 
-def test_other_later_slice_knobs_and_bad_panel():
+def test_other_later_slice_knobs_and_bad_panel(empty_tune_cache):
+    """``least_squares(nb='auto', abft=True)`` and ``lq(redist_path=
+    'auto')`` resolve as in the JAX package and agree with its 'auto'
+    calls to 1e-12."""
     g = tgrid(1, 1)
-    A = et.from_global(_mat((8, 4)), et.MC, et.MR, g)
-    B = et.from_global(_mat((8, 1)), et.MC, et.MR, g)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        et.least_squares(A, B, nb="auto", abft=True)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        et.lq(A, redist_path="auto")
+    F, Fb = _mat((8, 4)), _mat((8, 1))
+    A = et.from_global(F, et.MC, et.MR, g)
+    B = et.from_global(Fb, et.MC, et.MR, g)
+    jA = el.from_global(F, el.MC, el.MR, jgrid(1, 1))
+    jB = el.from_global(Fb, el.MC, el.MR, jgrid(1, 1))
+    X = et.least_squares(A, B, nb="auto", abft=True)
+    _close(et.to_global(X).numpy(), np.asarray(el.to_global(
+        el.least_squares(jA, jB, nb="auto", abft=True))))
+    Pl, tl = et.lq(A, redist_path="auto")
+    jP, jt = el.lq(jA, redist_path="auto")
+    _close(et.to_global(Pl).numpy(), np.asarray(el.to_global(jP)))
+    _close(tl.numpy(), np.asarray(jt))
     with pytest.raises(ValueError, match="panel strategy"):
         et.qr(A, panel="tree")

@@ -104,11 +104,20 @@ def test_one_by_one_redistribute_retags_without_copy():
 
 
 def test_later_slice_knobs_raise():
+    """``comm_precision='auto'`` is not a wire: ``ValueError``, as the JAX
+    engine's ``check_comm_precision``.  ``path='auto'`` arbitrates: the
+    storage is bit-equal to the JAX engine's and to the chain's."""
     A = et.from_global(np.eye(4), et.MC, et.MR, tgrid(2, 2))
-    with pytest.raises(NotImplementedError, match="later slice"):
+    jA = el.from_global(np.eye(4), el.MC, el.MR, jgrid(2, 2))
+    with pytest.raises(ValueError, match="comm_precision"):
         et.redistribute(A, et.STAR, et.STAR, comm_precision="auto")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        et.redistribute(A, et.STAR, et.STAR, path="auto")
+    with pytest.raises(ValueError, match="comm_precision"):
+        el.redistribute(jA, el.STAR, el.STAR, comm_precision="auto")
+    B = et.redistribute(A, et.STAR, et.STAR, path="auto")
+    jB = el.redistribute(jA, el.STAR, el.STAR, path="auto")
+    assert np.array_equal(B.local.numpy(), np.asarray(jB.local))
+    assert np.array_equal(
+        B.local.numpy(), et.redistribute(A, et.STAR, et.STAR).local.numpy())
 
 
 @pytest.mark.parametrize("rc", [(1, 1)] + GRIDS,

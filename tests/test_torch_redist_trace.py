@@ -294,9 +294,16 @@ def test_bad_and_auto_paths():
         et.redistribute(A, et.STAR, et.STAR, path="bogus")
     with pytest.raises(ValueError, match="comm_precision"):
         et.redistribute(A, et.STAR, et.STAR, comm_precision="fp8")
-    with pytest.raises(NotImplementedError, match="tuner"):
+    # path='auto' arbitrates as the JAX engine does (same route, same
+    # fallback reason); comm_precision='auto' is no wire: ValueError
+    jA = el.from_global(np.eye(4), el.MC, el.MR, jgrid(2, 2))
+    with t_engine.redist_trace() as tl:
         et.redistribute(A, et.STAR, et.STAR, path="auto")
-    with pytest.raises(NotImplementedError, match="tuner"):
+    with jax_engine.redist_trace() as jl:
+        el.redistribute(jA, el.STAR, el.STAR, path="auto")
+    assert (tl[0].path, tl[0].fallback_reason) == \
+        (jl[0].path, jl[0].fallback_reason)
+    with pytest.raises(ValueError, match="comm_precision"):
         et.panel_spread(et.redistribute(A, et.VC, et.STAR),
                         comm_precision="auto")
 

@@ -55,10 +55,37 @@ def test_trsm_complex_conj_case():
                                rtol=0, atol=1e-12)
 
 
-def test_trsm_later_slice_knobs_raise():
+@pytest.fixture
+def empty_tune_cache(tmp_path, monkeypatch):
+    """Both packages' tuners on an empty cache (the cost model decides)."""
+    from elemental_tpu.tune import cache as jc, policy as jp
+    from elemental_tpu_torch.tune import cache as tc, policy as tp
+    monkeypatch.setenv(jc.ENV_DIR, str(tmp_path / "jax"))
+    monkeypatch.setenv(tc.ENV_DIR, str(tmp_path / "torch"))
+    jp.clear_memo()
+    tp.clear_memo()
+    yield
+    jp.clear_memo()
+    tp.clear_memo()
+
+
+def test_trsm_later_slice_knobs_raise(empty_tune_cache):
+    """``'auto'`` for ``nb`` / ``comm_precision`` resolves as op
+    ``'trsm'`` on B's shape to the JAX package's value; each call equals
+    the explicit one."""
     tg = et.Grid(device="cpu")
     A = et.from_global(np.eye(4), et.MC, et.MR, tg)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        et.trsm("L", "L", "N", A, A, nb="auto")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        et.trsm("L", "L", "N", A, A, comm_precision="auto")
+    jA = el.from_global(np.eye(4), el.MC, el.MR,
+                        el.Grid(jax.devices()[:1], height=1))
+    base = {"nb": None, "comm_precision": None, "redist_path": None}
+    for kw in ({"nb": "auto"}, {"comm_precision": "auto"}):
+        (k, _), = kw.items()
+        kn = et.tune.resolve_knobs("trsm", gshape=A.gshape, dtype=A.dtype,
+                                   grid=tg, knobs={**base, **kw})
+        jn = el.tune.resolve_knobs("trsm", gshape=A.gshape,
+                                   dtype=np.float64, grid=jA.grid,
+                                   knobs={**base, **kw})
+        assert kn[k] == jn[k] and kn[k] != "auto"
+        assert np.array_equal(
+            et.trsm("L", "L", "N", A, A, **kw).local.numpy(),
+            et.trsm("L", "L", "N", A, A, **{k: kn[k]}).local.numpy())
