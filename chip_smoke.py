@@ -119,6 +119,30 @@ Phases, each of which raises on failure:
    beside the tuner's 'gpu' row; and ``measure.search`` of ``cholesky``
    and ``lu`` (top 4, 2 reps) whose winner the next resolution reads
    back from the cache and ``hpd_solve(nb='auto')`` then runs under;
+3l. the drivers traced on the card, and the rest of the dense surface:
+   phases 3 / 3b / 3c's flagships (same sizes and inputs) each untraced
+   and under ``with Tracer():`` (bit-equal, 16 launches, ``op_calls``
+   equal to the tracer's driver entries), and each factor untraced and
+   with an explicit ``PhaseTimer`` beside the tracer (bit-equal, 16 steps
+   with the JAX package's phase names, the phase seconds within 2% of
+   the call's synchronized wall time; traced against untraced wall time
+   printed; the Perfetto trace written to a temporary directory and its
+   events counted); the guarded ``lu`` (phase 3j's matrix) under the
+   tracer with ``health=True`` through a one-shot fault at step 1 (one
+   ``abft:recover`` span, 17 launches, bit-equal to the clean guarded
+   factor) and an unrecovered one (the ``health:*`` instants on the
+   ``events`` track); a ``cholesky`` at N = 8192 on a virtual 2x2 grid
+   whose traced collective labels equal ``redist_counts()``;
+   ``cholesky_pivoted`` of a rank-4096 PSD G G^T at N = 8192 (the rank
+   and ||P A P^T - L L^T|| / ||A||), ``cholesky_mod`` with k = 8 up and
+   down (each against the Cholesky factor of the modified matrix), the
+   BlockMatrix round trip at 32768^2 on a virtual 2x2 grid and a
+   BlockMatrix ``gemm`` (bit-equal to the cyclic ones), ``remote_updates``
+   of 2^24 updates with duplicates (against a float64 scatter-add,
+   entrywise), the ``DistMultiVec`` ``mv_axpy`` / ``mv_dot`` /
+   ``mv_nrm2`` at m = 2^27, and every deterministic gallery generator at
+   n = 4096 against the same call on the CPU, the device-random ones
+   seeded;
 4. the distributed branches: ``hpd_solve`` and ``lu`` + ``lu_solve_after``
    on a virtual 2x2 grid on the card, N = 1024 float64, nb = 128, with
    and without the crossover, against ``torch.linalg.solve``;
@@ -2648,12 +2672,7 @@ def phase_resilience(et, card: str, main_path: dict, lu_path: dict,
     def zero():
         lu_panel.launches = potrf_inv.launches = qr_panel.launches = 0
 
-    def sync_time(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t0
+    sync_time = _sync_time
 
     def one_shot(target, kind, nelem=2):
         return FaultPlan(seed=7, faults=[FaultSpec(target, kind, nelem=nelem,
@@ -3315,6 +3334,511 @@ def phase_tuner(et, card: str, main_path: dict, lu_path: dict,
     return res
 
 
+
+#: phase 3l's sizes (a rehearsal on the CPU shrinks them)
+TRACE_SIZES = {"N": 32768, "m": 65536, "n_ls": 32768, "nb": 2048,
+               "nrhs": 8, "n_virtual": 8192, "nb_virtual": 1024,
+               "n_dense": 8192, "rank": 4096, "k_mod": 8,
+               "n_block": 32768, "n_gemm": 8192, "n_updates": 1 << 24,
+               "m_mv": 1 << 27, "n_gallery": 4096}
+
+#: the JAX package's phase names of the three flagship factors on 1x1
+FLAGSHIP_PHASES = {"cholesky": {"diag", "panel", "update"},
+                   "lu": {"panel", "swap", "solve", "update"},
+                   "qr": {"panel", "update"}}
+
+
+def _gallery_cases(n: int) -> dict:
+    """Every deterministic gallery generator at order ~n: name ->
+    (args, tolerance relative to the largest entry; 0 = bit-equal).  The
+    ones that call exp, pow or sqrt may round an ulp apart on the card
+    (``gks``'s 1 / sqrt did: 1.1e-16)."""
+    import numpy as np
+    v = np.random.default_rng(3).normal(size=n)
+    k = n.bit_length() - 1
+    side2 = int(round(n ** 0.5))
+    side3 = int(round(n ** (1 / 3)))
+    return {
+        "zeros": ((n,), 0), "ones": ((n,), 0), "identity": ((n,), 0),
+        "hilbert": ((n,), 0), "lehmer": ((n,), 0), "minij": ((n,), 0),
+        "fourier": ((n,), 1e-13), "toeplitz": ((v, v[::-1].copy()), 0),
+        "hankel": ((v, v[::-1].copy()), 0), "circulant": ((v,), 0),
+        "cauchy": ((v, v + 100.0), 0), "walsh": ((k,), 0),
+        "wilkinson": ((n // 2 - 1,), 0), "laplacian_1d": ((n,), 0),
+        "laplacian_2d": ((side2, side2), 0), "jordan": ((n, 2.5), 0),
+        "kahan": ((n, 0.01), 1e-13), "grcar": ((n,), 0),
+        "parter": ((n,), 0), "pei": ((n, 3.0), 0), "redheffer": ((n,), 0),
+        "triw": ((n, -2.0), 0), "gear": ((n,), 0),
+        "gepp_growth": ((n,), 0), "demmel": ((n,), 1e-13),
+        "druinsky_toledo": ((n // 2,), 1e-13),
+        "extended_kahan": ((1 << (k - 2),), 1e-13), "fiedler": ((v,), 0),
+        "fox_li": ((n,), 1e-11), "gks": ((n,), 1e-14), "hanowa": ((n,), 0),
+        "helmholtz_1d": ((n, 2.5), 0),
+        "helmholtz_2d": ((side2, side2, 1.5), 0),
+        "helmholtz_3d": ((side3, side3, side3, 0.5), 0),
+        "laplacian_3d": ((side3, side3, side3), 0),
+        "jordan_cholesky": ((n,), 0), "lauchli": ((n,), 0),
+        "legendre": ((n,), 1e-14), "lotkin": ((n,), 0),
+        "one_two_one": ((n,), 0), "riffle": ((n,), 1e-13),
+        "ris": ((n,), 0), "whale": ((n,), 0), "kms": ((n, 0.5), 1e-13),
+        "egorov": ((n,), 1e-13)}
+
+
+def _label_counts(counter) -> dict:
+    """``redist_counts()``'s Counter as the tracer's labels (storage-level
+    row permutations excluded, as ``Tracer.redist_counts`` does)."""
+    out: dict = {}
+    for key, v in counter.items():
+        if key == "row_permute":
+            continue
+        if key == "panel_spread":
+            label = key
+        else:
+            (s0, s1), (d0, d1) = key
+            label = f"[{s0.value},{s1.value}]->[{d0.value},{d1.value}]"
+        out[label] = out.get(label, 0) + v
+    return dict(sorted(out.items()))
+
+
+def _sync_time(fn):
+    """(fn(), its wall seconds between two device syncs)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _tracing_dense(et, grid, g22, gen) -> dict:
+    """Phase 3l's dense surface: ``cholesky_pivoted``, ``cholesky_mod``,
+    the BlockMatrix round trip and gemm, ``remote_updates`` and the
+    ``DistMultiVec`` reductions (see :func:`phase_tracing`)."""
+    import torch
+    from elemental_tpu_torch.kernels import lu_panel, potrf_inv, qr_panel
+    S = TRACE_SIZES
+    kern = (lu_panel, potrf_inv, qr_panel)
+    nb = S["nb"]
+    sync_time = _sync_time
+    res: dict = {}
+    nd, rk = S["n_dense"], S["rank"]
+    t_part = time.perf_counter()
+    for k in kern:
+        k.launches = 0
+    gen.manual_seed(11)
+    G = torch.randn(nd, rk, generator=gen, device="cuda")
+    P = G @ G.T
+    del G
+    Pd = et.from_global(P, et.MC, et.MR, grid)
+    (Lp, perm, rank), t = sync_time(lambda: et.cholesky_pivoted(Pd,
+                                                                tol=1e-4))
+    l = Lp.local
+    PAP = P[perm][:, perm]
+    piv_res = float(torch.linalg.norm(PAP - l @ l.T) / torch.linalg.norm(P))
+    res["cholesky_pivoted"] = {"s": t, "rank": int(rank),
+                               "residual": piv_res, "N": nd,
+                               "launches": _counts_now(*kern),
+                               "wall_s": time.perf_counter() - t_part}
+    print("phase 3l cholesky_pivoted " + json.dumps(
+        res["cholesky_pivoted"]), flush=True)
+    if not (int(rank) == rk and piv_res < 1e-3):
+        raise AssertionError(f"3l cholesky_pivoted: "
+                             f"{json.dumps(res['cholesky_pivoted'])}")
+    del P, Pd, Lp, PAP, l
+    t_part = time.perf_counter()
+    Sm, gen2 = _spd(nd, torch.float32, seed=12)
+    V = torch.randn(nd, S["k_mod"], generator=gen2, device="cuda")
+    L = et.cholesky(et.from_global(Sm, et.MC, et.MR, grid), nb=nb)
+    Vd = et.from_global(V, et.MC, et.MR, grid)
+    L2, t_up = sync_time(lambda: et.cholesky_mod(L, Vd, 1.0))
+    L3, t_down = sync_time(lambda: et.cholesky_mod(L2, Vd, -1.0))
+    Sup = Sm + V @ V.T
+    Lref = torch.linalg.cholesky(Sup.double())
+    up_err = float((L2.local.double() - Lref).abs().max()
+                   / Lref.abs().max())
+    Lref0 = torch.linalg.cholesky(Sm.double())
+    down_err = float((L3.local.double() - Lref0).abs().max()
+                     / Lref0.abs().max())
+    res["cholesky_mod"] = {"update_s": t_up, "downdate_s": t_down,
+                           "k": S["k_mod"], "N": nd,
+                           "update_err_vs_factor": up_err,
+                           "downdate_err_vs_factor": down_err}
+    res["cholesky_mod"]["wall_s"] = time.perf_counter() - t_part
+    print("phase 3l cholesky_mod " + json.dumps(res["cholesky_mod"]),
+          flush=True)
+    if not (up_err < 1e-3 and down_err < 1e-3):
+        raise AssertionError(f"3l cholesky_mod: "
+                             f"{json.dumps(res['cholesky_mod'])}")
+    del Sm, V, L, L2, L3, Sup, Lref, Lref0, Vd
+    torch.cuda.empty_cache()
+
+    nbk = S["n_block"]
+    t_part = time.perf_counter()
+    gen.manual_seed(13)
+    Fb = torch.randn(nbk, nbk, generator=gen, device="cuda")
+    Ab = et.from_global(Fb, et.MC, et.MR, g22)
+    del Fb
+    Bt, t_from = sync_time(lambda: et.block_from_cyclic(Ab))
+    Ab2, t_to = sync_time(lambda: et.block_to_cyclic(Bt))
+    round_trip = _same(Ab, Ab2)
+    del Ab, Ab2, Bt
+    torch.cuda.empty_cache()
+    ng = S["n_gemm"]
+    Ga = et.from_global(torch.randn(ng, ng, generator=gen, device="cuda"),
+                        et.MC, et.MR, g22)
+    Gb = et.from_global(torch.randn(ng, ng, generator=gen, device="cuda"),
+                        et.MC, et.MR, g22)
+    Cc, t_cyc = sync_time(lambda: et.gemm(Ga, Gb))
+    Ct, t_tiled = sync_time(lambda: et.gemm(et.block_from_cyclic(Ga),
+                                            et.block_from_cyclic(Gb)))
+    gemm_equal = _same(et.block_to_cyclic(Ct), Cc)
+    res["block"] = {"n": nbk, "grid": "2x2", "from_cyclic_s": t_from,
+                    "to_cyclic_s": t_to, "round_trip_bit_equal": round_trip,
+                    "gemm_n": ng, "gemm_cyclic_s": t_cyc,
+                    "gemm_tiled_s": t_tiled, "gemm_bit_equal": gemm_equal}
+    res["block"]["wall_s"] = time.perf_counter() - t_part
+    print("phase 3l block " + json.dumps(res["block"]), flush=True)
+    if not (round_trip and gemm_equal):
+        raise AssertionError(f"3l block: {json.dumps(res['block'])}")
+    del Ga, Gb, Cc, Ct
+    torch.cuda.empty_cache()
+
+    nu = S["n_updates"]
+    t_part = time.perf_counter()
+    rows = torch.randint(0, nd, (nu,), generator=gen, device="cuda")
+    cols = torch.randint(0, nd, (nu,), generator=gen, device="cuda")
+    rows[: nu // 4] = rows[: nu // 4] % 64          # heavy duplicates
+    cols[: nu // 4] = cols[: nu // 4] % 64
+    vals = torch.randn(nu, generator=gen, device="cuda")
+    Au = et.zeros(nd, nd, grid=grid, dtype=torch.float32)
+    Ru, t_ru = sync_time(lambda: et.remote_updates(Au, rows, cols, vals))
+    ref = torch.zeros(nd, nd, dtype=torch.float64, device="cuda")
+    ref.index_put_((rows, cols), vals.double(), accumulate=True)
+    mass = torch.zeros_like(ref)
+    mass.index_put_((rows, cols), vals.double().abs(), accumulate=True)
+    eps = torch.finfo(torch.float32).eps
+    dup = torch.zeros_like(ref)
+    dup.index_put_((rows, cols), torch.ones_like(vals, dtype=torch.float64),
+                   accumulate=True)
+    # f32 summation error of each entry: its count times eps times its
+    # mass (the order of the sums is the device's)
+    diff = (Ru.local.double() - ref).abs()
+    within = bool((diff <= dup * eps * mass + eps).all())
+    res["remote_updates"] = {"updates": nu, "s": t_ru,
+                             "max_abs_err_vs_f64": float(diff.max()),
+                             "within_entrywise_bound": within,
+                             "max_duplicates": int(dup.max())}
+    res["remote_updates"]["wall_s"] = time.perf_counter() - t_part
+    print("phase 3l remote_updates " + json.dumps(res["remote_updates"]),
+          flush=True)
+    if not within:
+        raise AssertionError(f"3l remote_updates: "
+                             f"{json.dumps(res['remote_updates'])}")
+    del rows, cols, vals, Au, Ru, ref, mass, dup, diff
+    torch.cuda.empty_cache()
+
+    mm = S["m_mv"]
+    t_part = time.perf_counter()
+    x = torch.randn(mm, generator=gen, device="cuda")
+    y = torch.randn(mm, generator=gen, device="cuda")
+    X = et.mv_from_global(x, grid=grid)
+    Y = et.mv_from_global(y, grid=grid)
+    Z, t_axpy = sync_time(lambda: et.mv_axpy(0.5, X, Y))
+    d, t_dot = sync_time(lambda: et.mv_dot(X, Y))
+    nrm, t_nrm = sync_time(lambda: et.mv_nrm2(X))
+    xd, yd = x.double(), y.double()
+    dot_ref = float(xd @ yd)
+    nrm_ref = float(torch.linalg.vector_norm(xd))
+    axpy_err = float((et.mv_to_global(Z).double().squeeze(1)
+                      - (0.5 * xd + yd)).abs().max())
+    res["multivec"] = {
+        "m": mm, "axpy_s": t_axpy, "dot_s": t_dot, "nrm2_s": t_nrm,
+        "dot_rel_err": abs(float(d) - dot_ref) / (nrm_ref * float(
+            torch.linalg.vector_norm(yd))),
+        "nrm2_rel_err": abs(float(nrm) - nrm_ref) / nrm_ref,
+        "axpy_max_abs_err": axpy_err}
+    mv = res["multivec"]
+    mv["wall_s"] = time.perf_counter() - t_part
+    print("phase 3l multivec " + json.dumps(mv), flush=True)
+    if not (mv["dot_rel_err"] < 1e-5 and mv["nrm2_rel_err"] < 1e-5
+            and axpy_err < 1e-5):
+        raise AssertionError(f"3l multivec: {json.dumps(mv)}")
+    del x, y, X, Y, Z, xd, yd
+    torch.cuda.empty_cache()
+
+    return res
+
+
+def _tracing_gallery(et, grid) -> dict:
+    """Phase 3l's gallery: every deterministic generator at n = 4096 on
+    the card against the same call on the CPU, and the device-random
+    ones for seeded determinism and moments."""
+    import torch
+    from elemental_tpu_torch import matrices as TM
+    S = TRACE_SIZES
+    ng = S["n_gallery"]
+    cpu = et.Grid(device="cpu")
+    gal: dict = {}
+    t0 = time.perf_counter()
+
+    def phase_fn(i, j):
+        return (i * j).double() * 1e-4
+
+    bad = []
+    for name, (args, tol) in _gallery_cases(ng).items():
+        fn = getattr(TM, name)
+        if name == "egorov":
+            args = (phase_fn,) + args
+        a_card = et.to_global(fn(*args, grid=grid)).cpu()
+        a_cpu = et.to_global(fn(*args, grid=cpu))
+        diff = float((a_card - a_cpu).abs().max()) if a_cpu.numel() else 0.0
+        scale = max(float(a_cpu.abs().max()), 1.0) if a_cpu.numel() else 1.0
+        gal[name] = diff / scale
+        if not (a_card.shape == a_cpu.shape and gal[name] <= tol):
+            bad.append(f"{name}: {gal[name]:.3e} > {tol}")
+    print("phase 3l gallery max relative difference card - cpu "
+          + json.dumps(gal), flush=True)
+    if bad:
+        raise AssertionError(f"3l gallery: {bad}")
+    rand: dict = {}
+    for name in ("gaussian_device", "uniform_device", "bernoulli",
+                 "rademacher"):
+        fn = getattr(TM, name)
+        a1 = fn(ng, grid=grid, seed=5).local
+        a2 = fn(ng, grid=grid, seed=5).local
+        a3 = fn(ng, grid=grid, seed=6).local
+        rand[name] = {"mean": float(a1.mean()), "std": float(a1.std())}
+        if not (torch.equal(a1, a2) and not torch.equal(a1, a3)):
+            raise AssertionError(f"3l gallery {name}: not seeded")
+    g = rand["gaussian_device"]
+    if not (abs(g["mean"]) < 0.01 and abs(g["std"] - 1) < 0.01):
+        raise AssertionError(f"3l gallery gaussian_device moments {g}")
+    return {"n": ng, "s": time.perf_counter() - t0,
+            "max_rel_diff_vs_cpu": gal, "device_random": rand}
+
+
+def phase_tracing(et, card: str, main_path: dict, lu_path: dict,
+                  qr_path: dict) -> dict:
+    """3l: the drivers traced on the card, and the rest of the dense
+    surface at full width.
+
+    The three flagships at phases 3 / 3b / 3c's sizes (f32, nb = 2048,
+    1x1): each wrapper untraced and under ``with Tracer():`` (bit-equal,
+    N / nb launches, ``op_calls`` equal to the tracer's driver entries),
+    and its factor untraced and with an explicit ``PhaseTimer`` under the
+    tracer (bit-equal, N / nb steps with the JAX package's phase names,
+    the phase seconds within 2% of the call's synchronized wall time);
+    the Perfetto trace written and its events counted.  The guarded
+    ``lu`` under the tracer with ``health=True``: a one-shot fault at
+    step 1 (one ``abft:recover`` span, 17 launches, bit-equal to the
+    clean guarded factor) and an unrecovered one (the ``health:*``
+    instants on the ``events`` track).  A virtual 2x2 ``cholesky``: the
+    tracer's collective labels equal ``redist_counts()``.  Then
+    ``cholesky_pivoted``, ``cholesky_mod``, the BlockMatrix round trip
+    and gemm, ``remote_updates``, the ``DistMultiVec`` reductions and
+    every deterministic gallery generator against the CPU."""
+    import os
+    import tempfile
+    import torch
+    from elemental_tpu_torch import obs
+    from elemental_tpu_torch.kernels import lu_panel, potrf_inv, qr_panel
+    from elemental_tpu_torch.resilience import (FaultPlan, FaultSpec,
+                                                fault_injection)
+    S = TRACE_SIZES
+    kern = (lu_panel, potrf_inv, qr_panel)
+    grid = et.Grid()
+    nb, nrhs = S["nb"], S["nrhs"]
+    res: dict = {}
+    tmp = tempfile.mkdtemp(prefix="trace_")
+
+    sync_time = _sync_time
+
+    def zero():
+        for k in kern:
+            k.launches = 0
+
+    def ops_of(reg) -> dict:
+        return {dict(labels)["op"]: int(v) for (_, labels), v
+                in reg.counters("op_calls").items()}
+
+    def flagship(label, wrapper, factor, drv, kernel, steps):
+        """Untraced and traced runs of one flagship (see the docstring)."""
+        first = (lambda x: x) if drv == "cholesky" else (lambda x: x[0])
+        with obs.metrics_scope() as reg0:
+            X0, t_plain = sync_time(wrapper)
+        zero()
+        tracer = obs.Tracer()
+        with obs.metrics_scope() as reg1:
+            with tracer:
+                X1, t_traced = sync_time(wrapper)
+        launches = _counts_now(*kern)
+        ops0, ops1 = ops_of(reg0), ops_of(reg1)
+        calls: dict = {}
+        for _, d, _, _, _ in tracer.driver_calls():
+            calls[d] = calls.get(d, 0) + 1
+        F0, tf_plain = sync_time(lambda: factor(None))
+        timer = obs.PhaseTimer()
+        ftracer = obs.Tracer()
+        zero()
+        with obs.metrics_scope():
+            with ftracer:
+                F1, tf_traced = sync_time(lambda: factor(timer))
+        rep = timer.report(driver=drv)
+        phase_s = rep["total_seconds"]
+        names = set(rep["totals"])
+        trace_path = os.path.join(tmp, f"{label}.json")
+        doc = obs.chrome_trace_doc(tracer, driver=label, card=card)
+        obs.write_json(trace_path, doc)
+        nevents = len(json.load(open(trace_path))["traceEvents"])
+        out = {"untraced_s": t_plain, "traced_s": t_traced,
+               "traced_over_untraced": t_traced / t_plain,
+               "factor_untraced_s": tf_plain, "factor_traced_s": tf_traced,
+               "factor_traced_over_untraced": tf_traced / tf_plain,
+               "phase_sum_s": phase_s,
+               "phase_sum_over_wall": phase_s / tf_traced,
+               "wrapper_phase_sum_over_wall":
+                   sum(r.seconds for r in tracer.phases) / t_traced,
+               "steps": len(rep["steps"]), "phases": sorted(names),
+               "op_calls": ops1, "launches": launches,
+               "factor_launches": _counts_now(*kern),
+               "trace_events": nevents, "phase_totals_s": rep["totals"]}
+        ok = (_same(X0, X1) and _same(first(F0), first(F1))
+              and (drv == "cholesky" or _same(F0[1], F1[1]))
+              and launches[kernel] == steps
+              and sum(launches.values()) == steps
+              and out["factor_launches"][kernel] == steps
+              and ops0 == ops1 and ops1 == calls
+              and [s["step"] for s in rep["steps"]] == list(range(steps))
+              and names == FLAGSHIP_PHASES[drv]
+              and abs(phase_s / tf_traced - 1) <= 0.02
+              and {r.phase for r in ftracer.phases} == names
+              and nevents > 0)
+        print(f"phase 3l {label} " + json.dumps(out), flush=True)
+        if not ok:
+            raise AssertionError(f"3l {label}: {json.dumps(out)}")
+        return out, X0
+
+    # warm-up at a small size (library handles, each kernel's first
+    # launch), so that the untraced and traced calls below compare alike
+    nw = min(4096, S["N"])
+    Aw, _ = _spd(nw, torch.float32, seed=1)
+    Bw = et.from_global(torch.ones(nw, nrhs, device="cuda"), et.MC, et.MR,
+                        grid)
+    Aw = et.from_global(Aw, et.MC, et.MR, grid)
+    for fn in (et.hpd_solve, et.lu_solve, et.least_squares):
+        fn(Aw, Bw, nb=nb)
+    del Aw, Bw
+
+    # 1. the three flagships at full width
+    N = S["N"]
+    Ag, gen = _spd(N, torch.float32, seed=0)
+    Bg = torch.randn(N, nrhs, generator=gen, device="cuda")
+    A = et.from_global(Ag, et.MC, et.MR, grid)
+    B = et.from_global(Bg, et.MC, et.MR, grid)
+    del Ag, Bg
+    res["hpd_solve"], _ = flagship(
+        "hpd_solve", lambda: et.hpd_solve(A, B, nb=nb),
+        lambda t: et.cholesky(A, nb=nb, timer=t), "cholesky", "potrf_inv",
+        N // nb)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    A = et.from_global(torch.randn(N, N, generator=gen, device="cuda"),
+                       et.MC, et.MR, grid)
+    B = et.from_global(torch.randn(N, nrhs, generator=gen, device="cuda"),
+                       et.MC, et.MR, grid)
+    res["lu_solve"], _ = flagship(
+        "lu_solve", lambda: et.lu_solve(A, B, nb=nb),
+        lambda t: et.lu(A, nb=nb, timer=t), "lu", "lu_panel", N // nb)
+
+    # 2. the guarded lu under the tracer, health on (phase 3j's fault)
+    zero()
+    LUc, pc = et.lu(A, nb=nb, abft=True)
+    guarded: dict = {"clean_launches": _counts_now(*kern)}
+    for label, every, want in (("recovered", False, N // nb + 1),
+                               ("unrecovered", True, None)):
+        plan = FaultPlan(seed=7, faults=[FaultSpec(
+            "compute", "scale", nelem=2, every=every, window=(1, 2))])
+        tracer = obs.Tracer()
+        zero()
+        with obs.metrics_scope():
+            with tracer, fault_injection(plan):
+                (LUf, pf), t = sync_time(
+                    lambda: et.lu(A, nb=nb, abft=True, health=True))
+        spans = [s for s in tracer.spans if s.name == "abft:recover"]
+        inst = [i.name for i in tracer.instants]
+        doc = obs.chrome_trace_doc(tracer)
+        lanes = {e["tid"]: e["args"]["name"] for e in doc["traceEvents"]
+                 if e["ph"] == "M" and e["name"] == "thread_name"}
+        on_events = {lanes[e["tid"]] for e in doc["traceEvents"]
+                     if e["ph"] == "i" and e["name"].startswith("health:")}
+        guarded[label] = {"s": t, "launches": _counts_now(*kern),
+                          "recover_spans": len(spans),
+                          "health_instants": sorted(set(inst)),
+                          "n_health_instants": len(inst),
+                          "bit_equal_to_clean": bool(
+                              torch.equal(LUf.local, LUc.local)
+                              and torch.equal(pf, pc))}
+        g_ok = (len(spans) == 1 and guarded[label]["bit_equal_to_clean"]
+                and lu_panel.launches == want and not inst) \
+            if not every else \
+            (len(spans) >= 1 and lu_panel.launches == N // nb + len(spans)
+             and "health:abft" in inst and on_events == {"events"})
+        if not g_ok:
+            raise AssertionError(f"3l guarded lu {label}: "
+                                 f"{json.dumps(guarded[label])}")
+        del LUf, pf
+    del LUc, pc, A, B
+    res["guarded_lu_recovered"] = guarded["recovered"]
+    res["guarded_lu_unrecovered"] = guarded["unrecovered"]
+    print("phase 3l guarded lu " + json.dumps(guarded), flush=True)
+    torch.cuda.empty_cache()
+
+    m, n = S["m"], S["n_ls"]
+    gen.manual_seed(0)
+    A = et.from_global(torch.randn(m, n, generator=gen, device="cuda"),
+                       et.MC, et.MR, grid)
+    B = et.from_global(torch.randn(m, nrhs, generator=gen, device="cuda"),
+                       et.MC, et.MR, grid)
+    res["least_squares"], _ = flagship(
+        "least_squares", lambda: et.least_squares(A, B, nb=nb),
+        lambda t: et.qr(A, nb=nb, timer=t), "qr", "qr_panel", n // nb)
+    del A, B
+    torch.cuda.empty_cache()
+
+    # 3. a virtual 2x2 cholesky: the tracer's collectives equal the
+    # engine's own counts of the same call
+    nv = S["n_virtual"]
+    g22 = et.Grid(2, 2)
+    Sv, _ = _spd(nv, torch.float32, seed=4)
+    Av = et.from_global(Sv, et.MC, et.MR, g22)
+    del Sv
+    L0 = et.cholesky(Av, nb=S["nb_virtual"])
+    tracer = obs.Tracer()
+    zero()
+    with obs.metrics_scope():
+        with et.redist_counts() as cnt, tracer:
+            L1, t = sync_time(lambda: et.cholesky(Av, nb=S["nb_virtual"]))
+    labels = _label_counts(cnt)
+    virt = {"s": t, "tracer_counts": tracer.redist_counts(),
+            "engine_counts": labels, "launches": _counts_now(*kern),
+            "ring_bytes": tracer.redist_bytes_total(),
+            "comm_events": len(tracer.comms)}
+    if not (virt["tracer_counts"] == labels and labels
+            and _same(L0, L1)):
+        raise AssertionError(f"3l virtual 2x2 cholesky: {json.dumps(virt)}")
+    res["virtual_2x2_cholesky"] = virt
+    print("phase 3l virtual 2x2 cholesky " + json.dumps(virt), flush=True)
+    del Av, L0, L1
+
+    # 4. the dense surface, 5. the gallery on the card against the CPU
+    res.update(_tracing_dense(et, grid, g22, gen))
+    res["gallery"] = _tracing_gallery(et, grid)
+    res["trace_dir"] = tmp
+    res["card"] = card
+    print("phase 3l tracing " + json.dumps(res), flush=True)
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3359,6 +3883,8 @@ def main() -> int:
     resilience = timed("3j", phase_resilience, et, card, main_path, lu_path,
                        qr_path)
     tuner = timed("3k", phase_tuner, et, card, main_path, lu_path, qr_path)
+    tracing = timed("3l", phase_tracing, et, card, main_path, lu_path,
+                    qr_path)
     t4 = time.perf_counter()
     phase_distributed(et)
     phase_lu_distributed(et)
@@ -3403,7 +3929,7 @@ def main() -> int:
                if d.get(key)}
         for ph, rest in (("3f", svd_rest), ("3h", ldl_rest),
                          ("3i", calu_tsqr), ("3j", resilience),
-                         ("3k", tuner)):
+                         ("3k", tuner), ("3l", tracing)):
             for step, d in rest.items():
                 if isinstance(d, dict) and d.get("launches", {}).get(name):
                     out[f"{ph} {step}"] = d["launches"][name]

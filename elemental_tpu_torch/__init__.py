@@ -42,17 +42,34 @@ injection, and ``certified_solve``'s escalation ladder), with the obs
 metrics registry; and the tuner (``tune``: every ``'auto'`` knob of the
 drivers and the engine resolves through the knob spaces, the persistent
 tuning cache and an analytic cost model, with measurement on the card and
-``python -m elemental_tpu_torch.tune``).
+``python -m elemental_tpu_torch.tune``); and observability (``obs``: the
+span ``Tracer``, ``PhaseTimer`` and ``timer=`` on every driver, the
+Perfetto export, the serving telemetry documents, ``python -m
+elemental_tpu_torch.obs``), with the rest of the dense surface: the
+matrix gallery (``matrices``), ``BlockMatrix``, ``DistMultiVec``, the
+``*Ctrl`` structs, ``Timer`` / ``Args`` / ``ProgressLog``,
+``remote_updates``, ``cholesky_pivoted`` and ``cholesky_mod``.
 
 The package imports ``torch`` and numpy only -- never ``jax`` and nothing
 of ``elemental_tpu``.
 """
 from .core.dist import Dist, MC, MD, MR, VC, VR, STAR, CIRC, LEGAL_PAIRS
-from .core.grid import Grid, default_grid
+from .core.grid import Grid, default_grid, set_default_grid
 from .core.environment import (blocksize, set_blocksize, push_blocksize,
-                               pop_blocksize, blocksize_scope)
+                               pop_blocksize, blocksize_scope, Timer, Args,
+                               ProgressLog)
+from .core.ctrl import (SignCtrl, PolarCtrl, HermitianEigCtrl, SVDCtrl,
+                        SchurCtrl, PseudospecCtrl, LDLPivotCtrl, QRCtrl,
+                        LeastSquaresCtrl)
 from .core.distmatrix import (DistMatrix, from_global, to_global, zeros,
-                              from_storage, storage_numpy)
+                              remote_updates, from_storage, storage_numpy)
+from .core.block import (BlockMatrix, block_from_global, block_from_array,
+                         block_to_global, block_to_cyclic, block_from_cyclic,
+                         as_elemental)
+from .core.multivec import (DistMultiVec, mv_from_global, mv_to_global,
+                            mv_zeros, mv_axpy, mv_scale, mv_dot, mv_nrm2,
+                            mv_remote_updates, mv_to_distmatrix,
+                            mv_from_distmatrix)
 from .core.view import view, update_view, pad_matrix
 from .redist.engine import (redistribute, transpose_dist, panel_spread,
                            move_rows, permute_rows_storage, contract,
@@ -71,7 +88,8 @@ from .blas import (axpy, scale, fill, entrywise_map, hadamard,
                    real_part, imag_part, max_abs_loc, max_loc,
                    scale_trapezoid, axpy_trapezoid, safe_scale,
                    get_submatrix, set_submatrix)
-from .lapack import cholesky, hpd_solve, cholesky_solve_after
+from .lapack import (cholesky, hpd_solve, cholesky_solve_after,
+                     cholesky_pivoted, cholesky_mod)
 from .lapack import (lu, lu_solve, lu_solve_after, permute_rows,
                      permute_cols, lu_full_pivot)
 from .lapack import (qr, apply_q, explicit_q, least_squares, tsqr, lq,
@@ -91,6 +109,7 @@ from .lapack.props import (determinant, safe_determinant, hpd_determinant,
                            two_norm_estimate, condition, nuclear_norm,
                            schatten_norm, two_norm)
 from .matrices import identity
-from . import blas, lapack, control, kernels, entry, obs, resilience, tune
+from . import (blas, lapack, matrices, control, kernels, entry, obs,
+               resilience, tune)
 
 __version__ = "0.1.0"

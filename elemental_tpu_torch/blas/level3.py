@@ -101,8 +101,23 @@ def gemm(A: DistMatrix, B: DistMatrix, alpha=1.0, beta=0.0,
     default) and ``'auto'`` for ``nb`` / ``comm_precision`` /
     ``redist_path`` resolve through the tuner (:mod:`..tune`: measured
     cache first, analytic cost model cold; on a 1x1 grid ``'dot'``, one
-    local matmul).  The ``BlockMatrix`` read-proxy of the JAX package
-    waits for ``core/block.py``."""
+    local matmul).
+
+    Tiled ``BlockMatrix`` operands are accepted through the read proxy
+    (``DistMatrixReadProxy``): they re-lay out to [MC,MR] on entry, and
+    the result converts back to tiled when every input was tiled.  Each
+    schedule ticks ``panel`` (per k- / column / row panel) on the phase
+    hook, with the resolved ``alg`` on the tracer channel."""
+    from ..core.block import BlockMatrix, as_elemental, block_from_cyclic
+    tiled_in = [isinstance(x, BlockMatrix) for x in (A, B, C)
+                if x is not None]
+    A, B = as_elemental(A), as_elemental(B)
+    if C is not None:
+        C = as_elemental(C)
+    if tiled_in and all(tiled_in):
+        out = gemm(A, B, alpha, beta, C, orient_a, orient_b, alg, nb,
+                   precision, comm_precision, redist_path)
+        return block_from_cyclic(out)
     check_precision(precision, A.local, B.local)
     A = _orient(A, orient_a)
     B = _orient(B, orient_b)
@@ -126,22 +141,26 @@ def gemm(A: DistMatrix, B: DistMatrix, alpha=1.0, beta=0.0,
         comm_precision=comm_precision, redist_path=redist_path).values()
     check_comm_precision(comm_precision)
     cp, rp = comm_precision, redist_path
+    tm = _phase_hook("gemm", alg=alg)
+    tm.start()
     if alg == "C":
-        return _summa_c(alpha, A, B, beta, C, nb, cp, rp)
+        return _summa_c(alpha, A, B, beta, C, nb, tm, cp, rp)
     if alg == "A":
-        return _summa_a(alpha, A, B, beta, C, nb, cp, rp)
+        return _summa_a(alpha, A, B, beta, C, nb, tm, cp, rp)
     if alg == "B":
-        return _summa_b(alpha, A, B, beta, C, nb, cp, rp)
+        return _summa_b(alpha, A, B, beta, C, nb, tm, cp, rp)
     if alg == "dot":
-        return _summa_dot(alpha, A, B, beta, C, cp, rp)
+        return _summa_dot(alpha, A, B, beta, C, tm, cp, rp)
     if alg == "slice":
-        return _summa_slice(alpha, A, B, beta, C, cp)
+        return _summa_slice(alpha, A, B, beta, C, tm, cp)
     if alg == "gspmd":
         # B's k-rows re-landed on A's k-column cyclic order ([MR,STAR]),
         # then one storage matmul
         Bk = redistribute(B, MR, STAR, comm_precision=cp)
         D = DistMatrix(A.local @ Bk.local, (m, n), MC, STAR, 0, 0, A.grid)
-        return _finish(alpha, redistribute(D, MC, MR).local, beta, C)
+        res = _finish(alpha, redistribute(D, MC, MR).local, beta, C)
+        tm.tick("panel", 0, res.local)
+        return res
     raise ValueError(f"unknown gemm alg {alg!r}")
 
 
@@ -158,24 +177,25 @@ def _init_acc(beta, C: DistMatrix):
         else torch.zeros_like(C.local)
 
 
-def _summa_c(alpha, A, B, beta, C, nb, cp=None, rp=None):
+def _summa_c(alpha, A, B, beta, C, nb, tm=_NULL_HOOK, cp=None, rp=None):
     """Stationary-C (``gemm::SUMMA_NNC``): per k-panel, A1 -> [MC,STAR],
     B1 -> [STAR,MR], and a local product accumulates into C's storage."""
     k = A.gshape[1]
     r, c = A.grid.height, A.grid.width
     kb = _blocksize(nb, math.lcm(r, c), k)
     acc = beta * C.local if _nonzero(beta) else torch.zeros_like(C.local)
-    for s in range(0, k, kb):
+    for i, s in enumerate(range(0, k, kb)):
         e = min(s + kb, k)
         A1 = redistribute(view(A, cols=(s, e)), MC, STAR, comm_precision=cp,
                           path=rp)
         B1 = redistribute(view(B, rows=(s, e)), STAR, MR, comm_precision=cp,
                           path=rp)
         acc = acc + alpha * (A1.local @ B1.local)
+        tm.tick("panel", i, acc)
     return C.with_local(_safe_astype(acc, C.dtype))
 
 
-def _summa_a(alpha, A, B, beta, C, nb, cp=None, rp=None):
+def _summa_a(alpha, A, B, beta, C, nb, tm=_NULL_HOOK, cp=None, rp=None):
     """Stationary-A (``gemm::SUMMA_NNA``): per C column panel, B1 ->
     [MR,STAR]; the storage product is the [MC,STAR] panel, filtered onto
     [MC,MR]."""
@@ -183,7 +203,7 @@ def _summa_a(alpha, A, B, beta, C, nb, cp=None, rp=None):
     n = B.gshape[1]
     jb = _blocksize(nb, A.grid.width, n)
     out = C.with_local(_init_acc(beta, C))
-    for s in range(0, n, jb):
+    for i, s in enumerate(range(0, n, jb)):
         e = min(s + jb, n)
         B1 = redistribute(view(B, cols=(s, e)), MR, STAR, comm_precision=cp,
                           path=rp)
@@ -192,17 +212,18 @@ def _summa_a(alpha, A, B, beta, C, nb, cp=None, rp=None):
         cur = view(out, cols=(s, e))
         out = update_view(out, cur.with_local(
             cur.local + _safe_astype(alpha * panel.local, C.dtype)), cols=(s, e))
+        tm.tick("panel", i, out.local)
     return out
 
 
-def _summa_b(alpha, A, B, beta, C, nb, cp=None, rp=None):
+def _summa_b(alpha, A, B, beta, C, nb, tm=_NULL_HOOK, cp=None, rp=None):
     """Stationary-B: per C row panel, A1^T -> [MC,STAR]; the storage
     product is the [STAR,MR] panel, filtered onto [MC,MR]."""
     m = A.gshape[0]
     n = B.gshape[1]
     ib = _blocksize(nb, A.grid.height, m)
     out = C.with_local(_init_acc(beta, C))
-    for s in range(0, m, ib):
+    for i, s in enumerate(range(0, m, ib)):
         e = min(s + ib, m)
         A1T = redistribute(transpose_dist(view(A, rows=(s, e))), MC, STAR,
                            comm_precision=cp, path=rp)
@@ -212,10 +233,11 @@ def _summa_b(alpha, A, B, beta, C, nb, cp=None, rp=None):
         cur = view(out, rows=(s, e))
         out = update_view(out, cur.with_local(
             cur.local + _safe_astype(alpha * panel.local, C.dtype)), rows=(s, e))
+        tm.tick("panel", i, out.local)
     return out
 
 
-def _summa_dot(alpha, A, B, beta, C, cp=None, rp=None):
+def _summa_dot(alpha, A, B, beta, C, tm=_NULL_HOOK, cp=None, rp=None):
     """SUMMA-Dot (``gemm::SUMMA_NNDot``): the inner dimension 1-D cyclic
     on both operands ([STAR,VC] x [VC,STAR], the same permutation on each
     side), one storage product into the replicated C, filtered onto
@@ -223,14 +245,19 @@ def _summa_dot(alpha, A, B, beta, C, cp=None, rp=None):
     one local matmul."""
     m, n = C.gshape
     if A.grid.size == 1:
-        return _finish(alpha, A.local @ B.local, beta, C)
-    Avc = redistribute(A, STAR, VC, comm_precision=cp, path=rp)
-    Bvc = redistribute(B, VC, STAR, comm_precision=cp, path=rp)
-    D = DistMatrix(Avc.local @ Bvc.local, (m, n), STAR, STAR, 0, 0, A.grid)
-    return _finish(alpha, redistribute(D, MC, MR).local, beta, C)
+        d = A.local @ B.local
+    else:
+        Avc = redistribute(A, STAR, VC, comm_precision=cp, path=rp)
+        Bvc = redistribute(B, VC, STAR, comm_precision=cp, path=rp)
+        D = DistMatrix(Avc.local @ Bvc.local, (m, n), STAR, STAR, 0, 0,
+                       A.grid)
+        d = redistribute(D, MC, MR).local
+    res = _finish(alpha, d, beta, C)
+    tm.tick("panel", 0, res.local)
+    return res
 
 
-def _summa_slice(alpha, A, B, beta, C, cp=None):
+def _summa_slice(alpha, A, B, beta, C, tm=_NULL_HOOK, cp=None):
     """Slicing one-sided gemm: every rank owns a 1-D cyclic slice of C's
     rows (A -> [VC,STAR], B -> [STAR,STAR]) or columns ([STAR,STAR] x
     [STAR,VR]) and contracts locally; 1x1 is one local matmul.  The
@@ -239,7 +266,9 @@ def _summa_slice(alpha, A, B, beta, C, cp=None):
     m, n = C.gshape
     g = A.grid
     if g.size == 1:
-        return _finish(alpha, A.local @ B.local, beta, C)
+        res = _finish(alpha, A.local @ B.local, beta, C)
+        tm.tick("panel", 0, res.local)
+        return res
     k = A.gshape[1]
     mode, _ = gemm_slice_plans(m, k, n, (g.height, g.width))
     if mode == "rows":
@@ -250,8 +279,10 @@ def _summa_slice(alpha, A, B, beta, C, cp=None):
         As = redistribute(A, STAR, STAR, comm_precision=cp, path="direct")
         Bs = redistribute(B, STAR, VR, comm_precision=cp, path="direct")
         D = DistMatrix(As.local @ Bs.local, (m, n), STAR, VR, 0, 0, g)
-    return _finish(alpha, redistribute(D, MC, MR, path="direct").local, beta,
-                   C)
+    res = _finish(alpha, redistribute(D, MC, MR, path="direct").local, beta,
+                  C)
+    tm.tick("panel", 0, res.local)
+    return res
 
 
 # ---------------------------------------------------------------------
@@ -306,13 +337,15 @@ def herk(uplo: str, A: DistMatrix, alpha=1.0, beta=0.0,
         _check_mcmr(A, C)
         if C.gshape != (m, m):
             raise ValueError(f"C shape {C.gshape} != ({m},{m})")
+    tm = _phase_hook("herk")
+    tm.start()
     kb = _blocksize(nb, g.width, k)
     dt = torch.promote_types(A.dtype, C.dtype)
     if isinstance(alpha, complex) or isinstance(beta, complex):
         dt = torch.promote_types(dt, torch.complex64)
     acc = (beta * C.local).to(dt) if _nonzero(beta) \
         else torch.zeros(C.local.shape, dtype=dt, device=C.local.device)
-    for s in range(0, k, kb):
+    for i, s in enumerate(range(0, k, kb)):
         e = min(s + kb, k)
         if redist_path == "direct":
             # one one-shot exchange per panel; the [MC,STAR] panel and its
@@ -327,7 +360,9 @@ def herk(uplo: str, A: DistMatrix, alpha=1.0, beta=0.0,
                                  path=redist_path)
             A1_mc, A1H_mr = panel_spread(A1_vc, conj=conj,
                                          comm_precision=comm_precision)
+        tm.tick("spread", i, A1_mc.local, A1H_mr.local)
         acc.addmm_(A1_mc.local.to(dt), A1H_mr.local.to(dt), alpha=alpha)
+        tm.tick("update", i, acc)
     acc = _safe_astype(acc, C.dtype)
     if fresh and g.size == 1:
         # the storage is the global matrix: keep the triangle in place

@@ -57,6 +57,10 @@ class DistMatrix:
         return ix.max_local_length(self.gshape[1], self.row_stride)
 
     @property
+    def local_shape(self) -> tuple:
+        return (self.local_rows, self.local_cols)
+
+    @property
     def dist(self) -> tuple:
         return (self.cdist, self.rdist)
 
@@ -67,6 +71,14 @@ class DistMatrix:
     # ---- functional update helpers ----------------------------------
     def with_local(self, local) -> "DistMatrix":
         return dataclasses.replace(self, local=local)
+
+    def like(self, local, gshape=None) -> "DistMatrix":
+        return dataclasses.replace(
+            self, local=local, gshape=self.gshape if gshape is None else gshape
+        )
+
+    def astype(self, dtype) -> "DistMatrix":
+        return self.with_local(self.local.to(dtype))
 
     def __repr__(self):
         return (
@@ -202,6 +214,37 @@ def zeros(m: int, n: int, cdist: Dist = Dist.MC, rdist: Dist = Dist.MR,
     return DistMatrix(stor, (m, n), cdist, rdist, calign, ralign, grid)
 
 
+def remote_updates(A: DistMatrix, rows, cols, vals) -> DistMatrix:
+    """Batched global updates ``A[rows[k], cols[k]] += vals[k]`` -- the
+    ``AxpyInterface`` / ``Reserve+QueueUpdate+ProcessQueues`` analog for
+    DistMatrix (upstream ``include/El/core/AxpyInterface.hpp``): callers
+    queue arbitrary (possibly duplicate) global updates and one
+    scatter-add (``index_put_(accumulate=True)``) on a copy of the
+    storage lands them.  The order in which duplicates are summed is the
+    device's (atomics on the card), so results agree with a serial sum to
+    rounding.
+
+    Indices are bounds-checked first (one device reduction each); cyclic
+    layouts only (MD/CIRC route through a redistribution first)."""
+    from .multivec import _index_tensor, _validate_update_indices
+    if Dist.MD in A.dist or Dist.CIRC in A.dist:
+        raise ValueError("remote_updates supports cyclic layouts; "
+                         "redistribute MD/CIRC operands first")
+    m, n = A.gshape
+    dev = A.local.device
+    i = _index_tensor(rows, dev)
+    j = _index_tensor(cols, dev)
+    _validate_update_indices(i, j, m, n, A.gshape)
+    v = _as_tensor(vals, dev).to(A.dtype)
+    sc, sr = A.col_stride, A.row_stride
+    lr, lc = A.local_rows, A.local_cols
+    si = ((i + A.calign) % sc) * lr + i // sc
+    sj = ((j + A.ralign) % sr) * lc + j // sr
+    out = A.local.clone()
+    out.index_put_((si, sj), v.expand(si.shape), accumulate=True)
+    return A.with_local(out)
+
+
 # ---------------------------------------------------------------------
 # Storage carried across packages ("weights across")
 # ---------------------------------------------------------------------
@@ -233,6 +276,15 @@ def from_storage(local_np, gshape, cdist: Dist, rdist: Dist,
                          f"[{cdist},{rdist}] {gshape} on {grid}")
     return DistMatrix(torch.as_tensor(arr, device=grid.device), gshape,
                       cdist, rdist, calign, ralign, grid)
+
+
+def _numpy_dtype(dtype):
+    """numpy twin of a torch dtype (``None`` when numpy has none, as for
+    bfloat16)."""
+    try:
+        return torch.empty((), dtype=dtype).numpy().dtype
+    except TypeError:
+        return None
 
 
 def storage_numpy(A: DistMatrix) -> np.ndarray:

@@ -14,6 +14,8 @@ card -- allocating on ``cuda`` then simply fails.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -44,6 +46,10 @@ class Grid:
     def size(self) -> int:    # p
         return self._r * self._c
 
+    @property
+    def lcm(self) -> int:     # MD stride in the reference
+        return self._r * self._c // math.gcd(self._r, self._c)
+
     def _key(self):
         return (self._r, self._c, self.device)
 
@@ -66,3 +72,9 @@ def default_grid() -> Grid:
     if _default_grid is None:
         _default_grid = Grid()
     return _default_grid
+
+
+def set_default_grid(g: Grid) -> None:
+    """Replace the grid :func:`default_grid` returns."""
+    global _default_grid
+    _default_grid = g

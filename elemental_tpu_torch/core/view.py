@@ -17,7 +17,8 @@ block sizes as multiples of lcm(r, c) so this always holds.
 library never writes into it); ``update_view`` returns a NEW matrix and
 leaves ``A`` untouched, as the JAX package's functional update does.
 ``pad_matrix`` extends a matrix with zeros (the Chan and Golub-Kahan
-SVD routes pad U with it).
+SVD routes pad U with it) and ``shrink_matrix`` restricts one, re-zeroing
+what falls outside.
 """
 from __future__ import annotations
 
@@ -81,6 +82,14 @@ def round_up(x: int, grain: int) -> int:
     return -(-x // grain) * grain
 
 
+def split_point(n: int, grain: int) -> int:
+    """A near-halving split that respects the grain rule."""
+    half = round_up(n // 2, grain)
+    if half == 0 or half >= n:
+        half = grain
+    return min(half, n)
+
+
 def pad_matrix(A: DistMatrix, M: int, N: int) -> DistMatrix:
     """Extend the global shape to (M, N) >= gshape with explicit zeros.
 
@@ -96,3 +105,27 @@ def pad_matrix(A: DistMatrix, M: int, N: int) -> DistMatrix:
     b = torch.nn.functional.pad(b, (0, lc2 - lc, 0, 0, 0, lr2 - lr))
     return dataclasses.replace(A, local=b.reshape(Sc * lr2, Sr * lc2),
                                gshape=(M, N))
+
+
+def shrink_matrix(A: DistMatrix, m: int, n: int) -> DistMatrix:
+    """Restrict the global shape to (m, n) <= gshape, re-zeroing the newly
+    out-of-range entries (keeps the padding-is-zero invariant)."""
+    M, N = A.gshape
+    if m > M or n > N:
+        raise ValueError(f"shrink_matrix target ({m},{n}) larger than {A.gshape}")
+    Sc, Sr = A.col_stride, A.row_stride
+    lr2 = ix.max_local_length(m, Sc)
+    lc2 = ix.max_local_length(n, Sr)
+    b, lr, lc = _blocked(A.local, Sc, Sr)
+    b = b[:, :lr2, :, :lc2].reshape(Sc * lr2, Sr * lc2)
+    # zero entries whose global index is now out of range
+    dev = b.device
+    q = torch.arange(Sc, device=dev)[:, None]
+    il = torch.arange(lr2, device=dev)[None, :]
+    I = (il * Sc + (q - A.calign) % Sc).reshape(-1)
+    q2 = torch.arange(Sr, device=dev)[:, None]
+    jl = torch.arange(lc2, device=dev)[None, :]
+    J = (jl * Sr + (q2 - A.ralign) % Sr).reshape(-1)
+    keep = (I[:, None] < m) & (J[None, :] < n)
+    return dataclasses.replace(A, local=torch.where(keep, b, 0),
+                               gshape=(m, n))

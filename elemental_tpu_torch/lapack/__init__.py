@@ -1,9 +1,11 @@
-"""Factorizations (Cholesky, LU with partial and complete pivoting, QR
+"""Factorizations (Cholesky with its pivoted and rank-k-modified
+variants, LU with partial and complete pivoting, QR
 with and without column pivoting, Bunch-Kaufman LDL), the Euclidean
 minimization solvers, the condense reductions, the matrix functions
 (QDWH polar, sign, inverses, square roots), the Hermitian eigensolvers,
 the SVD, the Schur decomposition and the matrix properties."""
-from .cholesky import cholesky, hpd_solve, cholesky_solve_after
+from .cholesky import (cholesky, hpd_solve, cholesky_solve_after,
+                       cholesky_pivoted, cholesky_mod)
 from .lu import (lu, lu_solve, lu_solve_after, permute_rows, permute_cols,
                  lu_full_pivot)
 from .qr import (qr, apply_q, explicit_q, least_squares, tsqr, lq,

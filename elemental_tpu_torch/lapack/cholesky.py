@@ -30,11 +30,16 @@ schedule (default 4096 with look-ahead, off for classic; 0 disables).
 PyTorch updates tensors in place and JAX never does: the sequential
 schedule works on ONE clone of its input and writes the factor's panels
 into it, so ``cholesky(A)`` never changes ``A.local``.
+
+``cholesky_pivoted`` (``pstrf``) and ``cholesky_mod`` (the rank-k
+update / downdate) run replicated on the gathered matrix, one column per
+step on the device.
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from ..core.dist import MC, MR, VC, STAR
@@ -159,22 +164,13 @@ def _local_cholesky(A: DistMatrix, nb: int | None, precision,
     return A.with_local(out)
 
 
-def _not_ported(name: str, value, what: str) -> None:
-    raise NotImplementedError(
-        f"{name}={value!r}: {what} is not ported yet (a later slice)")
-
-
-def _check_knobs(nb, lookahead, crossover, comm_precision, redist_path,
-                 timer) -> None:
+def _check_knobs(comm_precision, redist_path) -> None:
     """Check the wire and route knobs (``'auto'`` is resolved by the
-    caller before this) and refuse ``timer``, the phase tracer of a later
-    slice."""
+    caller before this)."""
     check_comm_precision(comm_precision)
     if redist_path not in REDIST_PATHS:
         raise ValueError(f"redist_path must be one of {REDIST_PATHS}, got "
                          f"{redist_path!r}")
-    if timer is not None:
-        _not_ported("timer", timer, "phase timing")
 
 
 def cholesky(A: DistMatrix, uplo: str = "L", nb: int | None = None,
@@ -224,8 +220,13 @@ def cholesky(A: DistMatrix, uplo: str = "L", nb: int | None = None,
     (:mod:`..tune`) resolves them per (shape, dtype, grid, backend) --
     measured-cache winner first, analytic cost model cold; explicit values
     always win.  On the card it resolves ``panel_impl`` to ``'kernel'``
-    for a real dtype.  ``timer`` raises ``NotImplementedError`` (the
-    phase tracer is a later slice).
+    for a real dtype.
+
+    ``timer`` (a :class:`~..obs.PhaseTimer` or any ``start()`` /
+    ``tick(phase, step, *tensors)`` object) receives the schedule's
+    phase ticks (diag / panel / spread / update / tail); under an active
+    :class:`~..obs.Tracer` the ticks also land there.  Each tick waits
+    for the card, so timing costs the host its run-ahead.
     """
     _check_mcmr(A)
     nb, lookahead, crossover, panel_impl, comm_precision, redist_path = \
@@ -233,8 +234,7 @@ def cholesky(A: DistMatrix, uplo: str = "L", nb: int | None = None,
                      lookahead=lookahead, crossover=crossover,
                      panel_impl=panel_impl, comm_precision=comm_precision,
                      redist_path=redist_path).values()
-    _check_knobs(nb, lookahead, crossover, comm_precision, redist_path,
-                 timer)
+    _check_knobs(comm_precision, redist_path)
     check_precision(precision, A.local)
     plan = resolve_panel(panel_impl, dtype=A.dtype, device=A.local.device)
     if uplo.upper().startswith("U"):
@@ -244,7 +244,8 @@ def cholesky(A: DistMatrix, uplo: str = "L", nb: int | None = None,
         L = cholesky(Alow, "L", nb=nb, precision=precision,
                      lookahead=lookahead, crossover=crossover,
                      panel_impl=panel_impl, comm_precision=comm_precision,
-                     redist_path=redist_path, health=health, abft=abft)
+                     redist_path=redist_path, timer=timer, health=health,
+                     abft=abft)
         return redistribute(transpose_dist(L, conj=True), MC, MR)
     if abft:
         from ..resilience.abft import abft_cholesky
@@ -406,3 +407,122 @@ def cholesky_solve_after(L: DistMatrix, B: DistMatrix, uplo: str = "L",
         return trsm("L", "U", "N", L, Y, nb=nb, precision=precision)
     Y = trsm("L", "L", "N", L, B, nb=nb, precision=precision)
     return trsm("L", "L", "C", L, Y, nb=nb, precision=precision)
+
+
+def cholesky_pivoted(A: DistMatrix, tol: float = 0.0, precision=None):
+    """Full (diagonal) pivoted Cholesky of a PSD matrix:
+    ``P A P^T = L L^H`` with the pivot chosen as the largest remaining
+    diagonal each step (LAPACK ``pstrf`` / ``cholesky::PivotedLVar3``,
+    Elemental ``src/lapack_like/factor/Cholesky/PivotedLVar3.hpp``).
+
+    Returns ``(L, perm, rank)``: L lower-triangular [MC,MR], ``perm`` an
+    int64 tensor on the grid's device (``(P A P^T)[i, j] =
+    A[perm[i], perm[j]]``), and the detected numerical rank as a 0-d
+    int64 tensor (columns whose pivot fell below ``tol * max_diag`` of
+    A's ORIGINAL diagonal are zeroed).  Pivot ties break on the first
+    index, as ``jnp.argmax`` does.
+
+    The factorization runs replicated on the gathered matrix, one column
+    per step with the pivot index kept on the device (no host sync); the
+    JAX package updates the whole array through a mask each column, the
+    port updates only the trailing block, which is the same result.  Use
+    the unpivoted :func:`cholesky` for speed on definite matrices."""
+    _check_mcmr(A)
+    check_precision(precision, A.local)
+    n = A.gshape[0]
+    if A.gshape != (n, n):
+        raise ValueError(f"cholesky_pivoted needs square, got {A.gshape}")
+    g = A.grid
+    a = torch.tril(redistribute(A, STAR, STAR).local)
+    a = a + torch.tril(a, -1).mH
+    dev = a.device
+    d0 = a.diagonal().real
+    thresh = tol * torch.clamp(d0.max(), min=1e-30) if n \
+        else torch.zeros((), dtype=d0.dtype, device=dev)
+    perm = torch.arange(n, device=dev)
+    rank = torch.zeros((), dtype=torch.int64, device=dev)
+    for j in range(n):
+        jt = torch.tensor([j], device=dev)
+        # the largest remaining diagonal entry (first on ties)
+        p = torch.argmax(a.diagonal()[j:].real).reshape(1) + j
+        sw = torch.cat([jt, p])
+        # symmetric swap of rows and columns j <-> p, and of perm
+        a.index_copy_(0, sw, a.index_select(0, sw.flip(0)))
+        a.index_copy_(1, sw, a.index_select(1, sw.flip(0)))
+        perm.index_copy_(0, sw, perm.index_select(0, sw.flip(0)))
+        piv = a[j, j].real
+        ok = piv > thresh
+        sq = torch.sqrt(torch.where(ok, piv, torch.ones_like(piv)))
+        col = a[j + 1:, j] / sq
+        col = torch.where(ok, col, torch.zeros_like(col))
+        # trailing update a[j+1:, j+1:] -= col col^H, in place
+        a[j + 1:, j + 1:].addr_(col, col.conj(), alpha=-1)
+        a[j + 1:, j] = col
+        a[j, j] = torch.where(ok, sq, torch.zeros_like(sq))
+        rank += ok
+    L = DistMatrix(torch.tril(a).to(A.dtype), (n, n), STAR, STAR, 0, 0, g)
+    return redistribute(L, MC, MR), perm, rank
+
+
+def cholesky_mod(L: DistMatrix, V: DistMatrix, alpha: float = 1.0,
+                 precision=None):
+    """Rank-k Cholesky modification (``El::CholeskyMod``,
+    ``Cholesky/{LMod,UMod}.hpp``): given lower L with A = L L^H, return
+    the factor of ``A + alpha V V^H`` in O(n^2 k) by the column
+    recurrence (one hyperbolic/Givens rotation per update vector and
+    column).
+
+    ``alpha < 0`` is a DOWNDATE and requires the result to stay positive
+    definite; an indefinite downdate raises ``ValueError``.  The sweep
+    runs replicated on the gathered factor, one column per step and all k
+    vectors at once: the k rotations of a column act on that column and
+    the vectors through a (k+1) x (k+1) matrix of their sines and cosines,
+    which the host forms in float64 from the column's diagonal entry and
+    the vectors' entries (one device-to-host read a column), so the
+    column's update is one small matmul.  The JAX package sweeps each
+    vector over all columns in turn: the same rotations in another order,
+    equal to rounding.  Real factors only."""
+    _check_mcmr(L, V)
+    check_precision(precision, L.local, V.local)
+    if L.dtype.is_complex:
+        raise NotImplementedError("cholesky_mod supports real factors")
+    n = L.gshape[0]
+    if V.gshape[0] != n:
+        raise ValueError(f"V rows {V.gshape[0]} != n {n}")
+    k = V.gshape[1]
+    g = L.grid
+    # U's row j is L's column j (contiguous); B's row 0 holds the column
+    # being rotated, rows 1..k the update vectors
+    U = torch.tril(redistribute(L, STAR, STAR).local).mT.contiguous()
+    B = U.new_empty((k + 1, n))
+    B[1:] = math.sqrt(abs(alpha)) * redistribute(V, STAR, STAR).local.mT
+    sign = 1.0 if alpha >= 0 else -1.0
+    for j in range(n):
+        head = torch.cat((U[j, j:j + 1], B[1:, j])).cpu().double().numpy()
+        ljj, wj = float(head[0]), head[1:]
+        # M's column 0: the rotated column over the basis (column,
+        # w_1 .. w_k); column t+1: the rotated w_t
+        M = np.zeros((k + 1, k + 1))
+        M[0, 0] = 1.0
+        for t in range(k):
+            r2 = ljj * ljj + sign * wj[t] * wj[t]
+            if not r2 > 0.0:
+                raise ValueError("cholesky_mod: downdate leaves the matrix "
+                                 "indefinite (El::CholeskyMod throws here "
+                                 "too)")
+            r = math.sqrt(r2)
+            c, s = r / ljj, wj[t] / ljj
+            M[:, 0] /= c
+            M[t + 1, 0] += sign * s / c
+            M[:, t + 1] = -s * M[:, 0]
+            M[t + 1, t + 1] += c
+            ljj = r
+        U[j, j] = ljj
+        if j + 1 < n:
+            B[0, j + 1:] = U[j, j + 1:]
+            Mt = torch.as_tensor(M.T, device=U.device).to(U.dtype)
+            Y = Mt @ B[:, j + 1:]
+            U[j, j + 1:] = Y[0]
+            B[1:, j + 1:] = Y[1:]
+    out = DistMatrix(torch.tril(U.mT), (n, n), STAR, STAR, 0, 0, g)
+    return redistribute(out, MC, MR)

@@ -500,12 +500,11 @@ def _update_cols_ge(A, block, rows, cols, e):
     return _blend_update(A, block, rows, cols, lambda J: J >= e - cols[0])
 
 
-def _check_lu_knobs(nb, lookahead, crossover, panel, update_precision,
-                    comm_precision, redist_path, timer) -> str:
+def _check_lu_knobs(panel, update_precision, comm_precision,
+                    redist_path) -> str:
     """Check the knobs (``'auto'`` already resolved); return the panel
     strategy."""
-    _check_knobs(nb, lookahead, crossover, comm_precision, redist_path,
-                 timer)
+    _check_knobs(comm_precision, redist_path)
     if panel is None:
         panel = "classic"
     if panel not in ("classic", "calu"):
@@ -574,7 +573,9 @@ def lu(A: DistMatrix, nb: int | None = None, precision=None,
     ``comm_precision`` / ``redist_path`` / ``panel_impl`` may be
     ``'auto'``: the tuner (:mod:`..tune`) resolves them (measured cache
     first, analytic cost model cold; explicit values always win).
-    ``timer`` raises ``NotImplementedError`` (a later slice)."""
+    ``timer`` (a :class:`~..obs.PhaseTimer`) receives the phase ticks
+    (panel / swap / solve / update / tail; ``tournament`` under CALU),
+    as does an active :class:`~..obs.Tracer`."""
     _check_mcmr(A)
     nb, lookahead, crossover, panel, panel_impl, comm_precision, \
         redist_path = resolve_auto(
@@ -583,9 +584,8 @@ def lu(A: DistMatrix, nb: int | None = None, precision=None,
             comm_precision=comm_precision, redist_path=redist_path).values()
     g = A.grid
     r, c = g.height, g.width
-    panel = _check_lu_knobs(nb, lookahead, crossover, panel,
-                            update_precision, comm_precision, redist_path,
-                            timer)
+    panel = _check_lu_knobs(panel, update_precision, comm_precision,
+                            redist_path)
     check_precision(precision, A.local)
     plan = resolve_panel(panel_impl, dtype=A.dtype, device=A.local.device,
                          inners=inners)

@@ -23,8 +23,9 @@ Packing follows LAPACK geqrf: R on/above the diagonal, the Householder
 vectors' tails below it (unit diagonal implicit), plus a tau vector.
 ``qr_col_piv`` (Businger-Golub, LAPACK geqp3) is the JAX package's
 left-looking pivoted panel, its column loop run eagerly with the pivot
-index on the device.  TSQR (``panel='tsqr'``, ``tsqr``) and
-checksum-guarded QR belong to later slices.
+index on the device.  TSQR (``panel='tsqr'``, ``tsqr``) is the
+communication-avoiding panel; the checksum-guarded QR (``abft=``) lives
+in ``resilience/abft.py``.
 """
 from __future__ import annotations
 
@@ -64,10 +65,10 @@ def _panel_qr_dispatch(P, plan=None):
     return Pf, tau, None
 
 
-def _check_qr_knobs(nb, panel, comm_precision, redist_path, timer) -> str:
+def _check_qr_knobs(panel, comm_precision, redist_path) -> str:
     """Check the knobs (``'auto'`` already resolved) and refuse unknown
     panel strategies; return the panel strategy."""
-    _check_knobs(nb, None, None, comm_precision, redist_path, timer)
+    _check_knobs(comm_precision, redist_path)
     if panel is None:
         panel = "classic"
     if panel not in ("classic", "tsqr"):
@@ -233,14 +234,14 @@ def qr(A: DistMatrix, nb: int | None = None, precision=None,
     Any of ``nb`` / ``panel`` / ``comm_precision`` / ``redist_path`` /
     ``panel_impl`` may be ``'auto'``: the tuner (:mod:`..tune`) resolves
     them (measured cache first, analytic cost model cold; explicit values
-    always win).  ``timer`` raises ``NotImplementedError`` (a later
-    slice)."""
+    always win).  ``timer`` (a :class:`~..obs.PhaseTimer`) receives the
+    panel / update ticks, as does an active :class:`~..obs.Tracer`."""
     _check_mcmr(A)
     nb, panel, panel_impl, comm_precision, redist_path = resolve_auto(
         "qr", A.gshape, A.dtype, A.grid, nb=nb, panel=panel,
         panel_impl=panel_impl, comm_precision=comm_precision,
         redist_path=redist_path).values()
-    panel = _check_qr_knobs(nb, panel, comm_precision, redist_path, timer)
+    panel = _check_qr_knobs(panel, comm_precision, redist_path)
     check_precision(precision, A.local)
     plan = resolve_panel(panel_impl, dtype=A.dtype, device=A.local.device)
     if abft:

@@ -46,6 +46,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..core.distmatrix import _numpy_dtype
+
 FAULT_KINDS = ("bitflip", "scale", "nan")
 #: 'compute' comes last: the enumerate-derived seed words below keep the
 #: engine targets' corruption streams where the JAX package has them
@@ -55,15 +57,6 @@ FAULT_TARGETS = ("redistribute", "panel_spread", "compute")
 #: determinism contract -- a plan's corruption stream is pinned by tests)
 _TARGET_WORD = {t: i + 1 for i, t in enumerate(FAULT_TARGETS)}
 _KIND_WORD = {k: i + 1 for i, k in enumerate(FAULT_KINDS)}
-
-
-def _numpy_dtype(dtype):
-    """numpy twin of a torch dtype (``None`` when numpy has none, as for
-    bfloat16: such a payload passes through uncorrupted)."""
-    try:
-        return torch.empty((), dtype=dtype).numpy().dtype
-    except TypeError:
-        return None
 
 
 @dataclasses.dataclass(frozen=True)

@@ -30,9 +30,9 @@ infinity anywhere makes ``max |x|`` non-finite -- plus the diagonal
 minima), and nothing syncs with the host until :meth:`HealthMonitor.report`,
 which brings every tick's scalars over in ONE transfer, builds the
 ``health_report/v1`` document and bumps ``health_checks`` /
-``health_flags`` on the current obs metrics registry.  The JAX package
-also attaches a ``health:<kind>`` instant per flag to the active tracer;
-the port has no tracer yet (``obs.tracer.active_tracer`` is ``None``).
+``health_flags`` on the current obs metrics registry, and attaches a
+``health:<kind>`` instant per flag to the active tracer, when there is
+one.
 
 ``health_report/v1``::
 
@@ -301,23 +301,6 @@ def last_health_report(driver: str | None = None) -> dict | None:
     return _LAST.get(driver if driver is not None else "_latest")
 
 
-class _HookPair:
-    """Tick fan-out of (existing hook, monitor) -- the resilience twin of
-    JAX tracer's ``_Fanout``."""
-    __slots__ = ("hooks",)
-
-    def __init__(self, hooks):
-        self.hooks = tuple(hooks)
-
-    def start(self):
-        for h in self.hooks:
-            h.start()
-
-    def tick(self, phase, step, *arrays):
-        for h in self.hooks:
-            h.tick(phase, step, *arrays)
-
-
 def attach_health(driver: str, health, hook, scale_from=None):
     """Resolve a driver's ``health=`` argument into (hook', monitor).
 
@@ -331,10 +314,10 @@ def attach_health(driver: str, health, hook, scale_from=None):
         return hook, None
     mon = health if isinstance(health, HealthMonitor) else HealthMonitor()
     mon.begin(driver, scale_from=scale_from)
-    from ..obs.tracer import NULL_HOOK
+    from ..obs.tracer import NULL_HOOK, _Fanout
     if hook is NULL_HOOK or hook is None:
         return mon, mon
-    return _HookPair((hook, mon)), mon
+    return _Fanout((hook, mon)), mon
 
 
 def factor_diag_info(op: str, factor) -> dict:

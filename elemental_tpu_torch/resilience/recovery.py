@@ -30,8 +30,8 @@ through the bound ``health_report/v1`` monitor and the
 ``abft_report/v1`` ``ok=False`` verdict so ``certified_solve`` escalates
 past the abft rung.
 
-Retries would emit an ``abft:recover`` span on the active tracer; the
-port has no tracer yet (``obs.tracer.active_tracer`` is ``None``).
+Each retry runs inside an ``abft:recover`` span on the active tracer
+(``obs.active_tracer()``), when there is one.
 """
 from __future__ import annotations
 

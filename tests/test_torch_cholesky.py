@@ -4,6 +4,8 @@ packages.  Factors agree to rtol 1e-12 (float64, complex128) or 1e-5
 (float32) -- the schedules are the same, the diagonal-block solvers round
 differently; the look-ahead and classic orders agree to 1e-12, as in
 ``tests/lapack/test_cholesky.py``."""
+import functools
+
 import jax
 import numpy as np
 import pytest
@@ -11,6 +13,8 @@ import torch
 
 import elemental_tpu as el
 import elemental_tpu_torch as et
+from elemental_tpu import obs as jobs
+from elemental_tpu_torch import obs as tobs
 
 GRIDS = [(1, 1), (2, 2), (2, 4)]
 RTOL = {np.float32: 1e-5, np.float64: 1e-12, np.complex128: 1e-12}
@@ -24,6 +28,14 @@ def tgrid(r, c):
     return et.Grid(r, c, device="cpu")
 
 
+def _step_timer(pkg_obs):
+    """A PhaseTimer of package ``pkg_obs`` on a step clock (every read
+    advances by one), so two packages' documents compare equal."""
+    clock = iter(range(1, 10 ** 6)).__next__
+    return pkg_obs.PhaseTimer(tracer=pkg_obs.Tracer(metrics=False,
+                                                    clock=lambda: float(clock())))
+
+
 def _hpd(n, dtype, seed=0):
     rng = np.random.default_rng(seed)
     G = rng.normal(size=(n, n))
@@ -32,9 +44,13 @@ def _hpd(n, dtype, seed=0):
     return (G @ G.conj().T / n + n * np.eye(n)).astype(dtype)
 
 
-def _both(F, rc):
-    return (el.from_global(F, el.MC, el.MR, jgrid(*rc)),
-            et.from_global(F, et.MC, et.MR, tgrid(*rc)))
+@functools.cache
+def _jax_chol(n, dtype, seed, *args, **kw):
+    """The JAX package's global factor of ``_hpd(n, dtype, seed)`` on a
+    1x1 grid, once per module: on other grids it is the same to
+    rounding, and each grid compiles its own programs."""
+    jA = el.from_global(_hpd(n, dtype, seed), el.MC, el.MR, jgrid(1, 1))
+    return np.asarray(el.to_global(el.cholesky(jA, *args, **kw)))
 
 
 def _close(got, want, rtol):
@@ -47,9 +63,9 @@ def _close(got, want, rtol):
                          ids=lambda d: np.dtype(d).name)
 def test_cholesky_matches_jax(rc, dtype):
     F = _hpd(28, dtype, seed=1)
-    jA, tA = _both(F, rc)
+    tA = et.from_global(F, et.MC, et.MR, tgrid(*rc))
     before = tA.local.clone()
-    jL = np.asarray(el.to_global(el.cholesky(jA, nb=8)))
+    jL = _jax_chol(28, dtype, 1, nb=8)
     tL = et.to_global(et.cholesky(tA, nb=8)).numpy()
     assert torch.equal(tA.local, before)          # the input is untouched
     _close(tL, jL, RTOL[dtype])
@@ -59,8 +75,8 @@ def test_cholesky_matches_jax(rc, dtype):
 @pytest.mark.parametrize("rc", GRIDS, ids=lambda rc: f"{rc[0]}x{rc[1]}")
 def test_cholesky_upper_matches_jax(rc):
     F = _hpd(20, np.complex128, seed=2)
-    jA, tA = _both(F, rc)
-    jU = np.asarray(el.to_global(el.cholesky(jA, "U", nb=8)))
+    tA = et.from_global(F, et.MC, et.MR, tgrid(*rc))
+    jU = _jax_chol(20, np.complex128, 2, "U", nb=8)
     tU = et.to_global(et.cholesky(tA, "U", nb=8)).numpy()
     _close(tU, jU, 1e-12)
     assert np.linalg.norm(tU.conj().T @ tU - F) < 1e-13 * np.linalg.norm(F)
@@ -70,9 +86,9 @@ def test_cholesky_upper_matches_jax(rc):
                          [(True, 0), (True, 16), (False, 0), (False, 16)])
 def test_cholesky_schedules_match_jax(lookahead, crossover):
     F = _hpd(40, np.float64, seed=3)
-    jA, tA = _both(F, (2, 4))
+    tA = et.from_global(F, et.MC, et.MR, tgrid(2, 4))
     kw = dict(nb=8, lookahead=lookahead, crossover=crossover)
-    jL = np.asarray(el.to_global(el.cholesky(jA, **kw)))
+    jL = _jax_chol(40, np.float64, 3, nb=8)
     tL = et.to_global(et.cholesky(tA, **kw)).numpy()
     _close(tL, jL, 1e-12)
 
@@ -123,12 +139,13 @@ _CHOL_KNOBS = {"nb": None, "lookahead": True, "crossover": None,
     dict(abft=True, timer=object()),
     dict(precision="bf16")], ids=lambda kw: next(iter(kw)))
 def test_later_slice_knobs_raise(kw, empty_tune_cache):
-    """``timer`` raises.  Each ``'auto'`` knob resolves through the tuner,
-    as in the JAX package, to the JAX package's value, and the call equals
-    the explicit call with the resolved value.  ``health`` and ``abft``
-    are ported: beside ``timer`` the call still raises (the guarded driver
-    would otherwise take it as its hook), and alone each knob reaches its
-    monitor or its guarded driver, which files a fresh report."""
+    """``timer`` (a PhaseTimer, alone or beside ``health`` / ``abft``)
+    gives the JAX package's ``phase_timings/v1`` document and result.
+    Each ``'auto'`` knob resolves through the tuner, as in the JAX
+    package, to the JAX package's value, and the call equals
+    the explicit call with the resolved value.  Alone, ``health`` and
+    ``abft`` each reach their monitor or guarded driver, which files a
+    fresh report."""
     A = et.from_global(_hpd(8, np.float64), et.MC, et.MR, tgrid(1, 1))
     knob = next(iter(kw))
     if kw[knob] == "auto":
@@ -143,8 +160,18 @@ def test_later_slice_knobs_raise(kw, empty_tune_cache):
         assert torch.equal(got.local,
                            et.cholesky(A, **{knob: kn[knob]}).local)
         return
-    with pytest.raises(NotImplementedError, match="later slice"):
-        et.cholesky(A, **kw)
+    if "timer" in kw:
+        # a PhaseTimer (step clock) beside health / abft: the same
+        # phase_timings/v1 document as the JAX package's, and the result
+        extra = {k: v for k, v in kw.items() if k != "timer"}
+        t, jt = _step_timer(tobs), _step_timer(jobs)
+        jA = el.from_global(_hpd(8, np.float64), el.MC, el.MR, jgrid(1, 1))
+        got = et.cholesky(A, timer=t, **extra)
+        want = el.cholesky(jA, timer=jt, **extra)
+        np.testing.assert_allclose(et.to_global(got).numpy(),
+                                   np.asarray(el.to_global(want)),
+                                   rtol=0, atol=1e-12)
+        assert t.report() == jt.report() and t.report()["steps"]
     if knob in ("health", "abft"):
         last = {"health": et.resilience.last_health_report,
                 "abft": et.resilience.last_abft_report}[knob]

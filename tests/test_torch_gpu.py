@@ -994,3 +994,139 @@ def test_measured_search_is_read_back(empty_tune_cache):
     et.cholesky(A, nb="auto")
     torch.cuda.synchronize()
     assert potrf_inv.launches == -(-4096 // winner.config["nb"])
+
+
+# ---------------------------------------------------------------------
+# tracing on the card (obs)
+# ---------------------------------------------------------------------
+
+def _tracer_and_timer():
+    from elemental_tpu_torch import obs
+    return obs.Tracer(), obs.PhaseTimer()
+
+
+@pytest.mark.parametrize("op", ["hpd_solve", "lu_solve"])
+def test_traced_flagship_is_bit_equal_and_launches_its_kernel(op):
+    """Under an active Tracer and an explicit PhaseTimer (every tick a
+    device sync) the solve is bit-equal to the untraced one, launches its
+    kernel N / nb times, and ticks the JAX package's phase names."""
+    _need_card()
+    from elemental_tpu_torch import obs
+    n, nb = 4096, 256
+    g = et.Grid()
+    if op == "hpd_solve":
+        Ag, kern, phases = _spd(n, torch.float32), potrf_inv, \
+            {"diag", "panel", "update"}
+    else:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(3)
+        Ag = torch.randn(n, n, generator=gen, device="cuda")
+        kern, phases = lu_panel, {"panel", "swap", "solve", "update"}
+    A = et.from_global(Ag, et.MC, et.MR, g)
+    B = et.from_global(torch.ones(n, 8, device="cuda"), et.MC, et.MR, g)
+    fn = getattr(et, op)
+    X0 = fn(A, B, nb=nb)
+    tracer = obs.Tracer()
+    drv = "cholesky" if op == "hpd_solve" else "lu"
+    kern.launches = 0
+    with obs.metrics_scope() as reg:
+        with tracer:
+            X = fn(A, B, nb=nb)
+        assert reg.counter_value("op_calls", op=drv) == 1
+        assert reg.counter_value("op_calls", op="trsm") == 2
+    torch.cuda.synchronize()
+    assert kern.launches == n // nb
+    assert torch.equal(X.local, X0.local)
+    got = {r.phase for r in tracer.phases if r.driver == drv}
+    assert phases <= got
+    assert {r.step for r in tracer.phases if r.driver == drv} \
+        == set(range(n // nb))
+    # the factor alone with an explicit timer beside the tracer
+    factor = et.cholesky if op == "hpd_solve" else et.lu
+    F0 = factor(A, nb=nb)
+    tracer, timer = _tracer_and_timer()
+    with obs.metrics_scope():
+        with tracer:
+            F = factor(A, nb=nb, timer=timer)
+    first = (lambda x: x) if op == "hpd_solve" else (lambda x: x[0])
+    assert torch.equal(first(F).local, first(F0).local)
+    assert [s["step"] for s in timer.report()["steps"]] \
+        == list(range(n // nb))
+
+
+def test_traced_calu_on_a_virtual_4x1_grid_skips_the_sync_in_capture():
+    """CALU captures its tournament sweep as CUDA graphs; a tick must not
+    synchronize while a capture is open.  The traced call equals the
+    untraced one and records the tournament phases."""
+    _need_card()
+    from elemental_tpu_torch import obs
+    n, nb = 2048, 128
+    g = et.Grid(4, 1)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    A = et.from_global(torch.randn(n, n, generator=gen, device="cuda"),
+                       et.MC, et.MR, g)
+    LU0, p0 = et.lu(A, nb=nb, panel="calu")
+    tracer, timer = _tracer_and_timer()
+    with obs.metrics_scope():
+        with tracer:
+            LU, p = et.lu(A, nb=nb, panel="calu", timer=timer)
+    torch.cuda.synchronize()
+    assert torch.equal(p, p0) and torch.equal(LU.local, LU0.local)
+    assert "tournament" in {r.phase for r in tracer.phases}
+    assert timer.report()["steps"]
+
+
+def test_block_until_ready_is_a_no_op_inside_a_graph_capture():
+    _need_card()
+    from elemental_tpu_torch import obs
+    from elemental_tpu_torch.obs.tracer import block_until_ready
+    x = torch.ones(1024, device="cuda")
+    tracer = obs.Tracer(metrics=False)
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        y = (x * 3) + 1                               # warm-up
+    torch.cuda.current_stream().wait_stream(s)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = x * 3
+        block_until_ready(y)                          # would abort capture
+        ch = tracer.channel("lu")
+        ch.start()
+        ch.tick("panel", 0, y)
+        with tracer.span("inside", sync=y):
+            y = y + 1
+    graph.replay()
+    torch.cuda.synchronize()
+    assert float(y[0]) == 4.0 and len(tracer.phases) == 1
+
+
+def test_timer_stop_waits_for_the_device():
+    _need_card()
+    a = torch.randn(4096, 4096, device="cuda")
+    t = et.Timer("fence")
+    t.start()
+    out = a
+    for _ in range(20):
+        out = out @ a
+        out = out / out.abs().max()
+    split = t.stop(out)
+    assert torch.cuda.current_stream().query()        # all work done
+    assert split > 0
+
+
+def test_obs_cli_runs_on_the_card(tmp_path):
+    _need_card()
+    import json
+    import subprocess
+    out = tmp_path / "trace.json"
+    res = subprocess.run(
+        [sys.executable, "-m", "elemental_tpu_torch.obs", "run", "cholesky",
+         "--n", "4096", "--out", str(out)], capture_output=True, text=True,
+        timeout=600)
+    assert res.returncode == 0, res.stderr
+    last = json.loads(res.stdout.strip().splitlines()[-1])
+    assert last["schema"] == "obs_metrics/v1"
+    assert last["device"] == torch.cuda.get_device_name(0)
+    assert json.loads(out.read_text())["schema"] == "obs_chrome_trace/v1"

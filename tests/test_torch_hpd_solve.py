@@ -1,6 +1,9 @@
 """The whole slice: ``hpd_solve`` (Cholesky + the two triangular sweeps)
-through the port and through ``elemental_tpu`` on the same grid, from the
-same numpy inputs, at n = 40, nb = 16 (float64, rtol 1e-12)."""
+through the port on 1x1, 2x2 and 2x4 grids and through ``elemental_tpu``
+on a 1x1 grid (once per module), from the same numpy inputs, at n = 40,
+nb = 16 (float64, rtol 1e-12)."""
+import functools
+
 import jax
 import numpy as np
 import pytest
@@ -17,21 +20,29 @@ def _hpd(n, seed):
     return G @ G.T / n + n * np.eye(n)
 
 
+@functools.cache
+def _jax_hpd_solve(uplo):
+    n, nrhs = 40, 6
+    F = _hpd(n, seed=7)
+    B = np.random.default_rng(8).normal(size=(n, nrhs))
+    jg = el.Grid(jax.devices()[:1], height=1)
+    return np.asarray(el.to_global(el.hpd_solve(
+        el.from_global(F, el.MC, el.MR, jg),
+        el.from_global(B, el.MC, el.MR, jg), uplo=uplo, nb=16)))
+
+
 @pytest.mark.parametrize("rc", GRIDS, ids=lambda rc: f"{rc[0]}x{rc[1]}")
 @pytest.mark.parametrize("uplo", ["L", "U"])
 def test_hpd_solve_slice_matches_jax(rc, uplo):
     """The whole slice: HPD solve at n = 40, nb = 16 through both
-    packages on the same grid."""
+    packages."""
     n, nrhs = 40, 6
     F = _hpd(n, seed=7)
     B = np.random.default_rng(8).normal(size=(n, nrhs))
-    jg = el.Grid(jax.devices()[: rc[0] * rc[1]], height=rc[0])
     tg = et.Grid(*rc, device="cpu")
-    jX = el.hpd_solve(el.from_global(F, el.MC, el.MR, jg),
-                      el.from_global(B, el.MC, el.MR, jg), uplo=uplo, nb=16)
     tX = et.hpd_solve(et.from_global(F, et.MC, et.MR, tg),
                       et.from_global(B, et.MC, et.MR, tg), uplo=uplo, nb=16)
-    want = np.asarray(el.to_global(jX))
+    want = _jax_hpd_solve(uplo)
     got = et.to_global(tX).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-12,
                                atol=1e-12 * np.abs(want).max())

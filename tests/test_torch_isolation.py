@@ -48,3 +48,27 @@ def test_forbidden_matches_only_the_reference():
     assert _forbidden("elemental_tpu") and _forbidden("elemental_tpu.kernels")
     assert not _forbidden("elemental_tpu_torch")
     assert not _forbidden("elemental_tpu_torch.kernels.common")
+
+
+def test_traced_cholesky_and_export_add_no_jax_module(tmp_path):
+    """A traced ``cholesky`` on a CPU grid, exported to a Perfetto trace,
+    in a fresh interpreter: still no JAX module and nothing of
+    ``elemental_tpu``."""
+    out = tmp_path / "trace.json"
+    code = (
+        "import sys, json, numpy as np\n"
+        "import elemental_tpu_torch as et\n"
+        "from elemental_tpu_torch import obs\n"
+        "g = et.Grid(2, 2, device='cpu')\n"
+        "F = np.random.default_rng(0).normal(size=(32, 32))\n"
+        "A = et.from_global(F @ F.T + 32 * np.eye(32), et.MC, et.MR, g)\n"
+        "tr = obs.Tracer()\n"
+        "with obs.metrics_scope(), tr:\n"
+        "    et.cholesky(A, nb=8, crossover=0, timer=obs.PhaseTimer())\n"
+        f"obs.write_json({str(out)!r}, obs.chrome_trace_doc(tr))\n"
+        "print(json.dumps([len(tr.phases), sorted(sys.modules)]))")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, check=True)
+    nphases, mods = json.loads(res.stdout.strip().splitlines()[-1])
+    assert nphases > 0 and [m for m in mods if _forbidden(m)] == []
+    assert json.loads(out.read_text())["schema"] == "obs_chrome_trace/v1"

@@ -1,9 +1,13 @@
-"""The port's ``lu`` / ``lu_solve`` against ``elemental_tpu`` on 1x1, 2x2
-and 2x4 grids: the same numpy inputs from a seed go through both
-packages.  At float64 the permutations are equal and the packed factors
+"""The port's ``lu`` / ``lu_solve`` on 1x1, 2x2 and 2x4 grids against
+``elemental_tpu``: the same numpy inputs from a seed go through both
+packages, the JAX side on a 1x1 grid, each reference computed once per
+module (the permutation storage of ``permute_rows`` / ``permute_cols``
+is compared on the same grid).  At float64 the permutations are equal and the packed factors
 agree to 1e-12 of their largest entry (the schedules are the same; the
 triangular solves and products round in different libraries); the
 look-ahead and classic orders agree to the same bound."""
+import functools
+
 import jax
 import numpy as np
 import pytest
@@ -11,6 +15,8 @@ import torch
 
 import elemental_tpu as el
 import elemental_tpu_torch as et
+from elemental_tpu import obs as jobs
+from elemental_tpu_torch import obs as tobs
 
 GRIDS = [(1, 1), (2, 2), (2, 4)]
 IDS = [f"{r}x{c}" for r, c in GRIDS]
@@ -27,6 +33,14 @@ def tgrid(r, c):
     return et.Grid(r, c, device="cpu")
 
 
+def _step_timer(pkg_obs):
+    """A PhaseTimer of package ``pkg_obs`` on a step clock (every read
+    advances by one), so two packages' documents compare equal."""
+    clock = iter(range(1, 10 ** 6)).__next__
+    return pkg_obs.PhaseTimer(tracer=pkg_obs.Tracer(metrics=False,
+                                                    clock=lambda: float(clock())))
+
+
 def _mat(shape, seed=0, dtype=np.float64):
     rng = np.random.default_rng(seed)
     F = rng.normal(size=shape)
@@ -38,6 +52,16 @@ def _mat(shape, seed=0, dtype=np.float64):
 def _both(F, rc):
     return (el.from_global(F, el.MC, el.MR, jgrid(*rc)),
             et.from_global(F, et.MC, et.MR, tgrid(*rc)))
+
+
+@functools.cache
+def _jax_lu(shape, seed, **kw):
+    """The JAX package's (global LU, perm) of ``_mat(shape, seed)`` on a
+    1x1 grid, once per module: its pivots and factor on other grids are
+    the same to rounding, and each grid compiles its own programs."""
+    jLU, jperm = el.lu(el.from_global(_mat(shape, seed=seed), el.MC, el.MR,
+                                      jgrid(1, 1)), **kw)
+    return np.asarray(el.to_global(jLU)), np.asarray(jperm)
 
 
 def _close(got, want, rtol=1e-12):
@@ -52,14 +76,14 @@ def _close(got, want, rtol=1e-12):
                               "classic-x0"])
 def test_lu_matches_jax(rc, lookahead, crossover):
     F = _mat((N, N), seed=1)
-    jA, tA = _both(F, rc)
+    tA = et.from_global(F, et.MC, et.MR, tgrid(*rc))
     before = tA.local.clone()
     kw = dict(nb=NB, lookahead=lookahead, crossover=crossover)
-    jLU, jperm = el.lu(jA, **kw)
+    jLU, jperm = _jax_lu((N, N), 1, **kw)
     tLU, tperm = et.lu(tA, **kw)
     assert torch.equal(tA.local, before)          # the input is untouched
-    np.testing.assert_array_equal(tperm.numpy(), np.asarray(jperm))
-    _close(et.to_global(tLU).numpy(), np.asarray(el.to_global(jLU)))
+    np.testing.assert_array_equal(tperm.numpy(), jperm)
+    _close(et.to_global(tLU).numpy(), jLU)
 
 
 @pytest.mark.parametrize("rc", [(1, 1), (2, 4)], ids=["1x1", "2x4"])
@@ -67,11 +91,11 @@ def test_lu_matches_jax(rc, lookahead, crossover):
                          ids=["tall-x16", "wide-x0"])
 def test_lu_rectangular_matches_jax(rc, shape, crossover):
     F = _mat(shape, seed=2)
-    jA, tA = _both(F, rc)
-    jLU, jperm = el.lu(jA, nb=NB, crossover=crossover)
+    tA = et.from_global(F, et.MC, et.MR, tgrid(*rc))
+    jLU, jperm = _jax_lu(shape, 2, nb=NB, crossover=crossover)
     tLU, tperm = et.lu(tA, nb=NB, crossover=crossover)
-    np.testing.assert_array_equal(tperm.numpy(), np.asarray(jperm))
-    _close(et.to_global(tLU).numpy(), np.asarray(el.to_global(jLU)))
+    np.testing.assert_array_equal(tperm.numpy(), jperm)
+    _close(et.to_global(tLU).numpy(), jLU)
 
 
 @pytest.mark.parametrize("rc", GRIDS, ids=IDS)
@@ -87,17 +111,25 @@ def test_lookahead_matches_classic(rc):
 def test_lu_solve_matches_jax(rc):
     """The whole slice: LU + row permutation + the two sweeps."""
     F, B = _mat((N, N), 4), _mat((N, 5), 5)
-    jg, tg = jgrid(*rc), tgrid(*rc)
-    jX = el.lu_solve(el.from_global(F, el.MC, el.MR, jg),
-                     el.from_global(B, el.MC, el.MR, jg), nb=NB)
+    tg = tgrid(*rc)
+    jX = _jax_lu_solve()
     tA = et.from_global(F, et.MC, et.MR, tg)
     tB = et.from_global(B, et.MC, et.MR, tg)
     a0, b0 = tA.local.clone(), tB.local.clone()
     tX = et.lu_solve(tA, tB, nb=NB)
     assert torch.equal(tA.local, a0) and torch.equal(tB.local, b0)
     got = et.to_global(tX).numpy()
-    _close(got, np.asarray(el.to_global(jX)))
+    _close(got, jX)
     assert np.linalg.norm(F @ got - B) < 1e-12 * np.linalg.norm(B)
+
+
+@functools.cache
+def _jax_lu_solve():
+    F, B = _mat((N, N), 4), _mat((N, 5), 5)
+    g = jgrid(1, 1)
+    return np.asarray(el.to_global(el.lu_solve(
+        el.from_global(F, el.MC, el.MR, g), el.from_global(B, el.MC, el.MR, g),
+        nb=NB)))
 
 
 @pytest.mark.parametrize("rc", GRIDS, ids=IDS)
@@ -183,12 +215,13 @@ _LU_KNOBS = {"nb": None, "lookahead": True, "crossover": None,
     dict(precision="bf16"), dict(update_precision="bf16")],
     ids=lambda kw: next(iter(kw)))
 def test_later_slice_knobs_raise(kw, empty_tune_cache):
-    """``timer`` raises.  Each ``'auto'`` knob resolves through the tuner,
-    as in the JAX package, to the JAX package's value, and the call equals
-    the explicit call with the resolved value.  ``health`` and ``abft``
-    are ported: beside ``timer`` the call still raises (the guarded driver
-    would otherwise take it as its hook), and alone each knob reaches its
-    monitor or its guarded driver, which files a fresh report."""
+    """``timer`` (a PhaseTimer, alone or beside ``health`` / ``abft``)
+    gives the JAX package's ``phase_timings/v1`` document and result.
+    Each ``'auto'`` knob resolves through the tuner, as in the JAX
+    package, to the JAX package's value, and the call equals
+    the explicit call with the resolved value.  Alone, ``health`` and
+    ``abft`` each reach their monitor or guarded driver, which files a
+    fresh report."""
     A = et.from_global(_mat((8, 8)), et.MC, et.MR, tgrid(1, 1))
     knob = next(iter(kw))
     if kw[knob] == "auto":
@@ -202,8 +235,19 @@ def test_later_slice_knobs_raise(kw, empty_tune_cache):
         LUe, pe = et.lu(A, **{knob: kn[knob]})
         assert torch.equal(pa, pe) and torch.equal(LUa.local, LUe.local)
         return
-    with pytest.raises(NotImplementedError, match="later slice"):
-        et.lu(A, **kw)
+    if "timer" in kw:
+        # a PhaseTimer (step clock) beside health / abft: the same
+        # phase_timings/v1 document as the JAX package's, and the result
+        extra = {k: v for k, v in kw.items() if k != "timer"}
+        t, jt = _step_timer(tobs), _step_timer(jobs)
+        jA = el.from_global(_mat((8, 8)), el.MC, el.MR, jgrid(1, 1))
+        got, perm = et.lu(A, timer=t, **extra)
+        want, jperm = el.lu(jA, timer=jt, **extra)
+        np.testing.assert_array_equal(perm.numpy(), np.asarray(jperm))
+        np.testing.assert_allclose(et.to_global(got).numpy(),
+                                   np.asarray(el.to_global(want)),
+                                   rtol=0, atol=1e-12)
+        assert t.report() == jt.report() and t.report()["steps"]
     if knob in ("health", "abft"):
         last = {"health": et.resilience.last_health_report,
                 "abft": et.resilience.last_abft_report}[knob]

@@ -1,9 +1,12 @@
 """The port's ``qr`` / ``apply_q`` / ``explicit_q`` / ``least_squares`` /
-``lq`` / ``explicit_l`` / ``rq`` against ``elemental_tpu`` on 1x1, 2x2 and
-2x4 grids: the same numpy inputs from a seed go through both packages.
+``lq`` / ``explicit_l`` / ``rq`` on 1x1, 2x2 and 2x4 grids against
+``elemental_tpu``: the same numpy inputs from a seed go through both
+packages, the JAX side on a 1x1 grid, each reference computed once per
+module.
 At float64 the packed factors, tau and the solutions agree to 1e-12 of
 their largest entry (the same schedule; the sums round in different
 libraries); complex128 runs the plain panel on both sides."""
+import functools
 import importlib
 
 import jax
@@ -13,6 +16,8 @@ import torch
 
 import elemental_tpu as el
 import elemental_tpu_torch as et
+from elemental_tpu import obs as jobs
+from elemental_tpu_torch import obs as tobs
 from elemental_tpu.matrices.basic import identity as jax_identity
 
 #: the JAX package's QR module (its name in ``elemental_tpu.lapack`` is
@@ -36,6 +41,14 @@ def tgrid(r, c):
     return et.Grid(r, c, device="cpu")
 
 
+def _step_timer(pkg_obs):
+    """A PhaseTimer of package ``pkg_obs`` on a step clock (every read
+    advances by one), so two packages' documents compare equal."""
+    clock = iter(range(1, 10 ** 6)).__next__
+    return pkg_obs.PhaseTimer(tracer=pkg_obs.Tracer(metrics=False,
+                                                    clock=lambda: float(clock())))
+
+
 def _mat(shape, seed=0, dtype=np.float64):
     rng = np.random.default_rng(seed)
     F = rng.normal(size=shape)
@@ -44,9 +57,34 @@ def _mat(shape, seed=0, dtype=np.float64):
     return F.astype(dtype)
 
 
-def _both(F, rc):
-    return (el.from_global(F, el.MC, el.MR, jgrid(*rc)),
-            et.from_global(F, et.MC, et.MR, tgrid(*rc)))
+@functools.cache
+def _jax(fn: str, *spec, **kw):
+    """``jqr.<fn>`` of the inputs ``spec`` (each ``(shape, seed, dtype
+    name)``) on a 1x1 JAX grid, once per module, as global numpy arrays
+    (and ``_qr_nb`` of a packed factor): the JAX results on other grids
+    are the same to rounding, and each grid compiles its own programs."""
+    g = jgrid(1, 1)
+    mats = [el.from_global(_mat(shape, seed, np.dtype(dt)), el.MC, el.MR, g)
+            for shape, seed, dt in spec]
+    out = getattr(jqr, fn)(*mats, **kw)
+    outs = out if isinstance(out, tuple) else (out,)
+    got = [np.asarray(el.to_global(o)) if isinstance(o, el.DistMatrix)
+           else np.asarray(o) for o in outs]
+    if fn == "qr":
+        got.append(outs[0]._qr_nb)
+    if fn == "lq":
+        got.append(np.asarray(el.to_global(jqr.explicit_l(outs[0]))))
+    return got if isinstance(out, tuple) or len(got) > 1 else got[0]
+
+
+@functools.cache
+def _jax_apply_q(orient):
+    g = jgrid(1, 1)
+    jAp, jtau = jqr.qr(el.from_global(_mat(TALL, seed=4), el.MC, el.MR, g),
+                       nb=NB)
+    jB = el.from_global(_mat((TALL[0], 3), seed=5), el.MC, el.MR, g)
+    return np.asarray(el.to_global(jqr.apply_q(jAp, jtau, jB,
+                                               orient=orient)))
 
 
 def _close(got, want, tol=1e-12):
@@ -62,14 +100,14 @@ def _glob(A):
 @pytest.mark.parametrize("shape", SHAPES, ids=["tall", "square", "wide"])
 def test_qr_matches_jax(rc, shape):
     F = _mat(shape, seed=1)
-    jA, tA = _both(F, rc)
+    tA = et.from_global(F, et.MC, et.MR, tgrid(*rc))
     before = tA.local.clone()
-    jAp, jtau = jqr.qr(jA, nb=NB)
+    jAp, jtau, jnb = _jax("qr", (shape, 1, "float64"), nb=NB)
     tAp, ttau = et.qr(tA, nb=NB)
     assert torch.equal(tA.local, before)           # the input is untouched
-    _close(_glob(tAp), np.asarray(el.to_global(jAp)))
-    _close(ttau.numpy(), np.asarray(jtau))
-    assert tAp._qr_nb == jAp._qr_nb
+    _close(_glob(tAp), jAp)
+    _close(ttau.numpy(), jtau)
+    assert tAp._qr_nb == jnb
 
 
 @pytest.mark.parametrize("rc", GRIDS, ids=IDS)
@@ -94,28 +132,27 @@ def test_apply_q_round_trip_and_explicit_q(rc):
 @pytest.mark.parametrize("rc", GRIDS, ids=IDS)
 def test_apply_q_matches_jax(rc):
     F, B = _mat(TALL, seed=4), _mat((TALL[0], 3), seed=5)
-    jA, tA = _both(F, rc)
-    jB, tB = _both(B, rc)
-    jAp, jtau = jqr.qr(jA, nb=NB)
+    tA = et.from_global(F, et.MC, et.MR, tgrid(*rc))
+    tB = et.from_global(B, et.MC, et.MR, tgrid(*rc))
     tAp, ttau = et.qr(tA, nb=NB)
     for orient in ("N", "C"):
-        jY = jqr.apply_q(jAp, jtau, jB, orient=orient)
         tY = et.apply_q(tAp, ttau, tB, orient=orient)
-        _close(_glob(tY), np.asarray(el.to_global(jY)))
+        _close(_glob(tY), _jax_apply_q(orient))
 
 
 @pytest.mark.parametrize("rc", GRIDS, ids=IDS)
 def test_least_squares_matches_jax_and_numpy(rc):
     """The whole slice: QR + Q^H B + the triangular solve."""
     F, B = _mat(TALL, seed=6), _mat((TALL[0], 3), seed=7)
-    jA, tA = _both(F, rc)
-    jB, tB = _both(B, rc)
+    tA = et.from_global(F, et.MC, et.MR, tgrid(*rc))
+    tB = et.from_global(B, et.MC, et.MR, tgrid(*rc))
     a0, b0 = tA.local.clone(), tB.local.clone()
-    jX = jqr.least_squares(jA, jB, nb=NB)
+    jX = _jax("least_squares", (TALL, 6, "float64"),
+              ((TALL[0], 3), 7, "float64"), nb=NB)
     tX = et.least_squares(tA, tB, nb=NB)
     assert torch.equal(tA.local, a0) and torch.equal(tB.local, b0)
     got = _glob(tX)
-    _close(got, np.asarray(el.to_global(jX)))
+    _close(got, jX)
     _close(got, np.linalg.lstsq(F, B, rcond=None)[0], 1e-11)
 
 
@@ -123,10 +160,11 @@ def test_least_squares_matches_jax_and_numpy(rc):
 def test_least_squares_complex(rc):
     F = _mat(TALL, seed=8, dtype=np.complex128)
     B = _mat((TALL[0], 2), seed=9, dtype=np.complex128)
-    jA, tA = _both(F, rc)
-    jB, tB = _both(B, rc)
+    tA = et.from_global(F, et.MC, et.MR, tgrid(*rc))
+    tB = et.from_global(B, et.MC, et.MR, tgrid(*rc))
     got = _glob(et.least_squares(tA, tB, nb=NB))
-    _close(got, np.asarray(el.to_global(jqr.least_squares(jA, jB, nb=NB))))
+    _close(got, _jax("least_squares", (TALL, 8, "complex128"),
+                     ((TALL[0], 2), 9, "complex128"), nb=NB))
     _close(got, np.linalg.lstsq(F, B, rcond=None)[0], 1e-11)
 
 
@@ -134,13 +172,13 @@ def test_least_squares_complex(rc):
 def test_lq_and_explicit_l_match_jax(rc):
     F = _mat(WIDE, seed=10)
     m, n = WIDE
-    jA, tA = _both(F, rc)
-    jP, jtau = jqr.lq(jA, nb=NB)
+    tA = et.from_global(F, et.MC, et.MR, tgrid(*rc))
+    jP, jtau, jL = _jax("lq", (WIDE, 10, "float64"), nb=NB)
     tP, ttau = et.lq(tA, nb=NB)
-    _close(_glob(tP), np.asarray(el.to_global(jP)))
-    _close(ttau.numpy(), np.asarray(jtau))
+    _close(_glob(tP), jP)
+    _close(ttau.numpy(), jtau)
     L = _glob(et.explicit_l(tP))
-    _close(L, np.asarray(el.to_global(jqr.explicit_l(jP))))
+    _close(L, jL)
     # A = L Q with Q the first rows of the LQ unitary
     Q = _glob(et.apply_q_lq(tP, ttau, et.identity(n, grid=tgrid(*rc),
                                                   dtype=torch.float64)))
@@ -151,12 +189,12 @@ def test_lq_and_explicit_l_match_jax(rc):
 @pytest.mark.parametrize("shape", [WIDE, TALL], ids=["wide", "tall"])
 def test_rq_matches_jax(rc, shape):
     F = _mat(shape, seed=11)
-    jA, tA = _both(F, rc)
-    jR, jQ = jqr.rq(jA, nb=NB)
+    tA = et.from_global(F, et.MC, et.MR, tgrid(*rc))
+    jR, jQ = _jax("rq", (shape, 11, "float64"), nb=NB)
     tR, tQ = et.rq(tA, nb=NB)
     R, Q = _glob(tR), _glob(tQ)
-    _close(R, np.asarray(el.to_global(jR)))
-    _close(Q, np.asarray(el.to_global(jQ)))
+    _close(R, jR)
+    _close(Q, jQ)
     assert np.linalg.norm(F - R @ Q) / np.linalg.norm(F) < 1e-13
 
 
@@ -219,13 +257,13 @@ _QR_KNOBS = {"nb": None, "panel": "classic", "panel_impl": None,
     dict(abft=True, timer=object()),
     dict(precision="bf16")], ids=lambda kw: f"{next(iter(kw))}")
 def test_later_slice_knobs_raise(kw, empty_tune_cache):
-    """``timer`` raises.  Each ``'auto'`` knob resolves through the tuner,
-    as in the JAX package, to the JAX package's value, and the call equals
+    """``timer`` (a PhaseTimer, alone or beside ``health`` / ``abft``)
+    gives the JAX package's ``phase_timings/v1`` document and result.
+    Each ``'auto'`` knob resolves through the tuner, as in the JAX
+    package, to the JAX package's value, and the call equals
     the explicit call with the resolved value (the recorded block size
-    too).  ``health`` and ``abft`` are ported: beside ``timer`` the call
-    still raises (the guarded driver would otherwise take it as its hook),
-    and alone each knob reaches its monitor or its guarded driver, which
-    files a fresh report."""
+    too).  Alone, ``health`` and ``abft`` each reach their monitor or
+    guarded driver, which files a fresh report."""
     A = et.from_global(_mat((8, 8)), et.MC, et.MR, tgrid(1, 1))
     knob = next(iter(kw))
     autos = [k for k, v in kw.items() if v == "auto"]
@@ -241,8 +279,20 @@ def test_later_slice_knobs_raise(kw, empty_tune_cache):
         assert torch.equal(Pa.local, Pe.local) and torch.equal(ta, te)
         assert Pa._qr_nb == Pe._qr_nb
         return
-    with pytest.raises(NotImplementedError, match="later slice"):
-        et.qr(A, **kw)
+    if "timer" in kw:
+        # a PhaseTimer (step clock) beside health / abft: the same
+        # phase_timings/v1 document as the JAX package's, and the result
+        extra = {k: v for k, v in kw.items() if k != "timer"}
+        t, jt = _step_timer(tobs), _step_timer(jobs)
+        jA = el.from_global(_mat((8, 8)), el.MC, el.MR, jgrid(1, 1))
+        got, tau = et.qr(A, timer=t, **extra)
+        want, jtau = el.qr(jA, timer=jt, **extra)
+        np.testing.assert_allclose(tau.numpy(), np.asarray(jtau),
+                                   rtol=0, atol=1e-12)
+        np.testing.assert_allclose(et.to_global(got).numpy(),
+                                   np.asarray(el.to_global(want)),
+                                   rtol=0, atol=1e-12)
+        assert t.report() == jt.report() and t.report()["steps"]
     if knob in ("health", "abft"):
         last = {"health": et.resilience.last_health_report,
                 "abft": et.resilience.last_abft_report}[knob]
