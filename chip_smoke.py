@@ -16,9 +16,9 @@ Phases, each of which raises on failure:
    could take (``bound_ms``): ``potrf_inv`` (w = 1 ... 2048),
    ``lu_panel`` (32768 x 2048, phase 3h's 8192 x 512 ... a panel of
    constructed ties, the edges of its 128-column outer block) and
-   ``qr_panel`` (65536 x 2048, the SVD path's 32768 x 512, phase 3h's
-   40960 x 512 ... 33 x 7, a zero column, graded columns, a strided
-   view);
+   ``qr_panel`` (65536 x 2048, the SVD path's 16384 x 512, phase 3h's
+   40960 x 512, 32768 x 512 ... 33 x 7, a zero column, graded columns, a
+   strided view);
 3. the Cholesky main path at full width: ``hpd_solve(A, B, nb=2048)`` on
    the 1x1 grid, N = 32768 float32, nrhs = 8, A = G G^T / N + N I from a
    seeded generator; the factor gate of ``bench.py``, a solve residual,
@@ -42,9 +42,10 @@ Phases, each of which raises on failure:
    N eps (residual, B-orthogonality, eigenvalues against the float64
    ``eigvalsh`` of the reduced matrix), ``torch.linalg.eigh`` of that
    matrix timed beside it, and ``potrf_inv``'s launch count on that run;
-3e. the SVD main path at full width: ``svd(A, nb=512)`` on the 1x1 grid
-   (the Chan route: ``qr``, the QDWH ``polar`` of R, ``herm_eig`` of H, a
-   ``gemm`` and ``apply_q``), m = 32768, n = 16384 float32, A = U0
+3e. the SVD main path: ``svd(A, nb=512)`` on the 1x1 grid (the Chan
+   route: ``qr``, the QDWH ``polar`` of R, ``herm_eig`` of H, a ``gemm``
+   and ``apply_q``), m = 16384, n = 8192 float32 (a depth cut from
+   32768 x 16384, where ``torch.linalg.svd(A)`` alone took ~55 s), A = U0
    diag(s0) V0^T with seeded orthonormal U0, V0 and s0 geometric from 1
    to 1e-3; the wall time whole and per step, a device profile of
    ``polar`` with the idle share, four gates over n eps (reconstruction,
@@ -143,6 +144,30 @@ Phases, each of which raises on failure:
    ``mv_nrm2`` at m = 2^27, and every deterministic gallery generator at
    n = 4096 against the same call on the CPU, the device-random ones
    seeded;
+3m. serving on the 1x1 grid, f32: (a) ``SolverService`` over 48
+   requests in the mix lu : hpd : lstsq = 2 : 2 : 1, n uniform in
+   700 ... 4096 (lstsq m = 2n), nrhs = 8, ``max_batch`` 8, warmed over
+   every (bucket, slots) geometry, then measured (every request ``ok``
+   within its host residual's tol, no graph capture in the measured
+   pass; p50 / p99, solves/s, batches, which ops are captured graphs;
+   ``batch_peak_bytes`` beside the allocator's peak for the 4096
+   buckets); (b) the same requests through ``AsyncSolverService(donate=
+   True)`` (solutions bit-equal to (a)'s, ``serve_result/v1`` equal on
+   the semantic keys, no capture in the measured window, no worker left
+   after ``shutdown``; the pipeline occupancy); (c) ``fastpath=False``
+   with ``escalate_nb=2048``: 2 hpd and 2 lu at N = 16384 and one
+   lstsq at 16384 x 8192 (each certified, ``potrf_inv`` / ``lu_panel``
+   launching N / nb per refactorization, ``qr_panel`` 4 or 5; the share
+   of ``certify.py``'s float64 host copies); (d) a measured ``cholesky``
+   winner for the n = 4096 bucket in a temporary tuning cache, then 8 hpd
+   requests on (a)'s warm service (each routed as ``route_for`` says; 2
+   ``potrf_inv`` launches a request on the 'grid' route); (e)
+   ``SolverFleet(grids=2, depth=3)`` over the virtual grid's 8 ranks,
+   two tenants under quotas, 32 requests of (a)'s mix at n <= 2048,
+   traced (every request ``ok`` or a structured quota reject, clean
+   timelines, both members used; the SLO p99 and the Chrome event count);
+   (f) ``chaos_matrix`` at n = 16 on a virtual 2x2 grid and both replays
+   (no silent garbage, replays identical);
 4. the distributed branches: ``hpd_solve`` and ``lu`` + ``lu_solve_after``
    on a virtual 2x2 grid on the card, N = 1024 float64, nb = 128, with
    and without the crossover, against ``torch.linalg.solve``;
@@ -487,7 +512,8 @@ def _qr_panels():
         return torch.randn(M, k, generator=gen, device="cuda", dtype=dt)
 
     yield "65536x2048", normal(65536, 2048, torch.float32, 1), "3c"
-    yield "32768x512", normal(32768, 512, torch.float32, 5), "3e"
+    yield "16384x512", normal(16384, 512, torch.float32, 5), "3e"
+    yield "32768x512", normal(32768, 512, torch.float32, 5), None
     yield "40960x512", normal(40960, 512, torch.float32, 6), "3h"
     for dt in (torch.float32, torch.float64):
         for M, k in ((2048, 2048), (4096, 512), (1000, 100), (33, 7)):
@@ -1022,14 +1048,14 @@ def _qdwh_counts(et, n: int, nb: int, dtype) -> tuple:
 
 
 def phase_svd_main_path(et, card: str) -> dict:
-    """svd at full width on the 1x1 grid (the Chan route: qr, the QDWH
+    """svd at 16384 x 8192 on the 1x1 grid (the Chan route: qr, the QDWH
     polar of R, herm_eig of H, a gemm and apply_q): the call timed whole,
     then its steps one by one, a device profile of polar, the four gates
     and torch.linalg.svd timed beside it."""
     import torch
     from elemental_tpu_torch.kernels import lu_panel, potrf_inv, qr_panel
     funcs = sys.modules["elemental_tpu_torch.lapack.funcs"]
-    m, n, nb = 32768, 16384, 512
+    m, n, nb = 16384, 8192, 512
     grid = et.Grid()
 
     def dm(x):
@@ -1135,8 +1161,7 @@ def phase_svd_main_path(et, card: str) -> dict:
     del UR, Ap, tau
 
     # torch.linalg.svd of A, timed beside the path (the port never calls
-    # it); one call takes ~53 s here (NVIDIA H100 80GB HBM3, 700 W), under
-    # the 120 s above which it would be timed on R instead
+    # it)
     lib_ms = _time_ms(lambda: torch.linalg.svd(Ag, full_matrices=False), 1,
                       warm=False)
     # a device profile of polar alone, and its idle share
@@ -3839,6 +3864,486 @@ def phase_tracing(et, card: str, main_path: dict, lu_path: dict,
     return res
 
 
+#: phase 3m's sizes: (a)'s serving mix, (c)'s escalations, (e)'s fleet
+SERVE_SIZES = {"requests": 48, "n_lo": 700, "n_hi": 4096, "nrhs": 8,
+               "max_batch": 8, "esc_n": 16384, "esc_nb": 2048,
+               "esc_ls": (16384, 8192), "grid_requests": 8,
+               "grid_n": 4096, "fleet_requests": 32, "fleet_n_hi": 2048,
+               "chaos_n": 16}
+
+#: ``bench_serve.py``'s semantic keys of ``serve_result/v1``: what the
+#: sync and the async passes must agree on
+SERVE_SEM_KEYS = ("op", "n", "nrhs", "bucket", "status", "path", "rung",
+                  "residual", "tol", "retries", "bisected", "timed_out")
+
+
+def _serve_mix(count: int, seed: int, n_lo: int, n_hi: int, nrhs: int,
+               ops=("lu", "hpd", "lu", "hpd", "lstsq"),
+               dev: str = "cuda") -> list:
+    """``count`` requests cycling through ``ops`` (the mix lu : hpd :
+    lstsq = 2 : 2 : 1 by default) with n uniform in [n_lo, n_hi] (lstsq
+    m = 2n), f32, drawn by a seeded numpy generator; the SPD products
+    G G^T / n + n I are formed on ``dev``."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(count):
+        op = ops[i % len(ops)]
+        n = int(rng.integers(n_lo, n_hi + 1))
+        rows = 2 * n if op == "lstsq" else n
+        F = rng.standard_normal((rows, n), dtype=np.float32)
+        if op == "hpd":
+            G = torch.from_numpy(F).to(dev)
+            A = G @ G.T
+            A.div_(n)
+            A.diagonal().add_(n)
+            A = A.cpu().numpy()
+            del G
+        elif op == "lu":
+            A = F
+            A[np.diag_indices(n)] += n
+        else:
+            A = F
+        B = rng.standard_normal((rows, nrhs), dtype=np.float32)
+        out.append((op, A, B))
+    return out
+
+
+def _compiles(reg) -> int:
+    return int(sum(v for (_, lb), v in
+                   reg.counters("serve_exec_cache_events").items()
+                   if dict(lb).get("event") == "compile"))
+
+
+def _pctl(vals, q: float) -> float:
+    s = sorted(vals)
+    return s[min(len(s) - 1, max(int(q * len(s) + 0.5) - 1, 0))]
+
+
+def _serve_sync(et, work, sizes, grid) -> dict:
+    """3m (a): the sync fast path, warmed over every (bucket, slots)
+    geometry by a first pass of the same requests, then measured."""
+    from elemental_tpu_torch import obs
+    from elemental_tpu_torch.serve import SolverService
+    from elemental_tpu_torch.serve.executor import residual, ls_residual
+    svc = SolverService(grid, max_batch=sizes["max_batch"],
+                        escalate_nb=sizes["esc_nb"])
+    t0 = time.perf_counter()
+    for op, A, B in work:
+        svc.submit(op, A, B)
+    warm = svc.drain()
+    warm_s = time.perf_counter() - t0
+    with obs.metrics_scope() as reg:
+        t0 = time.perf_counter()
+        ids = [svc.submit(op, A, B) for op, A, B in work]
+        docs = svc.drain()
+        wall = time.perf_counter() - t0
+        captures = _compiles(reg)
+        batches = int(sum(reg.counters("serve_batches").values()))
+    bad = []
+    for rid, (op, A, B) in zip(ids, work):
+        d = docs[rid]
+        res = (ls_residual if op == "lstsq" else residual)(
+            A, B, svc.solutions.get(rid))
+        if d["status"] != "ok" or d["path"] != "fastpath" \
+                or not res <= d["tol"]:
+            bad.append({"id": rid, "status": d["status"], "res": res,
+                        "tol": d["tol"]})
+    lat = [docs[r]["latency_s"] for r in ids]
+    stats = svc.executor.cache.stats()
+    out = {"requests": len(ids), "warm_pass_s": warm_s, "wall_s": wall,
+           "solves_per_s": len(ids) / wall,
+           "p50_ms": 1e3 * _pctl(lat, 0.50), "p99_ms": 1e3 * _pctl(lat, 0.99),
+           "batches": batches, "captures_in_measured_pass": captures,
+           "warm_ok": sum(d["status"] == "ok" for d in warm.values()),
+           "graph_ops": stats["graph_ops"], "graphs": len(stats["graphs"]),
+           "entries": len(stats["entries"]), "failures": bad,
+           "buckets": sorted({docs[r]["bucket"] for r in ids})}
+    if bad or captures != 0:
+        raise AssertionError(f"3m (a) sync fast path: {json.dumps(out)}")
+    return out, svc, ids, docs
+
+
+def _serve_peaks(et, work, sizes, grid) -> dict:
+    """3m (a): the closed-form ``batch_peak_bytes`` of the largest buckets
+    (n = 4096)
+    beside the allocator's peak for one cold batch of each (a fresh
+    executor: capture, warm-up call and the batch) and what stays
+    resident after it."""
+    import torch
+    from elemental_tpu_torch.serve import AdmissionController, Executor
+    from elemental_tpu_torch.serve.executor import (batch_peak_bytes,
+                                                    batch_slots)
+    from elemental_tpu_torch.tune.cost_model import machine_for
+    ctrl = AdmissionController(max_batch=sizes["max_batch"])
+    admitted = [ctrl.admit(op, A, B) for op, A, B in work]
+    top = max(r.bucket.n for r in admitted)
+    reqs: dict = {}
+    for r in admitted:
+        if r.bucket.n == top:
+            reqs.setdefault(r.bucket, []).append(r)
+    out = {}
+    for bucket, rs in sorted(reqs.items(), key=lambda kv: kv[0].key()):
+        rs = rs[:sizes["max_batch"]]
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        m0 = torch.cuda.memory_allocated()
+        ex = Executor()
+        ex.place = grid.device
+        ex.run(bucket, rs)
+        torch.cuda.synchronize()
+        slots = batch_slots(len(rs))
+        out[bucket.key()] = {
+            "slots": slots, "batch_peak_bytes": batch_peak_bytes(bucket,
+                                                                 slots),
+            "max_memory_allocated_delta":
+                torch.cuda.max_memory_allocated() - m0,
+            "resident_after": torch.cuda.memory_allocated() - m0}
+        del ex
+    out["gpu_row_hbm_bytes"] = machine_for("gpu").hbm_bytes
+    out["card_total_memory"] = torch.cuda.get_device_properties(
+        0).total_memory
+    return out
+
+
+def _serve_async(et, work, sizes, grid, sync_svc, sync_ids, sync_docs):
+    """3m (b): the same requests through ``AsyncSolverService(donate=
+    True)``: a warm-up front fills the executor's entries; a second front
+    over that executor, its queue pre-loaded so that batch membership is
+    the sync pass's, is the measured window."""
+    import threading
+    import numpy as np
+    from elemental_tpu_torch import obs
+    from elemental_tpu_torch.serve import AsyncSolverService, SolverService
+
+    def front(executor=None):
+        svc = SolverService(grid, max_batch=sizes["max_batch"],
+                            escalate_nb=sizes["esc_nb"])
+        if executor is not None:
+            svc.executor = executor
+        return AsyncSolverService(svc, donate=True, autostart=False)
+
+    f0 = front()
+    futs = [f0.submit(op, A, B) for op, A, B in work]
+    f0.start()
+    for f in futs:
+        f.result(timeout=600)
+    f0.shutdown(drain=True)
+    f1 = front(f0.service.executor)
+    with obs.metrics_scope() as reg:
+        t0 = time.perf_counter()
+        futs = [f1.submit(op, A, B) for op, A, B in work]
+        f1.start()
+        outs = [f.result(timeout=600) for f in futs]
+        wall = time.perf_counter() - t0
+        f1.shutdown(drain=True)
+        captures = _compiles(reg)
+    live = [t.name for t in threading.enumerate()
+            if t.name.startswith("elemental-serve-worker") and t.is_alive()]
+    equal_x = all(np.array_equal(x, sync_svc.solutions[r])
+                  for (x, _), r in zip(outs, sync_ids))
+    equal_doc = all({k: d[k] for k in SERVE_SEM_KEYS}
+                    == {k: sync_docs[r][k] for k in SERVE_SEM_KEYS}
+                    for (_, d), r in zip(outs, sync_ids))
+    lat = [d["latency_s"] for _, d in outs]
+    out = {"donate": f1.donate, "wall_s": wall,
+           "solves_per_s": len(outs) / wall,
+           "p50_ms": 1e3 * _pctl(lat, 0.50), "p99_ms": 1e3 * _pctl(lat, 0.99),
+           "pipeline": f1.pipeline_stats(),
+           "captures_in_measured_window": captures,
+           "solutions_bit_equal_to_sync": equal_x,
+           "semantic_keys_equal_to_sync": equal_doc,
+           "live_workers_after_shutdown": live,
+           "donated_entries": sum(k.endswith("__donated") for k in
+                                  f1.service.executor.cache.stats()[
+                                      "entries"])}
+    if not (equal_x and equal_doc and captures == 0 and not live
+            and f1.donate):
+        raise AssertionError(f"3m (b) async front: {json.dumps(out)}")
+    return out
+
+
+def _serve_escalation(et, sizes, grid, kern) -> dict:
+    """3m (c): ``fastpath=False`` serving of 2 hpd and 2 lu at N = 16384
+    and one lstsq at 16384 x 8192 (nrhs 8): every request certified
+    through the kernels, ``certify.py``'s float64 host copies timed."""
+    import torch
+    from elemental_tpu_torch.resilience import certify
+    from elemental_tpu_torch.serve import SolverService
+    from elemental_tpu_torch.serve.executor import residual, ls_residual
+    N, nb, nrhs = sizes["esc_n"], sizes["esc_nb"], sizes["nrhs"]
+    m_ls, n_ls = sizes["esc_ls"]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    work = []
+    for op in ("hpd", "lu", "hpd", "lu"):
+        G = torch.randn(N, N, generator=gen, device="cuda")
+        if op == "hpd":
+            A = G @ G.T
+            A.div_(N)
+            A.diagonal().add_(N)
+        else:
+            A = G
+            A.diagonal().add_(N)
+        B = torch.randn(N, nrhs, generator=gen, device="cuda")
+        work.append((op, A.cpu().numpy(), B.cpu().numpy()))
+        del G, A, B
+    A = torch.randn(m_ls, n_ls, generator=gen, device="cuda")
+    B = torch.randn(m_ls, nrhs, generator=gen, device="cuda")
+    work.append(("lstsq", A.cpu().numpy(), B.cpu().numpy()))
+    del A, B
+    torch.cuda.empty_cache()
+    host_s = [0.0]
+    plain_host = certify._host
+
+    def timed_host(X):
+        t = time.perf_counter()
+        try:
+            return plain_host(X)
+        finally:
+            host_s[0] += time.perf_counter() - t
+
+    # four requests a batch: the closed-form peak of an 8-slot N = 16384
+    # hpd batch, double-buffered, is over the 'gpu' row's memory budget
+    # (admission would shed it, though no batch is ever built here)
+    svc = SolverService(grid, fastpath=False, escalate_nb=nb, max_batch=4)
+    certify._host = timed_host
+    try:
+        for k in kern:
+            k.launches = 0
+        t0 = time.perf_counter()
+        ids = [svc.submit(op, A, B) for op, A, B in work]
+        rejects = [r for r in ids if isinstance(r, dict)]
+        if rejects:
+            raise AssertionError(f"3m (c) rejected: {json.dumps(rejects)}")
+        docs = svc.drain()
+        wall = time.perf_counter() - t0
+        launches = _counts_now(*kern)
+    finally:
+        certify._host = plain_host
+    want = {"lu_panel": 0, "potrf_inv": 0, "qr_panel": 0}
+    rows, bad = [], []
+    for rid, (op, A, B) in zip(ids, work):
+        d = docs[rid]
+        X = svc.solutions.get(rid)
+        res = (ls_residual if op == "lstsq" else residual)(A, B, X) \
+            if X is not None else float("inf")
+        cert = d["certificate"]
+        refactors = 0
+        if cert is not None:
+            refactor = {r.name: r.refactor
+                        for r in certify.default_ladder(op)}
+            refactors = sum(1 for a in cert["attempts"]
+                            if refactor[a["rung"]])
+            want["potrf_inv" if op == "hpd" else "lu_panel"] += \
+                refactors * (N // nb)
+        rows.append({"id": rid, "op": op, "status": d["status"],
+                     "path": d["path"], "rung": d["rung"],
+                     "latency_s": d["latency_s"], "residual": d["residual"],
+                     "host_residual": res, "tol": d["tol"],
+                     "refactorizations": refactors})
+        cert_res = d["residual"]
+        if d["status"] != "ok" or d["path"] != "escalated" \
+                or not res <= d["tol"] or cert_res is None \
+                or not res <= 1.01 * cert_res + 1e-30:
+            bad.append(rows[-1])
+    qr_ok = launches["qr_panel"] in (n_ls // nb, n_ls // nb + 1)
+    out = {"requests": rows, "wall_s": wall, "launches": launches,
+           "want_launches": {k: v for k, v in want.items()
+                             if k != "qr_panel"},
+           "f64_host_copy_s": host_s[0],
+           "f64_host_copy_share": host_s[0] / wall}
+    if bad or not qr_ok \
+            or launches["potrf_inv"] != want["potrf_inv"] \
+            or launches["lu_panel"] != want["lu_panel"]:
+        raise AssertionError(f"3m (c) escalation: {json.dumps(out)}")
+    return out
+
+
+def _serve_grid_route(et, work, sizes, grid, sync_svc, kern) -> dict:
+    """3m (d): a measured ``cholesky`` winner for the n = 4096 bucket in
+    a temporary tuning cache, then 8 hpd requests of that bucket on (a)'s
+    warm service: each request's route is ``route_for`` of that entry
+    against (a)'s EWMA estimate."""
+    import os
+    import tempfile
+    from elemental_tpu_torch.serve import make_bucket, route_for
+    from elemental_tpu_torch.tune import cache as tcache, measure, policy
+    n = sizes["grid_n"]
+    tmp = tempfile.mkdtemp(prefix="serve_tune_")
+    prev = os.environ.get(tcache.ENV_DIR)
+    os.environ[tcache.ENV_DIR] = tmp
+    policy.clear_memo()
+    try:
+        winner, measured, key = measure.search(
+            "cholesky", (n, n), grid, "float32",
+            requested={"nb": sizes["esc_nb"], "panel_impl": "kernel"},
+            top=2, reps=2)
+        bucket = make_bucket("hpd", n, sizes["nrhs"], "float32")
+        est = sync_svc.admission.estimate_batch_s(bucket) \
+            / sync_svc.max_batch
+        backend = "gpu" if grid.device.type == "cuda" else "cpu"
+        want_route, prov = route_for(bucket, (1, 1), backend, est)
+        reqs = _serve_mix(sizes["grid_requests"], 29, n // 2 + 1, n,
+                          sizes["nrhs"], ops=("hpd",))
+        for k in kern:
+            k.launches = 0
+        t0 = time.perf_counter()
+        ids = [sync_svc.submit(op, A, B) for op, A, B in reqs]
+        docs = sync_svc.drain()
+        wall = time.perf_counter() - t0
+        launches = _counts_now(*kern)
+    finally:
+        if prev is None:
+            os.environ.pop(tcache.ENV_DIR, None)
+        else:
+            os.environ[tcache.ENV_DIR] = prev
+        policy.clear_memo()
+    routes = [docs[r]["dispatch"]["route"] for r in ids]
+    ok = all(docs[r]["status"] == "ok" for r in ids)
+    per_req = launches["potrf_inv"] / len(ids)
+    out = {"measured_s": winner.seconds, "config": winner.config,
+           "vmap_est_s": est, "route_for": want_route, "routes": routes,
+           "paths": [docs[r]["path"] for r in ids], "wall_s": wall,
+           "launches": launches, "potrf_inv_per_request": per_req}
+    if not ok or routes != [want_route] * len(ids) \
+            or (want_route == "grid"
+                and launches["potrf_inv"] != (n // sizes["esc_nb"]) * len(ids)):
+        raise AssertionError(f"3m (d) grid route: {json.dumps(out)}")
+    return out
+
+
+def _serve_fleet(et, sizes) -> dict:
+    """3m (e): ``SolverFleet(grids=2, depth=3)`` over the 8 virtual ranks
+    on the card, two tenants under quotas, (a)'s mix at n <= 2048, under
+    an active ``Tracer``."""
+    import threading
+    from elemental_tpu_torch import obs
+    from elemental_tpu_torch.obs.lifecycle import check_timeline
+    from elemental_tpu_torch.serve import (REJECT_SCHEMA, SolverFleet,
+                                           TenantQuota)
+    from elemental_tpu_torch.serve.executor import residual, ls_residual
+    work = _serve_mix(sizes["fleet_requests"], 31, sizes["n_lo"],
+                      sizes["fleet_n_hi"], sizes["nrhs"])
+    fleet = SolverFleet(grids=2, depth=3, max_batch=sizes["max_batch"],
+                        quotas={"acme": TenantQuota(max_outstanding=6),
+                                "blue": TenantQuota(share=2.0)})
+    tracer = obs.Tracer()
+    t0 = time.perf_counter()
+    with tracer:
+        futs = [fleet.submit(op, A, B, tenant=("acme", "blue")[i % 2])
+                for i, (op, A, B) in enumerate(work)]
+        outs = [f.result(timeout=600) for f in futs]
+        fleet.shutdown(drain=True)
+    wall = time.perf_counter() - t0
+    bad, rejects, grids = [], [], set()
+    for f, (op, A, B), (x, d) in zip(futs, work, outs):
+        if d.get("schema") == REJECT_SCHEMA:
+            rejects.append(d)
+            if d["reason"] != "quota" or d["tenant"] != "acme" \
+                    or d["timeline"] is None:
+                bad.append({"fleet_id": f.fleet_id, "reject": d["reason"]})
+            continue
+        grids.add(d["grid"])
+        res = (ls_residual if op == "lstsq" else residual)(A, B, x)
+        errs = check_timeline(d["timeline"], path=d["path"], fleet=True)
+        if d["status"] != "ok" or not res <= d["tol"] or errs:
+            bad.append({"fleet_id": f.fleet_id, "status": d["status"],
+                        "res": res, "timeline": errs})
+    slo = fleet.slo.snapshot(source="chip_smoke 3m")
+    doc = obs.chrome_trace_doc(tracer, mode="serve", grids=2)
+    live = [t.name for t in threading.enumerate()
+            if t.name.startswith("elemental-serve-worker") and t.is_alive()]
+    out = {"requests": len(work), "served": len(work) - len(rejects),
+           "quota_rejects": len(rejects), "grids_used": sorted(grids),
+           "wall_s": wall, "slo_p99_ms": fleet.slo.per_tenant_p99_ms(),
+           "slo_series": len(slo["series"]),
+           "chrome_events": len(doc["traceEvents"]),
+           "live_workers_after_shutdown": live, "failures": bad}
+    if bad or grids != {"g0", "g1"} or live or not slo["series"]:
+        raise AssertionError(f"3m (e) fleet: {json.dumps(out)}")
+    return out
+
+
+def _serve_chaos(et, sizes, kern) -> dict:
+    """3m (f): the chaos matrix at the JAX tests' size on a virtual 2x2
+    grid on the card (f32), and both replays."""
+    from elemental_tpu_torch.serve import (chaos_matrix,
+                                           fleet_replay_identical,
+                                           replay_identical)
+    for k in kern:
+        k.launches = 0
+    t0 = time.perf_counter()
+    report = chaos_matrix(et.Grid(2, 2), n=sizes["chaos_n"])
+    launches = _counts_now(*kern)
+    replay = replay_identical(et.Grid(2, 2), n=sizes["chaos_n"])
+    fleet_replay = fleet_replay_identical(n=sizes["chaos_n"])
+    wall = time.perf_counter() - t0
+    kinds: dict = {}
+    for c in report["cells"]:
+        for v in c["violations"]:
+            kinds[v["kind"]] = kinds.get(v["kind"], 0) + 1
+    out = {"cells": len(report["cells"]), "ok": report["ok"],
+           "violations_total": report["violations_total"],
+           "violation_kinds": kinds,
+           "vacuous_cells": report["vacuous_cells"],
+           "verdicts": {f"{c['op']}/{c['target']}/{c['kind']}/{c['mode']}"
+                        + (f"/{c['column']}" if "column" in c else ""):
+                        c["verdict"] for c in report["cells"]},
+           "replay_identical": replay,
+           "fleet_replay_identical": fleet_replay, "launches": launches,
+           "wall_s": wall}
+    if kinds.get("silent_garbage") or not replay or not fleet_replay:
+        raise AssertionError(f"3m (f) chaos: {json.dumps(out)}")
+    return out
+
+
+def phase_serving(et, card: str) -> dict:
+    """3m: serving on the card (see the module docstring): (a) the sync
+    fast path at serving size, (b) the async front, (c) escalation
+    through the kernels, (d) the tuner-fed 'grid' route, (e) the fleet,
+    (f) the chaos matrix.  1x1 grid, f32, TF32 off."""
+    import torch
+    from elemental_tpu_torch.kernels import lu_panel, potrf_inv, qr_panel
+    S = SERVE_SIZES
+    kern = (lu_panel, potrf_inv, qr_panel)
+    grid = et.Grid()
+    res: dict = {"card": card}
+    t = time.perf_counter()
+    work = _serve_mix(S["requests"], 7, S["n_lo"], S["n_hi"], S["nrhs"])
+    res["workload_s"] = time.perf_counter() - t
+    for k in kern:
+        k.launches = 0
+    t = time.perf_counter()
+    res["sync"], svc, ids, docs = _serve_sync(et, work, S, grid)
+    res["sync"]["launches"] = _counts_now(*kern)
+    res["sync"]["phase_s"] = time.perf_counter() - t
+    print("phase 3m (a) sync " + json.dumps(res["sync"]), flush=True)
+    res["peaks"] = _serve_peaks(et, work, S, grid)
+    print("phase 3m (a) peaks " + json.dumps(res["peaks"]), flush=True)
+    t = time.perf_counter()
+    res["async"] = _serve_async(et, work, S, grid, svc, ids, docs)
+    res["async"]["phase_s"] = time.perf_counter() - t
+    print("phase 3m (b) async " + json.dumps(res["async"]), flush=True)
+    torch.cuda.empty_cache()
+    res["escalation"] = _serve_escalation(et, S, grid, kern)
+    print("phase 3m (c) escalation " + json.dumps(res["escalation"]),
+          flush=True)
+    torch.cuda.empty_cache()
+    res["grid_route"] = _serve_grid_route(et, work, S, grid, svc, kern)
+    print("phase 3m (d) grid route " + json.dumps(res["grid_route"]),
+          flush=True)
+    del svc, work
+    torch.cuda.empty_cache()
+    res["fleet"] = _serve_fleet(et, S)
+    print("phase 3m (e) fleet " + json.dumps(res["fleet"]), flush=True)
+    res["chaos"] = _serve_chaos(et, S, kern)
+    print("phase 3m (f) chaos " + json.dumps(res["chaos"]), flush=True)
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3885,6 +4390,7 @@ def main() -> int:
     tuner = timed("3k", phase_tuner, et, card, main_path, lu_path, qr_path)
     tracing = timed("3l", phase_tracing, et, card, main_path, lu_path,
                     qr_path)
+    serving = timed("3m", phase_serving, et, card)
     t4 = time.perf_counter()
     phase_distributed(et)
     phase_lu_distributed(et)
@@ -3903,7 +4409,7 @@ def main() -> int:
         | {"launches_3d": eig_path["potrf_inv_launches"],
            "launches_3e": svd_path["potrf_inv_launches"]}), flush=True)
     qr_svd = next(r for r in qr_rows if r["path"] == "3e")
-    print("phase 3e qr_panel at 32768 x 512 " + json.dumps(
+    print("phase 3e qr_panel at 16384 x 512 " + json.dumps(
         {k: qr_svd[k] for k in ("kernel_ms", "plain_ms", "library_ms",
                                 "bound_ms", "bound_by", "max_abs_err")}
         | {"launches_3e": svd_path["qr_panel_launches"]}), flush=True)
@@ -3929,7 +4435,8 @@ def main() -> int:
                if d.get(key)}
         for ph, rest in (("3f", svd_rest), ("3h", ldl_rest),
                          ("3i", calu_tsqr), ("3j", resilience),
-                         ("3k", tuner), ("3l", tracing)):
+                         ("3k", tuner), ("3l", tracing),
+                         ("3m", serving)):
             for step, d in rest.items():
                 if isinstance(d, dict) and d.get("launches", {}).get(name):
                     out[f"{ph} {step}"] = d["launches"][name]

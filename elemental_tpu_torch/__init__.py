@@ -48,7 +48,11 @@ Perfetto export, the serving telemetry documents, ``python -m
 elemental_tpu_torch.obs``), with the rest of the dense surface: the
 matrix gallery (``matrices``), ``BlockMatrix``, ``DistMultiVec``, the
 ``*Ctrl`` structs, ``Timer`` / ``Args`` / ``ProgressLog``,
-``remote_updates``, ``cholesky_pivoted`` and ``cholesky_mod``.
+``remote_updates``, ``cholesky_pivoted`` and ``cholesky_mod``; and serving (``serve``:
+``SolverService``'s admission, batched executor on captured CUDA graphs,
+circuit breakers, certified escalation through the three kernels, the
+async front, the fleet and the chaos matrix, with ``python -m
+elemental_tpu_torch.serve``).
 
 The package imports ``torch`` and numpy only -- never ``jax`` and nothing
 of ``elemental_tpu``.
@@ -110,6 +114,7 @@ from .lapack.props import (determinant, safe_determinant, hpd_determinant,
                            schatten_norm, two_norm)
 from .matrices import identity
 from . import (blas, lapack, matrices, control, kernels, entry, obs,
-               resilience, tune)
+               resilience, tune, serve)
+from .serve import SolverService, Deadline
 
 __version__ = "0.1.0"

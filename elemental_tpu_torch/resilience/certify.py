@@ -227,8 +227,8 @@ def certified_solve(op: str, A, B, *, tol: float | None = None,
     result).  EAGER-mode: the escalation control flow is host-side.
 
     ``deadline`` bounds wall-clock: any object with a
-    ``remaining() -> seconds`` method (the serve layer's ``Deadline`` in
-    the JAX package; the port's serve layer is not ported yet).  Every rung attempt -- and
+    ``remaining() -> seconds`` method (the serve layer's
+    :class:`~elemental_tpu_torch.serve.Deadline`).  Every rung attempt -- and
     every refinement iteration -- checks the remaining budget BEFORE
     launching; an exhausted budget stops the ladder and returns the
     best-so-far solution with ``timed_out=True`` in the certificate

@@ -27,7 +27,13 @@ their kernels as often as the drivers' blocking says.  The guarded
 ``lu`` / ``cholesky`` / ``qr`` recover from a one-shot fault with one
 more launch of their kernel and a factor bit-equal to the clean guarded
 run's, and ``certified_solve``'s compute-target escalation certifies at
-'abft' (n = 4096, as ``chip_smoke.py`` phase 3j does at full width)."""
+'abft' (n = 4096, as ``chip_smoke.py`` phase 3j does at full width).
+The serving executor's entries are captured graphs for 'hpd' and
+'lstsq' and eager for 'lu', each bit-equal to the eager batched call;
+the async front's donated double buffer is bit-equal to the sync pass;
+warm geometries capture nothing; escalations launch their kernel N / nb
+times; a fleet captures beside another member's eager LU (``-k
+serve``)."""
 import sys
 
 import numpy as np
@@ -1130,3 +1136,222 @@ def test_obs_cli_runs_on_the_card(tmp_path):
     assert last["schema"] == "obs_metrics/v1"
     assert last["device"] == torch.cuda.get_device_name(0)
     assert json.loads(out.read_text())["schema"] == "obs_chrome_trace/v1"
+
+
+# ---------------------------------------------------------------------
+# serving on the card
+# ---------------------------------------------------------------------
+
+def _serve_requests(op, n, count, seed, nrhs=4):
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(count):
+        rows = 2 * n if op == "lstsq" else n
+        F = rng.standard_normal((rows, n)).astype(np.float32)
+        if op == "hpd":
+            A = (F @ F.T / n + n * np.eye(n)).astype(np.float32)
+        elif op == "lu":
+            A = F + n * np.eye(n, dtype=np.float32)
+        else:
+            A = F
+        out.append((op, A, rng.standard_normal((rows, nrhs)).astype(
+            np.float32)))
+    return out
+
+
+@pytest.mark.parametrize("n,slots", [(16, 4), (512, 8), (1024, 2)])
+def test_serve_entries_capture_per_op(n, slots):
+    """The per-op table of the executor: 'hpd' and 'lstsq' entries are
+    captured graphs whose replay is bit-equal to the eager batched call
+    on the same inputs; 'lu' entries are eager (MAGMA's batched getrf
+    syncs with the host above n = 128)."""
+    _need_card()
+    from elemental_tpu_torch.serve import ExecutableCache, make_bucket
+    from elemental_tpu_torch.serve.executor import GRAPH_OPS, _kernel
+    assert GRAPH_OPS == {"hpd", "lstsq"}
+    cache = ExecutableCache()
+    cache.place = torch.device("cuda", 0)
+    for op in ("lu", "hpd", "lstsq"):
+        b = make_bucket(op, n, 4, np.float32,
+                        m=2 * n if op == "lstsq" else None)
+        entry = cache.get(op, b, slots)
+        assert (entry.graph is not None) == (op in GRAPH_OPS)
+        reqs = _serve_requests(op, n, slots, 5)
+        a = torch.from_numpy(np.stack([A for _, A, _ in reqs])).cuda()
+        bb = torch.from_numpy(np.stack([B for _, _, B in reqs])).cuda()
+        stream = cache._stream()
+        with torch.cuda.stream(stream):
+            x = entry.launch(a, bb).clone()
+        stream.synchronize()
+        ref = _kernel(op)(a, bb)
+        torch.cuda.synchronize()
+        assert torch.equal(x, ref)
+    st = cache.stats()
+    assert st["graph_ops"] == ["hpd", "lstsq"] and len(st["graphs"]) == 2
+
+
+#: (n, slots) of batched LU solves whose capture failed on an H100
+LU_UNCAPTURABLE = ((512, 8), (2048, 2), (4096, 4))
+
+_LU_CAPTURE_CHILD = """
+import json, sys, torch
+from elemental_tpu_torch.serve.executor import _capture
+dev = torch.device("cuda", 0)
+for n, slots in json.loads(sys.argv[1]):
+    try:
+        _capture("lu", slots, n, n, 8, torch.float32, dev,
+                 torch.cuda.Stream(dev))
+        rec = {"n": n, "slots": slots, "captured": True}
+    except Exception as exc:
+        rec = {"n": n, "slots": slots, "captured": False,
+               "error": f"{type(exc).__name__}: {exc}"[:200]}
+    print(json.dumps(rec), flush=True)
+"""
+
+
+def test_serve_lu_batch_cannot_be_captured():
+    """Why 'lu' is not in ``GRAPH_OPS``: the executor's own capture of the
+    batched LU solve fails at each geometry of :data:`LU_UNCAPTURABLE`
+    (MAGMA's batched getrf syncs with the host).  The captures run in a
+    child process, whose CUDA context a failed capture may leave
+    unusable."""
+    _need_card()
+    import json
+    import subprocess
+    from pathlib import Path
+    out = subprocess.run([sys.executable, "-c", _LU_CAPTURE_CHILD,
+                          json.dumps(LU_UNCAPTURABLE)],
+                         cwd=Path(__file__).resolve().parents[1],
+                         capture_output=True, text=True, timeout=300)
+    recs = [json.loads(line) for line in out.stdout.splitlines()
+            if line.startswith("{")]
+    assert [(r["n"], r["slots"]) for r in recs] == \
+        list(LU_UNCAPTURABLE), out.stderr[-2000:]
+    assert not any(r["captured"] for r in recs), recs
+
+
+@pytest.mark.parametrize("depth", [2, 3])
+def test_serve_async_double_buffer_is_bit_equal_to_sync(depth):
+    """One bucket, 16 requests, ``max_batch`` 4: the async front keeps
+    ``depth`` batches of the SAME captured entry in flight (donated
+    inputs, one set of static buffers); every solution is bit-equal to
+    the synchronous pass's."""
+    _need_card()
+    import threading
+    from elemental_tpu_torch.serve import AsyncSolverService, SolverService
+    work = _serve_requests("hpd", 256, 16, 7)
+    svc = SolverService(et.Grid(), max_batch=4)
+    ids = [svc.submit(op, A, B) for op, A, B in work]
+    svc.drain()
+    front = AsyncSolverService(grid=et.Grid(), max_batch=4, depth=depth,
+                               autostart=False)
+    assert front.donate
+    futs = [front.submit(op, A, B) for op, A, B in work]
+    front.start()
+    outs = [f.result(timeout=120) for f in futs]
+    front.shutdown(drain=True)
+    assert not any(t.name.startswith("elemental-serve-worker")
+                   and t.is_alive() for t in threading.enumerate())
+    ent = front.service.executor.cache.stats()
+    assert ent["entries"] == ["hpd__b256x4__x4__float32__gpu__donated"]
+    for rid, (x, doc) in zip(ids, outs):
+        assert doc["status"] == "ok"
+        assert np.array_equal(x, svc.solutions[rid])
+
+
+def test_serve_warm_geometries_capture_nothing():
+    _need_card()
+    from elemental_tpu_torch import obs
+    from elemental_tpu_torch.serve import SolverService
+    work = (_serve_requests("hpd", 200, 5, 1)
+            + _serve_requests("lstsq", 100, 3, 2)
+            + _serve_requests("lu", 300, 6, 3))
+    svc = SolverService(et.Grid(), max_batch=4)
+
+    def one_pass():
+        ids = [svc.submit(op, A, B) for op, A, B in work]
+        docs = svc.drain()
+        return [docs[i]["status"] for i in ids]
+
+    assert set(one_pass()) == {"ok"}
+    with obs.metrics_scope() as reg:
+        assert set(one_pass()) == {"ok"}
+        events = {dict(lb)["event"]: v for (_, lb), v in
+                  reg.counters("serve_exec_cache_events").items()}
+    assert events.get("compile", 0) == 0 and events["hit"] > 0
+
+
+def test_serve_escalation_launches_the_kernels():
+    """``fastpath=False``: 'hpd' and 'lu' certify through
+    ``certified_solve`` (N / nb launches of ``potrf_inv`` / ``lu_panel``
+    a refactorization), 'lstsq' through ``least_squares(abft=True)``
+    (n / nb launches of ``qr_panel``)."""
+    _need_card()
+    from elemental_tpu_torch.serve import SolverService
+    n, nb = 512, 128
+    svc = SolverService(et.Grid(), fastpath=False, escalate_nb=nb)
+    for op, kern in (("hpd", potrf_inv), ("lu", lu_panel),
+                     ("lstsq", qr_panel)):
+        (_, A, B), = _serve_requests(op, n, 1, 11)
+        for k in (potrf_inv, lu_panel, qr_panel):
+            k.launches = 0
+        X, doc = svc.solve(op, A, B)
+        assert doc["status"] == "ok" and doc["path"] == "escalated"
+        assert kern.launches == n // nb, (op, kern.launches)
+        assert potrf_inv.launches + lu_panel.launches + qr_panel.launches \
+            == n // nb
+
+
+def test_serve_fleet_captures_beside_eager_lu():
+    """Two pipelined members with cold caches: one captures its 'hpd' /
+    'lstsq' entries while the other runs MAGMA's eager batched LU (the
+    pairing that broke a capture before the device gate); every request
+    certifies and no worker is left."""
+    _need_card()
+    import threading
+    from elemental_tpu_torch.serve import SolverFleet
+    work = []
+    for i, (op, n) in enumerate([("lu", 512), ("hpd", 384), ("lstsq", 256),
+                                 ("lu", 768), ("hpd", 640), ("lu", 300)]
+                                * 3):
+        work += _serve_requests(op, n, 1, 100 + i)
+    fleet = SolverFleet(grids=2, depth=3, max_batch=2, shed=False)
+    futs = [fleet.submit(op, A, B, tenant=f"t{i % 2}")
+            for i, (op, A, B) in enumerate(work)]
+    outs = [f.result(timeout=120) for f in futs]
+    fleet.shutdown(drain=True)
+    assert not any(t.name.startswith("elemental-serve-worker")
+                   and t.is_alive() for t in threading.enumerate())
+    assert all(d["status"] == "ok" for _, d in outs)
+    assert {d["grid"] for _, d in outs} == {"g0", "g1"}
+
+
+def test_serve_fleet_calu_escalation_beside_eager_lu():
+    """Member g0 (a 2x2 virtual grid) escalates every 'lu' request, so
+    its drivers capture CALU's pivot sweeps in the global capture mode,
+    while member g1 runs MAGMA's eager batched LU and captures its own
+    'hpd' entries: the escalation holds the device gate alone, and every
+    request certifies."""
+    _need_card()
+    import threading
+    from elemental_tpu_torch.serve import SolverFleet
+    fleet = SolverFleet(grids=2, depth=3, max_batch=2, shed=False)
+    esc = fleet.services[0]
+    assert esc.grid.height == 2 and esc.grid.width == 2
+    esc.fastpath, esc.escalate_nb = False, 128
+    futs = []
+    for i in range(6):
+        (_, A, B), = _serve_requests("lu", 512, 1, 200 + i)
+        futs.append((0, fleet.workers[0].submit("lu", A, B)))
+        for op, n in (("lu", 640), ("hpd", 384 + 64 * i)):
+            (_, A, B), = _serve_requests(op, n, 1, 300 + 2 * i)
+            futs.append((1, fleet.workers[1].submit(op, A, B)))
+    outs = [(m, f.result(timeout=300)) for m, f in futs]
+    fleet.shutdown(drain=True)
+    assert not any(t.name.startswith("elemental-serve-worker")
+                   and t.is_alive() for t in threading.enumerate())
+    for m, (_, doc) in outs:
+        assert doc["status"] == "ok", doc
+        assert doc["path"] == ("escalated" if m == 0 else "fastpath")
+    assert {doc["rung"] for m, (_, doc) in outs if m == 0} <= {
+        "quant", "fast", "refine"}
