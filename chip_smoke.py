@@ -168,6 +168,29 @@ Phases, each of which raises on failure:
    timelines, both members used; the SLO p99 and the Chrome event count);
    (f) ``chaos_matrix`` at n = 16 on a virtual 2x2 grid and both replays
    (no silent garbage, replays identical);
+3n. the solvers of the long tail on the 1x1 grid, float64 unless said:
+   (a) ``lp`` at m = 8192, n = 16384 (Ruiz on, tol :data:`LP_TOL`) of a
+   planted complementary pair, so the optimum is known: converged, the
+   gap and both feasibilities under the tol, the objective within 1e-6,
+   ``potrf_inv`` launched ceil(m / 2048) times a factorization of the
+   normal matrix, a second call bit-equal, one normal-matrix ``gemm``
+   and one ``cholesky`` timed apart; (b) ``nnls`` at 32768 x 4096 (the
+   QP's Cholesky path, 2 launches a factorization) held to the KKT
+   conditions on the host; (c) ``rpca`` at 2048 x 1024, rank 10, 5%
+   outliers, tol 1e-7 (through ``svd``: ``qr_panel`` and ``potrf_inv``),
+   ||L - L0|| / ||L0|| < 1e-5; (d) ``socp_affine`` and ``qp_affine`` at a
+   KKT order of ~2048 (``ldl``, no kernel) with the JAX tests' checks;
+   (e) ``cg`` on the 2-D Laplacian at 1024^2 unknowns (5.2M nonzeros,
+   tol 1e-8, the true residual recomputed on the host), ``spmv`` /
+   ``spmv_adjoint`` bit-equal run to run and timed beside their bytes
+   floor, ``gmres`` on a convection-diffusion step at 256^2,
+   ``sparse_direct_solve`` on the Laplacian at 512^2; (f)
+   ``lav_sparse`` at 10000 x 5000 with ``kkt='cg'`` (one captured CG
+   graph; two runs bit-equal; replays and host reads a solve) and
+   ``kkt='direct'``, ``bp_sparse`` at 5000 x 10000; (g) ``lll`` of a
+   knapsack lattice at n = 24 equal to the CPU's, a ``checkpoint`` /
+   ``restore`` of an 8192^2 float32 matrix on a virtual 2x2 grid
+   (bit-equal), a Matrix Market round trip of (e)'s 512^2 Laplacian;
 4. the distributed branches: ``hpd_solve`` and ``lu`` + ``lu_solve_after``
    on a virtual 2x2 grid on the card, N = 1024 float64, nb = 128, with
    and without the crossover, against ``torch.linalg.solve``;
@@ -4344,6 +4367,564 @@ def phase_serving(et, card: str) -> dict:
     return res
 
 
+#: phase 3n's sizes: (a) the dense LP, (b) NNLS, (c) RPCA, (d) the conic
+#: steps (KKT order ~2048), (e) the sparse solvers, (f) the sparse IPMs,
+#: (g) the lattice and IO steps
+SOLVER_SIZES = {"lp_m": 8192, "lp_n": 16384, "nnls_m": 32768,
+                "nnls_n": 4096, "rpca_m": 2048, "rpca_n": 1024,
+                "rpca_rank": 10, "socp_n": 512, "socp_m": 64,
+                "socp_cones": 184, "socp_order": 8, "qp_n": 682,
+                "cg_k": 1024, "gmres_k": 256, "direct_k": 512,
+                "lav_m": 10_000, "lav_n": 5_000, "lav_w": 10,
+                "bp_m": 5_000, "bp_n": 10_000, "bp_w": 12, "lll_n": 24,
+                "ckpt_n": 8192}
+
+
+def _sync():
+    import torch
+    torch.cuda.synchronize()
+
+
+def _reset(kern) -> None:
+    for k in kern:
+        k.launches = 0
+
+
+def _dm(et, F, grid):
+    import numpy as np
+    F = np.asarray(F)
+    return et.from_global(F.reshape(-1, 1) if F.ndim == 1 else F,
+                          et.MC, et.MR, grid=grid)
+
+
+def _host(et, A):
+    return et.to_global(A).cpu().numpy()
+
+
+def _laplacian_2d(k: int):
+    """COO triplets of the 5-point Laplacian on a k x k grid."""
+    import numpy as np
+    n = k * k
+    i = np.arange(n)
+    r, c = i // k, i % k
+    rows, cols, vals = [i], [i], [np.full(n, 4.0)]
+    for dr, dc in ((1, 0), (-1, 0), (0, 1), (0, -1)):
+        ok = (r + dr >= 0) & (r + dr < k) & (c + dc >= 0) & (c + dc < k)
+        rows.append(i[ok])
+        cols.append(((r + dr) * k + c + dc)[ok])
+        vals.append(np.full(int(ok.sum()), -1.0))
+    return (np.concatenate(rows), np.concatenate(cols),
+            np.concatenate(vals), n)
+
+
+#: phase 3n (a)'s stopping tolerance: at m = 8192 the normal equations'
+#: accuracy floors primal feasibility at ~1.6e-8, above the default
+#: ``MehrotraCtrl`` tol of 1e-8 (``tools/lp_accuracy.py``; PERF.md)
+LP_TOL = 1e-7
+
+
+def _solver_lp(et, grid, kern, S) -> dict:
+    """3n (a): ``lp`` at m x n float64, ``MehrotraCtrl(tol=LP_TOL)``,
+    Ruiz on.  The instance is ``tests/optimization/test_solvers.py::
+    _feasible_lp``'s construction with complementary supports: x0 > 0 on
+    a random basis of m columns and 0 off it, z0 = 0 on the basis and
+    U(0.5, 2) off it, b = A x0, c = A^T y0 + z0, so (x0, y0, z0)
+    satisfies the KKT conditions and c^T x0 = b^T y0 is the optimum."""
+    import numpy as np
+    import torch
+    m, n = S["lp_m"], S["lp_n"]
+    rng = np.random.default_rng(14)
+    A = rng.normal(size=(m, n))
+    basis = rng.choice(n, m, replace=False)
+    x0 = np.zeros(n)
+    x0[basis] = rng.uniform(0.5, 2.0, m)
+    z0 = rng.uniform(0.5, 2.0, n)
+    z0[basis] = 0.0
+    y0 = rng.normal(size=m)
+    b, c = A @ x0, A.T @ y0 + z0
+    opt = float(c @ x0)
+    Ad, bd, cd = _dm(et, A, grid), _dm(et, b, grid), _dm(et, c, grid)
+    out: dict = {"m": m, "n": n, "dtype": "float64", "tol": LP_TOL,
+                 "opt": opt}
+    runs = []
+    for _ in range(2):
+        _reset(kern)
+        _sync()
+        t = time.perf_counter()
+        x, y, z, info = et.lp(Ad, bd, cd, et.MehrotraCtrl(tol=LP_TOL))
+        _sync()
+        runs.append((x, y, z, info, time.perf_counter() - t,
+                     _counts_now(*kern)))
+    x, y, z, info, wall, launches = runs[0]
+    nb = 2048                          # cholesky's block on the 1x1 grid
+    blocks = -(-m // nb)
+    want = (1 + info["iters"]) * blocks
+    pobj_err = abs(info["pobj"] - opt) / (1 + abs(opt))
+    same = all(torch.equal(a.local, b_.local)
+               for a, b_ in zip(runs[0][:3], runs[1][:3]))
+    # where an iteration's time goes: the normal-matrix gemm against the
+    # Cholesky of the normal matrix (one of each, timed apart)
+    At = et.redistribute(et.transpose_dist(Ad), et.MC, et.MR)
+    gemm_ms = _time_ms(lambda: et.gemm(Ad, At), 2)
+    M = et.shift_diagonal(et.gemm(Ad, At), float(m))
+    chol_ms = _time_ms(lambda: et.cholesky(M), 2)
+    out.update(iters=info["iters"], converged=info["converged"],
+               rel_gap=info["rel_gap"], pfeas=info["pfeas"],
+               dfeas=info["dfeas"], pobj=info["pobj"],
+               pobj_rel_err=pobj_err, wall_s=wall, wall_s_2=runs[1][4],
+               s_per_iter=wall / (info["iters"] + 1),
+               launches=launches, factorizations=1 + info["iters"],
+               potrf_inv_want=want, bit_equal_second_call=same,
+               normal_gemm_ms=gemm_ms, normal_cholesky_ms=chol_ms,
+               host_x_min=float(_host(et, x).min()))
+    ok = (info["converged"] and info["rel_gap"] < LP_TOL
+          and info["pfeas"] < LP_TOL and info["dfeas"] < LP_TOL
+          and pobj_err < 1e-6 and launches["potrf_inv"] == want
+          and runs[1][5]["potrf_inv"] == want and same
+          and launches["lu_panel"] == launches["qr_panel"] == 0)
+    if not ok:
+        raise AssertionError(f"3n (a) lp: {json.dumps(out)}")
+    return out
+
+
+def _solver_nnls(et, grid, kern, S) -> dict:
+    """3n (b): ``nnls`` (``qp`` without constraints: a Cholesky of Q +
+    X^{-1} Z an iteration) at m x n float64; the KKT conditions checked
+    on the host in float64."""
+    import numpy as np
+    m, n = S["nnls_m"], S["nnls_n"]
+    rng = np.random.default_rng(15)
+    A = rng.normal(size=(m, n))
+    b = rng.normal(size=(m, 1))
+    Ad, bd = _dm(et, A, grid), _dm(et, b, grid)
+    _reset(kern)
+    _sync()
+    t = time.perf_counter()
+    x, info = et.nnls(Ad, bd)
+    _sync()
+    wall = time.perf_counter() - t
+    launches = _counts_now(*kern)
+    xh = _host(et, x)
+    g = A.T @ (A @ xh - b)
+    atb = float(np.linalg.norm(A.T @ b))
+    # one factorization an iteration; a converged run stops before its
+    # last iteration's (the dual feasibility can stall above the tol on
+    # this problem class: the gates are the KKT conditions)
+    factorizations = info["iters"] + (not info["converged"])
+    want = factorizations * -(-n // 2048)
+    out = {"m": m, "n": n, "dtype": "float64", "iters": info["iters"],
+           "converged": info["converged"], "wall_s": wall,
+           "dfeas": info["dfeas"], "launches": launches,
+           "factorizations": factorizations, "potrf_inv_want": want,
+           "x_min": float(xh.min()), "grad_min_rel": float(g.min()) / atb,
+           "compl_rel": float(np.abs(xh * g).max())
+           / (atb * max(1.0, float(np.abs(xh).max()))),
+           "active": int((xh > 1e-9).sum())}
+    ok = (out["x_min"] > -1e-9
+          and out["grad_min_rel"] >= -1e-6 and out["compl_rel"] < 1e-6
+          and launches["potrf_inv"] == want)
+    if not ok:
+        raise AssertionError(f"3n (b) nnls: {json.dumps(out)}")
+    return out
+
+
+def _solver_rpca(et, grid, kern, S) -> dict:
+    """3n (c): ``rpca`` of L0 + S0 (rank r, 5% gross outliers, built as
+    ``tests/optimization/test_solvers.py::test_rpca_recovery`` builds its
+    input), float64, tol 1e-7: each iteration's ``svt`` is an ``svd``
+    (QDWH: ``qr_panel`` and ``potrf_inv``)."""
+    import numpy as np
+    m, n, r = S["rpca_m"], S["rpca_n"], S["rpca_rank"]
+    rng = np.random.default_rng(8)
+    L0 = rng.normal(size=(m, r)) @ rng.normal(size=(r, n))
+    S0 = np.zeros((m, n))
+    idx = rng.choice(m * n, m * n // 20, replace=False)
+    S0.flat[idx] = rng.normal(size=len(idx)) * 5
+    Md = _dm(et, L0 + S0, grid)
+    _reset(kern)
+    _sync()
+    t = time.perf_counter()
+    L, Sp, info = et.rpca(Md, tol=1e-7, max_iters=100)
+    _sync()
+    wall = time.perf_counter() - t
+    launches = _counts_now(*kern)
+    err = float(np.linalg.norm(_host(et, L) - L0) / np.linalg.norm(L0))
+    out = {"m": m, "n": n, "rank": r, "dtype": "float64",
+           "iters": info["iters"], "converged": info["converged"],
+           "L_rel_err": err, "wall_s": wall,
+           "s_per_iter": wall / (info["iters"] + 1), "launches": launches}
+    if not (info["converged"] and err < 1e-5 and launches["qr_panel"] > 0
+            and launches["potrf_inv"] > 0):
+        raise AssertionError(f"3n (c) rpca: {json.dumps(out)}")
+    return out
+
+
+def _cone_interior(rng, orders):
+    import numpy as np
+    parts = []
+    for k in orders:
+        v = rng.normal(size=k)
+        v[0] = np.linalg.norm(v[1:]) + rng.uniform(0.5, 2.0)
+        parts.append(v)
+    return np.concatenate(parts)
+
+
+def _solver_conic(et, grid, kern, S) -> dict:
+    """3n (d): ``socp_affine`` and ``qp_affine`` built as
+    ``tests/optimization/test_affine.py`` builds them, at a KKT order of
+    ~2048 (each iteration one ``ldl`` of the stacked KKT matrix on the
+    card); those tests' checks, relative to the data's size."""
+    import numpy as np
+    res: dict = {}
+    rng = np.random.default_rng(7)
+    orders = [S["socp_order"]] * S["socp_cones"]
+    k = sum(orders)
+    n, m = S["socp_n"], S["socp_m"]
+    A = rng.normal(size=(m, n))
+    G = rng.normal(size=(k, n))
+    x0, y0 = rng.normal(size=n), rng.normal(size=m)
+    s0, z0 = _cone_interior(rng, orders), _cone_interior(rng, orders)
+    b, h, c = A @ x0, G @ x0 + s0, -A.T @ y0 - G.T @ z0
+    _reset(kern)
+    t = time.perf_counter()
+    x, y, z, s, info = et.socp_affine(*[_dm(et, F, grid)
+                                        for F in (A, G, b, c, h)], orders)
+    wall = time.perf_counter() - t
+    heads = np.cumsum([0] + orders[:-1])
+    tails = [np.linalg.norm(v[hd + 1:hd + kk]) for v in (s, z)
+             for hd, kk in zip(heads, orders)]
+    cone_gap = min(min(s[heads] - tails[:len(orders)]),
+                   min(z[heads] - tails[len(orders):]))
+    out = {"n": n, "m": m, "k": k, "kkt_order": n + m + k,
+           "iters": info["iters"], "converged": info["converged"],
+           "wall_s": wall, "s_per_iter": wall / (info["iters"] + 2),
+           "primal_eq": float(np.linalg.norm(A @ x - b)
+                              / (1 + np.linalg.norm(b))),
+           "primal_cone": float(np.linalg.norm(G @ x + s - h)
+                                / (1 + np.linalg.norm(h))),
+           "dual": float(np.linalg.norm(c + A.T @ y + G.T @ z)
+                         / (1 + np.linalg.norm(c))),
+           "compl": float(abs(s @ z) / (1 + abs(info["pobj"]))),
+           "cone_margin": float(cone_gap), "launches": _counts_now(*kern)}
+    res["socp_affine"] = out
+    if not (info["converged"] and out["primal_eq"] < 1e-6
+            and out["primal_cone"] < 1e-6 and out["dual"] < 1e-5
+            and out["compl"] < 1e-5 and cone_gap > -1e-7):
+        raise AssertionError(f"3n (d) socp_affine: {json.dumps(out)}")
+    rng = np.random.default_rng(6)
+    n = S["qp_n"]
+    Q0 = rng.normal(size=(n, n))
+    Q = Q0 @ Q0.T + n * np.eye(n)
+    c = rng.normal(size=n)
+    A = np.ones((1, n))
+    b = np.array([n / 2.0])
+    G = np.vstack([-np.eye(n), np.eye(n)])
+    h = np.concatenate([np.zeros(n), np.ones(n)])
+    _reset(kern)
+    t = time.perf_counter()
+    x, y, z, s, info = et.qp_affine(*[_dm(et, F, grid)
+                                      for F in (Q, A, G, b, c, h)])
+    wall = time.perf_counter() - t
+    kkt = Q @ x + c + A.T @ y + G.T @ z
+    out = {"n": n, "kkt_order": 3 * n + 1, "iters": info["iters"],
+           "converged": info["converged"], "wall_s": wall,
+           "s_per_iter": wall / (info["iters"] + 2),
+           "stationarity": float(np.linalg.norm(kkt)
+                                 / (1 + np.linalg.norm(c))),
+           "z_min": float(z.min()),
+           "compl": float(abs(z @ (h - G @ x)) / (1 + abs(info["pobj"]))),
+           "launches": _counts_now(*kern)}
+    res["qp_affine"] = out
+    if not (info["converged"] and out["stationarity"] < 1e-5
+            and out["z_min"] > -1e-8 and out["compl"] < 1e-5):
+        raise AssertionError(f"3n (d) qp_affine: {json.dumps(out)}")
+    return res
+
+
+def _solver_sparse(et, grid, S) -> dict:
+    """3n (e): ``cg`` on the 2-D Laplacian, ``gmres`` on one
+    backward-Euler step of 2-D convection-diffusion, ``sparse_direct_solve``
+    on a smaller Laplacian; each residual recomputed on the host in
+    float64; ``spmv`` / ``spmv_adjoint`` bit-equal run to run."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+    from elemental_tpu_torch.core.multivec import (mv_from_global,
+                                                   mv_to_global)
+    res: dict = {}
+    rows, cols, vals, n = _laplacian_2d(S["cg_k"])
+    t = time.perf_counter()
+    A = et.dist_sparse_from_coo(rows, cols, vals, n, n, grid=grid)
+    A._plan("adjoint")
+    freeze_s = time.perf_counter() - t
+    Ah = sp.csr_matrix((vals, (rows, cols)), shape=(n, n))
+    b = np.random.default_rng(16).normal(size=(n, 1))
+    bd = mv_from_global(b, grid=grid)
+    y1, y2 = A.spmv(bd), A.spmv(bd)
+    a1, a2 = A.spmv_adjoint(bd), A.spmv_adjoint(bd)
+    same = torch.equal(y1.local, y2.local) and torch.equal(a1.local,
+                                                           a2.local)
+    spmv_ms = _time_ms(lambda: A.spmv(bd), 20)
+    spmv_adj_ms = _time_ms(lambda: A.spmv_adjoint(bd), 20)
+    spmv_err = float(np.abs(mv_to_global(y1).cpu().numpy() - Ah @ b).max())
+    _sync()
+    t = time.perf_counter()
+    x, info = et.cg(A, bd, tol=1e-8)
+    _sync()
+    wall = time.perf_counter() - t
+    xh = mv_to_global(x).cpu().numpy()
+    true_res = float(np.linalg.norm(Ah @ xh - b) / np.linalg.norm(b))
+    res["cg"] = {"n": n, "nnz": A.nnz, "freeze_s": freeze_s,
+                 "iters": info["iters"], "relres": float(info["relres"]),
+                 "true_relres": true_res, "wall_s": wall,
+                 "ms_per_iter": 1e3 * wall / max(info["iters"], 1),
+                 "spmv_ms": spmv_ms, "spmv_adjoint_ms": spmv_adj_ms,
+                 "spmv_bytes_floor_ms": 1e3 * (A.nnz * 16 + 2 * n * 8)
+                 / PEAK_BYTES,
+                 "spmv_max_abs_err": spmv_err, "spmv_bit_equal": same}
+    if not (info["converged"] and info["relres"] < 1e-8
+            and true_res < 1e-7 and same and spmv_err < 1e-12):
+        raise AssertionError(f"3n (e) cg: {json.dumps(res['cg'])}")
+    # gmres: (I + dt L_conv-diff) with dt-scaled central convection
+    k = S["gmres_k"]
+    rows, cols, vals, n = _laplacian_2d(k)
+    vals = vals + np.where(cols == rows + 1, 0.4, 0.0) \
+        - np.where(cols == rows - 1, 0.4, 0.0) + (rows == cols) * 1.0
+    A = et.dist_sparse_from_coo(rows, cols, vals, n, n, grid=grid)
+    Ah = sp.csr_matrix((vals, (rows, cols)), shape=(n, n))
+    b = np.random.default_rng(17).normal(size=(n, 1))
+    _sync()
+    t = time.perf_counter()
+    x, info = et.gmres(A, mv_from_global(b, grid=grid), tol=1e-8)
+    _sync()
+    xh = mv_to_global(x).cpu().numpy()
+    res["gmres"] = {"n": n, "iters": info["iters"],
+                    "relres": float(info["relres"]),
+                    "true_relres": float(np.linalg.norm(Ah @ xh - b)
+                                         / np.linalg.norm(b)),
+                    "wall_s": time.perf_counter() - t}
+    if not (info["converged"] and res["gmres"]["true_relres"] < 1e-7):
+        raise AssertionError(f"3n (e) gmres: {json.dumps(res['gmres'])}")
+    rows, cols, vals, n = _laplacian_2d(S["direct_k"])
+    A = et.dist_sparse_from_coo(rows, cols, vals, n, n, grid=grid)
+    Ah = sp.csr_matrix((vals, (rows, cols)), shape=(n, n))
+    b = np.random.default_rng(18).normal(size=(n, 1))
+    t = time.perf_counter()
+    x, info = et.sparse_direct_solve(A, mv_from_global(b, grid=grid))
+    xh = mv_to_global(x).cpu().numpy()
+    res["sparse_direct_solve"] = {
+        "n": n, "relres": float(info["relres"]),
+        "true_relres": float(np.linalg.norm(Ah @ xh - b)
+                             / np.linalg.norm(b)),
+        "wall_s": time.perf_counter() - t}
+    if not (info["converged"]
+            and res["sparse_direct_solve"]["true_relres"] < 1e-10):
+        raise AssertionError("3n (e) sparse_direct_solve: "
+                             + json.dumps(res["sparse_direct_solve"]))
+    return res
+
+
+def _banded(seed, m, n, w, last_start):
+    """``tests/optimization/test_sparse_ipm.py``'s banded operators: row i
+    covers the w columns from a start drawn in [0, last_start)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    starts = rng.integers(0, last_start, m)
+    rows = np.repeat(np.arange(m), w)
+    cols = (starts[:, None] + np.arange(w)[None, :]).reshape(-1)
+    return rng, rows, cols, rng.normal(size=m * w)
+
+
+def _solver_sparse_ipm(et, grid, S) -> dict:
+    """3n (f): ``lav_sparse`` on the banded 10 000 x 5 000 matrix of
+    ``tests/optimization/test_sparse_ipm.py::test_lav_sparse_10k_cg_engine``
+    with ``kkt='cg'`` (that test's ctrl; two runs bit-equal; the captured
+    CG graph's replays and host reads per solve), the same problem with
+    ``kkt='direct'`` at tol 1e-6, and ``bp_sparse`` at 5 000 x 10 000
+    (``test_bp_sparse_5k_x_10k``)."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+    from elemental_tpu_torch.core.multivec import (mv_from_global,
+                                                   mv_to_global)
+    from elemental_tpu_torch.optimization import sparse_ipm
+    res: dict = {}
+    m, n, w = S["lav_m"], S["lav_n"], S["lav_w"]
+    rng, rows, cols, vals = _banded(4, m, n, w, n - w)
+    As = sp.csr_matrix((vals, (rows, cols)), shape=(m, n))
+    xt = rng.normal(size=n)
+    b = As @ xt
+    A = et.dist_sparse_from_coo(rows, cols, vals, m, n, grid=grid,
+                                dtype=np.float64)
+    bd = mv_from_global(b.reshape(-1, 1), grid=grid)
+    xs = []
+    for rep in range(2):
+        before = dict(sparse_ipm.PCG_COUNTS)
+        _sync()
+        t = time.perf_counter()
+        x, info = et.lav_sparse(A, bd, et.MehrotraCtrl(tol=1e-3,
+                                                       max_iters=25),
+                                kkt="cg", cg_maxiter=4000)
+        _sync()
+        wall = time.perf_counter() - t
+        d = {k: sparse_ipm.PCG_COUNTS[k] - before[k] for k in before}
+        xs.append(x)
+    solves = max(d["solves"], 1)
+    res["lav_cg"] = {"m": m, "n": n, "iters": info["iters"],
+                     "rel_gap": info["rel_gap"], "cg_iters": info["cg_iters"],
+                     "wall_s": wall, "cg_solves": d["solves"],
+                     "captures": d["captures"],
+                     "replays_per_solve": d["chunks"] / solves,
+                     "host_reads_per_solve": d["reads"] / solves,
+                     "cg_iters_per_solve": d["iters"] / solves,
+                     "bit_equal_second_run": torch.equal(xs[0].local,
+                                                         xs[1].local)}
+    if not (info["cg_iters"] > 0 and info["rel_gap"] < 1e-3
+            and res["lav_cg"]["bit_equal_second_run"]
+            and d["captures"] == 1 and d["reads"] == d["chunks"]):
+        raise AssertionError(f"3n (f) lav_sparse cg: "
+                             f"{json.dumps(res['lav_cg'])}")
+    _sync()
+    t = time.perf_counter()
+    x, info = et.lav_sparse(A, bd, et.MehrotraCtrl(tol=1e-6, max_iters=60),
+                            kkt="direct")
+    xg = mv_to_global(x).cpu().numpy().ravel()
+    cover = np.zeros(n, np.int64)
+    np.add.at(cover, cols, 1)
+    well = cover >= 10
+    rec = float(np.linalg.norm((xg - xt)[well]) / np.linalg.norm(xt[well]))
+    res["lav_direct"] = {"iters": info["iters"], "rel_gap": info["rel_gap"],
+                         "converged": info["converged"],
+                         "recovery_rel_err": rec,
+                         "wall_s": time.perf_counter() - t}
+    if not (info["converged"] and info["rel_gap"] < 1e-6 and rec < 1e-4):
+        raise AssertionError(f"3n (f) lav_sparse direct: "
+                             f"{json.dumps(res['lav_direct'])}")
+    m, n, w = S["bp_m"], S["bp_n"], S["bp_w"]
+    rng, rows, cols, vals = _banded(5, m, n, w, n - w + 1)
+    As = sp.csr_matrix((vals, (rows, cols)), shape=(m, n))
+    xs_ = np.zeros(n)
+    sup = rng.choice(n, 120, replace=False)
+    xs_[sup] = rng.normal(size=sup.size) * 3
+    b = As @ xs_
+    A = et.dist_sparse_from_coo(rows, cols, vals, m, n, grid=grid,
+                                dtype=np.float64)
+    t = time.perf_counter()
+    x, info = et.bp_sparse(A, mv_from_global(b.reshape(-1, 1), grid=grid),
+                           et.MehrotraCtrl(tol=1e-6, max_iters=80), refine=2)
+    xg = mv_to_global(x).cpu().numpy().ravel()
+    res["bp"] = {"m": m, "n": n, "iters": info["iters"],
+                 "rel_gap": info["rel_gap"], "pfeas": info["pfeas"],
+                 "dfeas": info["dfeas"],
+                 "residual": float(np.linalg.norm(As @ xg - b)
+                                   / np.linalg.norm(b)),
+                 "l1_over_planted": float(np.abs(xg).sum()
+                                          / np.abs(xs_).sum()),
+                 "wall_s": time.perf_counter() - t}
+    if not (info["rel_gap"] < 1e-6 and info["pfeas"] < 1e-5
+            and info["dfeas"] < 1e-5 and res["bp"]["residual"] < 1e-5
+            and res["bp"]["l1_over_planted"] <= 1 + 1e-6):
+        raise AssertionError(f"3n (f) bp_sparse: {json.dumps(res['bp'])}")
+    return res
+
+
+def _solver_lattice_io(et, grid, S) -> dict:
+    """3n (g): ``lll`` of a knapsack lattice (built as
+    ``tests/lattice/test_lll.py::test_lll_knapsack_short_vector`` builds
+    it) against the same call on a CPU grid; ``checkpoint`` / ``restore``
+    of an n x n float32 DistMatrix on a virtual 2x2 grid; a Matrix Market
+    round trip of (e)'s direct-solve Laplacian."""
+    import os
+    import tempfile
+    import numpy as np
+    import torch
+    res: dict = {}
+    n = S["lll_n"]
+    rng = np.random.default_rng(1)
+    a = rng.integers(100, 500, n)
+    xk = rng.integers(0, 2, n)
+    B = np.zeros((n + 1, n + 1))
+    B[:n, :n] = np.eye(n)
+    B[n, :n] = 1000 * a
+    B[n, n] = -1000 * int(a @ xk)
+    t = time.perf_counter()
+    R, U, info = et.lll(_dm(et, B, grid))
+    wall = time.perf_counter() - t
+    Rc, Uc, info_c = et.lll(_dm(et, B, et.Grid(device="cpu")))
+    same = (np.array_equal(_host(et, R), _host(et, Rc))
+            and np.array_equal(_host(et, U), _host(et, Uc))
+            and info == info_c)
+    res["lll"] = {"n": n + 1, "swaps": info["swaps"],
+                  "first_norm": info["first_norm"],
+                  "min_norm": float(np.linalg.norm(_host(et, R),
+                                                   axis=0).min()),
+                  "reduced": et.is_lll_reduced(R), "equal_to_cpu": same,
+                  "wall_s": wall}
+    if not (res["lll"]["reduced"] and same):
+        raise AssertionError(f"3n (g) lll: {json.dumps(res['lll'])}")
+    g22 = et.Grid(2, 2)
+    nn = S["ckpt_n"]
+    gen = torch.Generator(device=grid.device)
+    gen.manual_seed(19)
+    F = torch.randn(nn, nn, generator=gen, device=grid.device)
+    D = et.from_global(F, et.MC, et.MR, grid=g22)
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        et.checkpoint(tmp, D=D)
+        write_s = time.perf_counter() - t
+        t = time.perf_counter()
+        back = et.restore(tmp, ["D"], grid=g22)["D"]
+        read_s = time.perf_counter() - t
+        size = os.path.getsize(os.path.join(tmp, "D.npz"))
+        ok_ck = torch.equal(back.local, D.local) and back.gshape == D.gshape
+        rows, cols, vals, nl = _laplacian_2d(S["direct_k"])
+        L = et.dist_sparse_from_coo(rows, cols, vals, nl, nl, grid=grid)
+        p = os.path.join(tmp, "laplacian.mtx")
+        t = time.perf_counter()
+        et.write_matrix_market(L, p)
+        L2 = et.read_matrix_market(p, grid=grid)
+        mm_s = time.perf_counter() - t
+        mm_same = all(np.array_equal(u, v) for u, v in
+                      zip(et.sparse.sparse_to_coo(L),
+                          et.sparse.sparse_to_coo(L2)))
+    res["checkpoint"] = {"n": nn, "grid": "2x2", "bytes": size,
+                         "write_s": write_s, "read_s": read_s,
+                         "bit_equal": ok_ck}
+    res["matrix_market"] = {"n": nl, "nnz": L.nnz, "s": mm_s,
+                            "triplets_equal": mm_same}
+    if not (ok_ck and mm_same):
+        raise AssertionError(f"3n (g) io: {json.dumps(res)}")
+    return res
+
+
+def phase_solvers(et, card: str) -> dict:
+    """3n: the solvers of the long tail on the card (see the module
+    docstring): (a) the dense LP, (b) NNLS, (c) RPCA, (d) the conic
+    steps, (e) the sparse solvers, (f) the sparse IPMs, (g) lattice and
+    IO.  1x1 grid, float64 unless said, TF32 off."""
+    import torch
+    from elemental_tpu_torch.kernels import lu_panel, potrf_inv, qr_panel
+    S = SOLVER_SIZES
+    kern = (lu_panel, potrf_inv, qr_panel)
+    grid = et.Grid()
+    res: dict = {"card": card}
+    steps = (("a", "lp", lambda: _solver_lp(et, grid, kern, S)),
+             ("b", "nnls", lambda: _solver_nnls(et, grid, kern, S)),
+             ("c", "rpca", lambda: _solver_rpca(et, grid, kern, S)),
+             ("d", "conic", lambda: _solver_conic(et, grid, kern, S)),
+             ("e", "sparse", lambda: _solver_sparse(et, grid, S)),
+             ("f", "sparse_ipm", lambda: _solver_sparse_ipm(et, grid, S)),
+             ("g", "lattice_io", lambda: _solver_lattice_io(et, grid, S)))
+    for tag, name, fn in steps:
+        t = time.perf_counter()
+        res[name] = fn()
+        res[name]["step_s"] = time.perf_counter() - t
+        print(f"phase 3n ({tag}) {name} " + json.dumps(res[name]),
+              flush=True)
+        torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4391,6 +4972,7 @@ def main() -> int:
     tracing = timed("3l", phase_tracing, et, card, main_path, lu_path,
                     qr_path)
     serving = timed("3m", phase_serving, et, card)
+    solvers = timed("3n", phase_solvers, et, card)
     t4 = time.perf_counter()
     phase_distributed(et)
     phase_lu_distributed(et)
@@ -4426,6 +5008,13 @@ def main() -> int:
         | {f"launches_3h_{k}": ldl_rest[k]["launches"]["lu_panel"]
            for k in ("determinant", "safe_determinant")}), flush=True)
 
+    at_lp = next(r for r in rows
+                 if r["w"] == 2048 and r["dtype"] == "float64")
+    print("phase 3n potrf_inv at w = 2048 float64 (lp, nnls) " + json.dumps(
+        {k: at_lp[k] for k in keys}
+        | {f"launches_3n_{k}": solvers[k]["launches"]["potrf_inv"]
+           for k in ("lp", "nnls")}), flush=True)
+
     def by_phase(name):
         """The kernel's launches on each path that runs it."""
         key = f"{name}_launches"
@@ -4436,7 +5025,7 @@ def main() -> int:
         for ph, rest in (("3f", svd_rest), ("3h", ldl_rest),
                          ("3i", calu_tsqr), ("3j", resilience),
                          ("3k", tuner), ("3l", tracing),
-                         ("3m", serving)):
+                         ("3m", serving), ("3n", solvers)):
             for step, d in rest.items():
                 if isinstance(d, dict) and d.get("launches", {}).get(name):
                     out[f"{ph} {step}"] = d["launches"][name]

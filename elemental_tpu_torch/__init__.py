@@ -52,10 +52,19 @@ matrix gallery (``matrices``), ``BlockMatrix``, ``DistMultiVec``, the
 ``SolverService``'s admission, batched executor on captured CUDA graphs,
 circuit breakers, certified escalation through the three kernels, the
 async front, the fleet and the chaos matrix, with ``python -m
-elemental_tpu_torch.serve``).
+elemental_tpu_torch.serve``); and the solvers of the long tail: sparse
+matrices (``sparse``: ``DistSparseMatrix`` in the JAX storage, a
+deterministic segment-sum SpMV, ``cg``, ``cgls``, ``gmres``,
+``sparse_direct_solve``), optimization (``optimization``: the Mehrotra
+IPMs ``lp`` / ``qp`` / ``socp``, their affine forms, the sparse IPMs
+with CG as captured CUDA graphs, equilibration, the proximal operators
+and the models ``bp`` ... ``tv``; the dense IPMs factor through
+``potrf_inv``, ``rpca`` through ``svd``), ``lattice`` (``lll``,
+``shortest_vector``) and ``io`` (print, write, read, the ``'shards'``
+checkpoints the JAX package reads, Matrix Market).
 
-The package imports ``torch`` and numpy only -- never ``jax`` and nothing
-of ``elemental_tpu``.
+The package imports ``torch``, numpy and scipy only -- never ``jax`` and
+nothing of ``elemental_tpu``.
 """
 from .core.dist import Dist, MC, MD, MR, VC, VR, STAR, CIRC, LEGAL_PAIRS
 from .core.grid import Grid, default_grid, set_default_grid
@@ -114,7 +123,21 @@ from .lapack.props import (determinant, safe_determinant, hpd_determinant,
                            schatten_norm, two_norm)
 from .matrices import identity
 from . import (blas, lapack, matrices, control, kernels, entry, obs,
-               resilience, tune, serve)
+               resilience, tune, serve, optimization, lattice, io, sparse)
 from .serve import SolverService, Deadline
+from .optimization import (MehrotraCtrl, lp, qp, socp, soft_threshold, svt,
+                           bp, lav, nnls, lasso, svm, rpca,
+                           lp_affine, qp_affine, socp_affine,
+                           ruiz_equil, geom_equil, symmetric_ruiz_equil,
+                           lp_sparse, lav_sparse, bp_sparse,
+                           cp, ds, en, nmf, sparse_inv_cov,
+                           long_only_portfolio, tv)
+from .lattice import lll, is_lll_reduced, shortest_vector
+from .io import (print_matrix, write_matrix, read_matrix, checkpoint,
+                 restore, write_matrix_market, read_matrix_market, display,
+                 spy)
+from .sparse import (Graph, DistGraph, SparseMatrix, DistSparseMatrix,
+                     DistMap, sparse_from_coo, dist_sparse_from_coo,
+                     cg, cgls, gmres, sparse_direct_solve)
 
 __version__ = "0.1.0"

@@ -33,7 +33,11 @@ The serving executor's entries are captured graphs for 'hpd' and
 the async front's donated double buffer is bit-equal to the sync pass;
 warm geometries capture nothing; escalations launch their kernel N / nb
 times; a fleet captures beside another member's eager LU (``-k
-serve``)."""
+serve``).  The sparse SpMV pair is bit-equal run to run and within 1e-13
+of the CPU; the sparse IPM's CG, one captured CUDA graph of masked
+chunks, is bit-equal to the same chunks run eagerly; ``lp`` launches
+``potrf_inv`` ceil(m / nb) times a factorization of its normal matrix
+(``-k "spmv or pcg or lp_"``)."""
 import sys
 
 import numpy as np
@@ -1355,3 +1359,136 @@ def test_serve_fleet_calu_escalation_beside_eager_lu():
         assert doc["path"] == ("escalated" if m == 0 else "fastpath")
     assert {doc["rung"] for m, (_, doc) in outs if m == 0} <= {
         "quant", "fast", "refine"}
+
+
+# ---------------------------------------------------------------------
+# the solvers of the long tail: sparse SpMV, the captured CG, the LP
+# ---------------------------------------------------------------------
+
+def _laplacian_2d(k):
+    n = k * k
+    i = np.arange(n)
+    r, c = i // k, i % k
+    rows, cols, vals = [i], [i], [np.full(n, 4.0)]
+    for dr, dc in ((1, 0), (-1, 0), (0, 1), (0, -1)):
+        ok = (r + dr >= 0) & (r + dr < k) & (c + dc >= 0) & (c + dc < k)
+        rows.append(i[ok])
+        cols.append(((r + dr) * k + c + dc)[ok])
+        vals.append(np.full(int(ok.sum()), -1.0))
+    return (np.concatenate(rows), np.concatenate(cols),
+            np.concatenate(vals), n)
+
+
+@pytest.mark.parametrize("rc", [(1, 1), (2, 2)], ids=["1x1", "2x2"])
+def test_spmv_on_the_card_is_bit_equal_run_to_run(rc):
+    """The segment-sum SpMV pair: two calls give the same bits (no
+    atomics), and the card agrees with the CPU to 1e-13."""
+    _need_card()
+    from elemental_tpu_torch.core.multivec import mv_from_global
+    rows, cols, vals, n = _laplacian_2d(200)
+    rng = np.random.default_rng(0)
+    vals = vals * rng.uniform(0.5, 1.5, vals.size)      # nonsymmetric
+    X = rng.normal(size=(n, 3))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        g = et.Grid(*rc, device=dev)
+        A = et.dist_sparse_from_coo(rows, cols, vals, n, n, grid=g)
+        x = mv_from_global(X, grid=g)
+        y1, y2 = A.spmv(x), A.spmv(x)
+        a1, a2 = A.spmv_adjoint(x), A.spmv_adjoint(x)
+        assert torch.equal(y1.local, y2.local)
+        assert torch.equal(a1.local, a2.local)
+        out[dev] = (y1.local.cpu(), a1.local.cpu())
+    for got, want in zip(out["cuda"], out["cpu"]):
+        assert float((got - want).abs().max()) \
+            <= 1e-13 * float(want.abs().max())
+
+
+def test_pcg_graph_replay_is_bit_equal_to_the_eager_masked_loop():
+    """``_pcg_graph`` (one capture, replayed in chunks) against
+    ``_pcg_eager`` (the same masked chunks, eagerly) on the card: the
+    same iteration count and the same bits, for two right-hand sides
+    through one cached graph, and one host read a replay."""
+    _need_card()
+    from elemental_tpu_torch.core.multivec import mv_from_global
+    from elemental_tpu_torch.optimization import sparse_ipm as si
+    rng = np.random.default_rng(1)
+    m, n, w = 3000, 1500, 8
+    starts = rng.integers(0, n - w, m)
+    rows = np.repeat(np.arange(m), w)
+    cols = (starts[:, None] + np.arange(w)[None, :]).reshape(-1)
+    vals = rng.normal(size=m * w)
+    g = et.Grid()
+    A = et.dist_sparse_from_coo(cols, rows, vals, n, m, grid=g)
+    d2 = mv_from_global(rng.uniform(0.1, 3.0, (m, 1)), grid=g)
+    diag = A.with_values(A.vals * A.vals).spmv(d2)
+    dinv = diag.with_local(1.0 / (diag.local + 1e-3))
+    graphs = {}
+    before = dict(si.PCG_COUNTS)
+    for seed in (2, 3):
+        b = mv_from_global(np.random.default_rng(seed).normal(size=(n, 1)),
+                           grid=g)
+        wg, itg = si._pcg_graph(A, d2, 1e-3, b, dinv, 1e-10, 2000, graphs)
+        we, ite = si._pcg_eager(A, d2, 1e-3, b, dinv, 1e-10, 2000)
+        assert int(itg) == int(ite) > si.PCG_CHUNK
+        assert torch.equal(wg.local, we.local)
+    assert si.PCG_COUNTS["captures"] - before["captures"] == 1
+    assert len(graphs) == 1
+
+
+def test_lp_launches_potrf_inv_once_per_block_and_factorization():
+    """``lp`` on the card: (1 + iterations) factorizations of the normal
+    matrix, each ceil(m / nb) ``potrf_inv`` launches; bit-equal across
+    two calls; the same iterate as on the CPU to 1e-8."""
+    _need_card()
+    rng = np.random.default_rng(2)
+    m, n, nb = 300, 700, 128
+    A = rng.normal(size=(m, n))
+    basis = rng.choice(n, m, replace=False)
+    x0 = np.zeros((n, 1))
+    x0[basis, 0] = rng.uniform(0.5, 2.0, m)
+    z0 = rng.uniform(0.5, 2.0, (n, 1))
+    z0[basis] = 0.0
+    b, c = A @ x0, A.T @ rng.normal(size=(m, 1)) + z0
+    res = {}
+    for dev in ("cuda", "cuda", "cpu"):
+        g = et.Grid(device=dev)
+        args = [et.from_global(F, et.MC, et.MR, grid=g) for F in (A, b, c)]
+        potrf_inv.launches = 0
+        x, y, z, info = et.lp(*args, nb=nb)
+        assert info["converged"]
+        if dev == "cuda":
+            assert potrf_inv.launches == (1 + info["iters"]) * -(-m // nb)
+            if "cuda" in res:
+                assert torch.equal(x.local, res["cuda"])
+        res[dev] = x.local
+    assert float((res["cuda"].cpu() - res["cpu"]).abs().max()) \
+        <= 1e-8 * float(res["cpu"].abs().max())
+
+
+def test_lp_sparse_cg_engine_on_the_card_matches_the_cpu():
+    """``lp_sparse(kkt='cg')`` with the captured CG on the card, three
+    Mehrotra iterations: the iterate within 1e-10 of the CPU's (eager
+    masked chunks), and bit-equal across two calls on the card."""
+    _need_card()
+    from elemental_tpu_torch.core.multivec import mv_from_global
+    rng = np.random.default_rng(0)
+    m, n, nnz = 40, 100, 400
+    rows, cols = rng.integers(0, m, nnz), rng.integers(0, n, nnz)
+    vals = rng.normal(size=nnz)
+    import scipy.sparse as sp
+    As = sp.coo_matrix((vals, (rows, cols)), shape=(m, n)).tocsr()
+    b = As @ rng.uniform(0.5, 1.5, n)
+    c = As.T @ rng.normal(size=m) + rng.uniform(0.1, 2.0, n)
+    out = []
+    for dev in ("cuda", "cuda", "cpu"):
+        g = et.Grid(device=dev)
+        A = et.dist_sparse_from_coo(rows, cols, vals, m, n, grid=g)
+        x, y, z, info = et.lp_sparse(
+            A, mv_from_global(b.reshape(-1, 1), grid=g),
+            mv_from_global(c.reshape(-1, 1), grid=g),
+            et.MehrotraCtrl(tol=1e-6, max_iters=3), kkt="cg")
+        out.append(x.local.cpu())
+    assert torch.equal(out[0], out[1])
+    assert float((out[0] - out[2]).abs().max()) \
+        <= 1e-10 * float(out[2].abs().max())
