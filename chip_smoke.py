@@ -191,6 +191,19 @@ Phases, each of which raises on failure:
    knapsack lattice at n = 24 equal to the CPU's, a ``checkpoint`` /
    ``restore`` of an 8192^2 float32 matrix on a virtual 2x2 grid
    (bit-equal), a Matrix Market round trip of (e)'s 512^2 Laplacian;
+3o. the static analysis on the card (``elemental_tpu_torch.analysis``):
+   (a) every ``cholesky_*``, ``lu_*`` and ``qr*`` registry driver at its
+   registry geometry (n = 64, nb = 16, f32) on a CUDA 2x2 virtual grid
+   with ``panel_impl='kernel'``: its ``comm_plan/v1`` document byte-equal
+   to the CPU's with ``panel_impl='torch'``, and ``potrf_inv``,
+   ``lu_panel`` and ``qr_panel`` each launched in the phase; (b) the
+   live-bytes meter of ``memory_plan/v1`` (the profiler's allocator
+   events) against ``torch.cuda.max_memory_allocated()`` above a warm
+   baseline, for ``cholesky_lookahead``, ``lu_crossover`` and ``qr`` on
+   2x2 at :data:`METER_GEOMETRY`, within :data:`METER_TOL`; (c) lint
+   EL007's 'gpu' row (SMs, opt-in shared memory per block, the static
+   shared memory of ``lu_panel``'s column kernel) equal to the kernel's
+   own ``lu_panel_smem`` and ``torch.cuda.get_device_properties``;
 4. the distributed branches: ``hpd_solve`` and ``lu`` + ``lu_solve_after``
    on a virtual 2x2 grid on the card, N = 1024 float64, nb = 128, with
    and without the crossover, against ``torch.linalg.solve``;
@@ -4925,6 +4938,131 @@ def phase_solvers(et, card: str) -> dict:
     return res
 
 
+#: (n, nb) of 3o (b): every matrix 256 MiB in float32, four blocked
+#: steps per driver
+METER_GEOMETRY = (8192, 1024)
+#: 3o (b)'s bound on |meter peak - allocator peak| / allocator peak.  The
+#: profiler reports the caching allocator's own block sizes, so the two
+#: count the same bytes; what could sit between them is an allocation the
+#: warm run did not make (a cuBLAS workspace on a new stream, a grown
+#: cache), which the warm-up excludes
+METER_TOL = 0.01
+#: the drivers of 3o (b)
+METER_DRIVERS = ("cholesky_lookahead", "lu_crossover", "qr")
+
+
+def _analysis_invariance(et, kern) -> dict:
+    """3o (a): each factorization driver's comm plan with the kernels on
+    the card equals its plan with the plain panels on the CPU."""
+    import torch
+    from elemental_tpu_torch import analysis as an
+    names = [d for d in an.driver_names()
+             if d.split("_")[0] in ("cholesky", "lu", "qr")]
+    cuda, cpu = et.Grid(2, 2), et.Grid(2, 2, device="cpu")
+    _reset(kern)
+    docs = {}
+    with an.panel_impl_override("kernel"):
+        for name in names:
+            docs[name] = an.golden_doc(an.trace_driver(name, cuda)[0])
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in kern}
+    with an.panel_impl_override("torch"):
+        for name in names:
+            want = an.golden_doc(an.trace_driver(name, cpu)[0])
+            if json.dumps(docs[name]) != json.dumps(want):
+                raise RuntimeError(
+                    f"3o (a): {name}'s comm plan with the kernels differs "
+                    f"from the plain panels': "
+                    f"{an.diff_docs(want, docs[name])}")
+    for k, v in launches.items():
+        if v <= 0:
+            raise RuntimeError(f"3o (a): {k} was not launched")
+    return {"drivers": len(names), "byte_equal": True,
+            "launches": launches}
+
+
+def _analysis_meter(et) -> dict:
+    """3o (b): the memory meter's peak against the allocator's."""
+    import torch
+    from elemental_tpu_torch import analysis as an
+    from elemental_tpu_torch.redist import engine
+    n, nb = METER_GEOMETRY
+    g = et.Grid(2, 2)
+    out = {"n": n, "nb": nb, "tol": METER_TOL}
+    for name in METER_DRIVERS:
+        fn, args, _ = an.build_driver(name, g, n, nb)
+        timed = an.DRIVERS[name].timed
+        with engine.isolated_probe(refs=False):
+            fn(*args)                                   # warm every cache
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        with engine.isolated_probe(refs=False):
+            stats, res = an.measure_call(fn, args, (2, 2), name, timed,
+                                         "cuda")
+        secs = time.perf_counter() - t
+        alloc = torch.cuda.max_memory_allocated() - base
+        rel = abs(stats.total_peak_bytes - alloc) / max(alloc, 1)
+        out[name] = {"meter_peak_bytes": stats.total_peak_bytes,
+                     "allocator_peak_bytes": alloc, "rel_gap": rel,
+                     "per_device_peak_bytes": stats.peak_bytes,
+                     "peak_at": "/".join(stats.peak_path),
+                     "peak_op": stats.peak_prim, "measure_s": secs}
+        if rel > METER_TOL:
+            raise RuntimeError(f"3o (b): {name}'s meter peak "
+                               f"{stats.total_peak_bytes} B is off the "
+                               f"allocator's {alloc} B by {rel:.2%}")
+        del fn, args, res
+        torch.cuda.empty_cache()
+    return out
+
+
+def _analysis_smem() -> dict:
+    """3o (c): EL007's 'gpu' row against the card and the kernel."""
+    import importlib
+    import torch
+    from elemental_tpu_torch import analysis as an
+    # the module, not the wrapper the package rebinds its name to
+    lpm = importlib.import_module("elemental_tpu_torch.kernels.lu_panel")
+    row = an.SMEM_ROWS["gpu"]
+    props = torch.cuda.get_device_properties(0)
+    got = {"sm_count": props.multi_processor_count,
+           "smem_optin": props.shared_memory_per_block_optin}
+    out = {"row": {"sm_count": row.sm_count, "smem_optin": row.smem_optin,
+                   "static_smem": dict(row.static_smem)},
+           "props": got, "kernel": {}}
+    for dt in (torch.float32, torch.float64):
+        name = str(dt).removeprefix("torch.")
+        k = lpm.smem_constants(dt)
+        out["kernel"][name] = k
+        want = {"sm_count": row.sm_count, "smem_optin": row.smem_optin,
+                "static_smem": row.static_smem[name]}
+        if k != want or got != {kk: want[kk] for kk in got}:
+            raise RuntimeError(f"3o (c): the EL007 row {want} differs from "
+                               f"the kernel's {k} / the card's {got}")
+    out["spill_rows"] = {dt: an.spill_rows(dt)
+                         for dt in ("float32", "float64")}
+    return out
+
+
+def phase_analysis(et, card: str) -> dict:
+    """3o: the static analysis on the card (see the module docstring)."""
+    from elemental_tpu_torch.kernels import lu_panel, potrf_inv, qr_panel
+    kern = (potrf_inv, lu_panel, qr_panel)
+    res: dict = {"card": card}
+    for tag, name, fn in (("a", "invariance",
+                           lambda: _analysis_invariance(et, kern)),
+                          ("b", "meter", lambda: _analysis_meter(et)),
+                          ("c", "smem", _analysis_smem)):
+        t = time.perf_counter()
+        res[name] = fn()
+        res[name]["step_s"] = time.perf_counter() - t
+        print(f"phase 3o ({tag}) {name} " + json.dumps(res[name]),
+              flush=True)
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4973,6 +5111,7 @@ def main() -> int:
                     qr_path)
     serving = timed("3m", phase_serving, et, card)
     solvers = timed("3n", phase_solvers, et, card)
+    analysis = timed("3o", phase_analysis, et, card)
     t4 = time.perf_counter()
     phase_distributed(et)
     phase_lu_distributed(et)
@@ -5025,7 +5164,8 @@ def main() -> int:
         for ph, rest in (("3f", svd_rest), ("3h", ldl_rest),
                          ("3i", calu_tsqr), ("3j", resilience),
                          ("3k", tuner), ("3l", tracing),
-                         ("3m", serving), ("3n", solvers)):
+                         ("3m", serving), ("3n", solvers),
+                         ("3o", analysis)):
             for step, d in rest.items():
                 if isinstance(d, dict) and d.get("launches", {}).get(name):
                     out[f"{ph} {step}"] = d["launches"][name]

@@ -61,7 +61,10 @@ with CG as captured CUDA graphs, equilibration, the proximal operators
 and the models ``bp`` ... ``tv``; the dense IPMs factor through
 ``potrf_inv``, ``rpca`` through ``svd``), ``lattice`` (``lll``,
 ``shortest_vector``) and ``io`` (print, write, read, the ``'shards'``
-checkpoints the JAX package reads, Matrix Market).
+checkpoints the JAX package reads, Matrix Market); and the static
+analysis (``analysis``: the ``comm_plan/v1`` and ``memory_plan/v1``
+documents of a recorded run, lint rules EL001-EL009, ``python -m
+elemental_tpu_torch.analysis``).
 
 The package imports ``torch``, numpy and scipy only -- never ``jax`` and
 nothing of ``elemental_tpu``.
@@ -123,7 +126,8 @@ from .lapack.props import (determinant, safe_determinant, hpd_determinant,
                            schatten_norm, two_norm)
 from .matrices import identity
 from . import (blas, lapack, matrices, control, kernels, entry, obs,
-               resilience, tune, serve, optimization, lattice, io, sparse)
+               resilience, tune, serve, optimization, lattice, io, sparse,
+               analysis)
 from .serve import SolverService, Deadline
 from .optimization import (MehrotraCtrl, lp, qp, socp, soft_threshold, svt,
                            bp, lav, nnls, lasso, svm, rpca,

@@ -781,6 +781,31 @@ extern "C" long long lu_panel_words(int nbw, int gmax) {
   return scratch_words(nbw, gmax);
 }
 
+// The three numbers behind the shared-memory slab test of the host loop
+// above: out[0] the SM count (the cap on a launch's CTAs), out[1]
+// cudaDevAttrMaxSharedMemoryPerBlockOptin, out[2] the static shared memory
+// of factor_chunk<T, true> (T = double when dbl != 0).  A slab of
+// ceil((M - s) / G) * SROW * sizeof(T) bytes stays in shared memory while it
+// fits in out[1] - out[2].
+extern "C" int lu_panel_smem(int dbl, int* out) {
+  int dev = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&out[0], cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return err;
+  if ((err = cudaDeviceGetAttribute(&out[1],
+                                    cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                    dev)) != cudaSuccess)
+    return err;
+  cudaFuncAttributes fa;
+  err = dbl ? cudaFuncGetAttributes(&fa, factor_chunk<double, true>)
+            : cudaFuncGetAttributes(&fa, factor_chunk<float, true>);
+  if (err != cudaSuccess) return err;
+  out[2] = (int)fa.sharedSizeBytes;
+  return cudaSuccess;
+}
+
 extern "C" int lu_panel_f32(void* P, long long ld, int M, int nbw, int inner,
                             void* perm, void* ws, void* wz, int gmax,
                             void* stream) {

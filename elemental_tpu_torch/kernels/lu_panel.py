@@ -49,7 +49,21 @@ _ENTRY = {torch.float32: "lu_panel_f32", torch.float64: "lu_panel_f64"}
 def _library():
     sigs = {fn: _SIGNATURE for fn in _ENTRY.values()}
     sigs["lu_panel_scratch"] = sigs["lu_panel_words"] = _SCRATCH
+    sigs["lu_panel_smem"] = ([ctypes.c_int, ctypes.c_void_p], ctypes.c_int)
     return load("lu_panel", sigs)
+
+
+def smem_constants(dtype=torch.float32, device=None) -> dict:
+    """The numbers the kernel's slab test reads on the current card:
+    ``{"sm_count", "smem_optin", "static_smem"}`` (the static shared
+    memory of its in-shared-memory column kernel for ``dtype``).  Builds
+    the kernel; CUDA only."""
+    lib = _library()
+    out = (ctypes.c_int * 3)()
+    with torch.cuda.device(device if device is not None else 0):
+        err = lib.lu_panel_smem(int(dtype == torch.float64), out)
+    check_launch(err, "lu_panel_smem")
+    return {"sm_count": out[0], "smem_optin": out[1], "static_smem": out[2]}
 
 
 def _swap(x, i, p):

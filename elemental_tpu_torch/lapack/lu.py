@@ -43,8 +43,9 @@ from ..core.dist import MC, MR, STAR, VC, VR
 from ..core.distmatrix import DistMatrix
 from ..core.environment import check_precision
 from ..core.view import view, update_view
-from ..redist.engine import (apply_fault, move_rows, note_collective,
-                             permute_rows_storage, redistribute)
+from ..redist.engine import (_dtype_name, apply_fault, move_rows,
+                             note_collective, permute_rows_storage,
+                             redistribute)
 from ..redist.quantize import quantizable
 from ..blas.level1 import _global_indices
 from ..blas.level3 import _check_mcmr, local_rank_update, trsm
@@ -389,7 +390,8 @@ def _rowblock_solve(Ablk: DistMatrix, Li11, wire=None) -> DistMatrix:
     Lsub = torch.where((cols < nbw)[:, None, :], Lsub, 0)
     parts = torch.bmm(Lsub, x.reshape(r, lr, x.shape[1]))       # (r, nbw, *)
     note_collective("psum", r, (nbw, x.shape[1] // g.width),
-                    2 if wire == "bf16" else x.element_size())
+                    2 if wire == "bf16" else x.element_size(), ("mc",),
+                    "bfloat16" if wire == "bf16" else _dtype_name(x.dtype))
     if wire == "bf16":
         out = parts.to(torch.bfloat16).to(torch.float32).sum(0) \
             .to(torch.bfloat16).to(x.dtype)

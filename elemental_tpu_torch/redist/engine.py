@@ -120,6 +120,9 @@ class RedistRecord:
     #: what :func:`collective_sites` needs to price a misaligned entry
     aligns: tuple = dataclasses.field(default=((0, 0), (0, 0)),
                                       compare=False)
+    #: ``_version`` of the source tensor when the entry ran: two entries
+    #: on the same ``in_id`` with the same version moved unchanged data
+    in_version: int = dataclasses.field(default=-1, compare=False)
     # live references keep the ids above unambiguous (no id reuse after GC)
     refs: tuple = dataclasses.field(default=(), repr=False, compare=False)
 
@@ -133,6 +136,9 @@ class RedistRecord:
 
 
 _REDIST_TRACE: list | None = None
+#: False while an :func:`isolated_probe` measures memory: its records then
+#: hold no tensor alive (their ids may be reused after a free)
+_TRACE_REFS = True
 
 
 @contextlib.contextmanager
@@ -229,9 +235,11 @@ def _trace_record(kind, src, dst, gshape, dtype, objs_in, objs_out,
         wire_dtype=wire_dtype or _dtype_name(dtype), path=path,
         rounds=rounds, wire_bytes=wire_bytes,
         fallback_reason=fallback_reason, aligns=tuple(aligns),
+        in_version=int(getattr(objs_in, "_version", -1)),
         refs=(objs_in,) + tuple(objs_out))
     if _REDIST_TRACE is not None and not observers_only:
-        _REDIST_TRACE.append(rec)
+        _REDIST_TRACE.append(rec if _TRACE_REFS
+                             else dataclasses.replace(rec, refs=()))
     for cb in tuple(_REDIST_OBSERVERS):
         cb(rec)
 
@@ -392,6 +400,11 @@ class CollectiveSite:
     shape: tuple         # per-rank operand block
     itemsize: int        # bytes per operand element on the wire
     bytes: int           # ring-model bytes received per rank, one call
+    #: mesh axis names the JAX lowering communicates over, in its order
+    #: ('mc' = the grid's height, 'mr' = its width)
+    axes: tuple = ()
+    #: operand dtype on the wire ("" = not named by the caller)
+    dtype: str = ""
 
 
 def ring_bytes(prim: str, nbytes: int, axis_size: int) -> int:
@@ -411,11 +424,26 @@ def ring_bytes(prim: str, nbytes: int, axis_size: int) -> int:
     return nbytes                                  # ppermute
 
 
-def _site(out: list, prim: str, S: int, shape, z: int) -> None:
+def _site(out: list, prim: str, S: int, shape, z: int, axes,
+          dtype: str = "") -> None:
     shape = tuple(int(v) for v in shape)
     nbytes = z * math.prod(shape)
     out.append(CollectiveSite(prim, int(S), shape, int(z),
-                              ring_bytes(prim, nbytes, S)))
+                              ring_bytes(prim, nbytes, S), tuple(axes),
+                              dtype))
+
+
+def gather_axes(d: Dist) -> tuple:
+    """Mesh axes (major first) whose all_gather rebuilds a ``d``-split
+    dimension in rank order (the JAX package's ``core.dist.gather_axes``;
+    MD's slot ranges gather mc-major)."""
+    return {MC: ("mc",), MR: ("mr",), VC: ("mr", "mc"), VR: ("mc", "mr"),
+            MD: ("mc", "mr")}.get(d, ())
+
+
+def _realign_axes(d: Dist) -> tuple:
+    """Axes of the JAX engine's alignment rotation of a ``d`` dimension."""
+    return {MC: ("mc",), MR: ("mr",)}.get(d, ("mc", "mr"))
 
 
 def _lshape(pair, gshape, r, c) -> tuple:
@@ -440,9 +468,10 @@ def _gather_sites(out, pair, dim, gshape, r, c, z, q8=False) -> None:
         return
     shape = _lshape(pair, gshape, r, c)
     if q8:
-        _site(out, "all_gather", S, (_q8_rows(shape), shape[1]), 1)
+        _site(out, "all_gather", S, (_q8_rows(shape), shape[1]), 1,
+              gather_axes(d))
     else:
-        _site(out, "all_gather", S, shape, z)
+        _site(out, "all_gather", S, shape, z, gather_axes(d))
 
 
 def _star_star_sites(out, src, gshape, r, c, z) -> None:
@@ -455,7 +484,8 @@ def _realign_sites(out, pair, gshape, r, c, z, a_old, a_new) -> None:
         S = dist_stride(pair[dim], r, c)
         if S == 1 or a_old[dim] == a_new[dim]:
             continue
-        _site(out, "ppermute", S, _lshape(pair, gshape, r, c), z)
+        _site(out, "ppermute", S, _lshape(pair, gshape, r, c), z,
+              _realign_axes(pair[dim]))
 
 
 def _fused_sites(out, src, dst, gshape, r, c, z) -> bool:
@@ -466,7 +496,8 @@ def _fused_sites(out, src, dst, gshape, r, c, z) -> bool:
     if src in ((MC, MR), (MR, MC)) and dst == (STAR, STAR):
         if r == 1 or c == 1:
             return False
-        _site(out, "all_gather", p, _lshape(src, gshape, r, c), z)
+        _site(out, "all_gather", p, _lshape(src, gshape, r, c), z,
+              ("mc", "mr"))
         return True
     if (src, dst) in (((MC, MR), (STAR, VR)), ((MR, MC), (STAR, VC)),
                       ((STAR, VR), (MC, MR)), ((STAR, VC), (MR, MC))):
@@ -478,14 +509,16 @@ def _fused_sites(out, src, dst, gshape, r, c, z) -> bool:
         if other > 1:
             lt = ix.max_local_length(m, p)
             lc = _lshape(src, gshape, r, c)[1]
-            _site(out, "all_to_all", other, (lt, other, lc), z)
+            _site(out, "all_to_all", other, (lt, other, lc), z,
+                  ("mr",) if src[0] is MC else ("mc",))
         return True
     if (src, dst) in (((VC, STAR), (MC, MR)), ((VR, STAR), (MR, MC))):
         other = c if src[0] is VC else r
         if other > 1:
             lp = ix.max_local_length(m, p)
             lcd = ix.max_local_length(n, other)
-            _site(out, "all_to_all", other, (lp, lcd, other), z)
+            _site(out, "all_to_all", other, (lp, lcd, other), z,
+                  ("mr",) if src[0] is VC else ("mc",))
         return True
     return False
 
@@ -502,13 +535,15 @@ def _dim_sites(out, pair, dim, new, gshape, r, c, z) -> bool:
     if (src_d, new) in ((VC, MC), (VR, MR)):
         nb = c if src_d is VC else r
         if nb > 1:
-            _site(out, "all_gather", nb, _lshape(pair, gshape, r, c), z)
+            _site(out, "all_gather", nb, _lshape(pair, gshape, r, c), z,
+                  ("mr",) if src_d is VC else ("mc",))
         return True
     if (src_d, new) in ((MC, VC), (MR, VR)):
         return True
     if {src_d, new} == {VC, VR}:
         if r > 1 and c > 1:
-            _site(out, "ppermute", r * c, _lshape(pair, gshape, r, c), z)
+            _site(out, "ppermute", r * c, _lshape(pair, gshape, r, c), z,
+                  ("mc", "mr"))
         return True
     return False
 
@@ -560,9 +595,9 @@ def _plan_sites(out, plan, z, wire) -> None:
     S = math.prod(r if a == "mc" else c for a in plan.comm_axes)
     if plan.kind == "a2a":
         _site(out, "all_to_all", len(plan.groups[0]) if plan.groups else S,
-              shape, zz)
+              shape, zz, plan.comm_axes)
     else:
-        _site(out, "ppermute", S, shape, zz)
+        _site(out, "ppermute", S, shape, zz, plan.comm_axes)
 
 
 def _wire_for(src, grid_shape, mode, q8_ok: bool):
@@ -577,8 +612,16 @@ def _wire_for(src, grid_shape, mode, q8_ok: bool):
     return "bf16"
 
 
+def _named(sites: list, wire, dtype: str) -> list:
+    """``sites`` with their wire dtype named: the quantized wire's where
+    one ran, else the payload's ``dtype``."""
+    name = _WIRE_DTYPES.get(wire, dtype)
+    return [dataclasses.replace(s, dtype=name) for s in sites]
+
+
 def collective_sites(src, dst, gshape, grid_shape, itemsize, path=None,
-                     comm_precision=None, aligns=((0, 0), (0, 0))) -> list:
+                     comm_precision=None, aligns=((0, 0), (0, 0)),
+                     dtype: str = "") -> list:
     """The collectives the JAX engine issues for ``redistribute(A[src] ->
     dst)`` on a real ``grid_shape`` grid, as :class:`CollectiveSite` s.
 
@@ -588,7 +631,8 @@ def collective_sites(src, dst, gshape, grid_shape, itemsize, path=None,
     dispatch, each with the block it moves.  A CIRC target gathers to
     [STAR,STAR]; a CIRC source is a local filter.  ``comm_precision``
     narrows the wire of a real float payload as ``_wire_mode`` does (an
-    int8 gather moves the packed block, scales included)."""
+    int8 gather moves the packed block, scales included).  ``dtype``
+    names the payload; each site carries its wire dtype."""
     src, dst = tuple(src), tuple(dst)
     r, c = grid_shape
     a_src, a_dst = tuple(aligns[0]), tuple(aligns[1])
@@ -603,7 +647,7 @@ def collective_sites(src, dst, gshape, grid_shape, itemsize, path=None,
                 src, grid_shape, comm_precision, True)
             zw = {"bf16": 2}.get(wire, z)
             _plan_sites(out, plan, zw, wire)
-            return out
+            return _named(out, wire, dtype)
     if circ:
         if src[0] is CIRC and dst[0] is CIRC:
             return out
@@ -613,7 +657,7 @@ def collective_sites(src, dst, gshape, grid_shape, itemsize, path=None,
         else:
             _to_dist_sites(out, (STAR, STAR), dst, gshape, r, c, z, (0, 0),
                            a_dst)
-        return out
+        return _named(out, None, dtype)
     if noop:
         return out
     q8_ok = (dst == (STAR, STAR) and a_dst == (0, 0) and a_src == (0, 0)
@@ -622,18 +666,19 @@ def collective_sites(src, dst, gshape, grid_shape, itemsize, path=None,
     if wire == "int8":
         if src in ((MC, MR), (MR, MC)) and r > 1 and c > 1:
             sh = _lshape(src, gshape, r, c)
-            _site(out, "all_gather", r * c, (_q8_rows(sh), sh[1]), 1)
+            _site(out, "all_gather", r * c, (_q8_rows(sh), sh[1]), 1,
+                  ("mc", "mr"))
         else:
             _gather_sites(out, src, 0, gshape, r, c, z, q8=True)
             _gather_sites(out, (STAR, src[1]), 1, gshape, r, c, z, q8=True)
-        return out
+        return _named(out, wire, dtype)
     _to_dist_sites(out, src, dst, gshape, r, c,
                    2 if wire == "bf16" else z, a_src, a_dst)
-    return out
+    return _named(out, wire, dtype)
 
 
 def panel_spread_sites(gshape, grid_shape, itemsize,
-                       comm_precision=None) -> list:
+                       comm_precision=None, dtype: str = "") -> list:
     """The one all_gather of :func:`panel_spread` on a real grid: the
     [VC,STAR] panel gathered over all p ranks."""
     r, c = grid_shape
@@ -641,7 +686,7 @@ def panel_spread_sites(gshape, grid_shape, itemsize,
     out: list = []
     _gather_sites(out, (VC, STAR), 0, gshape, r, c,
                   2 if wire == "bf16" else int(itemsize), q8=wire == "int8")
-    return out
+    return _named(out, wire, dtype)
 
 
 def record_sites(rec) -> list:
@@ -650,44 +695,52 @@ def record_sites(rec) -> list:
     itemsize = getattr(torch, rec.dtype).itemsize
     mode = {"bfloat16": "bf16", "int8": "int8"}.get(rec.wire_dtype)
     if rec.kind == "panel_spread":
-        return panel_spread_sites(rec.gshape, rec.grid_shape, itemsize, mode)
+        return panel_spread_sites(rec.gshape, rec.grid_shape, itemsize, mode,
+                                  dtype=rec.dtype)
     if rec.kind != "redistribute":
         return []
     path = rec.path if rec.path == "direct" else None
     return collective_sites(rec.src, rec.dst, rec.gshape, rec.grid_shape,
                             itemsize, path=path, comm_precision=mode,
-                            aligns=rec.aligns)
+                            aligns=rec.aligns, dtype=rec.dtype)
 
 
 #: explicit collectives of the drivers themselves (CALU's row-block psum),
-#: collected by :func:`collectives_log`; None = not collecting
+#: collected inside :func:`isolated_probe`; None = not collecting
 _COLLECTIVE_LOG: list | None = None
 
 
-def note_collective(prim: str, axis_size: int, shape, itemsize: int) -> None:
-    """Announce a driver-level collective a real grid would run (no-op
-    unless a :func:`collectives_log` block is collecting)."""
+def note_collective(prim: str, axis_size: int, shape, itemsize: int,
+                    axes=(), dtype: str = "") -> None:
+    """Announce a driver-level collective a real grid would run over the
+    mesh ``axes`` with a ``dtype`` payload (no-op unless a log is
+    collecting)."""
     if _COLLECTIVE_LOG is not None:
-        _site(_COLLECTIVE_LOG, prim, axis_size, shape, itemsize)
+        _site(_COLLECTIVE_LOG, prim, axis_size, shape, itemsize, axes, dtype)
+
 
 
 @contextlib.contextmanager
-def isolated_probe():
+def isolated_probe(refs: bool = True):
     """Run a probe call unseen: fresh ``redist_counts`` and
     ``redist_trace`` (yielded with the driver-level collective log as
     ``(trace, log)``), no redistribution observers, no installed fault
     plan, and a throwaway metrics registry; the caller's state comes back
-    untouched on exit."""
-    global _REDIST_OBSERVERS, _FAULT_INJECTOR, _COLLECTIVE_LOG
+    untouched on exit.  ``refs=False`` records without keeping the
+    recorded tensors alive (a memory measurement's probe)."""
+    global _REDIST_OBSERVERS, _FAULT_INJECTOR, _COLLECTIVE_LOG, _TRACE_REFS
     from ..obs import metrics as _metrics
-    saved = (_REDIST_OBSERVERS, _FAULT_INJECTOR, _COLLECTIVE_LOG)
+    saved = (_REDIST_OBSERVERS, _FAULT_INJECTOR, _COLLECTIVE_LOG,
+             _TRACE_REFS)
     _REDIST_OBSERVERS, _FAULT_INJECTOR, _COLLECTIVE_LOG = [], None, []
+    _TRACE_REFS = bool(refs)
     log = _COLLECTIVE_LOG
     try:
         with redist_counts(), redist_trace() as trace, _metrics.scoped():
             yield trace, log
     finally:
-        _REDIST_OBSERVERS, _FAULT_INJECTOR, _COLLECTIVE_LOG = saved
+        (_REDIST_OBSERVERS, _FAULT_INJECTOR, _COLLECTIVE_LOG,
+         _TRACE_REFS) = saved
 
 
 # ---------------------------------------------------------------------

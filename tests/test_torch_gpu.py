@@ -37,7 +37,10 @@ serve``).  The sparse SpMV pair is bit-equal run to run and within 1e-13
 of the CPU; the sparse IPM's CG, one captured CUDA graph of masked
 chunks, is bit-equal to the same chunks run eagerly; ``lp`` launches
 ``potrf_inv`` ceil(m / nb) times a factorization of its normal matrix
-(``-k "spmv or pcg or lp_"``)."""
+(``-k "spmv or pcg or lp_"``).  The static analysis: a registry
+driver's comm plan with the kernels on the card is byte-equal to the
+plain panels' on the CPU, the memory meter's peak is the allocator's,
+and lint EL007's 'gpu' row is the card's (``-k analysis``)."""
 import sys
 
 import numpy as np
@@ -1492,3 +1495,55 @@ def test_lp_sparse_cg_engine_on_the_card_matches_the_cpu():
     assert torch.equal(out[0], out[1])
     assert float((out[0] - out[2]).abs().max()) \
         <= 1e-10 * float(out[2].abs().max())
+
+
+@pytest.mark.parametrize("name", ["cholesky_crossover", "lu_calu", "qr_abft"])
+def test_analysis_plan_with_the_kernels_equals_the_cpu_plan(name):
+    """A registry driver's ``comm_plan/v1`` with ``panel_impl='kernel'``
+    on a CUDA 2x2 grid is byte-equal to the plain panels' on the CPU, and
+    the run launched the driver's kernel."""
+    _need_card()
+    import json
+    from elemental_tpu_torch import analysis as an
+    kern = {"cholesky": potrf_inv, "lu": lu_panel, "qr": qr_panel}[
+        name.split("_")[0]]
+    kern.launches = 0
+    with an.panel_impl_override("kernel"):
+        got = an.golden_doc(an.trace_driver(name, et.Grid(2, 2))[0])
+    assert kern.launches > 0
+    with an.panel_impl_override("torch"):
+        want = an.golden_doc(an.trace_driver(
+            name, et.Grid(2, 2, device="cpu"))[0])
+    assert json.dumps(got) == json.dumps(want)
+
+
+def test_analysis_meter_equals_the_allocator_peak():
+    """``memory_plan/v1``'s meter on the card: its peak above the inputs
+    is the caching allocator's (after a warm-up run)."""
+    _need_card()
+    from elemental_tpu_torch import analysis as an
+    from elemental_tpu_torch.redist import engine
+    fn, args, _ = an.build_driver("lu_crossover", et.Grid(2, 2), 1024, 128)
+    with engine.isolated_probe(refs=False):
+        fn(*args)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with engine.isolated_probe(refs=False):
+        stats, _ = an.measure_call(fn, args, (2, 2), "lu_crossover", True,
+                                   "cuda")
+    alloc = torch.cuda.max_memory_allocated() - base
+    assert abs(stats.total_peak_bytes - alloc) <= 0.01 * alloc
+
+
+def test_analysis_smem_row_is_the_cards():
+    """Lint EL007's 'gpu' row equals the kernel's ``lu_panel_smem``."""
+    _need_card()
+    import importlib
+    from elemental_tpu_torch import analysis as an
+    lpm = importlib.import_module("elemental_tpu_torch.kernels.lu_panel")
+    row = an.SMEM_ROWS["gpu"]
+    for dt in (torch.float32, torch.float64):
+        k = lpm.smem_constants(dt)
+        assert k == {"sm_count": row.sm_count, "smem_optin": row.smem_optin,
+                     "static_smem": row.static_smem[str(dt)[6:]]}
