@@ -204,6 +204,23 @@ Phases, each of which raises on failure:
    EL007's 'gpu' row (SMs, opt-in shared memory per block, the static
    shared memory of ``lu_panel``'s column kernel) equal to the kernel's
    own ``lu_panel_smem`` and ``torch.cuda.get_device_properties``;
+3p. the examples and the perf tools (``elemental_tpu_torch.examples``,
+   ``.perf``): (a) the ten example twins through ``runpy`` at
+   :data:`EXAMPLE_ARGV`, float64, each with its kernels' counts set to 0
+   just before and read just after (each key of
+   :data:`EXAMPLE_KEYS` below 1e-3, ``converged=True``, the kernels of
+   :data:`EXAMPLE_KERNELS` launched; each example's wall time);
+   (b) ``ab_harness panel`` at :data:`PANEL_SWEEP` (the three
+   primitives' plain, kernel and library rows in float32 and float64,
+   and ``qr_panel`` at the least-squares example's first panel), each
+   kernel held against its plain version by phase 2's checks
+   (:func:`potrf_check`, :func:`lu_panel_check`, :func:`qr_panel_check`)
+   with the bound beside it (float64 at the FP64 peak with and without
+   the tensor cores); (c) ``ab_harness phases lu`` at :data:`PHASES_LU`
+   (N / nb steps and ``lu_panel`` launches); (d) ``redist_bench
+   --smoke`` and two pairs at n = :data:`REDIST_N` on a virtual 2x2 grid
+   (``match``), their constants recorded into a temporary tuning cache;
+   (e) ``perf.kernels smoke`` (exit 0);
 4. the distributed branches: ``hpd_solve`` and ``lu`` + ``lu_solve_after``
    on a virtual 2x2 grid on the card, N = 1024 float64, nb = 128, with
    and without the crossover, against ``torch.linalg.solve``;
@@ -224,6 +241,7 @@ beside this file, the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import functools
 import json
 import math
 import subprocess
@@ -350,6 +368,49 @@ def _spd(n: int, dtype, seed: int):
     return A, gen
 
 
+def potrf_check(D, L, Li) -> dict:
+    """The kernel's ``(L, L^-1)`` of the block ``D`` held against the plain
+    version's on the same block: both residuals within the CPU tests'
+    bound scaled with w / 256 (the kernel's within 10x the plain one's),
+    and the elementwise difference within ELEM_TOL; raises otherwise."""
+    import torch
+    from elemental_tpu_torch.kernels import potrf_inv_reference
+    w, dt = D.shape[0], D.dtype
+    name = str(dt).replace("torch.", "")
+    eye = torch.eye(w, dtype=dt, device=D.device)
+    Lp, Lip = potrf_inv_reference(D)
+
+    def res(L, Li):
+        return max(float(torch.linalg.norm(L @ L.T - D)
+                         / torch.linalg.norm(D)),
+                   float(torch.linalg.norm(Li @ L - eye) / w ** 0.5))
+
+    rk, rp = res(L, Li), res(Lp, Lip)
+    tol = RES_TOL[name] * max(1.0, w / 256)
+    if not (rk <= tol and rp <= tol and rk <= 10 * rp + tol):
+        raise AssertionError(f"potrf_inv w={w} {name}: kernel residual "
+                             f"{rk:.3e}, plain {rp:.3e}, tolerance {tol:.1e}")
+    abs_err = max(float((L - Lp).abs().max()), float((Li - Lip).abs().max()))
+    rel_err = max(float((L - Lp).abs().max() / Lp.abs().max()),
+                  float((Li - Lip).abs().max() / Lip.abs().max()))
+    if not rel_err <= ELEM_TOL[name]:
+        raise AssertionError(f"potrf_inv w={w} {name}: elementwise "
+                             f"difference {rel_err:.3e} > {ELEM_TOL[name]}")
+    return {"kernel_residual": rk, "plain_residual": rp,
+            "max_abs_err": abs_err, "max_rel_err": rel_err}
+
+
+def potrf_bound(w: int, name: str, itemsize: int,
+                peak: float | None = None) -> tuple:
+    """(bound_ms, bound_by) of ``potrf_inv`` on a w x w block: 2w^3/3
+    operations at ``peak`` (PEAK_FLOPS of the dtype by default), or the
+    bytes: D's lower triangle read (w^2 / 2), L and L^-1 written (2 w^2)."""
+    flop_ms = (2 * w ** 3 / 3) / (peak or PEAK_FLOPS[name]) * 1e3
+    byte_ms = 2.5 * w * w * itemsize / PEAK_BYTES * 1e3
+    return (max(flop_ms, byte_ms),
+            "operations" if flop_ms >= byte_ms else "bytes")
+
+
 def phase_kernels(et) -> list:
     """``potrf_inv`` against its plain version; returns the per-shape rows."""
     import torch
@@ -369,24 +430,7 @@ def phase_kernels(et) -> list:
         eye = torch.eye(w, dtype=dt, device="cuda")
         L, Li = potrf_inv(D)
         torch.cuda.synchronize()
-        Lp, Lip = potrf_inv_reference(D)
-
-        def res(L, Li):
-            return max(float(torch.linalg.norm(L @ L.T - D)
-                             / torch.linalg.norm(D)),
-                       float(torch.linalg.norm(Li @ L - eye) / w ** 0.5))
-
-        rk, rp = res(L, Li), res(Lp, Lip)
-        tol = RES_TOL[name] * max(1.0, w / 256)
-        if not (rk <= tol and rp <= tol and rk <= 10 * rp + tol):
-            raise AssertionError(f"potrf_inv w={w} {name}: kernel residual "
-                                 f"{rk:.3e}, plain {rp:.3e}, tolerance {tol:.1e}")
-        abs_err = max(float((L - Lp).abs().max()), float((Li - Lip).abs().max()))
-        rel_err = max(float((L - Lp).abs().max() / Lp.abs().max()),
-                      float((Li - Lip).abs().max() / Lip.abs().max()))
-        if not rel_err <= ELEM_TOL[name]:
-            raise AssertionError(f"potrf_inv w={w} {name}: elementwise "
-                                 f"difference {rel_err:.3e} > {ELEM_TOL[name]}")
+        check = potrf_check(D, L, Li)
         reps = 20 if w <= 512 else 10
         kernel_ms = _time_ms(lambda: potrf_inv(D), reps)
         plain_ms = _time_ms(lambda: potrf_inv_reference(D), reps)
@@ -396,16 +440,10 @@ def phase_kernels(et) -> list:
             return torch.linalg.solve_triangular(Lc, eye, upper=False)
 
         library_ms = _time_ms(library, reps)
-        itemsize = D.element_size()
-        flop_ms = (2 * w ** 3 / 3) / PEAK_FLOPS[name] * 1e3
-        # bytes: D's lower triangle read (w^2 / 2), L and Li written (2 w^2)
-        byte_ms = 2.5 * w * w * itemsize / PEAK_BYTES * 1e3
-        row = {"w": w, "dtype": name, "kernel_residual": rk,
-               "plain_residual": rp, "max_abs_err": abs_err,
-               "max_rel_err": rel_err, "kernel_ms": kernel_ms,
+        bound_ms, bound_by = potrf_bound(w, name, D.element_size())
+        row = {"w": w, "dtype": name, **check, "kernel_ms": kernel_ms,
                "plain_ms": plain_ms, "library_ms": library_ms,
-               "bound_ms": max(flop_ms, byte_ms),
-               "bound_by": "operations" if flop_ms >= byte_ms else "bytes"}
+               "bound_ms": bound_ms, "bound_by": bound_by}
         print("phase 2 potrf_inv " + json.dumps(row), flush=True)
         if w == 2048:
             print("phase 2 potrf_inv breakdown " + json.dumps(
@@ -428,12 +466,63 @@ def _tie_panel():
     return torch.from_numpy(P).cuda()
 
 
+def lu_panel_check(P, nbw: int, inner: int, packed, perm,
+                   large: bool) -> dict:
+    """The kernel's ``(packed, perm)`` of the panel ``P`` held against the
+    plain version's: both residuals within the CPU tests' bound scaled
+    with M / 256, max |L| <= 1, and the pivots identical unless ``large``
+    (a near-tie among thousands of rows may resolve differently under
+    other rounding: the count of differing pivots is returned, not
+    gated); raises otherwise."""
+    import torch
+    from elemental_tpu_torch.kernels import lu_panel_reference
+    M, dt = P.shape[0], P.dtype
+    name = str(dt).replace("torch.", "")
+    ref, rperm = lu_panel_reference(P, nbw, inner)
+
+    def rebuilt(F, p):
+        """The input the factor stands for: (L U) with row i put back at
+        row p[i]."""
+        L = torch.tril(F, -1) + torch.eye(M, nbw, dtype=dt, device=P.device)
+        out = torch.empty_like(P)
+        out[p] = L @ torch.triu(F[:nbw])
+        return out
+
+    Pk, Pp = rebuilt(packed, perm), rebuilt(ref, rperm)
+    norm_p = torch.linalg.norm(P)
+    rk = float(torch.linalg.norm(P - Pk) / norm_p)
+    rp = float(torch.linalg.norm(P - Pp) / norm_p)
+    # kernel against plain version, on what both factors rebuild
+    abs_err = float((Pk - Pp).abs().max())
+    del Pk, Pp
+    pivots_differ = int((perm != rperm).sum())
+    lmax = float(torch.tril(packed, -1).abs().max())
+    tol = LU_RES_TOL[name] * max(1.0, M / 256)
+    if not (rk <= tol and rp <= tol and lmax <= 1.0
+            and (large or pivots_differ == 0)):
+        raise AssertionError(
+            f"lu_panel {M}x{nbw} {name}: kernel residual {rk:.3e}, plain "
+            f"{rp:.3e}, tolerance {tol:.1e}, max |L| {lmax}, "
+            f"{pivots_differ} pivots differ")
+    return {"kernel_residual": rk, "plain_residual": rp,
+            "residual_tolerance": tol, "max_abs_L": lmax,
+            "pivots_differ": pivots_differ, "max_abs_err": abs_err}
+
+
+def lu_panel_bound(M: int, nbw: int, name: str, itemsize: int,
+                   peak: float | None = None) -> tuple:
+    """(bound_ms, bound_by) of ``lu_panel`` on an M x nbw panel: M nbw^2 -
+    nbw^3/3 operations at ``peak``, or the panel read and written once."""
+    flop_ms = (M * nbw ** 2 - nbw ** 3 / 3) / (peak or PEAK_FLOPS[name]) * 1e3
+    byte_ms = 2 * M * nbw * itemsize / PEAK_BYTES * 1e3
+    return (max(flop_ms, byte_ms),
+            "operations" if flop_ms >= byte_ms else "bytes")
+
+
 def phase_lu_panel() -> list:
-    """``lu_panel`` against its plain version; returns the per-shape rows.
-    Pivots must be identical on the tie panel and the small shapes; at the
-    two large shapes a near-tie among thousands of rows may resolve
-    differently under other rounding, so the count of differing pivots is
-    printed, not gated."""
+    """``lu_panel`` against its plain version (:func:`lu_panel_check`);
+    returns the per-shape rows.  Pivots must be identical on the tie
+    panel and the small shapes, not at the three large ones."""
     import torch
     from elemental_tpu_torch.kernels import lu_panel, lu_panel_reference
     rows = []
@@ -462,53 +551,23 @@ def phase_lu_panel() -> list:
             P = torch.randn(M, nbw, generator=gen, device="cuda", dtype=dt)
         packed, perm = lu_panel(P, nbw, inner=inner)
         torch.cuda.synchronize()
-        ref, rperm = lu_panel_reference(P, nbw, inner)
-
-        def rebuilt(F, p):
-            """The input the factor stands for: (L U) with row i put back
-            at row p[i]."""
-            L = torch.tril(F, -1) + torch.eye(M, nbw, dtype=dt, device="cuda")
-            out = torch.empty_like(P)
-            out[p] = L @ torch.triu(F[:nbw])
-            return out
-
-        Pk, Pp = rebuilt(packed, perm), rebuilt(ref, rperm)
-        norm_p = torch.linalg.norm(P)
-        rk = float(torch.linalg.norm(P - Pk) / norm_p)
-        rp = float(torch.linalg.norm(P - Pp) / norm_p)
-        # kernel against plain version, on what both factors rebuild
-        abs_err = float((Pk - Pp).abs().max())
-        del Pk, Pp
-        pivots_differ = int((perm != rperm).sum())
-        lmax = float(torch.tril(packed, -1).abs().max())
-        tol = LU_RES_TOL[name] * max(1.0, M / 256)
-        if not (rk <= tol and rp <= tol and lmax <= 1.0
-                and (large or pivots_differ == 0)):
-            raise AssertionError(
-                f"lu_panel {M}x{nbw} {name}: kernel residual {rk:.3e}, plain "
-                f"{rp:.3e}, tolerance {tol:.1e}, max |L| {lmax}, "
-                f"{pivots_differ} pivots differ")
+        check = lu_panel_check(P, nbw, inner, packed, perm, large)
         reps = 1 if M * nbw >= 2 ** 24 else 5
         kernel_ms = _time_ms(lambda: lu_panel(P, nbw, inner=inner), 3 * reps)
         plain_ms = _time_ms(lambda: lu_panel_reference(P, nbw, inner), reps)
         library_ms = _time_ms(lambda: torch.linalg.lu_factor(P), 3 * reps)
-        itemsize = P.element_size()
-        flop_ms = (M * nbw ** 2 - nbw ** 3 / 3) / PEAK_FLOPS[name] * 1e3
-        byte_ms = 2 * M * nbw * itemsize / PEAK_BYTES * 1e3
-        row = {"M": M, "nbw": nbw, "dtype": name, "inner": inner,
-               "kernel_residual": rk, "plain_residual": rp,
-               "residual_tolerance": tol, "max_abs_L": lmax,
-               "pivots_differ": pivots_differ, "max_abs_err": abs_err,
+        bound_ms, bound_by = lu_panel_bound(M, nbw, name, P.element_size())
+        row = {"M": M, "nbw": nbw, "dtype": name, "inner": inner, **check,
                "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-               "library_ms": library_ms, "bound_ms": max(flop_ms, byte_ms),
-               "bound_by": "operations" if flop_ms >= byte_ms else "bytes"}
+               "library_ms": library_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by}
         print("phase 2 lu_panel " + json.dumps(row), flush=True)
         if M == 32768:
             print("phase 2 lu_panel breakdown " + json.dumps(
                 _device_breakdown(lambda: lu_panel(P, nbw, inner=inner))),
                 flush=True)
         rows.append(row)
-        del P, packed, ref
+        del P, packed
     return rows
 
 
@@ -570,70 +629,88 @@ def _qr_panels():
     yield "strided-view", big[7:, 50:562], None
 
 
+def qr_panel_check(P, label: str, packed, tau, T) -> dict:
+    """The kernel's ``(packed, tau, T)`` of the panel ``P`` held against
+    the plain version's.  At the large shapes the packed factors diverge
+    from the plain version's in rounding, so the gates are on residuals:
+    the kernel's within 4x the plain version's (plus the small-shape
+    tolerance), both within the CPU tests' bound scaled with M / 256 and
+    capped at QR_RES_CAP, and T within QR_T_TOL * k / 64 of larft(V, tau)
+    of the kernel's own output; raises otherwise."""
+    import torch
+    from elemental_tpu_torch.kernels import qr_panel_reference
+    from elemental_tpu_torch.kernels.qr_panel import _larft, _panel_v
+    name = str(P.dtype).replace("torch.", "")
+    M, k = P.shape
+    ref, rtau, rT = qr_panel_reference(P)
+    rk, ok, QRk = qr_residuals(P, packed, tau, T)
+    rp, op, QRp = qr_residuals(P, ref, rtau, rT)
+    abs_err = float((QRk - QRp).abs().max())
+    del QRk, QRp
+    Tl = _larft(_panel_v(packed), tau)
+    t_err = float(torch.linalg.norm(T - Tl) / torch.linalg.norm(Tl))
+    tau_diff = float((tau - rtau).abs().max())
+    tol = min(QR_RES_TOL[name] * max(1.0, M / 256), QR_RES_CAP[name])
+    t_tol = QR_T_TOL[name] * max(1.0, k / 64)
+    zero_ok = label != "zero-column" or float(tau[300]) == 0.0
+    small = QR_RES_TOL[name]
+    if not (rk <= tol and ok <= tol and rp <= tol and op <= tol
+            and rk <= 4 * rp + small and ok <= 4 * op + small
+            and t_err <= t_tol and zero_ok
+            and bool(torch.isfinite(packed).all())):
+        raise AssertionError(
+            f"qr_panel {label} {name}: kernel residual {rk:.3e} / "
+            f"orthogonality {ok:.3e}, plain {rp:.3e} / {op:.3e}, "
+            f"tolerance {tol:.1e}; T error {t_err:.3e} (tolerance "
+            f"{t_tol:.1e}); zero column tau = 0: {zero_ok}")
+    return {"kernel_residual": rk, "kernel_orthogonality": ok,
+            "plain_residual": rp, "plain_orthogonality": op,
+            "residual_tolerance": tol, "T_rel_err_vs_larft": t_err,
+            "T_tolerance": t_tol, "max_tau_diff": tau_diff,
+            "max_abs_err": abs_err}
+
+
+def qr_panel_bound(M: int, k: int, name: str, itemsize: int,
+                   peak: float | None = None) -> tuple:
+    """(bound_ms, bound_by) of ``qr_panel`` on an M x k panel: reflectors
+    2Mk^2 - 2k^3/3, V^T V's upper half over V's unit lower trapezoid
+    Mk^2 - 2k^3/3 and T's triangular products k^3/3, 3Mk^2 - k^3
+    operations at ``peak``; or the panel read, the packed panel, tau and
+    T written."""
+    flop_ms = (3 * M * k * k - k ** 3) / (peak or PEAK_FLOPS[name]) * 1e3
+    byte_ms = (2 * M * k + k * k + k) * itemsize / PEAK_BYTES * 1e3
+    return (max(flop_ms, byte_ms),
+            "operations" if flop_ms >= byte_ms else "bytes")
+
+
 def phase_qr_panel() -> list:
-    """``qr_panel`` against its plain version; returns the per-shape rows.
-    At the large shapes the packed factors diverge from the plain
-    version's in rounding, so the gates are on residuals: the kernel's
-    within 4x the plain version's (plus the small-shape tolerance), both
-    within the CPU tests' bound scaled with M / 256 and capped at
-    QR_RES_CAP, and T within QR_T_TOL * k / 64 of larft(V, tau) of the
-    kernel's own output."""
+    """``qr_panel`` against its plain version (:func:`qr_panel_check`);
+    returns the per-shape rows."""
     import torch
     from elemental_tpu_torch.kernels import qr_panel, qr_panel_reference
-    from elemental_tpu_torch.kernels.qr_panel import _larft, _panel_v
     rows = []
     for label, P, path in _qr_panels():
         name = str(P.dtype).replace("torch.", "")
         M, k = P.shape
         packed, tau, T = qr_panel(P)
         torch.cuda.synchronize()
-        ref, rtau, rT = qr_panel_reference(P)
-        rk, ok, QRk = qr_residuals(P, packed, tau, T)
-        rp, op, QRp = qr_residuals(P, ref, rtau, rT)
-        abs_err = float((QRk - QRp).abs().max())
-        del QRk, QRp
-        Tl = _larft(_panel_v(packed), tau)
-        t_err = float(torch.linalg.norm(T - Tl) / torch.linalg.norm(Tl))
-        tau_diff = float((tau - rtau).abs().max())
-        tol = min(QR_RES_TOL[name] * max(1.0, M / 256), QR_RES_CAP[name])
-        t_tol = QR_T_TOL[name] * max(1.0, k / 64)
-        zero_ok = label != "zero-column" or float(tau[300]) == 0.0
-        small = QR_RES_TOL[name]
-        if not (rk <= tol and ok <= tol and rp <= tol and op <= tol
-                and rk <= 4 * rp + small and ok <= 4 * op + small
-                and t_err <= t_tol and zero_ok
-                and bool(torch.isfinite(packed).all())):
-            raise AssertionError(
-                f"qr_panel {label} {name}: kernel residual {rk:.3e} / "
-                f"orthogonality {ok:.3e}, plain {rp:.3e} / {op:.3e}, "
-                f"tolerance {tol:.1e}; T error {t_err:.3e} (tolerance "
-                f"{t_tol:.1e}); zero column tau = 0: {zero_ok}")
+        check = qr_panel_check(P, label, packed, tau, T)
         reps = 1 if M * k >= 2 ** 24 else 5
         kernel_ms = _time_ms(lambda: qr_panel(P), 3 * reps)
         plain_ms = _time_ms(lambda: qr_panel_reference(P), reps)
         library_ms = _time_ms(lambda: torch.geqrf(P), 3 * reps)
-        itemsize = P.element_size()
-        # reflectors 2Mk^2 - 2k^3/3; V^T V's upper half over V's unit lower
-        # trapezoid Mk^2 - 2k^3/3; T's triangular products k^3/3
-        flops = 3 * M * k * k - k ** 3
-        flop_ms = flops / PEAK_FLOPS[name] * 1e3
-        byte_ms = (2 * M * k + k * k + k) * itemsize / PEAK_BYTES * 1e3
-        row = {"panel": label, "M": M, "k": k, "dtype": name,
-               "kernel_residual": rk, "kernel_orthogonality": ok,
-               "plain_residual": rp, "plain_orthogonality": op,
-               "residual_tolerance": tol, "T_rel_err_vs_larft": t_err,
-               "T_tolerance": t_tol, "max_tau_diff": tau_diff,
-               "max_abs_err": abs_err, "kernel_ms": kernel_ms,
-               "plain_ms": plain_ms, "library_ms": library_ms,
-               "bound_ms": max(flop_ms, byte_ms),
-               "bound_by": "operations" if flop_ms >= byte_ms else "bytes"}
+        bound_ms, bound_by = qr_panel_bound(M, k, name, P.element_size())
+        row = {"panel": label, "M": M, "k": k, "dtype": name, **check,
+               "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+               "library_ms": library_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by}
         print("phase 2 qr_panel " + json.dumps(row), flush=True)
         if path == "3c":
             print("phase 2 qr_panel breakdown " + json.dumps(
                 _device_breakdown(lambda: qr_panel(P))), flush=True)
         row["path"] = path
         rows.append(row)
-        del P, packed, ref, T, rT, Tl
+        del P, packed, T
     return rows
 
 
@@ -5063,6 +5140,241 @@ def phase_analysis(et, card: str) -> dict:
     return res
 
 
+#: phase 3p (a): each example twin's argv on the card (the CPU tests run
+#: the JAX test's).  Three are cut to keep the phase near 150 s:
+#: ``cholesky`` to n = 4096, because its input
+#: (``hermitian_uniform_spectrum``) is a numpy QR on the host, ~30 s at
+#: 8192 and ~8x that at 16384; ``lav`` to the JAX script's defaults,
+#: because its IPM's direct KKT path factors the m x m normal matrix of a
+#: random sparse A on the host (dense at m = 65536: 34 GB) and, with the
+#: example's 60 iterations, stops short of tol 1e-6 from m = 1000 on in
+#: both packages alike; ``pseudospectra`` to n = 128, because its time is
+#: the Schur form's (18-29 s at n = 256 with 16 x 16 or 8 x 8 points)
+EXAMPLE_ARGV = {
+    "cholesky": ["--n", "4096", "--nrhs", "8"],
+    "lu": ["--n", "16384"],
+    "qr_least_squares": ["--m", "32768", "--n", "8192"],
+    "spd_scaling_sweep": ["--n", "8192", "--ranks", "4"],
+    "herm_eig": ["--n", "4096"],
+    "svd": ["--m", "8192", "--n", "4096"],
+    "lp": ["--m", "2048", "--n", "4096"],
+    "lav": ["--m", "400", "--n", "60", "--nnz", "3000"],
+    "rpca": ["--m", "2048", "--n", "2048", "--rank", "20"],
+    "pseudospectra": ["--n", "128", "--npts", "16"],
+}
+#: the keys of each report held under 1e-3 (``tests/test_examples.py``'s)
+EXAMPLE_KEYS = {
+    "cholesky": ("factor_resid", "solve_resid"), "lu": ("factor_resid",),
+    "qr_least_squares": ("lstsq_err",), "spd_scaling_sweep": ("resid",),
+    "herm_eig": ("resid", "orth"), "svd": ("reconstruct", "sv_err"),
+    "lp": ("rel_gap",), "lav": ("recovery_err",), "rpca": ("recovery_err",),
+    "pseudospectra": (),
+}
+#: the kernels each example's float64 path must launch
+EXAMPLE_KERNELS = {
+    "cholesky": ("potrf_inv",), "spd_scaling_sweep": ("potrf_inv",),
+    "svd": ("potrf_inv", "qr_panel"), "lp": ("potrf_inv",),
+    "lu": ("lu_panel",), "qr_least_squares": ("qr_panel",),
+    "rpca": ("qr_panel",),
+}
+#: phase 3p (b): ``ab_harness panel``'s sweep on the card -- the panel
+#: height and the widths the float64 examples launch (``qr`` blocks of
+#: 128, the virtual grids' ``potrf_inv`` blocks of 128, ``lu``'s default
+#: 1024 on 1x1, ``cholesky``'s 2048) and 512, the eigensolvers' and the
+#: SVD path's; and the least-squares example's first panel, 32768 x 128
+PANEL_SWEEP = {"m": 16384, "nbs": (128, 512, 1024, 2048), "qr_m": 32768,
+               "qr_nb": 128}
+#: phase 3p (c) and (d): ``ab_harness phases lu``'s (N, nb) and the
+#: redistribution row's n on a virtual 2x2 grid
+PHASES_LU = (16384, 2048)
+REDIST_N = 4096
+#: FP64 peak of one H100 SXM without the tensor cores (the FP64 bound
+#: printed beside PEAK_FLOPS' 67 TFLOP/s with them)
+PEAK_FP64_NO_TC = 34e12
+
+
+def _example(name: str, argv: list, kern) -> dict:
+    """3p (a): one example twin through ``runpy`` with its kernels'
+    counts set to 0 just before and read just after; its report's keys
+    under 1e-3, ``converged=True``, and its kernels launched."""
+    import contextlib
+    import io
+    import runpy
+    import torch
+    from elemental_tpu_torch.examples._common import parse_reports
+    _reset(kern)
+    buf = io.StringIO()
+    old = sys.argv
+    sys.argv = [name] + argv
+    t = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            runpy.run_module(f"elemental_tpu_torch.examples.{name}",
+                             run_name="__main__")
+        _sync()
+    finally:
+        sys.argv = old
+    wall_s = time.perf_counter() - t
+    launches = {k.__name__: k.launches for k in kern}
+    reports = parse_reports(buf.getvalue())
+    bad = [(key, rep[key]) for _, rep in reports
+           for key in EXAMPLE_KEYS[name] if not abs(float(rep[key])) < 1e-3]
+    bad += [("converged", rep["converged"]) for _, rep in reports
+            if rep.get("converged", "True") != "True"]
+    bad += [(k, 0) for k in EXAMPLE_KERNELS.get(name, ()) if not launches[k]]
+    if not reports or bad:
+        raise RuntimeError(f"3p (a) {name} {argv}: {bad or 'no report'}; "
+                           f"output {buf.getvalue()[-2000:]}")
+    out = {"argv": argv, "wall_s": wall_s, "launches": launches,
+           "reports": [rep for _, rep in reports]}
+    print(f"phase 3p (a) {name} " + json.dumps(out), flush=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def _panel_rows(bench, kern) -> list:
+    """3p (b): ``ab_harness.run_panel`` on the card (:data:`PANEL_SWEEP`),
+    each kernel row's kernel held against the plain version on the same
+    input (:func:`potrf_check`, :func:`lu_panel_check`,
+    :func:`qr_panel_check`), with the bound at FP64 with and without the
+    tensor cores."""
+    import torch
+    from elemental_tpu_torch.perf import ab_harness
+    potrf_inv, lu_panel, qr_panel = kern
+    S = PANEL_SWEEP
+    rows = ab_harness.run_panel(bench, S["m"], nbs=S["nbs"],
+                                dtypes=(torch.float32, torch.float64))
+    rows += ab_harness.run_panel(bench, S["qr_m"], nbs=(S["qr_nb"],),
+                                 dtypes=(torch.float64,), prims=("qr",))
+    out = []
+    for key in sorted({(r["prim"], r["m"], r["nb"], r["dtype"])
+                       for r in rows}):
+        prim, m, nb, name = key
+        x = ab_harness.panel_input(bench, prim, m, nb, getattr(torch, name))
+        if prim == "chol":
+            check = potrf_check(x, *potrf_inv(x))
+            bound = functools.partial(potrf_bound, nb)
+        elif prim == "lu":
+            check = lu_panel_check(x, nb, 64, *lu_panel(x, nb, inner=64),
+                                   large=m >= 8192)
+            bound = functools.partial(lu_panel_bound, m, nb)
+        else:
+            check = qr_panel_check(x, f"{m}x{nb}", *qr_panel(x))
+            bound = functools.partial(qr_panel_bound, m, nb)
+        ms = {r["impl"]: r["seconds"] * 1e3 for r in rows
+              if (r["prim"], r["m"], r["nb"], r["dtype"]) == key}
+        bound_ms, bound_by = bound(name, x.element_size())
+        row = {"prim": prim, "M": m, "nb": nb, "dtype": name,
+               "kernel_ms": ms["kernel"], "plain_ms": ms["plain"],
+               "library_ms": ms["library"], "bound_ms": bound_ms,
+               "bound_by": bound_by, **check}
+        if name == "float64":
+            row["bound_ms_fp64_no_tensor_cores"] = bound(
+                name, x.element_size(), PEAK_FP64_NO_TC)[0]
+        print("phase 3p (b) " + json.dumps(row), flush=True)
+        out.append(row)
+        del x
+    return out
+
+
+def _phases_lu(bench, kern) -> dict:
+    """3p (c): ``ab_harness phases lu`` at :data:`PHASES_LU`: one step a
+    panel with the LU phase names, and N / nb ``lu_panel`` launches."""
+    from elemental_tpu_torch.perf import ab_harness
+    n, nb = PHASES_LU
+    _reset(kern)
+    doc = ab_harness.run_phases(bench, "lu", str(n), str(nb))
+    launches = kern[1].launches
+    if len(doc["steps"]) != n // nb or launches != n // nb \
+            or not {"panel", "swap", "update"} <= set(doc["totals"]):
+        raise RuntimeError(f"3p (c): {len(doc['steps'])} steps, "
+                           f"{launches} lu_panel launches, totals "
+                           f"{sorted(doc['totals'])}")
+    return {"total_seconds": doc["total_seconds"], "totals": doc["totals"],
+            "steps": len(doc["steps"]), "launches": {"lu_panel": launches},
+            "roofline_tflops": doc["roofline_tflops"]}
+
+
+def _redist(et) -> dict:
+    """3p (d): ``redist_bench --smoke`` exits 0; the default pairs' first
+    two at :data:`REDIST_N` on a virtual 2x2 grid, both paths bit-equal
+    to the input (``match``), and their constants recorded into a
+    temporary tuning cache."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+    from elemental_tpu_torch.perf import redist_bench
+    from elemental_tpu_torch.tune import cache as tcache
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = redist_bench.main(["--smoke"])
+    smoke = [json.loads(ln) for ln in buf.getvalue().splitlines() if ln]
+    if rc != 0 or not smoke or not all(r["match"] for r in smoke):
+        raise RuntimeError(f"3p (d): redist_bench --smoke rc {rc}: "
+                           f"{buf.getvalue()[-2000:]}")
+    grid = et.Grid(2, 2)
+    rows = []
+    for src, dst in redist_bench.DEFAULT_PAIRS[:2]:
+        rows += redist_bench.run_pair(grid, REDIST_N,
+                                      redist_bench._dist_pair(src),
+                                      redist_bench._dist_pair(dst),
+                                      ("chain", "direct"))
+    if not all(r["match"] is True for r in rows):
+        raise RuntimeError(f"3p (d): a 2x2 row does not match: {rows}")
+    with tempfile.TemporaryDirectory() as tmp:
+        prev = os.environ.get(tcache.ENV_DIR)
+        os.environ[tcache.ENV_DIR] = tmp
+        try:
+            doc = redist_bench.record_constants((2, 2), rows, "gpu")
+        finally:
+            if prev is None:
+                os.environ.pop(tcache.ENV_DIR, None)
+            else:
+                os.environ[tcache.ENV_DIR] = prev
+    return {"smoke_rows": len(smoke), "rows": rows,
+            "constants": doc and {k: v for k, v in doc.items()
+                                  if k != "_path"}}
+
+
+def phase_examples(et, card: str) -> dict:
+    """3p: the examples and the perf tools on the card (see the module
+    docstring)."""
+    import contextlib
+    import io
+    from elemental_tpu_torch.kernels import lu_panel, potrf_inv, qr_panel
+    from elemental_tpu_torch.perf import ab_harness, kernels as ksmoke
+    kern = (potrf_inv, lu_panel, qr_panel)
+    res: dict = {"card": card}
+    t = time.perf_counter()
+    for name, argv in EXAMPLE_ARGV.items():
+        res[f"example {name}"] = _example(name, argv, kern)
+    print(f"phase 3p (a) wall_s {time.perf_counter() - t:.1f}", flush=True)
+    bench = ab_harness.Bench("cuda")
+    for tag, name, fn in (
+            ("b", "panel", lambda: {"rows": _panel_rows(bench, kern)}),
+            ("c", "phases lu", lambda: _phases_lu(bench, kern)),
+            ("d", "redist", lambda: _redist(et))):
+        t = time.perf_counter()
+        res[name] = fn()
+        res[name]["step_s"] = time.perf_counter() - t
+        if tag != "b":
+            print(f"phase 3p ({tag}) {name} " + json.dumps(res[name]),
+                  flush=True)
+        print(f"phase 3p ({tag}) wall_s {res[name]['step_s']:.1f}",
+              flush=True)
+    t = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = ksmoke.main(["smoke"])
+    print("phase 3p (e) " + buf.getvalue().replace("\n", " | "),
+          flush=True)
+    if rc != 0:
+        raise RuntimeError(f"3p (e): perf.kernels smoke exited {rc}")
+    print(f"phase 3p (e) wall_s {time.perf_counter() - t:.1f}", flush=True)
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5112,6 +5424,7 @@ def main() -> int:
     serving = timed("3m", phase_serving, et, card)
     solvers = timed("3n", phase_solvers, et, card)
     analysis = timed("3o", phase_analysis, et, card)
+    examples = timed("3p", phase_examples, et, card)
     t4 = time.perf_counter()
     phase_distributed(et)
     phase_lu_distributed(et)
@@ -5165,7 +5478,7 @@ def main() -> int:
                          ("3i", calu_tsqr), ("3j", resilience),
                          ("3k", tuner), ("3l", tracing),
                          ("3m", serving), ("3n", solvers),
-                         ("3o", analysis)):
+                         ("3o", analysis), ("3p", examples)):
             for step, d in rest.items():
                 if isinstance(d, dict) and d.get("launches", {}).get(name):
                     out[f"{ph} {step}"] = d["launches"][name]

@@ -128,6 +128,8 @@ from .matrices import identity
 from . import (blas, lapack, matrices, control, kernels, entry, obs,
                resilience, tune, serve, optimization, lattice, io, sparse,
                analysis)
+from .resilience import (certified_solve, HealthMonitor, last_health_report,
+                         FaultPlan, FaultSpec, fault_injection)
 from .serve import SolverService, Deadline
 from .optimization import (MehrotraCtrl, lp, qp, socp, soft_threshold, svt,
                            bp, lav, nnls, lasso, svm, rpca,

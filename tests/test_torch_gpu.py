@@ -40,7 +40,12 @@ chunks, is bit-equal to the same chunks run eagerly; ``lp`` launches
 (``-k "spmv or pcg or lp_"``).  The static analysis: a registry
 driver's comm plan with the kernels on the card is byte-equal to the
 plain panels' on the CPU, the memory meter's peak is the allocator's,
-and lint EL007's 'gpu' row is the card's (``-k analysis``)."""
+and lint EL007's 'gpu' row is the card's (``-k analysis``).  The examples
+and perf tools (``elemental_tpu_torch.examples`` / ``.perf``): the kernel
+rows of ``ab_harness panel`` in float32 and float64 held against the plain
+versions by ``chip_smoke.py`` phase 3p (b)'s checks, the float64 examples
+launching their kernels, ``perf.kernels smoke`` and ``redist_bench
+--smoke`` exiting 0 (``-k "harness or example or perf"``)."""
 import sys
 
 import numpy as np
@@ -1547,3 +1552,61 @@ def test_analysis_smem_row_is_the_cards():
         k = lpm.smem_constants(dt)
         assert k == {"sm_count": row.sm_count, "smem_optin": row.smem_optin,
                      "static_smem": row.static_smem[str(dt)[6:]]}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["float32", "float64"])
+def test_harness_panel_kernel_rows_hold_against_plain(dtype):
+    """``ab_harness panel`` times the kernel, plain and library rows of
+    each primitive, and each kernel's output passes phase 3p (b)'s check
+    against its plain version on the same input."""
+    _need_card()
+    from chip_smoke import lu_panel_check, potrf_check, qr_panel_check
+    from elemental_tpu_torch.perf import ab_harness
+    bench = ab_harness.Bench("cuda")
+    rows = ab_harness.run_panel(bench, 2048, nbs=(128,), dtypes=(dtype,))
+    assert sorted((r["prim"], r["impl"]) for r in rows) == sorted(
+        (p, i) for p in ab_harness.PANEL_PRIMS
+        for i in ("plain", "kernel", "library"))
+    assert all(r["seconds"] > 0 for r in rows)
+    D = ab_harness.panel_input(bench, "chol", 2048, 128, dtype)
+    potrf_check(D, *potrf_inv(D))
+    P = ab_harness.panel_input(bench, "lu", 2048, 128, dtype)
+    lu_panel_check(P, 128, 64, *lu_panel(P, 128, inner=64), large=False)
+    qr_panel_check(P, "2048x128", *qr_panel(P))
+
+
+@pytest.mark.parametrize("name,argv,kernel", [
+    ("cholesky", ["--n", "2048"], "potrf_inv"),
+    ("lu", ["--n", "2048"], "lu_panel"),
+    ("qr_least_squares", ["--m", "2048", "--n", "512"], "qr_panel")])
+def test_example_launches_its_kernel_in_float64(name, argv, kernel, capsys):
+    """The float64 example reaches its kernel on the card and meets the
+    JAX test's check (its residual keys below 1e-3)."""
+    _need_card()
+    import runpy
+    from elemental_tpu_torch import kernels
+    from elemental_tpu_torch.examples._common import parse_reports
+    k = getattr(kernels, kernel)
+    before = k.launches
+    old = sys.argv
+    sys.argv = [name] + argv
+    try:
+        runpy.run_module(f"elemental_tpu_torch.examples.{name}",
+                         run_name="__main__")
+    finally:
+        sys.argv = old
+    assert k.launches > before
+    (_, rep), = parse_reports(capsys.readouterr().out)
+    for key in {"cholesky": ("factor_resid", "solve_resid"),
+                "lu": ("factor_resid",),
+                "qr_least_squares": ("lstsq_err", "orth")}[name]:
+        assert abs(float(rep[key])) < 1e-3, (key, rep)
+
+
+def test_perf_kernels_and_redist_smokes_exit_zero(capsys):
+    _need_card()
+    from elemental_tpu_torch.perf import kernels, redist_bench
+    assert kernels.main(["smoke"]) == 0
+    assert redist_bench.main(["--smoke"]) == 0
+    assert "kernels smoke OK" in capsys.readouterr().out
