@@ -13,7 +13,10 @@ Phases, each of which raises on failure:
 2. every kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it and a ladder around them, with its time,
    the plain version's, one library call's and the least time the card
-   could take (``bound_ms``): ``potrf_inv`` (w = 1 ... 2048),
+   could take (``bound_ms``): ``potrf_inv`` (w = 1 ... 2048 in float32
+   and in float64, whose route runs its products on the FP64 tensor
+   cores: the built library's SASS must hold DMMA in the float64 kernel
+   and none in the float32 one),
    ``lu_panel`` (32768 x 2048, phase 3h's 8192 x 512 ... a panel of
    constructed ties, the edges of its 128-column outer block) and
    ``qr_panel`` (65536 x 2048, the SVD path's 16384 x 512, phase 3h's
@@ -411,20 +414,55 @@ def potrf_bound(w: int, name: str, itemsize: int,
             "operations" if flop_ms >= byte_ms else "bytes")
 
 
+def sass_counts(lib_path) -> dict:
+    """{kernel function name: {instruction: count}} of the DMMA, DFMA and
+    FFMA instructions in a built library's SASS (``cuobjdump -sass``)."""
+    import re
+    out = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass",
+                          str(lib_path)], capture_output=True, text=True,
+                         check=True).stdout
+    return {name: {op: len(re.findall(rf"\b{op}\b", body))
+                   for op in ("DMMA", "DFMA", "FFMA")}
+            for name, body in re.findall(
+                r"Function : (\S+)\n(.*?)(?=\n\s*Function : |\Z)", out,
+                re.S)}
+
+
+def potrf_routes(lib_path) -> dict:
+    """The DMMA count of ``potrf_kernel``'s float64 and float32
+    instantiations (``potrf_kernelIdE`` / ``potrf_kernelIfE`` in the
+    mangled names); raises unless the float64 kernel issues DMMA and the
+    float32 one none."""
+    counts = sass_counts(lib_path)
+    got = {}
+    for dtype, tag in (("float64", "potrf_kernelIdE"),
+                       ("float32", "potrf_kernelIfE")):
+        names = [n for n in counts if tag in n]
+        if len(names) != 1:
+            raise AssertionError(f"potrf_inv SASS: {len(names)} kernels "
+                                 f"named {tag}")
+        got[dtype] = counts[names[0]]
+    if not (got["float64"]["DMMA"] > 0 and got["float32"]["DMMA"] == 0):
+        raise AssertionError(f"potrf_inv SASS: DMMA {got}")
+    return got
+
+
 def phase_kernels(et) -> list:
     """``potrf_inv`` against its plain version; returns the per-shape rows."""
     import torch
-    from elemental_tpu_torch.kernels import potrf_inv, potrf_inv_reference
+    from elemental_tpu_torch.kernels import common, potrf_inv, \
+        potrf_inv_reference
+    print("phase 2 potrf_inv sass " + json.dumps(
+        potrf_routes(common.build(["potrf_inv"])["potrf_inv"])), flush=True)
     rows = []
-    # the main path's block (w = 2048 float32), and the edges of the
-    # kernel's blocking: one column, below / at / past one 32-column
-    # diagonal block and one 64-row tile, blocks that do not divide w
-    for w, dt in ((1, torch.float32), (31, torch.float32),
-                  (33, torch.float32), (64, torch.float32),
-                  (100, torch.float32), (129, torch.float32),
-                  (300, torch.float32), (512, torch.float32),
-                  (1000, torch.float32), (2048, torch.float32),
-                  (512, torch.float64), (2048, torch.float64)):
+    # the main paths' blocks (w = 2048 float32, the eigensolver's 512; in
+    # float64 2048, 512 and the examples' 128), and the edges of the
+    # kernel's blocking in both routes: one column, below / at / past a
+    # 32-column diagonal block (float), a 64-column one (double) and a
+    # 64-row tile, blocks that do not divide w
+    edges = (1, 31, 33, 64, 65, 100, 129, 300, 512, 1000, 2048)
+    for w, dt in ([(w, torch.float32) for w in edges]
+                  + [(w, torch.float64) for w in edges + (128,)]):
         name = str(dt).replace("torch.", "")
         D, _ = _spd(w, dt, seed=w)
         eye = torch.eye(w, dtype=dt, device="cuda")

@@ -1,24 +1,33 @@
-"""Time builds of ``lu_panel.cu`` from several source directories against
+"""Time builds of a kernel source from several source directories against
 each other, on one card, in one process.
 
 Run from the root of a checkout on a machine with one NVIDIA H100:
 
     python3 -m elemental_tpu_torch.kernels.ab_timing DIR [DIR ...] \
-        [--unchecked DIR ...]
+        [--unchecked DIR ...] [--kernel lu|potrf]
 
-Each DIR holds a ``lu_panel.cu`` and the headers it includes (missing
-headers are taken from ``csrc/``): the committed source, an earlier
-revision from git history, or a copy with one change to try.  Every
-source is built with the port's ``nvcc`` flags into
-``kernels/build/ab_timing/`` (ignored by git), one ``nvcc`` per source,
-all at once.  At three float32 panels (32768, 8192 and 2048 rows, 2048
-columns, ``inner`` = 64) the builds are timed with CUDA events in turns,
-first to last then last to first, so that drift on the card falls on
-every build alike, and each build's pivots are held against the plain
-version's (a build named in ``--unchecked`` is timed only: a change
-that drops part of the arithmetic to see what it costs).  One JSON line
-per panel gives the mean time of each turn per build, in ms, and the
-card's name and power limit.
+Each DIR holds the kernel's source (``lu_panel.cu``, or ``potrf_inv.cu``
+with ``--kernel potrf``) and the headers it includes (missing headers
+are taken from ``csrc/``): the committed source, an earlier revision
+from git history, or a copy with one change to try.  Every source is
+built with the port's ``nvcc`` flags into ``kernels/build/ab_timing/``
+(ignored by git), one ``nvcc`` per source, all at once.  The builds are
+timed with CUDA events in turns, first to last then last to first, so
+that drift on the card falls on every build alike, and each build's
+result is held against the plain version's (a build named in
+``--unchecked`` is timed only: a change that drops part of the
+arithmetic to see what it costs).
+
+``lu``: three float32 panels (32768, 8192 and 2048 rows, 2048 columns,
+``inner`` = 64), each build's pivots equal to the plain version's.
+``potrf``: the blocks of :data:`POTRF_BLOCKS` (the float64 route's main
+paths, w = 2048, 512 and 128, and the float32 main path's 2048), each
+build's ``(L, L^-1)`` within :data:`POTRF_TOL` of the plain version's,
+elementwise relative to the largest entry; the plain version and one
+library call (``cholesky`` + ``solve_triangular``) are timed beside
+them, and the bound is given as ``chip_smoke.py`` phase 2 gives it.
+One JSON line per panel or block gives the mean time of each turn per
+build, in ms, and the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -33,27 +42,45 @@ from pathlib import Path
 PANELS = ((32768, 2048), (8192, 2048), (2048, 2048))
 INNER = 64
 REPS = 5
+#: potrf_inv's blocks (w, dtype name), and the elementwise tolerance of a
+#: build against the plain version (``chip_smoke.py``'s ELEM_TOL)
+POTRF_BLOCKS = ((2048, "float64"), (512, "float64"), (128, "float64"),
+                (2048, "float32"))
+POTRF_TOL = {"float32": 1e-4, "float64": 1e-11}
+#: the data-sheet peaks of ``chip_smoke.py`` (FP32 FMA, FP64 tensor
+#: cores; HBM3)
+PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12
 
 
-def _build(dirs) -> list:
+def _build(dirs, name="lu_panel") -> list:
     from . import common
-    out = common.BUILD_DIR / "ab_timing"
+    out = common.BUILD_DIR / "ab_timing" / name
     procs = []
     for i, d in enumerate(dirs):
         work = out / str(i)
         work.mkdir(parents=True, exist_ok=True)
         for src in list(common.CSRC.glob("*.cuh")) + list(d.glob("*.cuh")):
             shutil.copy(src, work / src.name)
-        shutil.copy(d / "lu_panel.cu", work / "lu_panel.cu")
-        lib = work / "liblu_panel.so"
+        shutil.copy(d / f"{name}.cu", work / f"{name}.cu")
+        lib = work / f"lib{name}.so"
         procs.append((subprocess.Popen(
             [common._nvcc(), *common.NVCC_FLAGS, "-o", str(lib),
-             str(work / "lu_panel.cu")]), lib))
+             str(work / f"{name}.cu")]), lib))
     libs = []
     for proc, lib in procs:
         if proc.wait() != 0:
             raise RuntimeError(f"ab_timing: the build of {lib} failed")
         libs.append(ctypes.CDLL(str(lib)))
+    if name == "potrf_inv":
+        for lib in libs:
+            lib.potrf_inv_rowbuf.argtypes = [ctypes.c_int]
+            lib.potrf_inv_rowbuf.restype = ctypes.c_longlong
+            for fn in (lib.potrf_inv_f32, lib.potrf_inv_f64):
+                fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong,
+                               ctypes.c_int, ctypes.c_int] + \
+                    [ctypes.c_void_p] * 5
+                fn.restype = ctypes.c_int
+        return libs
     for lib in libs:
         for f in (lib.lu_panel_scratch, lib.lu_panel_words):
             f.argtypes = [ctypes.c_int] * 2
@@ -83,18 +110,69 @@ def _factor(lib, P, nbw, gmax):
     return out, perm
 
 
-def _time_ms(fn) -> float:
+def _potrf(lib, D):
+    """One call of a ``potrf_inv`` build, as the wrapper makes it (its
+    outputs, row buffer and barrier words allocated here; bs = 512)."""
+    import torch
+    w = D.shape[0]
+    L, Li = torch.empty_like(D), torch.empty_like(D)
+    Rb = torch.empty(lib.potrf_inv_rowbuf(w), dtype=D.dtype, device=D.device)
+    bar = torch.zeros(2, dtype=torch.int32, device=D.device)
+    fn = lib.potrf_inv_f64 if D.dtype == torch.float64 else lib.potrf_inv_f32
+    err = fn(D.data_ptr(), w, w, 512, L.data_ptr(), Li.data_ptr(),
+             Rb.data_ptr(), bar.data_ptr(),
+             torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ab_timing: CUDA error {err}")
+    return L, Li
+
+
+def _time_ms(fn, reps: int = REPS) -> float:
     import torch
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(REPS):
+    for _ in range(reps):
         fn()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / REPS
+    return start.elapsed_time(end) / reps
+
+
+def _potrf_blocks(dirs, libs, unchecked, order, card) -> None:
+    import torch
+    from .chol_panel import potrf_inv_reference
+    for w, name in POTRF_BLOCKS:
+        dt = getattr(torch, name)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(w)
+        G = torch.randn(w, w, generator=gen, device="cuda", dtype=dt)
+        D = G @ G.T / w + w * torch.eye(w, device="cuda", dtype=dt)
+        Lp, Lip = potrf_inv_reference(D)
+        reps = 20 if w <= 512 else 10
+        ms = {str(d): [] for d in dirs}
+        for i in order:
+            if dirs[i].resolve() not in unchecked:
+                L, Li = _potrf(libs[i], D)
+                err = max(float((L - Lp).abs().max() / Lp.abs().max()),
+                          float((Li - Lip).abs().max() / Lip.abs().max()))
+                if not err <= POTRF_TOL[name]:
+                    raise AssertionError(f"ab_timing: {dirs[i]} is {err:.2e} "
+                                         f"from the plain version at w={w} "
+                                         f"{name}")
+            ms[str(dirs[i])].append(
+                _time_ms(lambda: _potrf(libs[i], D), reps))
+        eye = torch.eye(w, dtype=dt, device="cuda")
+        plain = _time_ms(lambda: potrf_inv_reference(D), reps)
+        library = _time_ms(lambda: torch.linalg.solve_triangular(
+            torch.linalg.cholesky(D), eye, upper=False), reps)
+        bound = max(2 * w ** 3 / 3 / PEAK_FLOPS,
+                    2.5 * w * w * D.element_size() / PEAK_BYTES) * 1e3
+        print(json.dumps({"block": [w, name], "ms": ms, "plain_ms": plain,
+                          "library_ms": library, "bound_ms": bound,
+                          "card": card}), flush=True)
 
 
 def main(argv=None) -> int:
@@ -103,18 +181,23 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="ab_timing")
     ap.add_argument("dirs", nargs="+", type=Path)
     ap.add_argument("--unchecked", nargs="*", type=Path, default=[])
+    ap.add_argument("--kernel", choices=("lu", "potrf"), default="lu")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("ab_timing: no CUDA device", file=sys.stderr)
         return 1
     dirs = list(args.dirs)
-    libs = _build(dirs)
+    libs = _build(dirs, "potrf_inv" if args.kernel == "potrf"
+                  else "lu_panel")
     unchecked = {d.resolve() for d in args.unchecked}
     gmax = torch.cuda.get_device_properties(0).multi_processor_count
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
     order = list(range(len(dirs))) + list(reversed(range(len(dirs))))
+    if args.kernel == "potrf":
+        _potrf_blocks(dirs, libs, unchecked, order, card)
+        return 0
     for M, nbw in PANELS:
         gen = torch.Generator(device="cuda")
         gen.manual_seed(M + nbw)

@@ -9,8 +9,10 @@ diagonal blocks for the factor and the inverse, worked in place in
 ``L`` and ``L^{-1}``.  One thread block factors and inverts each
 diagonal block (one warp, in registers) while the others apply the
 previous block's update in register tiles (look-ahead); every product
-tile waits on one round trip to L2.  The source's header comment gives
-the bound and what the design leaves on the table.
+tile waits on one round trip to L2.  In float64 the same schedule runs
+its products on Hopper's FP64 tensor cores (DMMA) and factors each
+diagonal block in two 16-column halves.  The source's header comment
+gives the bound and what the design leaves on the table.
 
 :func:`potrf_inv_reference` is the plain PyTorch version (the port of
 ``elemental_tpu.lapack.cholesky._potrf_inv_impl``).  The wrapper
@@ -88,8 +90,9 @@ def potrf_inv(D, precision=None, *, bs: int = 512):
     tensor (float32 or float64) launches the kernel, and anything the
     kernel does not take raises.  ``bs`` only caps the columns one warp
     factors at a time inside the kernel's fixed 32-column diagonal blocks
-    (``NB`` in the source); the result is the same function for any
-    ``bs >= 1``, only the rounding differs."""
+    (``NB`` in the source; at most 16 in float64, ``NB64_BASE``); the
+    result is the same function for any ``bs >= 1``, only the rounding
+    differs."""
     if D.dim() != 2 or D.shape[0] != D.shape[1]:
         raise ValueError(f"potrf_inv needs a square block, got {tuple(D.shape)}")
     if D.device.type == "cpu":

@@ -1,6 +1,7 @@
 // Register-tiled FP32 / FP64 GEMM tiles for Hopper CUDA cores, shared by
 // potrf_inv.cu, lu_panel.cu and qr_panel.cu: full-precision FMA only (no
-// TF32, no tensor cores), no library.
+// TF32, no tensor cores), no library; and, at the end, FP64 tiles on the
+// tensor cores (DMMA), which compute full IEEE float64 products.
 //
 // One CTA of FG_THREADS = 256 threads computes a BM x BN output tile,
 // BM = 16 TM (TM = 8: 128 rows, TM = 4: 64), BN = 16 TN (TN = 8: 128
@@ -331,6 +332,223 @@ __device__ __forceinline__ void tile_zero(T (&acc)[TM][8]) {
   for (int i = 0; i < TM; ++i)
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = T(0);
+}
+
+// ---------------------------------------------------------------------------
+// FP64 on the tensor cores: mma.sync.aligned.m16n8k8.row.col.f64 (DMMA,
+// sm_90; 67 TFLOP/s on an H100 SXM against 34 TFLOP/s of FP64 FMA).  Each
+// product is an IEEE float64 fused multiply-add, so a float64 result keeps
+// full precision.  Fragments of one m16n8k8 step, with g = lane / 4 and
+// q = lane % 4 (CuTe's SM90_16x8x8_F64F64F64F64_TN layouts):
+//   a[v]: A(g + 8 (v & 1), q + 4 (v >> 1))      (16 x 8, v < 4)
+//   b[v]: B(q + 4 v, g)                          (8 x 8, v < 2)
+//   c[v]: C(g + 8 (v >> 1), 2 q + (v & 1))       (16 x 8, v < 4)
+// The tile below computes a 64 x BN block (BN = 16 TN) on the 8 warps of a
+// CTA: warp v takes rows 32 (v % 2) .. + 32 and columns 4 TN (v / 2) ..
+// + 4 TN, MI = 2 blocks of 16 rows times NI = TN / 2 blocks of 8 columns.
+// Its operands are staged in shared memory in their own orientation with
+// cp.async (no register holds them on the way; zero-filled past the
+// edges), so the caller can request its epilogue's old values between
+// dm_issue and dm_mma and wait on one round trip to L2 for all three.
+
+constexpr int DM_BM = 64;
+
+__device__ __forceinline__ void dmma_16x8x8(double (&d)[4],
+                                            const double (&a)[4],
+                                            const double (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
+}
+
+// Leading dimension of a staged R x KMAX operand in shared memory, and the
+// elements its region takes in either orientation.
+template <int R, int KMAX>
+__host__ __device__ constexpr int dm_ld(int kmajor) {
+  return kmajor ? R + FG_PAD : KMAX + FG_PAD;
+}
+
+template <int R, int KMAX>
+__host__ __device__ constexpr size_t dm_region() {
+  return (size_t)KMAX * (R + FG_PAD) > (size_t)R * (KMAX + FG_PAD)
+             ? (size_t)KMAX * (R + FG_PAD)
+             : (size_t)R * (KMAX + FG_PAD);
+}
+
+// Shared-memory bytes of a 64 x 16 TN tile with K <= KMAX.
+template <int TN, int KMAX>
+__host__ __device__ constexpr size_t dm_smem_bytes() {
+  return (dm_region<DM_BM, KMAX>() + dm_region<16 * TN, KMAX>()) *
+         sizeof(double);
+}
+
+__device__ __forceinline__ void dm_cp16(double* s, const double* g,
+                                        int valid) {
+  const unsigned sa = static_cast<unsigned>(__cvta_generic_to_shared(s));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(sa),
+               "l"(g), "r"(valid * 8)
+               : "memory");
+}
+
+// The R x K operand o (r >= rext and k >= kext read as zero) into s:
+// element (r, k) at s[k * ld + r] when o.kmajor, s[r * ld + k] otherwise
+// (ld = dm_ld).  vec: 16 bytes a thread by cp.async (through L2, as ld.cg);
+// else element by element.
+template <int R, int KMAX>
+__device__ void dm_stage(double* s, const Op<double>& o, int rext, int kext,
+                         bool vec) {
+  constexpr int RU = R / 2, KU = KMAX / 2, UNITS = R * KMAX / 2;
+  const int ld = dm_ld<R, KMAX>(o.kmajor);
+#pragma unroll
+  for (int u = 0; u < (UNITS + FG_THREADS - 1) / FG_THREADS; ++u) {
+    const int idx = threadIdx.x + u * FG_THREADS;
+    if (idx >= UNITS) break;
+    int r, k, along;
+    bool live;
+    if (o.kmajor) {
+      k = idx / RU, r = (idx % RU) * 2;
+      live = k < kext, along = rext - r;
+    } else {
+      r = idx / KU, k = (idx % KU) * 2;
+      live = r < rext, along = kext - k;
+    }
+    const int valid = !live || along < 0 ? 0 : (along < 2 ? along : 2);
+    double* dst = o.kmajor ? s + k * ld + r : s + r * ld + k;
+    const double* src = o.kmajor ? o.p + (size_t)k * o.ld + r
+                                 : o.p + (size_t)r * o.ld + k;
+    if (vec) {
+      dm_cp16(dst, valid ? src : o.p, valid);
+    } else {
+      dst[0] = valid > 0 ? __ldcg(src) : 0.0;
+      dst[1] = valid > 1 ? __ldcg(src + 1) : 0.0;
+    }
+  }
+}
+
+// Request both operands of a 64 x 16 TN tile (K <= KMAX) into smem
+// (dm_smem_bytes<TN, KMAX>()).  All threads of the CTA must call it.
+template <int TN, int KMAX>
+__device__ void dm_issue(const Op<double>& A, int m, const Op<double>& B,
+                         int n, int K, bool vec, double* smem) {
+  __syncthreads();                   // smem may still be read by a caller
+  dm_stage<DM_BM, KMAX>(smem, A, m, K, vec);
+  dm_stage<16 * TN, KMAX>(smem + dm_region<DM_BM, KMAX>(), B, n, K, vec);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait for dm_issue's operands, then acc += A B over the tile.  All
+// threads of the CTA must call it.
+template <int TN, int KMAX>
+__device__ void dm_mma(double (&acc)[2][TN / 2][4], int akmajor, int bkmajor,
+                       int K, const double* smem) {
+  constexpr int NI = TN / 2;
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+  const double* As = smem;
+  const double* Bs = smem + dm_region<DM_BM, KMAX>();
+  const int lda = dm_ld<DM_BM, KMAX>(akmajor);
+  const int ldb = dm_ld<16 * TN, KMAX>(bkmajor);
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, q = lane % 4;
+  const int r0 = (warp % 2) * 32 + g, c0 = (warp / 2) * (4 * TN) + g;
+  for (int k0 = 0; k0 < K; k0 += 8) {
+    double a[2][4], b[NI][2];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const int r = r0 + mi * 16 + 8 * (v & 1), k = k0 + q + 4 * (v >> 1);
+        a[mi][v] = akmajor ? As[k * lda + r] : As[r * lda + k];
+      }
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+      for (int v = 0; v < 2; ++v) {
+        const int c = c0 + ni * 8, k = k0 + q + 4 * v;
+        b[ni][v] = bkmajor ? Bs[k * ldb + c] : Bs[c * ldb + k];
+      }
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni) dmma_16x8x8(acc[mi][ni], a[mi], b[ni]);
+  }
+}
+
+// Row of accumulator c[v] (h = v >> 1) of row block mi, and the first of
+// the two adjacent columns (v & 1) of column block ni, in a 64 x 16 TN
+// tile.
+__device__ __forceinline__ int dm_row(int mi, int h) {
+  return (threadIdx.x / 32 % 2) * 32 + mi * 16 + threadIdx.x % 32 / 4 + 8 * h;
+}
+
+template <int TN>
+__device__ __forceinline__ int dm_col(int ni) {
+  return (threadIdx.x / 64) * (4 * TN) + ni * 8 + (threadIdx.x % 4) * 2;
+}
+
+// 2 consecutive elements p[0..valid) (zero beyond), through L2; and their
+// store: 16 bytes when vec and valid >= 2.
+__device__ __forceinline__ void dm_ld2(const double* p, bool vec, int valid,
+                                       double* v) {
+  if (vec && valid >= 2) {
+    const double2 x = __ldcg(reinterpret_cast<const double2*>(p));
+    v[0] = x.x, v[1] = x.y;
+  } else {
+    v[0] = valid > 0 ? __ldcg(p) : 0.0;
+    v[1] = valid > 1 ? __ldcg(p + 1) : 0.0;
+  }
+}
+
+__device__ __forceinline__ void dm_st2(double* p, bool vec, int valid,
+                                       const double* v) {
+  if (vec && valid >= 2) {
+    *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
+  } else {
+    if (valid > 0) p[0] = v[0];
+    if (valid > 1) p[1] = v[1];
+  }
+}
+
+// C (m x n) = A B (mode 0), -= A B (mode 1, only c <= r when lower) or
+// = -A B (mode 2), all in shared memory with any leading dimensions and
+// m, n, K <= 32: A (m x K) row-major, B (K x n) row-major, or B^T stored
+// (n x K) row-major when BT.  Warp v takes the 16 x 8 output blocks v,
+// v + 8, ...; fragments past m, n or K read as zero.  C must not overlap
+// A or B.  All threads call it.
+template <bool BT>
+__device__ void dm_smem_mm(double* C, int ldc, const double* A, int lda,
+                           const double* B, int ldb, int m, int n, int K,
+                           int mode, bool lower) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, q = lane % 4;
+  const int mb = (m + 15) / 16, nb = (n + 7) / 8;
+  for (int it = warp; it < mb * nb; it += FG_THREADS / 32) {
+    const int r0 = (it % mb) * 16, c0 = (it / mb) * 8;
+    double acc[4] = {0.0, 0.0, 0.0, 0.0};
+    for (int k0 = 0; k0 < K; k0 += 8) {
+      double a[4], b[2];
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const int r = r0 + g + 8 * (v & 1), k = k0 + q + 4 * (v >> 1);
+        a[v] = r < m && k < K ? A[r * lda + k] : 0.0;
+      }
+#pragma unroll
+      for (int v = 0; v < 2; ++v) {
+        const int c = c0 + g, k = k0 + q + 4 * v;
+        b[v] = c < n && k < K ? (BT ? B[c * ldb + k] : B[k * ldb + c]) : 0.0;
+      }
+      dmma_16x8x8(acc, a, b);
+    }
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      const int r = r0 + g + 8 * (v >> 1), c = c0 + 2 * q + (v & 1);
+      if (r >= m || c >= n || (lower && c > r)) continue;
+      C[r * ldc + c] = mode == 0 ? acc[v]
+                       : (mode == 1 ? C[r * ldc + c] - acc[v] : -acc[v]);
+    }
+  }
 }
 
 }  // namespace

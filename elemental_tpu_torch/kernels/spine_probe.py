@@ -1,26 +1,40 @@
-"""Where one column of a panel kernel's spine spends its time, on the card.
+"""Where one step of a panel kernel's spine spends its time, on the card.
 
 Run from the root of a checkout on a machine with one NVIDIA H100:
 
-    python3 -m elemental_tpu_torch.kernels.spine_probe [qr|lu] [--src DIR]
+    python3 -m elemental_tpu_torch.kernels.spine_probe [qr|lu|potrf] [--src DIR]
 
 The committed kernels have no probe switch.  This script copies the
-kernel's source (``csrc/qr_panel.cu`` or ``csrc/lu_panel.cu``; with
-``--src``, the one in DIR and the headers beside it, such as an earlier
-revision taken from git history) and its headers into
-``kernels/build/spine_probe/`` (ignored by git), inserts ``%globaltimer``
-stamps into the copy's column loop (thread 0 of thread block 0, one inner
-chunk in the middle of the panel), builds it with the port's ``nvcc``
-flags, factors a float32 panel with it (65536 x 2048 for QR, 32768 x
-2048 for LU) and prints, as one JSON line, the mean time a column spends
-between consecutive stamps.  The stamps know two column loops of
-``lu_panel.cu``: the current one (key and pivot-row reads, fused pass,
-publish and arrive, the rest of the update, the wait) and the first
-design's (candidate reduction and pivot-row read, swap and scale, rank-1
-update, publish, grid barrier).  A stamp is a few stores by one thread;
-the times are the copy's, not the kernel's, and a part that follows
-thread 0 (the rest of the update) is its warp's share, the rest of the
-block's landing in the next part.
+kernel's source (``csrc/qr_panel.cu``, ``csrc/lu_panel.cu`` or
+``csrc/potrf_inv.cu``; with ``--src``, the one in DIR and the headers
+beside it, such as an earlier revision taken from git history) and its
+headers into ``kernels/build/spine_probe/`` (ignored by git), inserts
+``%globaltimer`` stamps into the copy's loop, builds it with the port's
+``nvcc`` flags, runs it and prints, as one JSON line, the mean time a
+step spends between consecutive stamps.
+
+``qr`` and ``lu`` follow one column of the column loop (thread 0 of
+thread block 0, one inner chunk in the middle of the panel) while a
+float32 panel is factored (65536 x 2048 for QR, 32768 x 2048 for LU).
+The stamps know two column loops of ``lu_panel.cu``: the current one
+(key and pivot-row reads, fused pass, publish and arrive, the rest of
+the update, the wait) and the first design's (candidate reduction and
+pivot-row read, swap and scale, rank-1 update, publish, grid barrier).
+
+``potrf`` follows every step (a 32-column diagonal block in float32, 64
+in float64) of ``potrf_inv`` at w = 2048, in both dtypes, on two thread
+blocks: block 0, which carries the serial chain (its panel strip, the
+next diagonal block's update, factor and inverse, and the barriers), and
+block 1, one of the blocks that apply the step's update.  The stamps know
+two versions of ``potrf_kernel``: the current one, where float32 runs
+FMA tiles and float64 DMMA tiles, 64-column blocks, a 16-column base and
+counting grid barriers on the same schedule (the same stamps follow
+both), and the earlier one, FMA tiles, 32-column blocks and generation
+barriers in both dtypes.
+
+A stamp is a few stores by one thread; the times are the copy's, not
+the kernel's, and a part that follows thread 0 is its warp's share, the
+rest of the block's landing in the next part.
 """
 from __future__ import annotations
 
@@ -40,6 +54,55 @@ def _ts(k: int, jc: str = "jc") -> str:
 def _after(anchor: str, text: str):
     """A stamp placed after ``anchor``."""
     return anchor, anchor + text
+
+
+def _at(k: int) -> str:
+    return f"      PROBE_TS({k});\n"
+
+
+#: the potrf stamps' slots: block 0 (the chain) and block 1 (a worker)
+#: stamp 0 at a step's start and 6 past its last barrier; 1..5 mark parts
+_POTRF_PARTS = {
+    "chain": ((0, 1, "P: panel strip 0, its rows kept"),
+              (1, 2, "next diagonal block read and updated"),
+              (2, 3, "diagonal factor and inverse"),
+              (3, 4, "diagonal written, P barrier"),
+              (4, 6, "end barrier (the workers' update)")),
+    "worker": ((0, 1, "P: panel and inverse-row tiles"),
+               (1, 2, "P barrier"),
+               (2, 5, "Q: trailing and inverse tiles"),
+               (5, 6, "end barrier")),
+}
+
+def _potrf_stamps(current: bool):
+    """The stamps of ``potrf_kernel``'s step loop: the current source's
+    (``smem_prod`` picks each route's product, and each route its grid
+    barriers), or the earlier FMA version's (``smem_mm``, ``grid_barrier``
+    in both dtypes)."""
+    if current:
+        update, wait, p_barrier, end = (
+            "smem_prod", "      if constexpr (!COUNTED) grid_wait_past(a.bar,"
+            " gen);\n", "      grid_barrier(a.bar);\n    }\n",
+            "    sync_all();\n")
+    else:
+        update, wait, p_barrier, end = (
+            "smem_mm", "      grid_wait_past(a.bar, gen);\n",
+            "      grid_barrier(a.bar);\n", "    grid_barrier(a.bar);\n")
+    return [
+        _after("    const int b2 = b1 + NB < w ? b1 + NB : w, nbn = b2 - b1;\n",
+               _at(0)),
+        ("    if (s + 1 == nsteps) break;\n",
+         _at(1) + "    if (s + 1 == nsteps) break;\n"),
+        _after(f"      {update}<true>(S, LS, X, LS, X, LS, nbn, nbn, nbs, 1,"
+               " true);\n      __syncthreads();\n", _at(2)),
+        _after("      diag_factor(S, X, gsm, nbn, a.b);\n", _at(3)),
+        _after(wait, _at(4)),
+        (p_barrier + "\n    // ---- phase Q",
+         p_barrier + _at(2) + "\n    // ---- phase Q"),
+        _after("                         nbs, vec, gsm, c, w, c, w, 1, 0, 0);\n"
+               "        }\n      }\n", _at(5)),
+        (end + "  }\n}\n", end + _at(6) + "  }\n}\n"),
+    ]
 
 
 #: per kernel: the source, the versions of its column loop the stamps know
@@ -110,7 +173,35 @@ _PROBES = {
                       "publish (scan and block reduction)", "grid barrier"),
         }],
     },
+    "potrf": {
+        "source": "potrf_inv.cu",
+        "panel": (2048, 2048),
+        "versions": [{"name": "current: float32 FMA, float64 DMMA",
+                      "stamps": _potrf_stamps(True),
+                      "parts": {"float32": _POTRF_PARTS,
+                                "float64": _POTRF_PARTS}},
+                     {"name": "FMA tiles in both dtypes",
+                      "stamps": _potrf_stamps(False),
+                      "parts": {"float32": _POTRF_PARTS,
+                                "float64": _POTRF_PARTS}}],
+    },
 }
+
+
+#: the diagonal block's columns (a step's) of each version and dtype
+_POTRF_NB = {"current: float32 FMA, float64 DMMA": {"float32": 32,
+                                                     "float64": 64},
+             "FMA tiles in both dtypes": {"float32": 32, "float64": 32}}
+
+_POTRF_HEAD = """
+__device__ unsigned long long probe_ts_buf[2 * 64 * 8];
+#define PROBE_TS(slot) do { if (threadIdx.x == 0 && blockIdx.x < 2 && s < 64) { \\
+    unsigned long long t_; asm volatile("mov.u64 %0, %globaltimer;" : "=l"(t_)); \\
+    probe_ts_buf[(blockIdx.x * 64 + s) * 8 + (slot)] = t_; } } while (0)
+extern "C" int probe_ts(void* dst) {
+  return cudaMemcpyFromSymbol(dst, probe_ts_buf, sizeof(probe_ts_buf));
+}
+"""
 
 _HEAD = """
 __device__ unsigned long long probe_ts_buf[8 * 64];
@@ -139,7 +230,8 @@ def stamped_source(kind: str, src: str):
     ``kind``'s column loop whose anchors the source holds; raises if none
     fits (the probe follows the kernel's column loop)."""
     probe = _PROBES[kind]
-    head = _HEAD.format(chunk=probe["chunk"])
+    head = (_POTRF_HEAD if kind == "potrf"
+            else _HEAD.format(chunk=probe["chunk"]))
     for version in probe["versions"]:
         out = _apply(src, version["stamps"])
         if out is not None and "#include <cstddef>\n" in out:
@@ -208,6 +300,58 @@ def _run_lu(lib, M, nbw):
     return inner
 
 
+def _run_potrf(lib, w, _):
+    """Stamps of a w x w block's factor in float32 and float64: {dtype
+    name: array (2 blocks, 64 steps, 8 slots)} of the second call each."""
+    import numpy as np
+    import torch
+    lib.potrf_inv_rowbuf.argtypes = [ctypes.c_int]
+    lib.potrf_inv_rowbuf.restype = ctypes.c_longlong
+    out = {}
+    for dt in (torch.float32, torch.float64):
+        fn = getattr(lib, "potrf_inv_f32" if dt == torch.float32
+                     else "potrf_inv_f64")
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                       ctypes.c_int] + [ctypes.c_void_p] * 5
+        fn.restype = ctypes.c_int
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(w)
+        G = torch.randn(w, w, generator=gen, device="cuda", dtype=dt)
+        D = G @ G.T / w + w * torch.eye(w, device="cuda", dtype=dt)
+        L, Li = torch.empty_like(D), torch.empty_like(D)
+        Rb = torch.empty(lib.potrf_inv_rowbuf(w), device="cuda", dtype=dt)
+        for _ in range(2):               # the second call is the one read
+            bar = torch.zeros(2, dtype=torch.int32, device="cuda")
+            err = fn(D.data_ptr(), w, w, 32, L.data_ptr(), Li.data_ptr(),
+                     Rb.data_ptr(), bar.data_ptr(),
+                     torch.cuda.current_stream().cuda_stream)
+            if err != 0:
+                raise RuntimeError(f"potrf_inv probe: CUDA error {err}")
+        torch.cuda.synchronize()
+        ts = np.zeros(2 * 64 * 8, dtype=np.uint64)
+        if lib.probe_ts(ctypes.c_void_p(ts.ctypes.data)) != 0:
+            raise RuntimeError("spine probe: reading the stamps failed")
+        out[str(dt).replace("torch.", "")] = ts.reshape(2, 64, 8)
+    return out
+
+
+def potrf_split(ts, parts, steps: int) -> dict:
+    """Mean microseconds a step of the potrf stamps ``ts`` (2 blocks, 64
+    steps, 8 slots) spends in each part of ``parts`` ({role: ((slot from,
+    slot to, name), ...)}: block 0 is the chain, block 1 the worker), over
+    the steps that reach their end barrier, and the mean step (block 0's
+    start to its next start)."""
+    import numpy as np
+    t = ts.astype(np.float64) / 1e3
+    out = {}
+    for blk, role in enumerate(("chain", "worker")):
+        out[role] = {name: round(float(np.mean(t[blk, :steps - 1, b]
+                                               - t[blk, :steps - 1, a])), 3)
+                     for a, b, name in parts[role]}
+    out["step_us"] = round(float(np.mean(np.diff(t[0, :steps, 0]))), 3)
+    return out
+
+
 def main(argv=None) -> int:
     import numpy as np
     import torch
@@ -234,6 +378,19 @@ def main(argv=None) -> int:
                     str(work / probe["source"])], check=True)
     lib = ctypes.CDLL(str(lib_path))
     M, k = probe["panel"]
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+    if args.kind == "potrf":
+        stamps = _run_potrf(lib, M, k)
+        print(json.dumps({"probe": "potrf_inv.cu steps", "version": version,
+                          "w": M, "us_per_step": {
+                              name: potrf_split(ts, parts[name],
+                                                -(-M // _POTRF_NB[version][
+                                                    name]))
+                              for name, ts in stamps.items()},
+                          "card": card}))
+        return 0
     run = _run_qr if args.kind == "qr" else _run_lu
     cw = run(lib, M, k)
     torch.cuda.synchronize()
@@ -247,9 +404,6 @@ def main(argv=None) -> int:
         t.append(int(ts[(jc + 1) * 8]))
         split += np.diff(np.array(t, dtype=np.float64)) / 1e3
     split /= cols
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True).stdout.strip()
     print(json.dumps({"probe": f"{probe['source']} spine", "version": version,
                       "panel": [M, k], "chunk": probe["chunk"],
                       "us_per_column": dict(zip(parts,

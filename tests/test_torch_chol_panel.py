@@ -6,7 +6,14 @@ Bounds are those of ``tests/kernels/test_chol_panel.py``:
 ``||L L^T - D|| / ||D||`` and ``||Li L - I|| / sqrt(w)`` below 3e-6 at
 float32 and 1e-12 at float64, on the same (w, bs) ladder.  Elementwise,
 the two plain versions run the same blocked algorithm through different
-LAPACK calls, so they agree to rtol 1e-10 at float64."""
+LAPACK calls, so they agree to rtol 1e-10 at float64.  The models of the
+CUDA kernel's schedules (float32's and float64's) are held to the same
+rtol against both plain versions; their JAX reference runs under
+``jax.jit`` once per block (eagerly, ``bs = 7`` at w = 300 compiles each
+of its ~200 single ops alone)."""
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -137,15 +144,45 @@ def test_size_gate_passes_the_main_path_block():
     assert not PanelPlan(impl="torch").use_kernel(torch.float32)
 
 
-def _two_level_potrf_inv(D, nb, b):
+def _lapack_base(blk):
+    """A sub-block's Cholesky factor and inverse (``warp_base``'s
+    function, through LAPACK)."""
+    Lcc = torch.linalg.cholesky(blk + torch.tril(blk, -1).T)
+    return Lcc, torch.linalg.solve_triangular(
+        Lcc, torch.eye(blk.shape[0], dtype=blk.dtype), upper=False)
+
+
+def _rsqrt_base(blk):
+    """``warp_base16``'s column recurrence (the float64 route's base): the
+    factor and its inverse by elimination on ``[blk | I]``.  Column j is
+    scaled by the reciprocal square root r of its pivot p (diagonal p r),
+    the rows below it are eliminated from the trailing lower triangle and,
+    with L[i][j] r, from the inverse's rows, which stay unscaled until
+    each is scaled by its own r at the end."""
+    b = blk.shape[0]
+    S = torch.tril(blk).clone()
+    X = torch.eye(b, dtype=blk.dtype)
+    rr = torch.ones(b, dtype=blk.dtype)
+    for j in range(b):
+        r = 1 / torch.sqrt(S[j, j])
+        lj = S[j + 1:, j] * r
+        S[j, j] = S[j, j] * r
+        S[j + 1:, j] = lj
+        rr[j] = r
+        S[j + 1:, j + 1:] -= torch.tril(lj[:, None] * lj[None, :])
+        X[j + 1:, :j + 1] -= (lj * r)[:, None] * X[j, :j + 1][None, :]
+    return S, X * rr[:, None]
+
+
+def _two_level_potrf_inv(D, nb, b, base=_lapack_base):
     """The CUDA kernel's algebra (``csrc/potrf_inv.cu``), in float64 torch:
     nb-column diagonal blocks, each factored and inverted in b-column
-    sub-blocks (a sub-block's Cholesky and inverse, the rows below it
-    times that inverse, the block's trailing lower triangle; then the
-    inverse's off-diagonal block rows left-looking); then the right-looking
-    outer step: the panel W Lkk^{-T}, the inverse rows Lkk^{-1} R, the
-    trailing lower triangle and R.  W lives in L's lower triangle and R in
-    Li, as in the kernel."""
+    sub-blocks (a sub-block's Cholesky and inverse by ``base``, the rows
+    below it times that inverse, the block's trailing lower triangle; then
+    the inverse's off-diagonal block rows left-looking); then the
+    right-looking outer step: the panel W Lkk^{-T}, the inverse rows
+    Lkk^{-1} R, the trailing lower triangle and R.  W lives in L's lower
+    triangle and R in Li, as in the kernel."""
     w = D.shape[0]
     L = torch.tril(D).clone()
     Li = torch.zeros_like(D)
@@ -156,10 +193,7 @@ def _two_level_potrf_inv(D, nb, b):
         X = torch.zeros_like(S)
         for c0 in range(0, n, b):
             c1 = min(c0 + b, n)
-            blk = torch.tril(S[c0:c1, c0:c1])
-            Lcc = torch.linalg.cholesky(blk + torch.tril(blk, -1).T)
-            Xcc = torch.linalg.solve_triangular(
-                Lcc, torch.eye(c1 - c0, dtype=D.dtype), upper=False)
+            Lcc, Xcc = base(torch.tril(S[c0:c1, c0:c1]))
             S[c0:c1, c0:c1] = Lcc
             X[c0:c1, c0:c1] = Xcc
             S[c1:, c0:c1] = S[c1:, c0:c1] @ Xcc.T
@@ -176,6 +210,40 @@ def _two_level_potrf_inv(D, nb, b):
     return L, Li
 
 
+def _f64_route_potrf_inv(D, bs):
+    """The float64 route's schedule: the same outer step over 64-column
+    diagonal blocks (``Blk<double>::NB``), each factored in sub-blocks of
+    at most 16 columns (four on the main path, ``NB64_BASE`` in the
+    source) by ``warp_base16``'s recurrence; its products run on the FP64
+    tensor cores, which this model cannot show (they round as FMA
+    does)."""
+    return _two_level_potrf_inv(D, 64, min(bs, 16), base=_rsqrt_base)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_reference(w, bs):
+    """JAX's ``_potrf_inv_impl`` of ``_spd(w, float64)`` at ``bs``, as
+    numpy arrays, traced and compiled once."""
+    fn = jax.jit(jax_potrf_inv_impl, static_argnums=1, static_argnames="bs")
+    jL, jLi = fn(jnp.asarray(_spd(w, np.float64)), None, bs=bs)
+    return np.asarray(jL), np.asarray(jLi)
+
+
+def _check_schedule_model(L, Li, D, b):
+    """The model's (L, L^-1) of D against both plain versions at bs = b:
+    residuals within F64_TOL, elementwise rtol 1e-10, zero above the
+    diagonal."""
+    Lp, Lip = potrf_inv_reference(torch.from_numpy(D), bs=b)
+    jL, jLi = _jax_reference(D.shape[0], b)
+    assert max(_residuals(L.numpy(), Li.numpy(), D)) < F64_TOL
+    for got, want in ((L, Lp.numpy()), (Li, Lip.numpy()),
+                      (L, jL), (Li, jLi)):
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-10,
+                                   atol=1e-10 * np.abs(want).max())
+    assert torch.equal(torch.triu(L, 1), torch.zeros_like(L))
+    assert torch.equal(torch.triu(Li, 1), torch.zeros_like(Li))
+
+
 @pytest.mark.parametrize("w,nb,b", [(1, 32, 32), (31, 32, 32), (33, 32, 32),
                                     (100, 32, 32), (129, 32, 32),
                                     (300, 32, 7)])
@@ -188,12 +256,31 @@ def test_two_level_blocking_matches_plain_and_jax(w, nb, b):
     and a sub-block cap that does not divide the block."""
     D = _spd(w, np.float64)
     L, Li = _two_level_potrf_inv(torch.from_numpy(D), nb, b)
-    Lp, Lip = potrf_inv_reference(torch.from_numpy(D), bs=b)
-    jL, jLi = jax_potrf_inv_impl(jnp.asarray(D), None, bs=b)
-    assert max(_residuals(L.numpy(), Li.numpy(), D)) < F64_TOL
-    for got, want in ((L, Lp.numpy()), (Li, Lip.numpy()),
-                      (L, np.asarray(jL)), (Li, np.asarray(jLi))):
-        np.testing.assert_allclose(got.numpy(), want, rtol=1e-10,
-                                   atol=1e-10 * np.abs(want).max())
-    assert torch.equal(torch.triu(L, 1), torch.zeros_like(L))
-    assert torch.equal(torch.triu(Li, 1), torch.zeros_like(Li))
+    _check_schedule_model(L, Li, D, b)
+
+
+@pytest.mark.parametrize("w,b", [(1, 32), (31, 32), (33, 32), (65, 32),
+                                 (100, 32), (129, 32), (300, 7)])
+def test_f64_route_blocking_matches_plain_and_jax(w, b):
+    """The float64 route's schedule (``_f64_route_potrf_inv``: 64-column
+    diagonal blocks in 16-column sub-blocks, the rsqrt recurrence of
+    ``warp_base16``) agrees with the plain version and with JAX's
+    ``_potrf_inv_impl`` to rtol 1e-10 at the float32 schedule's edges and
+    its own: w below, at and past a sub-block and a block, blocks that do
+    not divide w, and a cap that divides neither the block nor its
+    sub-blocks."""
+    D = _spd(w, np.float64)
+    L, Li = _f64_route_potrf_inv(torch.from_numpy(D), b)
+    _check_schedule_model(L, Li, D, b)
+
+
+@pytest.mark.parametrize("b", [1, 5, 16, 32])
+def test_rsqrt_base_is_the_factor_and_its_inverse(b):
+    """``warp_base16``'s recurrence on one sub-block gives LAPACK's
+    Cholesky factor and its inverse to rtol 1e-12 (float64)."""
+    blk = torch.from_numpy(np.tril(_spd(b, np.float64)))
+    S, X = _rsqrt_base(blk)
+    Lref, Xref = _lapack_base(blk)
+    for got, want in ((S, Lref), (X, Xref)):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-12,
+                                   atol=1e-12 * want.abs().max().item())

@@ -57,7 +57,7 @@ from elemental_tpu_torch.kernels import (lu_panel, lu_panel_reference,
                                          potrf_inv, potrf_inv_reference,
                                          qr_panel, qr_panel_reference)
 from elemental_tpu_torch.kernels.qr_panel import _larft, _panel_v
-from chip_smoke import eig_gates, qr_residuals
+from chip_smoke import eig_gates, potrf_check, potrf_routes, qr_residuals
 
 pytestmark = pytest.mark.gpu
 
@@ -117,6 +117,71 @@ def test_kernel_reads_lower_triangle_of_a_strided_view():
     L2, Li2 = potrf_inv(big[:64, :64].contiguous(), bs=32)
     torch.cuda.synchronize()
     assert torch.equal(L1, L2) and torch.equal(Li1, Li2)
+
+
+#: the float64 route's edges: one column, below / at / past a 16-column
+#: sub-block, a 64-column diagonal block and a 64-row tile, blocks that do
+#: not divide w
+F64_EDGES = [1, 17, 31, 33, 64, 65, 100, 129, 300, 1000]
+
+
+@pytest.mark.parametrize("bs", [1, 16, 32])
+@pytest.mark.parametrize("w", F64_EDGES)
+def test_f64_route_matches_plain_version(w, bs):
+    """The float64 route (DMMA products, 64-column blocks, 16-column base)
+    against the plain version at its edges and under each sub-block cap:
+    ``chip_smoke.py`` phase 2's check (residuals within RES_TOL float64
+    scaled with w / 256, elementwise within ELEM_TOL), one launch, zero
+    above the diagonal."""
+    _need_card()
+    D = _spd(w, torch.float64)
+    before = potrf_inv.launches
+    L, Li = potrf_inv(D, bs=bs)
+    torch.cuda.synchronize()
+    assert potrf_inv.launches == before + 1
+    potrf_check(D, L, Li)
+    assert torch.equal(torch.triu(L, 1), torch.zeros_like(L))
+    assert torch.equal(torch.triu(Li, 1), torch.zeros_like(Li))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["float32", "float64"])
+def test_kernel_gives_nans_on_a_block_that_is_not_positive_definite(dtype):
+    """A negative pivot in the third diagonal block: the kernel's factor
+    holds NaNs, as the plain version's does."""
+    _need_card()
+    D = _spd(100, dtype)
+    D[70, 70] = -1e6
+    L, Li = potrf_inv(D)
+    torch.cuda.synchronize()
+    Lp, _ = potrf_inv_reference(D)
+    assert torch.isnan(L).any() and torch.isnan(Lp).any()
+    assert torch.isfinite(L[:64, :64]).all()
+
+
+def test_f64_route_reads_lower_triangle_of_a_strided_view():
+    """The float64 route reads the lower triangle of a view of leading
+    dimension 301, at an even width (16-byte rows of L and L^-1: operands
+    staged by cp.async) and an odd one (staged element by element):
+    bit-equal to the contiguous block's result."""
+    _need_card()
+    big = _spd(301, torch.float64)
+    junk = big + torch.triu(torch.ones_like(big), 1)
+    for w in (300, 129):
+        L1, Li1 = potrf_inv(junk[:w, :w])
+        L2, Li2 = potrf_inv(big[:w, :w].contiguous())
+        torch.cuda.synchronize()
+        assert torch.equal(L1, L2) and torch.equal(Li1, Li2)
+
+
+def test_f64_route_issues_dmma_and_f32_none():
+    """The built library's SASS (``cuobjdump -sass``): DMMA in the float64
+    kernel, none in the float32 one (``chip_smoke.potrf_routes``)."""
+    _need_card()
+    from elemental_tpu_torch.kernels import common
+    got = potrf_routes(common.build(["potrf_inv"])["potrf_inv"])
+    assert got["float64"]["DMMA"] > 0 and got["float32"]["DMMA"] == 0
+    assert got["float32"]["FFMA"] > 0
 
 
 def test_kernel_refuses_complex():
