@@ -447,6 +447,39 @@ def potrf_routes(lib_path) -> dict:
     return got
 
 
+#: the product kernels the float64 routes of lu_panel and qr_panel moved to
+#: the FP64 tensor cores, and their float32 twins on the FMA tiles (tags of
+#: the mangled names in the SASS)
+PANEL_PRODUCTS = {"lu_panel": ("dm_update_kernel", "update_kernelIf",
+                               "update_kernelId"),
+                  "qr_panel": ("dm_fgemm_kernel", "fgemm_kernelIf",
+                               "fgemm_kernelId")}
+
+
+def panel_routes(lib_path, name: str) -> dict:
+    """The DMMA count of each instantiation of ``name``'s product kernels
+    (``lu_panel`` / ``qr_panel``); raises unless every float64 one issues
+    DMMA, no float32 one does, and no float64 instantiation of the FMA
+    product is left."""
+    dm_tag, f32_tag, old_tag = PANEL_PRODUCTS[name]
+    counts = sass_counts(lib_path)
+
+    def short(n):
+        return n.split("_cu_")[-1][:40]
+
+    got = {"float64": {short(n): c["DMMA"] for n, c in counts.items()
+                       if dm_tag in n},
+           "float32": {short(n): c["DMMA"] for n, c in counts.items()
+                       if f32_tag in n}}
+    old = [n for n in counts if old_tag in n]
+    if not (got["float64"] and got["float32"] and not old
+            and all(got["float64"].values())
+            and not any(got["float32"].values())):
+        raise AssertionError(f"{name} SASS: DMMA {got}, float64 FMA "
+                             f"products {old}")
+    return got
+
+
 def phase_kernels(et) -> list:
     """``potrf_inv`` against its plain version; returns the per-shape rows."""
     import torch
@@ -490,9 +523,10 @@ def phase_kernels(et) -> list:
     return rows
 
 
-def _tie_panel():
-    """A 32 x 8 float32 panel whose columns tie on |value| at every pivot
-    search (``tests/kernels/test_lu_panel.py``'s construction)."""
+def _tie_panel(dtype=None):
+    """A 32 x 8 float32 panel (or ``dtype``) whose columns tie on |value| at
+    every pivot search (``tests/kernels/test_lu_panel.py``'s
+    construction)."""
     import numpy as np
     import torch
     rng = np.random.default_rng(3)
@@ -501,7 +535,39 @@ def _tie_panel():
         P[:, j] = rng.integers(1, 4, size=32).astype(np.float32)
         P[j::5, j] = 3.0
         P[:, j] *= np.sign(rng.normal(size=32)) + 0.5
-    return torch.from_numpy(P).cuda()
+    return torch.from_numpy(P).to("cuda", dtype or torch.float32)
+
+
+def lu_panel_special(dtype) -> dict:
+    """A column with two NaNs (NaN ranks above every number and two NaNs
+    tie, so the lower row is the pivot) and an all-zero column (every |v|
+    ties at 0, so the first row is), past an outer block: the kernel's
+    pivots identical to the plain version's, the factor before the column
+    finite with max |L| <= 1; raises otherwise."""
+    import torch
+    from elemental_tpu_torch.kernels import lu_panel, lu_panel_reference
+    out = {}
+    for case in ("nan", "zero"):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(11)
+        P = torch.randn(700, 200, generator=gen, device="cuda", dtype=dtype)
+        if case == "nan":
+            P[650, 150] = P[500, 150] = float("nan")
+        else:
+            P[:, 150] = 0.0
+        packed, perm = lu_panel(P, 200, inner=48)
+        _, rperm = lu_panel_reference(P, 200, 48)
+        torch.cuda.synchronize()
+        ok = (torch.equal(perm, rperm)
+              and bool(torch.isfinite(packed[:, :150]).all())
+              and float(torch.tril(packed[:, :150], -1).abs().max()) <= 1.0)
+        if not ok:
+            raise AssertionError(f"lu_panel {case} column {dtype}: pivots "
+                                 f"differ or the factor before it is not "
+                                 f"finite and bounded")
+        out[case] = {"pivot_150": int(perm[150]),
+                     "pivots_differ": int((perm != rperm).sum())}
+    return out
 
 
 def lu_panel_check(P, nbw: int, inner: int, packed, perm,
@@ -562,7 +628,10 @@ def phase_lu_panel() -> list:
     returns the per-shape rows.  Pivots must be identical on the tie
     panel and the small shapes, not at the three large ones."""
     import torch
-    from elemental_tpu_torch.kernels import lu_panel, lu_panel_reference
+    from elemental_tpu_torch.kernels import common, lu_panel, \
+        lu_panel_reference
+    print("phase 2 lu_panel sass " + json.dumps(panel_routes(
+        common.build(["lu_panel"])["lu_panel"], "lu_panel")), flush=True)
     rows = []
     for M, nbw, dt, inner, large in (
             (32768, 2048, torch.float32, 64, True),
@@ -579,10 +648,29 @@ def phase_lu_panel() -> list:
             (1000, 129, torch.float32, 64, False),
             (2000, 257, torch.float32, 48, False),
             (8447, 300, torch.float32, 64, False),
-            (8449, 300, torch.float32, 48, False)):
+            (8449, 300, torch.float32, 48, False),
+            # the float64 route: the lu example's first panel, the tie
+            # panel, and the edges above (a slab too large for shared
+            # memory past ~58k rows in double; a strided view)
+            (16384, 1024, torch.float64, 64, True),
+            (32, 8, torch.float64, 4, False),
+            (1000, 127, torch.float64, 64, False),
+            (1000, 128, torch.float64, 48, False),
+            (1000, 129, torch.float64, 64, False),
+            (2000, 257, torch.float64, 48, False),
+            (8447, 300, torch.float64, 64, False),
+            (8449, 300, torch.float64, 48, False),
+            (60000, 96, torch.float64, 64, False),
+            (260, 32, torch.float64, 16, False)):
         name = str(dt).replace("torch.", "")
         if M == 32:
-            P = _tie_panel()
+            P = _tie_panel(dt)
+        elif M == 260:
+            # a strided view (leading dimension 96) of a larger panel
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(M + nbw)
+            P = torch.randn(300, 96, generator=gen, device="cuda",
+                            dtype=dt)[40:, 16:48]
         else:
             gen = torch.Generator(device="cuda")
             gen.manual_seed(M + nbw)
@@ -600,12 +688,16 @@ def phase_lu_panel() -> list:
                "library_ms": library_ms, "bound_ms": bound_ms,
                "bound_by": bound_by}
         print("phase 2 lu_panel " + json.dumps(row), flush=True)
-        if M == 32768:
+        if M == 32768 or (M, nbw, name) == (16384, 1024, "float64"):
             print("phase 2 lu_panel breakdown " + json.dumps(
                 _device_breakdown(lambda: lu_panel(P, nbw, inner=inner))),
                 flush=True)
         rows.append(row)
         del P, packed
+    print("phase 2 lu_panel special " + json.dumps(
+        {name: lu_panel_special(dt) for name, dt in (
+            ("float32", torch.float32), ("float64", torch.float64))}),
+        flush=True)
     return rows
 
 
@@ -645,6 +737,10 @@ def _qr_panels():
         return torch.randn(M, k, generator=gen, device="cuda", dtype=dt)
 
     yield "65536x2048", normal(65536, 2048, torch.float32, 1), "3c"
+    # the float64 route's paths: the qr_least_squares example's first
+    # panel (nb 128) and the 3p (b) sweep's
+    yield "32768x128", normal(32768, 128, torch.float64, 7), "3p"
+    yield "16384x128", normal(16384, 128, torch.float64, 8), "3p"
     yield "16384x512", normal(16384, 512, torch.float32, 5), "3e"
     yield "32768x512", normal(32768, 512, torch.float32, 5), None
     yield "40960x512", normal(40960, 512, torch.float32, 6), "3h"
@@ -665,6 +761,16 @@ def _qr_panels():
     yield "graded", Gd, None
     big = normal(5000, 700, torch.float32, 4)
     yield "strided-view", big[7:, 50:562], None
+    # the float64 route's edges: the blocking's, a slab in place in device
+    # memory (past ~113k rows in double), a zero column, a strided view
+    for M, k in ((1000, 130), (4097, 257), (2048, 300), (300, 300),
+                 (8447, 300), (8449, 300), (120000, 96)):
+        yield f"{M}x{k}", normal(M, k, torch.float64, M + k), None
+    Zd = normal(4096, 512, torch.float64, 2)
+    Zd[:, 300] = 0.0
+    yield "zero-column", Zd, None
+    bigd = normal(5000, 700, torch.float64, 4)
+    yield "strided-view", bigd[7:, 50:562], None
 
 
 def qr_panel_check(P, label: str, packed, tau, T) -> dict:
@@ -725,7 +831,10 @@ def phase_qr_panel() -> list:
     """``qr_panel`` against its plain version (:func:`qr_panel_check`);
     returns the per-shape rows."""
     import torch
-    from elemental_tpu_torch.kernels import qr_panel, qr_panel_reference
+    from elemental_tpu_torch.kernels import common, qr_panel, \
+        qr_panel_reference
+    print("phase 2 qr_panel sass " + json.dumps(panel_routes(
+        common.build(["qr_panel"])["qr_panel"], "qr_panel")), flush=True)
     rows = []
     for label, P, path in _qr_panels():
         name = str(P.dtype).replace("torch.", "")
@@ -743,7 +852,7 @@ def phase_qr_panel() -> list:
                "library_ms": library_ms, "bound_ms": bound_ms,
                "bound_by": bound_by}
         print("phase 2 qr_panel " + json.dumps(row), flush=True)
-        if path == "3c":
+        if path == "3c" or (label, name) == ("32768x128", "float64"):
             print("phase 2 qr_panel breakdown " + json.dumps(
                 _device_breakdown(lambda: qr_panel(P))), flush=True)
         row["path"] = path

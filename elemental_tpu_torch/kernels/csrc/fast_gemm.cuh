@@ -438,14 +438,13 @@ __device__ void dm_issue(const Op<double>& A, int m, const Op<double>& B,
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-// Wait for dm_issue's operands, then acc += A B over the tile.  All
-// threads of the CTA must call it.
+// acc += A B over a 64 x 16 TN tile whose operands (depth K <= KMAX) are
+// staged in smem as dm_issue leaves them.
 template <int TN, int KMAX>
-__device__ void dm_mma(double (&acc)[2][TN / 2][4], int akmajor, int bkmajor,
-                       int K, const double* smem) {
+__device__ __forceinline__ void dm_mma_smem(double (&acc)[2][TN / 2][4],
+                                            int akmajor, int bkmajor, int K,
+                                            const double* smem) {
   constexpr int NI = TN / 2;
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-  __syncthreads();
   const double* As = smem;
   const double* Bs = smem + dm_region<DM_BM, KMAX>();
   const int lda = dm_ld<DM_BM, KMAX>(akmajor);
@@ -473,6 +472,70 @@ __device__ void dm_mma(double (&acc)[2][TN / 2][4], int akmajor, int bkmajor,
     for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
       for (int ni = 0; ni < NI; ++ni) dmma_16x8x8(acc[mi][ni], a[mi], b[ni]);
+  }
+}
+
+// Wait for dm_issue's operands, then acc += A B over the tile.  All
+// threads of the CTA must call it.
+template <int TN, int KMAX>
+__device__ void dm_mma(double (&acc)[2][TN / 2][4], int akmajor, int bkmajor,
+                       int K, const double* smem) {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+  dm_mma_smem<TN, KMAX>(acc, akmajor, bkmajor, K, smem);
+}
+
+// acc += A(m x K) B(K x n) over a 64 x 16 TN tile for any K: k-tiles of
+// DM_BK staged by cp.async, the next requested while the current one is
+// multiplied (two buffers, dm_long_smem_bytes<TN>()).  The products of one
+// k-tile run in the order dm_mma runs them, k-tile after k-tile.  All
+// threads of the CTA must call it.
+constexpr int DM_BK = 32;
+
+template <int TN>
+__host__ __device__ constexpr size_t dm_long_stage() {
+  return dm_region<DM_BM, DM_BK>() + dm_region<16 * TN, DM_BK>();
+}
+
+template <int TN>
+__host__ __device__ constexpr size_t dm_long_smem_bytes() {
+  return 2 * dm_long_stage<TN>() * sizeof(double);
+}
+
+template <int TN>
+__device__ __forceinline__ void dm_long_issue(const Op<double>& A, int m,
+                                              const Op<double>& B, int n,
+                                              int K, int k0, bool vec,
+                                              double* s) {
+  Op<double> a = A, b = B;
+  a.p += A.kmajor ? (size_t)k0 * A.ld : (size_t)k0;
+  b.p += B.kmajor ? (size_t)k0 * B.ld : (size_t)k0;
+  dm_stage<DM_BM, DM_BK>(s, a, m, K - k0, vec);
+  dm_stage<16 * TN, DM_BK>(s + dm_region<DM_BM, DM_BK>(), b, n, K - k0, vec);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int TN>
+__device__ void dm_tile_mma(double (&acc)[2][TN / 2][4], const Op<double>& A,
+                            int m, const Op<double>& B, int n, int K,
+                            bool vec, double* smem) {
+  constexpr size_t STAGE = dm_long_stage<TN>();
+  __syncthreads();                   // smem may still be read by a caller
+  dm_long_issue<TN>(A, m, B, n, K, 0, vec, smem);
+  int buf = 0;
+  for (int k0 = 0; k0 < K; k0 += DM_BK) {
+    if (k0 + DM_BK < K) {
+      dm_long_issue<TN>(A, m, B, n, K, k0 + DM_BK, vec,
+                        smem + (buf ^ 1) * STAGE);
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    }
+    __syncthreads();
+    const int kt = K - k0 < DM_BK ? K - k0 : DM_BK;
+    dm_mma_smem<TN, DM_BK>(acc, A.kmajor, B.kmajor, kt, smem + buf * STAGE);
+    __syncthreads();                 // the buffer is free for the k-tile after next
+    buf ^= 1;
   }
 }
 

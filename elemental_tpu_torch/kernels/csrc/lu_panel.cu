@@ -22,14 +22,16 @@
 //                  cw columns in shared memory when they fit, else worked
 //                  on in place in device memory (no size limit).  Column
 //                  j, after the barrier that closes column j - 1:
-//                    - every thread reads column j's pivot key (float: one
-//                      64-bit word that every CTA raised with atomicMax,
-//                      (bits(|v|) << 32) | (0xffffffff - row), NaN made one
-//                      bit pattern above +inf, so the word's order is the
-//                      search's; double, whose |v| and row do not fit one
-//                      word: each warp reduces the G per-CTA candidates),
-//                      then the pivot row's chunk, which the owner of p
-//                      (known from the slab arithmetic) published, and row
+//                    - every thread reads column j's pivot key, one load
+//                      (float: one 64-bit word that every CTA raised with
+//                      atomicMax, (bits(|v|) << 32) | (0xffffffff - row),
+//                      NaN made one bit pattern above +inf, so the word's
+//                      order is the search's; double, whose |v| and row do
+//                      not fit one word: the same pair as a 128-bit key
+//                      raised by a compare-and-swap loop on
+//                      atom.cas.b128), then the pivot row's chunk, which
+//                      the owner of p (known from the slab arithmetic)
+//                      published, and row
 //                      j's; the owners of rows j and p store the swap;
 //                    - one fused pass over the slab: column j scaled,
 //                      column j + 1 updated and searched, so the CTA knows
@@ -61,9 +63,13 @@
 //
 // perm_kernel composes the nbw swaps into the length-M permutation: output
 // row i came from input row tau_0(tau_1(...tau_{nbw-1}(i))), tau_j the swap
-// (j, piv[j]).  Every product runs on the register tiles of fast_gemm.cuh
-// (tile_mma for K = 128; tile_mma_short, every k-tile requested at once,
-// for K <= 64), full-precision FMA, 16-byte loads and epilogues.  Nothing
+// (j, piv[j]).  Every float product runs on the register tiles of
+// fast_gemm.cuh (tile_mma for K = 128; tile_mma_short, every k-tile
+// requested at once, for K <= 64), full-precision FMA, 16-byte loads and
+// epilogues; every double product on its FP64 tensor-core tiles
+// (dm_update_kernel: dm_tile_mma, mma.sync m16n8k8 f64, 32-deep k-tiles
+// staged by cp.async, two in flight), each product an IEEE fused
+// multiply-add.  The unit-lower solves stay on the CUDA cores.  Nothing
 // is allocated here (the wrapper passes the scratch), nothing
 // synchronizes with the host, and no library is called.  Each entry point
 // returns the first cudaError_t that is not cudaSuccess.
@@ -84,6 +90,16 @@
 // replay), the outer products ~3.9 ms (~33 TFLOP/s: K = 128 is eight
 // k-tiles, so each tile's prologue and epilogue weigh), the solves, the
 // inner products and the gathers ~0.8 ms.
+//
+// The double route (the lu example's 16384 x 1024 panel: 0.25 ms at the
+// data-sheet 67 TFLOP/s of the FP64 tensor cores) was float's instantiated
+// for double: ~7.7 ms, ~4.9 us a column, 2.6 of them each warp's reduction
+// of the 132 CTAs' candidates behind every barrier, and its products on
+// the FMA pipe (1.8 ms for the K = 128 updates).  It now reads one key as
+// float does (raising it costs ~1.2 us a column more than float's
+// atomicMax in publish and wait), keeps its candidates as (bits, row)
+// pairs (integer compares, no NaN tests), and runs its products on DMMA
+// (0.72 ms): ~5.1 ms.
 
 #include <cuda_runtime.h>
 
@@ -114,30 +130,26 @@ struct LCfg<double> {
   static constexpr int TM = 4;       // 64-row tiles
 };
 
-// x - l u, rounded once.  Every copy of an updated entry (the slab's, a
-// published row's) comes from this expression, so the copies agree.
+// x - l u.  Every copy of an updated entry (the slab's, a published row's)
+// comes from this expression, so the copies agree.  float: rounded once
+// (a fused multiply-add).  double: the product rounded, then the
+// difference, as the plain version's x - l u: rounded once, an update can
+// break an exact tie of the plain version's (two rows at 1.5) the other
+// way, and the pivot sequence must be the plain version's tie for tie.
 __device__ __forceinline__ float upd(float x, float l, float u) {
   return __fmaf_rn(-l, u, x);
 }
 __device__ __forceinline__ double upd(double x, double l, double u) {
-  return __fma_rn(-l, u, x);
-}
-
-// Is candidate (va, ia) preferred over (vb, ib)?  Row -1 is "no candidate";
-// NaN beats every number; a larger |v| wins; equal keys go to the lower row.
-__device__ __forceinline__ bool better(double va, int ia, double vb, int ib) {
-  if (ib < 0) return ia >= 0;
-  if (ia < 0) return false;
-  const bool na = isnan(va), nb = isnan(vb);
-  if (na != nb) return na;
-  if (!na && va != vb) return va > vb;
-  return ia < ib;
+  return __dsub_rn(x, __dmul_rn(l, u));
 }
 
 // A pivot candidate: offer() takes a value and its row, merge() keeps the
 // better of two, warp_best() the warp's best, row() is the winner's row
-// (-1 for none).  float packs
-// (|v|, row) into one key whose unsigned order is the search's order.
+// (-1 for none).  Both order (|v|, row) as unsigned words: the bits of |v|
+// (NaN made one pattern above +inf: a non-negative float's bits order as
+// its value), then 0xffffffff - row, so a larger |v| wins, NaN above every
+// number, and equal values go to the lower row.  float packs the two into
+// one 64-bit key; double keeps them as a pair (h, l).
 struct CandF {
   unsigned long long k;              // 0: no candidate
   __device__ void reset() { k = 0ull; }
@@ -165,30 +177,38 @@ struct CandF {
 };
 
 struct CandD {
-  double v;
-  int i;                             // -1: no candidate
+  unsigned long long h;              // bits(|v|)
+  unsigned l;                        // 0xffffffff - row; 0: no candidate
   __device__ void reset() {
-    v = 0.0;
-    i = -1;
+    h = 0ull;
+    l = 0u;
   }
-  __device__ void take(double a, int row) {
-    if (better(a, row, v, i)) {
-      v = a;
-      i = row;
+  __device__ void take(unsigned long long oh, unsigned ol) {
+    if (oh > h || (oh == h && ol > l)) {
+      h = oh;
+      l = ol;
     }
   }
-  __device__ void offer(double x, int row) { take(fabs(x), row); }
-  __device__ void merge(const CandD& o) { take(o.v, o.i); }
+  __device__ void offer(double x, int row) {
+    const double a = fabs(x);
+    take(isnan(a) ? 0x7ff8000000000000ull
+                  : (unsigned long long)__double_as_longlong(a),
+         0xffffffffu - (unsigned)row);
+  }
+  __device__ void merge(const CandD& o) { take(o.h, o.l); }
+  // the warp's best, in every lane: the largest h, then the largest l
+  // among the lanes that hold it
   __device__ void warp_best() {
+    unsigned long long m = h;
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) {
-      CandD o;
-      o.v = __shfl_xor_sync(FULL, v, off);
-      o.i = __shfl_xor_sync(FULL, i, off);
-      merge(o);
+      const unsigned long long o = __shfl_xor_sync(FULL, m, off);
+      m = o > m ? o : m;
     }
+    l = __reduce_max_sync(FULL, h == m ? l : 0u);
+    h = m;
   }
-  __device__ int row() const { return i; }
+  __device__ int row() const { return l ? (int)(0xffffffffu - l) : -1; }
 };
 
 template <typename T>
@@ -202,54 +222,84 @@ struct CandOf<double> {
   using type = CandD;
 };
 
-// Scratch: T: cbuf[2][gmax][CW] | jbuf[2][CW] | cval[2][gmax] |
-// rb[2 CW][OB] | rbo[2 OB][nbw]; 64-bit words, zero on entry: key[nbw] |
-// the barrier counter | crow[2][gmax] and piv[nbw] as int.
+// Scratch: T: cbuf[2][gmax][CW] | jbuf[2][CW] | rb[2 CW][OB] |
+// rbo[2 OB][nbw]; 64-bit words, zero on entry: key[4 nbw] | the barrier
+// counter | piv[nbw] as int.
 template <typename T>
 struct Scratch {
   T* cbuf;                           // each CTA's candidate row, by parity
   T* jbuf;                           // row j's chunk, by parity
-  T* cval;                           // double: each CTA's candidate |v|
   T* rb;                             // a chunk's displaced rows
   T* rbo;                            // an outer block's displaced rows
-  unsigned long long* key;           // float: column j's pivot key
+  unsigned long long* key;           // column j's pivot key: key[j] (float),
+                                     // key[4 j .. 4 j + 2] (double)
   unsigned* ctr;                     // grid_count_arrive's counter
-  int* crow;                         // double: each CTA's candidate row
   int* piv;                          // the pivot row of every column
   int gmax;
 };
 
-// This CTA's candidate for column jn into the slot of parity par.
-__device__ __forceinline__ void publish_key(const CandF& c, int jn, int,
+// Raise this CTA's candidate into column jn's key.  float: one 64-bit
+// word, (bits(|v|) << 32) | (0xffffffff - row), by atomicMax.
+__device__ __forceinline__ void publish_key(const CandF& c, int jn,
                                             const Scratch<float>& sc) {
   if (c.k) atomicMax(&sc.key[jn], c.k);
 }
 
-__device__ __forceinline__ void publish_key(const CandD& c, int, int par,
-                                            const Scratch<double>& sc) {
-  const int slot = par * sc.gmax + blockIdx.x;
-  sc.cval[slot] = c.v;
-  sc.crow[slot] = c.i;
+// double: a 128-bit key, high word bits(|v|) (NaN made one pattern above
+// +inf: a non-negative double's bits order as its value), low word
+// 0xffffffff - row (CandD's pair), raised by a compare-and-swap loop on
+// atom.cas.b128.  First every CTA raises the high word alone in a word of
+// its own (atomicMax, which returns the maximum before it): a CTA that
+// finds a larger |v| there cannot hold the pivot and stops, so only the
+// few CTAs that held the maximum when they came (the last of them, and
+// every tie of it, among them) enter the loop, not all G at once.  In the
+// loop the high word only grows, so a stale read of it that already beats
+// the candidate ends the loop; any other stale read just fails one CAS,
+// which returns the key as it stands.  (Spreading the CTAs over 4 or 8
+// keys a column, each read back and reduced by a warp, was slower on an
+// H100: the extra reads cost more than the contention.)
+__device__ __forceinline__ void cas_b128(unsigned long long* p,
+                                         unsigned long long& hi,
+                                         unsigned long long& lo,
+                                         unsigned long long nhi,
+                                         unsigned long long nlo) {
+  asm volatile(
+      "{\n\t.reg .b128 c, s, o;\n\t"
+      "mov.b128 c, {%0, %1};\n\t"
+      "mov.b128 s, {%3, %4};\n\t"
+      "atom.relaxed.gpu.global.cas.b128 o, [%2], c, s;\n\t"
+      "mov.b128 {%0, %1}, o;\n\t}"
+      : "+l"(lo), "+l"(hi)
+      : "l"(p), "l"(nlo), "l"(nhi)
+      : "memory");
 }
 
-// Column j's pivot row, the same in every thread of every CTA.
-__device__ __forceinline__ int resolve(int j, int, int,
-                                       const Scratch<float>& sc) {
+__device__ __forceinline__ void publish_key(const CandD& c, int jn,
+                                            const Scratch<double>& sc) {
+  if (!c.l) return;
+  unsigned long long* p = sc.key + 4 * (size_t)jn;
+  const unsigned long long mh = c.h, ml = c.l;
+  unsigned long long hi = atomicMax(p + 2, mh), lo = 0;
+  if (hi > mh) return;                 // a larger |v| came first
+  hi = __ldcg(p + 1), lo = __ldcg(p);
+  while (mh > hi || (mh == hi && ml > lo)) {
+    const unsigned long long eh = hi, el = lo;
+    cas_b128(p, hi, lo, mh, ml);
+    if (hi == eh && lo == el) break;   // ours is in
+  }
+}
+
+// Column j's pivot row, the same in every thread of every CTA: the key's
+// low word, one load.
+__device__ __forceinline__ int resolve(int j, const Scratch<float>& sc) {
   CandF c;
   c.k = __ldcg(&sc.key[j]);
   return c.row();
 }
 
-__device__ __forceinline__ int resolve(int, int par, int G,
-                                       const Scratch<double>& sc) {
-  CandD c;
-  c.reset();
-  for (int g = threadIdx.x & 31; g < G; g += 32) {
-    const int slot = par * sc.gmax + g;
-    c.take(__ldcg(&sc.cval[slot]), __ldcg(&sc.crow[slot]));
-  }
-  c.warp_best();
-  return c.row();
+__device__ __forceinline__ int resolve(int j, const Scratch<double>& sc) {
+  const unsigned long long lo = __ldcg(&sc.key[4 * (size_t)j]);
+  return lo ? (int)(0xffffffffull - lo) : -1;
 }
 
 // The CTA's best candidate, in every thread (one block barrier).
@@ -370,14 +420,14 @@ factor_chunk(T* P, long long ld, int M, Chunk ch, Scratch<T> sc) {
       c.offer(A[(size_t)(i - r0) * rs], i);
     c = block_best(c, red);
     publish_rows(A, rs, r0, r1, cw, -1, ush, c.row(), s, 0, sc);
-    if (tid == 0) publish_key(c, s, 0, sc);
+    if (tid == 0) publish_key(c, s, sc);
     grid_count_arrive(sc.ctr);
     target += G;
     grid_count_wait(sc.ctr, target);
   }
   for (int j = s; j < e; ++j) {
     const int jc = j - s, par = jc & 1;
-    const int p = resolve(j, par, G, sc);
+    const int p = resolve(j, sc);
     const int bp = (p - s) / R;                  // the CTA that owns row p
     if (tid < cw) {
       const T u = __ldcg(&sc.cbuf[((size_t)par * sc.gmax + bp) * CW + tid]);
@@ -408,7 +458,7 @@ factor_chunk(T* P, long long ld, int M, Chunk ch, Scratch<T> sc) {
       }
       c = block_best(c, red);
       publish_rows(A, rs, r0, r1, cw, jc, ush, c.row(), j + 1, par ^ 1, sc);
-      if (tid == 0) publish_key(c, j + 1, par ^ 1, sc);
+      if (tid == 0) publish_key(c, j + 1, sc);
       grid_count_arrive(sc.ctr);
       target += G;
       rest_update(A, rs, r0, i0, r1, jc, cw, ush);
@@ -611,25 +661,92 @@ update_kernel(const T* A, long long lda, const T* B, long long ldb, T* C,
   }
 }
 
+// The float64 route's update_kernel: C -= A B on the FP64 tensor cores
+// (DMMA), 64 x 16 TN tiles of fast_gemm.cuh's dm_tile_mma (32-deep k-tiles
+// staged by cp.async, two in flight), any K.  Each thread's outputs come
+// in pairs of adjacent columns: 16-byte loads and stores where aligned.
+template <int TN>
+__global__ void __launch_bounds__(FG_THREADS)
+dm_update_kernel(const double* A, long long lda, const double* B,
+                 long long ldb, double* C, long long ldc, int m, int n, int K,
+                 int vec, int cvec) {
+  constexpr int NI = TN / 2;
+  extern __shared__ __align__(16) unsigned char dyn[];
+  const int row0 = blockIdx.y * DM_BM, col0 = blockIdx.x * 16 * TN;
+  const Op<double> a{A + (size_t)row0 * lda, lda, 0};
+  const Op<double> bb{B + col0, ldb, 1};
+  const int mm = m - row0 < DM_BM ? m - row0 : DM_BM;
+  const int nn = n - col0 < 16 * TN ? n - col0 : 16 * TN;
+  double acc[2][NI][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) acc[mi][ni][v] = 0.0;
+  dm_tile_mma<TN>(acc, a, mm, bb, nn, K, vec != 0,
+                  reinterpret_cast<double*>(dyn));
+  double* out = C + (size_t)row0 * ldc + col0;
+  double old[2][NI][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = dm_row(mi, h), c = dm_col<TN>(ni);
+        dm_ld2(out + (size_t)r * ldc + c, cvec != 0, r < mm ? nn - c : 0,
+               &old[mi][ni][2 * h]);
+      }
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = dm_row(mi, h), c = dm_col<TN>(ni);
+        if (r >= mm) continue;
+        const double v[2] = {old[mi][ni][2 * h] - acc[mi][ni][2 * h],
+                             old[mi][ni][2 * h + 1] - acc[mi][ni][2 * h + 1]};
+        dm_st2(out + (size_t)r * ldc + c, cvec != 0, nn - c, v);
+      }
+}
+
 int ceil_div(long long a, long long b) { return (int)((a + b - 1) / b); }
 
+// C (m x n) -= A (m x K) B (K x n): float on update_kernel<TM, TN, SHORT>,
+// double on dm_update_kernel<TN> (TM and SHORT are float's).
 template <typename T, int TM, int TN, bool SHORT>
 cudaError_t update(cudaStream_t st, const T* A, long long lda, const T* B,
                    long long ldb, T* C, long long ldc, int m, int n, int K) {
   if (m <= 0 || n <= 0 || K <= 0) return cudaSuccess;
-  constexpr int BM = 16 * TM, BN = 16 * TN;
-  const size_t smem = SHORT ? fg_short_smem_bytes<T, TM, CW>()
-                            : fg_smem_bytes<T, TM>();
-  cudaError_t err = cudaFuncSetAttribute(
-      update_kernel<T, TM, TN, SHORT>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const int vec = fg_aligned(A, lda) && fg_aligned(B, ldb);
-  const int cvec = fg_aligned(C, ldc);
-  update_kernel<T, TM, TN, SHORT>
-      <<<dim3(ceil_div(n, BN), ceil_div(m, BM)), FG_THREADS, smem, st>>>(
-          A, lda, B, ldb, C, ldc, m, n, K, vec, cvec);
-  return cudaGetLastError();
+  if constexpr (sizeof(T) == 8) {
+    constexpr size_t smem = dm_long_smem_bytes<TN>();
+    cudaError_t err = cudaFuncSetAttribute(
+        dm_update_kernel<TN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return err;
+    const int vec = fg_aligned(A, lda) && fg_aligned(B, ldb);
+    const int cvec = fg_aligned(C, ldc);
+    dm_update_kernel<TN><<<dim3(ceil_div(n, 16 * TN), ceil_div(m, DM_BM)),
+                           FG_THREADS, smem, st>>>(A, lda, B, ldb, C, ldc, m,
+                                                   n, K, vec, cvec);
+    return cudaGetLastError();
+  } else {
+    constexpr int BM = 16 * TM, BN = 16 * TN;
+    const size_t smem = SHORT ? fg_short_smem_bytes<T, TM, CW>()
+                              : fg_smem_bytes<T, TM>();
+    cudaError_t err = cudaFuncSetAttribute(
+        update_kernel<T, TM, TN, SHORT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    const int vec = fg_aligned(A, lda) && fg_aligned(B, ldb);
+    const int cvec = fg_aligned(C, ldc);
+    update_kernel<T, TM, TN, SHORT>
+        <<<dim3(ceil_div(n, BN), ceil_div(m, BM)), FG_THREADS, smem, st>>>(
+            A, lda, B, ldb, C, ldc, m, n, K, vec, cvec);
+    return cudaGetLastError();
+  }
 }
 
 // perm[i] = tau_0(tau_1(...tau_{nbw-1}(i))), tau_j = swap (j, piv[j]).
@@ -646,12 +763,11 @@ __global__ void perm_kernel(const int* piv, int nbw, int M,
 }
 
 long long scratch_elems(int nbw, int gmax) {
-  return 2LL * gmax * CW + 2LL * CW + 2LL * gmax + 2LL * CW * OB +
-         2LL * OB * nbw;
+  return 2LL * gmax * CW + 2LL * CW + 2LL * CW * OB + 2LL * OB * nbw;
 }
 
-long long scratch_words(int nbw, int gmax) {
-  return nbw + 1 + (2LL * gmax + nbw + 1) / 2;
+long long scratch_words(int nbw, int) {
+  return 4LL * nbw + 1 + (nbw + 1) / 2;
 }
 
 template <typename T>
@@ -682,13 +798,11 @@ int lu_panel(T* P, long long ld, int M, int nbw, int inner, long long* perm,
   Scratch<T> sc;
   sc.cbuf = ws;
   sc.jbuf = sc.cbuf + 2 * (size_t)gmax * CW;
-  sc.cval = sc.jbuf + 2 * CW;
-  sc.rb = sc.cval + 2 * (size_t)gmax;
+  sc.rb = sc.jbuf + 2 * CW;
   sc.rbo = sc.rb + 2 * (size_t)CW * OB;
   sc.key = wz;
-  sc.ctr = reinterpret_cast<unsigned*>(wz + nbw);
-  sc.crow = reinterpret_cast<int*>(wz + nbw + 1);
-  sc.piv = sc.crow + 2 * gmax;
+  sc.ctr = reinterpret_cast<unsigned*>(wz + 4 * (size_t)nbw);
+  sc.piv = reinterpret_cast<int*>(wz + 4 * (size_t)nbw + 1);
   sc.gmax = gmax;
   constexpr int TM = LCfg<T>::TM;
   unsigned base = 0;                   // the barrier counter so far

@@ -34,8 +34,10 @@
 //                  chunk's columns right of j and accumulates the next
 //                  column's partials from the updated values (each lane
 //                  recomputes the row's new entry in column j + 1 by the
-//                  same expression as the lane that owns it); one
-//                  grid.sync().  At the end the chunk's rows [s, e) hold
+//                  same expression as the lane that owns it); one grid
+//                  barrier (float: grid.sync(); double: the counting
+//                  barrier of grid_sync.cuh, on a word the host zeroes
+//                  once a call).  At the end the chunk's rows [s, e) hold
 //                  V's unit upper part, R's triangle is kept aside, and
 //                  tau[s:e] is written.
 //   Z_i = V_c^T P[s:M, so:eo]  split over rows, slices summed in order;
@@ -57,8 +59,10 @@
 //   P[so:M, eo:k] -= V_o Y_o[:, eo:]   (K = 128: the panel streams once
 //                  per 128 columns, not twice per 64)
 //
-// Every product is fgemm_kernel: the register tiles of fast_gemm.cuh
-// (128 x 128 float, 64 x 128 double), full-precision FMA, 16-byte loads.
+// Every float product is fgemm_kernel: the register tiles of fast_gemm.cuh
+// (128 x 128), full-precision FMA, 16-byte loads; every double product
+// dm_fgemm_kernel: its FP64 tensor-core tiles (64 x 128, dm_tile_mma,
+// mma.sync m16n8k8 f64 on 32-deep k-tiles staged by cp.async).
 // Nothing is allocated here (the wrapper passes the outputs and the
 // scratch), nothing synchronizes with the host, and no library is called.
 // Each entry point returns the first cudaError_t that is not cudaSuccess.
@@ -80,6 +84,15 @@
 // pass, 1.4 the grid barrier); and the products' CUDA-core rate (~41
 // TFLOP/s for Z_o, ~30 for the update; no TF32 is allowed, DMMA would
 // serve double only).
+//
+// The double route (the qr_least_squares example's 32768 x 128 panel, nb
+// 128: 0.024 ms at the data-sheet 67 TFLOP/s of the FP64 tensor cores) is
+// spine-bound: ~6 us a column, in four chunks of 32, against ~0.3 ms of
+// products.  It was float's instantiated for double (~1.26 ms on an H100
+// SXM at 700 W); it now closes its columns at counting barriers, sizes its
+// launches for the spine's latency (spine_ctas), and runs its products on
+// DMMA: ~1.12 ms.  Folding v's divisions into the fused pass (a lane per
+// row of four, by shuffle) was slower: it serialized the divisions.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -87,6 +100,7 @@
 #include <cstddef>
 
 #include "fast_gemm.cuh"
+#include "grid_sync.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -97,7 +111,6 @@ constexpr int OB = 128;              // outer block
 constexpr int SROW = CW + 1;         // row stride of a slab in shared memory
 constexpr int THREADS = 512;         // per CTA of factor_chunk
 constexpr int RQ = THREADS / CW;     // warps: rows of the slab passes
-constexpr int ROWS_PER_CTA = 64;     // fewest rows worth a CTA
 constexpr int MAXG = 160;            // most CTAs of factor_chunk
 constexpr int MT = (MAXG + RQ - 1) / RQ;
 constexpr int MAX_SPLIT_O = 64;      // slices of an outer block's Z_o
@@ -115,13 +128,45 @@ struct QCfg<double> {
   static constexpr int TM = 4;       // 64 x 128
 };
 
+// CTAs of factor_chunk for n rows (before the cap): float, one per 64
+// rows; double, one per 256 rows but at least 64 (or one per 64 rows).
+// The double spine is latency-bound: on an H100 64 CTAs beat 132 at 16384
+// rows and 16 or 32 at 4096, 128 beat 66 at 32768 (fewer CTAs to sum and
+// to wait for, against a longer pass).
+template <typename T>
+int spine_ctas(int n) {
+  const int by64 = (n + 63) / 64;
+  if constexpr (sizeof(T) == 8) {
+    const int by256 = (n + 255) / 256;
+    return by256 > (by64 < 64 ? by64 : 64) ? by256 : (by64 < 64 ? by64 : 64);
+  }
+  return by64;
+}
+
 template <typename T>
 struct Scratch {
   T* part;                           // [2][gmax][CW]
   T* jbuf;                           // [2][CW]
   T* rsave;                          // [CW][CW]
   int gmax;
+  unsigned* ctr;                     // double: grid_count_arrive's counter
 };
+
+// The barrier that closes a column: float, cooperative_groups'
+// grid.sync(); double, the counting barrier of grid_sync.cuh (base: the
+// counter's value when the launch starts; target grows by G a barrier).
+template <typename T>
+__device__ __forceinline__ void column_barrier(cg::grid_group& grid,
+                                               const Scratch<T>& sc,
+                                               unsigned& target) {
+  if constexpr (sizeof(T) == 8) {
+    grid_count_arrive(sc.ctr);
+    target += gridDim.x;
+    grid_count_wait(sc.ctr, target);
+  } else {
+    grid.sync();
+  }
+}
 
 // red[q][c] = acc, then the fixed-order sum over q into this CTA's slot of
 // the partials of parity par; the owner of row jn publishes its chunk.
@@ -145,8 +190,9 @@ __device__ void publish(T acc, const T* A, long long rs, int cw, int r0,
 template <typename T, bool IN_SMEM>
 __global__ void __launch_bounds__(THREADS)
 factor_chunk(T* P, long long ld, int M, int s, int cw, T* tau,
-             Scratch<T> sc) {
+             Scratch<T> sc, unsigned base) {
   cg::grid_group grid = cg::this_grid();
+  unsigned target = base;
   const int G = gridDim.x, b = blockIdx.x, tid = threadIdx.x;
   const int c = tid % CW, q = tid / CW;      // lane = column, warp = rows
   const int rows = M - s;
@@ -175,7 +221,7 @@ factor_chunk(T* P, long long ld, int M, int s, int cw, T* tau,
     }
     publish(acc, A, rs, cw, r0, r1, s, 0, sc, red);
   }
-  grid.sync();
+  column_barrier(grid, sc, target);
   const int e = s + cw;
   for (int j = s; j < e; ++j) {
     const int par = (j - s) & 1, jc = j - s;
@@ -268,7 +314,7 @@ factor_chunk(T* P, long long ld, int M, int s, int cw, T* tau,
     }
     if (next) {
       publish(acc, A, rs, cw, r0, r1, j + 1, par ^ 1, sc, red);
-      grid.sync();
+      column_barrier(grid, sc, target);
     }
   }
   __syncthreads();
@@ -344,6 +390,55 @@ fgemm_kernel(Op<T> A, Op<T> B, T* C, long long ldc, int M, int N, int K,
       fg_st4(out + (size_t)r * ldc + cc, cvec != 0, n - cc, v);
     }
   }
+}
+
+// fgemm_kernel of the float64 route: the same contract on the FP64 tensor
+// cores (DMMA), 64 x 128 tiles of fast_gemm.cuh's dm_tile_mma (32-deep
+// k-tiles staged by cp.async, two in flight).  Each thread's outputs come
+// in pairs of adjacent columns: 16-byte loads and stores when cvec.
+template <int MODE>
+__global__ void __launch_bounds__(FG_THREADS)
+dm_fgemm_kernel(Op<double> A, Op<double> B, double* C, long long ldc, int M,
+                int N, int K, int D, long long cstride, int vec, int cvec) {
+  constexpr int TN = 8, NI = TN / 2;
+  extern __shared__ __align__(16) unsigned char dyn[];
+  const int row0 = blockIdx.y * DM_BM, col0 = blockIdx.x * FG_BN;
+  const int k0 = blockIdx.z * D;
+  const int kn = K - k0 < D ? K - k0 : D;
+  Op<double> a = A, bb = B;
+  a.p += A.kmajor ? (size_t)k0 * A.ld + row0 : (size_t)row0 * A.ld + k0;
+  bb.p += B.kmajor ? (size_t)k0 * B.ld + col0 : (size_t)col0 * B.ld + k0;
+  const int m = M - row0 < DM_BM ? M - row0 : DM_BM;
+  const int n = N - col0 < FG_BN ? N - col0 : FG_BN;
+  double acc[2][NI][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) acc[mi][ni][v] = 0.0;
+  dm_tile_mma<TN>(acc, a, m, bb, n, kn, vec != 0,
+                  reinterpret_cast<double*>(dyn));
+  double* out = C + blockIdx.z * cstride + (size_t)row0 * ldc + col0;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = dm_row(mi, h), c = dm_col<TN>(ni);
+        double v[2] = {acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]};
+        if (MODE == 1) {
+          double old[2];
+          dm_ld2(out + (size_t)r * ldc + c, cvec != 0, r < m ? n - c : 0, old);
+          v[0] = old[0] - v[0];
+          v[1] = old[1] - v[1];
+        } else if (MODE == 2) {
+          v[0] = -v[0];
+          v[1] = -v[1];
+        }
+        if (r < m) dm_st2(out + (size_t)r * ldc + c, cvec != 0, n - c, v);
+      }
 }
 
 // Z[i][j] (leading dimension ldz) = sum over the slices z of
@@ -448,7 +543,7 @@ long long scratch_elems(int M, int k, int gmax) {
   const long long zi = (long long)MAX_SPLIT_I * CW * OB;
   const long long zp = zo > zi ? zo : zi;
   return 2LL * gmax * CW + 2LL * CW + (long long)CW * CW + (long long)OB * OB
-         + 2LL * CW * OB + 2LL * OB * k + zp;
+         + 2LL * CW * OB + 2LL * OB * k + zp + 1;
 }
 
 template <typename T, int MODE, int TM = QCfg<T>::TM>
@@ -461,10 +556,22 @@ cudaError_t fgemm(cudaStream_t st, Op<T> A, Op<T> B, T* C, long long ldc,
   const int slices = ceil_div(K, D);
   const int vec = fg_aligned(A.p, A.ld) && fg_aligned(B.p, B.ld);
   const int cvec = fg_aligned(C, ldc) && (cstride * (long long)sizeof(T)) % 16 == 0;
-  fgemm_kernel<T, MODE, TM><<<dim3(ceil_div(N, FG_BN), ceil_div(M, BM),
-                                   slices),
-                              FG_THREADS, fg_smem_bytes<T, TM>(), st>>>(
-      A, B, C, ldc, M, N, K, D, cstride, vec, cvec);
+  if constexpr (sizeof(T) == 8) {
+    constexpr size_t smem = dm_long_smem_bytes<8>();
+    cudaError_t err = cudaFuncSetAttribute(
+        dm_fgemm_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return err;
+    dm_fgemm_kernel<MODE><<<dim3(ceil_div(N, FG_BN), ceil_div(M, DM_BM),
+                                 slices),
+                            FG_THREADS, smem, st>>>(A, B, C, ldc, M, N, K, D,
+                                                    cstride, vec, cvec);
+  } else {
+    fgemm_kernel<T, MODE, TM><<<dim3(ceil_div(N, FG_BN), ceil_div(M, BM),
+                                     slices),
+                                FG_THREADS, fg_smem_bytes<T, TM>(), st>>>(
+        A, B, C, ldc, M, N, K, D, cstride, vec, cvec);
+  }
   return cudaGetLastError();
 }
 
@@ -514,7 +621,12 @@ int qr_panel(T* P, long long ld, int M, int k, T* tau, T* Tm, T* ws,
   int cap = gmax < sms ? gmax : sms;
   cap = cap < MAXG ? cap : MAXG;
   Scratch<T> sc{ws, ws + 2 * (size_t)gmax * CW,
-                ws + 2 * (size_t)gmax * CW + 2 * CW, gmax};
+                ws + 2 * (size_t)gmax * CW + 2 * CW, gmax,
+                reinterpret_cast<unsigned*>(ws + scratch_elems(M, k, gmax) - 1)};
+  unsigned base = 0;                   // double: the barrier counter so far
+  if constexpr (sizeof(T) == 8)
+    if ((err = cudaMemsetAsync(sc.ctr, 0, sizeof(unsigned), st)) != cudaSuccess)
+      return err;
   T* rsave_o = sc.rsave + CW * CW;
   T* zi = rsave_o + OB * OB;
   T* yi = zi + CW * OB;
@@ -528,7 +640,7 @@ int qr_panel(T* P, long long ld, int M, int k, T* tau, T* Tm, T* ws,
     for (int s = so; s < eo; s += CW) {
       const int cw = CW < eo - s ? CW : eo - s;
       const int e = s + cw;
-      int G = ceil_div(M - s, ROWS_PER_CTA);
+      int G = spine_ctas<T>(M - s);
       G = G < cap ? G : cap;
       const size_t slab = (size_t)ceil_div(M - s, G) * SROW * sizeof(T);
       const bool in_smem = slab <= (size_t)dyn_max;
@@ -539,9 +651,10 @@ int qr_panel(T* P, long long ld, int M, int k, T* tau, T* Tm, T* ws,
                &per_sm, fn, THREADS, dyn)) != cudaSuccess)
         return err;
       if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-      void* args[] = {&P, &ld, &M, &s, (void*)&cw, &tau, &sc};
+      void* args[] = {&P, &ld, &M, &s, (void*)&cw, &tau, &sc, &base};
       err = cudaLaunchCooperativeKernel(fn, G, THREADS, args, dyn, st);
       if (err != cudaSuccess) return err;
+      base += (unsigned)G * (unsigned)cw;     // the launch's barriers
       // Z_i = V_c^T P[s:M, so:eo]
       T* Vc = P + (size_t)s * ld + s;
       err = gemm_tn<T, 4>(st, Vc, ld, P + (size_t)s * ld + so, ld, M - s, cw,

@@ -15,11 +15,19 @@ step spends between consecutive stamps.
 
 ``qr`` and ``lu`` follow one column of the column loop (thread 0 of
 thread block 0, one inner chunk in the middle of the panel) while a
-float32 panel is factored (65536 x 2048 for QR, 32768 x 2048 for LU).
-The stamps know two column loops of ``lu_panel.cu``: the current one
-(key and pivot-row reads, fused pass, publish and arrive, the rest of
-the update, the wait) and the first design's (candidate reduction and
-pivot-row read, swap and scale, rank-1 update, publish, grid barrier).
+float32 and then a float64 panel are factored (QR: 65536 x 2048 and the
+``qr_least_squares`` example's 32768 x 128; LU: 32768 x 2048 and the
+``lu`` example's 16384 x 1024), one JSON line per dtype with the mean
+microseconds of each part of a column, the call's time (CUDA events) and
+its device time by kernel (one profiled call).  The stamps know three
+column loops of ``lu_panel.cu``: the current one (key and pivot-row
+reads, fused pass, publish and arrive, the rest of the update, the wait;
+both dtypes raise one pivot key), the one before it, the same loop where
+every warp of the float64 route reduced the G CTAs' candidates, and the
+first design's (candidate reduction and pivot-row read, swap and scale,
+rank-1 update, publish, grid barrier); and two of ``qr_panel.cu``: the
+current one, whose float64 route closes each column at a counting
+barrier, and the one before it, with grid.sync() in both dtypes.
 
 ``potrf`` follows every step (a 32-column diagonal block in float32, 64
 in float64) of ``potrf_inv`` at w = 2048, in both dtypes, on two thread
@@ -105,6 +113,23 @@ def _potrf_stamps(current: bool):
     ]
 
 
+def _lu_stamps(resolve: str):
+    """The stamps of ``lu_panel.cu``'s column loop since the pivot-key design;
+    ``resolve``, the line that reads column j's pivot row, tells the
+    float64 route's two ways of reading it apart."""
+    return [
+        ("    const int jc = j - s, par = jc & 1;\n" + resolve,
+         "    const int jc = j - s, par = jc & 1;\n" + _ts(0) + resolve),
+        _after("      if (b == 0) sc.piv[j] = p;\n    }\n"
+               "    __syncthreads();\n", _ts(1)),
+        _after("      c = block_best(c, red);\n", _ts(2)),
+        ("      target += G;\n      rest_update(A, rs, r0, i0, r1, jc,"
+         " cw, ush);\n",
+         "      target += G;\n" + _ts(3) +
+         "      rest_update(A, rs, r0, i0, r1, jc, cw, ush);\n" + _ts(4)),
+    ]
+
+
 #: per kernel: the source, the versions of its column loop the stamps know
 #: ((anchor, replacement) pairs; the part between consecutive stamps
 #: named), the panel, and the inner chunk the stamps follow (its first
@@ -112,14 +137,35 @@ def _potrf_stamps(current: bool):
 _PROBES = {
     "qr": {
         "source": "qr_panel.cu",
-        "panel": (65536, 2048),
-        "chunk": 1024,
+        "panel": {"float32": (65536, 2048), "float64": (32768, 128)},
+        "chunk": {"float32": 1024, "float64": 64},
         "versions": [{
-            "name": "current",
+            "name": "current: float64 on counting barriers",
             "stamps": [
                 _after("    const int par = (j - s) & 1, jc = j - s;\n", _ts(0)),
-                _after("    const T alpha = __ldcg(&sc.jbuf[par * CW + jc]);\n"
-                       "    __syncthreads();\n", _ts(1)),
+                ("    __syncthreads();\n    const bool next = j + 1 < e;\n",
+                 "    __syncthreads();\n" + _ts(1) +
+                 "    const bool next = j + 1 < e;\n"),
+                _after("      *a = *a / safe_denom;\n    }\n"
+                       "    __syncthreads();\n", _ts(2)),
+                ("    if (next) {\n      publish(acc, A, rs, cw, r0, r1, j + 1,"
+                 " par ^ 1, sc, red);\n      column_barrier(grid, sc, target);"
+                 "\n    }\n",
+                 "    __syncthreads();\n" + _ts(3) +
+                 "    if (next) {\n      publish(acc, A, rs, cw, r0, r1, j + 1,"
+                 " par ^ 1, sc, red);\n" + _ts(4) +
+                 "      column_barrier(grid, sc, target);\n    }\n"),
+            ],
+            "parts": ("partials and block barrier", "scalars and v pass",
+                      "fused update-and-dot pass", "publish",
+                      "grid barrier (float64: counting)"),
+        }, {
+            "name": "grid.sync in both dtypes",
+            "stamps": [
+                _after("    const int par = (j - s) & 1, jc = j - s;\n", _ts(0)),
+                ("    __syncthreads();\n    const bool next = j + 1 < e;\n",
+                 "    __syncthreads();\n" + _ts(1) +
+                 "    const bool next = j + 1 < e;\n"),
                 _after("      *a = *a / safe_denom;\n    }\n"
                        "    __syncthreads();\n", _ts(2)),
                 ("    if (next) {\n      publish(acc, A, rs, cw, r0, r1, j + 1,"
@@ -135,24 +181,21 @@ _PROBES = {
     },
     "lu": {
         "source": "lu_panel.cu",
-        "panel": (32768, 2048),
-        "chunk": 1024,
+        "panel": {"float32": (32768, 2048), "float64": (16384, 1024)},
+        "chunk": {"float32": 1024, "float64": 512},
         "versions": [{
-            "name": "current",
-            "stamps": [
-                _after("    const int jc = j - s, par = jc & 1;\n", _ts(0)),
-                _after("      if (b == 0) sc.piv[j] = p;\n    }\n"
-                       "    __syncthreads();\n", _ts(1)),
-                _after("      c = block_best(c, red);\n", _ts(2)),
-                ("      target += G;\n      rest_update(A, rs, r0, i0, r1, jc,"
-                 " cw, ush);\n",
-                 "      target += G;\n" + _ts(3) +
-                 "      rest_update(A, rs, r0, i0, r1, jc, cw, ush);\n" +
-                 _ts(4)),
-            ],
+            "name": "current: one pivot key in both dtypes",
+            "stamps": _lu_stamps("    const int p = resolve(j, sc);\n"),
             "parts": ("key and pivot-row reads, swap stores",
                       "fused pass and block best", "publish and arrive",
                       "rest of the update (warp 0)", "wait"),
+        }, {
+            "name": "float64 candidates reduced in every warp",
+            "stamps": _lu_stamps("    const int p = resolve(j, par, G, sc);\n"),
+            "parts": ("key (float64: G candidates) and pivot-row reads, "
+                      "swap stores", "fused pass and block best",
+                      "publish and arrive", "rest of the update (warp 0)",
+                      "wait"),
         }, {
             "name": "first design",
             "stamps": [
@@ -205,7 +248,8 @@ extern "C" int probe_ts(void* dst) {
 
 _HEAD = """
 __device__ unsigned long long probe_ts_buf[8 * 64];
-#define PROBE_TS(slot) do {{ if (threadIdx.x == 0 && blockIdx.x == 0 && s == {chunk}) {{ \\
+#define PROBE_TS(slot) do {{ if (threadIdx.x == 0 && blockIdx.x == 0 && \\
+    s == (sizeof(T) == 8 ? {chunk64} : {chunk32})) {{ \\
     unsigned long long t_; asm volatile("mov.u64 %0, %globaltimer;" : "=l"(t_)); \\
     probe_ts_buf[(slot)] = t_; }} }} while (0)
 extern "C" int probe_ts(void* dst) {{
@@ -231,7 +275,8 @@ def stamped_source(kind: str, src: str):
     fits (the probe follows the kernel's column loop)."""
     probe = _PROBES[kind]
     head = (_POTRF_HEAD if kind == "potrf"
-            else _HEAD.format(chunk=probe["chunk"]))
+            else _HEAD.format(chunk32=probe["chunk"]["float32"],
+                              chunk64=probe["chunk"]["float64"]))
     for version in probe["versions"]:
         out = _apply(src, version["stamps"])
         if out is not None and "#include <cstddef>\n" in out:
@@ -241,63 +286,84 @@ def stamped_source(kind: str, src: str):
     raise RuntimeError(f"no {kind} probe anchors fit this source")
 
 
-def _run_qr(lib, M, k):
+def _call(lib, kind, dt, M, k):
+    """A closure making one call of the stamped ``kind`` build on a seeded
+    ``dt`` panel as the wrapper makes it (its clone and scratch
+    included), and the inner chunk's columns."""
     import torch
-    lib.qr_panel_scratch.argtypes = [ctypes.c_int] * 3
-    lib.qr_panel_scratch.restype = ctypes.c_longlong
-    fn = lib.qr_panel_f32
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    name = "f64" if dt == torch.float64 else "f32"
+    gmax = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
-    P = torch.randn(M, k, generator=gen, device="cuda")
-    gmax = torch.cuda.get_device_properties(0).multi_processor_count
-    ws = torch.empty(lib.qr_panel_scratch(M, k, gmax), device="cuda")
-    for _ in range(2):                   # the second call is the one read
-        out = P.clone()
-        tau = torch.zeros(k, device="cuda")
-        T = torch.zeros(k, k, device="cuda")
-        err = fn(out.data_ptr(), k, M, k, tau.data_ptr(), T.data_ptr(),
-                 ws.data_ptr(), gmax, torch.cuda.current_stream().cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"qr_panel probe: CUDA error {err}")
-    return 32                            # the inner chunk's columns
+    P = torch.randn(M, k, generator=gen, device="cuda", dtype=dt)
+    stream = torch.cuda.current_stream().cuda_stream
+    if kind == "qr":
+        lib.qr_panel_scratch.argtypes = [ctypes.c_int] * 3
+        lib.qr_panel_scratch.restype = ctypes.c_longlong
+        fn = getattr(lib, f"qr_panel_{name}")
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        ws = torch.empty(lib.qr_panel_scratch(M, k, gmax), device="cuda",
+                         dtype=dt)
 
-
-def _run_lu(lib, M, nbw):
-    import torch
+        def run():
+            out = P.clone()
+            tau = torch.zeros(k, device="cuda", dtype=dt)
+            T = torch.zeros(k, k, device="cuda", dtype=dt)
+            if fn(out.data_ptr(), k, M, k, tau.data_ptr(), T.data_ptr(),
+                  ws.data_ptr(), gmax, stream) != 0:
+                raise RuntimeError("qr_panel probe: CUDA error")
+        return run, 32
     inner = 64
-    fn = lib.lu_panel_f32
+    fn = getattr(lib, f"lu_panel_{name}")
     fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                    ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    gmax = torch.cuda.get_device_properties(0).multi_processor_count
     if hasattr(lib, "lu_panel_scratch"):
         for f in (lib.lu_panel_scratch, lib.lu_panel_words):
             f.argtypes = [ctypes.c_int] * 2
             f.restype = ctypes.c_longlong
-        n_ws, n_wz = lib.lu_panel_scratch(nbw, gmax), lib.lu_panel_words(
-            nbw, gmax)
+        n_ws, n_wz = lib.lu_panel_scratch(k, gmax), lib.lu_panel_words(
+            k, gmax)
     else:                                # the first design's fixed layout
-        n_ws, n_wz = 2 * gmax * (inner + 1) + 2 * inner, gmax + nbw
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(1)
-    P = torch.randn(M, nbw, generator=gen, device="cuda")
+        n_ws, n_wz = 2 * gmax * (inner + 1) + 2 * inner, gmax + k
     perm = torch.empty(M, dtype=torch.int64, device="cuda")
-    ws = torch.empty(n_ws, device="cuda")
-    for _ in range(2):                   # the second call is the one read
+    ws = torch.empty(n_ws, device="cuda", dtype=dt)
+
+    def run():
         out = P.clone()
         wz = torch.zeros(n_wz, dtype=torch.int64, device="cuda")
-        err = fn(out.data_ptr(), nbw, M, nbw, inner, perm.data_ptr(),
-                 ws.data_ptr(), wz.data_ptr(), gmax,
-                 torch.cuda.current_stream().cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"lu_panel probe: CUDA error {err}")
-    return inner
+        if fn(out.data_ptr(), k, M, k, inner, perm.data_ptr(),
+              ws.data_ptr(), wz.data_ptr(), gmax, stream) != 0:
+            raise RuntimeError("lu_panel probe: CUDA error")
+    return run, inner
+
+
+def kernel_split(fn) -> dict:
+    """One profiled call of ``fn``: {kernel name: [launches, device ms]},
+    largest first, and the call's device-busy ms."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    per: dict = {}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != DeviceType.CUDA:
+            continue
+        name = ev.name().replace("(anonymous namespace)::", "")
+        name = name.replace("void ", "").split("(")[0][:60]
+        n, ms = per.get(name, (0, 0.0))
+        per[name] = (n + 1, ms + ev.duration_ns() / 1e6)
+    ranked = sorted(per.items(), key=lambda kv: -kv[1][1])
+    return {"busy_ms": round(sum(ms for _, ms in per.values()), 4),
+            "kernels": {k: [n, round(ms, 4)] for k, (n, ms) in ranked}}
 
 
 def _run_potrf(lib, w, _):
@@ -377,11 +443,11 @@ def main(argv=None) -> int:
     subprocess.run([common._nvcc(), *common.NVCC_FLAGS, "-o", str(lib_path),
                     str(work / probe["source"])], check=True)
     lib = ctypes.CDLL(str(lib_path))
-    M, k = probe["panel"]
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
     if args.kind == "potrf":
+        M, k = probe["panel"]
         stamps = _run_potrf(lib, M, k)
         print(json.dumps({"probe": "potrf_inv.cu steps", "version": version,
                           "w": M, "us_per_step": {
@@ -391,25 +457,39 @@ def main(argv=None) -> int:
                               for name, ts in stamps.items()},
                           "card": card}))
         return 0
-    run = _run_qr if args.kind == "qr" else _run_lu
-    cw = run(lib, M, k)
-    torch.cuda.synchronize()
-    ts = np.zeros(8 * 64, dtype=np.uint64)
-    if lib.probe_ts(ctypes.c_void_p(ts.ctypes.data)) != 0:
-        raise RuntimeError("spine probe: reading the stamps failed")
-    cols = cw - 1                        # the chunk's columns with a barrier
-    split = np.zeros(len(parts))
-    for jc in range(cols):
-        t = [int(ts[jc * 8 + u]) for u in range(len(parts))]
-        t.append(int(ts[(jc + 1) * 8]))
-        split += np.diff(np.array(t, dtype=np.float64)) / 1e3
-    split /= cols
-    print(json.dumps({"probe": f"{probe['source']} spine", "version": version,
-                      "panel": [M, k], "chunk": probe["chunk"],
-                      "us_per_column": dict(zip(parts,
-                                                split.round(3).tolist())),
-                      "total_us": round(float(split.sum()), 3),
-                      "card": card}))
+    for dt in (torch.float32, torch.float64):
+        name = str(dt).replace("torch.", "")
+        M, k = probe["panel"][name]
+        run, cw = _call(lib, args.kind, dt, M, k)
+        for _ in range(2):               # the second call is the one read
+            run()
+        torch.cuda.synchronize()
+        ts = np.zeros(8 * 64, dtype=np.uint64)
+        if lib.probe_ts(ctypes.c_void_p(ts.ctypes.data)) != 0:
+            raise RuntimeError("spine probe: reading the stamps failed")
+        cols = cw - 1                    # the chunk's columns with a barrier
+        split = np.zeros(len(parts))
+        for jc in range(cols):
+            t = [int(ts[jc * 8 + u]) for u in range(len(parts))]
+            t.append(int(ts[(jc + 1) * 8]))
+            split += np.diff(np.array(t, dtype=np.float64)) / 1e3
+        split /= cols
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(5):
+            run()
+        end.record()
+        torch.cuda.synchronize()
+        print(json.dumps({"probe": f"{probe['source']} spine",
+                          "version": version, "dtype": name, "panel": [M, k],
+                          "chunk": probe["chunk"][name],
+                          "us_per_column": dict(zip(parts,
+                                                    split.round(3).tolist())),
+                          "total_us": round(float(split.sum()), 3),
+                          "call_ms": round(start.elapsed_time(end) / 5, 4),
+                          "call_split": kernel_split(run), "card": card}),
+              flush=True)
     return 0
 
 

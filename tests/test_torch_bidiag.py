@@ -18,6 +18,7 @@ import torch
 import elemental_tpu as el
 import elemental_tpu_torch as et
 from elemental_tpu.lapack import condense as jcond
+from .torch_shared_ref import shared_cache
 
 GRIDS = [(1, 1), (2, 2), (2, 4)]
 IDS = [f"{r}x{c}" for r, c in GRIDS]
@@ -57,7 +58,7 @@ def _bidiag_input(case):
     return F + 1j * rng.normal(size=(m, n)) if cplx else F
 
 
-@functools.lru_cache(maxsize=None)
+@shared_cache
 def _jax_bidiag(case):
     Ap, d, e, tauq, taup = jcond.bidiag(_jg(_bidiag_input(case)),
                                         nb=BIDIAG[case][1])
@@ -124,7 +125,7 @@ def _hess_input(cplx):
     return A + 1j * rng.standard_normal((21, 21)) if cplx else A
 
 
-@functools.lru_cache(maxsize=None)
+@shared_cache
 def _jax_hessenberg(cplx):
     H, Qp, tau = jcond.hessenberg(_jg(_hess_input(cplx)))
     return (np.asarray(el.to_global(H)), np.asarray(el.to_global(Qp)),

@@ -10,7 +10,6 @@ is held.  ``cholesky_mod`` must give the JAX factor to 1e-12 and raise
 on an indefinite downdate.  Each
 JAX reference is computed once per module on a 1x1 JAX grid; the port
 runs on 1x1, 2x2 and 2x4."""
-import functools
 
 import jax
 import numpy as np
@@ -19,6 +18,7 @@ import torch
 
 import elemental_tpu as el
 import elemental_tpu_torch as et
+from .torch_shared_ref import shared_cache
 
 GRIDS = [(1, 1), (2, 2), (2, 4)]
 IDS = [f"{r}x{c}" for r, c in GRIDS]
@@ -58,7 +58,7 @@ def _case(name):
     raise KeyError(name)
 
 
-@functools.cache
+@shared_cache
 def _jax_pivoted(name):
     F, tol = _case(name)
     L, perm, rank = el.cholesky_pivoted(
@@ -109,7 +109,7 @@ def _mod_inputs():
     return G0 @ G0.T + n * np.eye(n), rng.normal(size=(n, k))
 
 
-@functools.cache
+@shared_cache
 def _jax_mod():
     F, V = _mod_inputs()
     g = jgrid(1, 1)

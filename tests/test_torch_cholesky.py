@@ -4,7 +4,6 @@ packages.  Factors agree to rtol 1e-12 (float64, complex128) or 1e-5
 (float32) -- the schedules are the same, the diagonal-block solvers round
 differently; the look-ahead and classic orders agree to 1e-12, as in
 ``tests/lapack/test_cholesky.py``."""
-import functools
 
 import jax
 import numpy as np
@@ -15,6 +14,7 @@ import elemental_tpu as el
 import elemental_tpu_torch as et
 from elemental_tpu import obs as jobs
 from elemental_tpu_torch import obs as tobs
+from .torch_shared_ref import shared_cache
 
 GRIDS = [(1, 1), (2, 2), (2, 4)]
 RTOL = {np.float32: 1e-5, np.float64: 1e-12, np.complex128: 1e-12}
@@ -44,7 +44,7 @@ def _hpd(n, dtype, seed=0):
     return (G @ G.conj().T / n + n * np.eye(n)).astype(dtype)
 
 
-@functools.cache
+@shared_cache
 def _jax_chol(n, dtype, seed, *args, **kw):
     """The JAX package's global factor of ``_hpd(n, dtype, seed)`` on a
     1x1 grid, once per module: on other grids it is the same to

@@ -27,6 +27,7 @@ import elemental_tpu as el
 import elemental_tpu_torch as et
 from elemental_tpu.optimization import soc as jsoc
 from elemental_tpu_torch.optimization import soc as tsoc
+from .torch_shared_ref import shared_cache
 
 GRIDS = [(1, 1), (2, 2)]
 IDS = ["1x1", "2x2"]
@@ -139,7 +140,7 @@ def _solve(pkg, name, k, rc=(1, 1)):
     return list(out[:4]), out[4]
 
 
-@functools.cache
+@shared_cache
 def _jax(name, k):
     return _solve(el, name, k)
 

@@ -13,7 +13,6 @@ starve XLA's in-process all-reduce rendezvous when the host is loaded
 (``rendezvous.cc``: "Termination timeout ... exceeded"); one device has
 no rendezvous.
 """
-import functools
 
 import jax
 import numpy as np
@@ -22,6 +21,7 @@ import scipy.linalg
 
 import elemental_tpu as el
 import elemental_tpu_torch as et
+from .torch_shared_ref import shared_cache
 
 GRIDS = [(1, 1), (2, 2), (2, 4)]
 IDS = [f"{r}x{c}" for r, c in GRIDS]
@@ -55,7 +55,7 @@ def _args(name):
     return x[:3] if name == "riccati" else x
 
 
-@functools.lru_cache(maxsize=None)
+@shared_cache
 def _jax(name):
     grid = el.Grid(jax.devices()[:1], height=1)
     out = getattr(el, name)(*[el.from_global(F, el.MC, el.MR, grid=grid)

@@ -13,7 +13,6 @@ starve XLA's in-process all-reduce rendezvous when the host is loaded
 (``rendezvous.cc``: "Termination timeout ... exceeded"); one device has
 no rendezvous.
 """
-import functools
 
 import jax
 import numpy as np
@@ -21,6 +20,7 @@ import pytest
 
 import elemental_tpu as el
 import elemental_tpu_torch as et
+from .torch_shared_ref import shared_cache
 
 GRIDS = [(1, 1), (2, 2), (2, 4)]
 IDS = [f"{r}x{c}" for r, c in GRIDS]
@@ -63,7 +63,7 @@ def _run(pkg, name, dm):
     return pkg.glm(*args)
 
 
-@functools.lru_cache(maxsize=None)
+@shared_cache
 def _jax(name):
     grid = el.Grid(jax.devices()[:1], height=1)
     out = _run(el, name, lambda F: el.from_global(F, el.MC, el.MR,

@@ -13,7 +13,6 @@ can starve XLA's in-process all-reduce rendezvous when the host is loaded
 (``rendezvous.cc``: "Termination timeout ... exceeded"); one device has
 no rendezvous.
 """
-import functools
 
 import jax
 import numpy as np
@@ -23,6 +22,7 @@ import elemental_tpu as el
 import elemental_tpu_torch as et
 from elemental_tpu.lapack import funcs as jfuncs
 from elemental_tpu_torch.lapack import funcs as tfuncs
+from .torch_shared_ref import shared_cache
 
 GRIDS = [(1, 1), (2, 2), (2, 4)]
 IDS = [f"{r}x{c}" for r, c in GRIDS]
@@ -84,7 +84,7 @@ def _inputs(name):
     raise KeyError(name)
 
 
-@functools.lru_cache(maxsize=None)
+@shared_cache
 def _jax(fn, name):
     """The JAX package's result of ``fn`` on input ``name`` (global
     arrays), computed once."""

@@ -57,7 +57,8 @@ from elemental_tpu_torch.kernels import (lu_panel, lu_panel_reference,
                                          potrf_inv, potrf_inv_reference,
                                          qr_panel, qr_panel_reference)
 from elemental_tpu_torch.kernels.qr_panel import _larft, _panel_v
-from chip_smoke import eig_gates, potrf_check, potrf_routes, qr_residuals
+from chip_smoke import (eig_gates, panel_routes, potrf_check,
+                        potrf_routes, qr_residuals)
 
 pytestmark = pytest.mark.gpu
 
@@ -273,8 +274,8 @@ def test_lu_panel_nan_and_zero_columns(case, dtype):
 
 @pytest.mark.parametrize("M,nbw,inner,dtype", [
     (8449, 300, 48, torch.float32), (120000, 64, 16, torch.float32),
-    (700, 200, 48, torch.float64)],
-    ids=["float32", "float32-in-place", "float64"])
+    (700, 200, 48, torch.float64), (16384, 256, 64, torch.float64)],
+    ids=["float32", "float32-in-place", "float64", "float64-132-ctas"])
 def test_lu_panel_repeats_bit_for_bit(M, nbw, inner, dtype):
     """The pivot key's maximum and the products do not depend on the
     order in which thread blocks arrive, so repeated calls agree bit for
@@ -311,6 +312,30 @@ def test_lu_panel_ties_and_strided_view():
     torch.cuda.synchronize()
     assert torch.equal(a, b) and torch.equal(pa, pb)
     assert torch.equal(big, keep)
+
+
+def test_lu_panel_f64_tie_panel():
+    """The tie panel in float64: every pivot search meets equal |values|,
+    which the 128-bit key gives to the lower row, as the plain version."""
+    _need_card()
+    from chip_smoke import _tie_panel
+    P = _tie_panel(torch.float64)
+    packed, perm = lu_panel(P, 8, inner=4)
+    ref, rperm = lu_panel_reference(P, 8, 4)
+    torch.cuda.synchronize()
+    assert torch.equal(perm, rperm)
+    assert float((packed - ref).abs().max()) < 1e-14
+
+
+@pytest.mark.parametrize("name", ["lu_panel", "qr_panel"])
+def test_panel_f64_products_issue_dmma_and_f32_none(name):
+    """The built library's SASS: DMMA in every float64 product kernel of
+    the panel kernel, none in its float32 products, and no float64 FMA
+    product left (``chip_smoke.panel_routes``)."""
+    _need_card()
+    from elemental_tpu_torch.kernels import common
+    got = panel_routes(common.build([name])[name], name)
+    assert all(got["float64"].values()) and not any(got["float32"].values())
 
 
 def test_lu_panel_refuses_what_the_kernel_does_not_take():
@@ -423,6 +448,19 @@ def test_qr_panel_special_panels_and_strided_view():
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(a, b))
     assert torch.equal(big, keep)
+
+
+@pytest.mark.parametrize("M,k", [(4097, 257), (32768, 128)])
+def test_qr_panel_f64_repeats_bit_for_bit(M, k):
+    """The float64 route's partials are summed in a fixed order and its
+    counting barriers let no read overtake them, so repeated calls agree
+    bit for bit."""
+    _need_card()
+    F = _panel_on_card(M, k, torch.float64, seed=5)
+    first = qr_panel(F)
+    for _ in range(20):
+        again = qr_panel(F)
+        assert all(torch.equal(x, y) for x, y in zip(again, first))
 
 
 def test_qr_panel_refuses_what_the_kernel_does_not_take():

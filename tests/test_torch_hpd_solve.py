@@ -2,7 +2,6 @@
 through the port on 1x1, 2x2 and 2x4 grids and through ``elemental_tpu``
 on a 1x1 grid (once per module), from the same numpy inputs, at n = 40,
 nb = 16 (float64, rtol 1e-12)."""
-import functools
 
 import jax
 import numpy as np
@@ -11,6 +10,7 @@ import torch
 
 import elemental_tpu as el
 import elemental_tpu_torch as et
+from .torch_shared_ref import shared_cache
 
 GRIDS = [(1, 1), (2, 2), (2, 4)]
 
@@ -20,7 +20,7 @@ def _hpd(n, seed):
     return G @ G.T / n + n * np.eye(n)
 
 
-@functools.cache
+@shared_cache
 def _jax_hpd_solve(uplo):
     n, nrhs = 40, 6
     F = _hpd(n, seed=7)

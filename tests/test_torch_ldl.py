@@ -15,7 +15,6 @@ starve XLA's in-process all-reduce rendezvous when the host is loaded
 (``rendezvous.cc``: "Termination timeout ... exceeded"); one device has
 no rendezvous.
 """
-import functools
 import importlib
 
 import jax
@@ -24,6 +23,7 @@ import pytest
 
 import elemental_tpu as el
 import elemental_tpu_torch as et
+from .torch_shared_ref import shared_cache
 
 jldl = importlib.import_module("elemental_tpu.lapack.ldl")
 tldl = importlib.import_module("elemental_tpu_torch.lapack.ldl")
@@ -111,7 +111,7 @@ def _t(A):
     return et.to_global(A).numpy()
 
 
-@functools.lru_cache(maxsize=None)
+@shared_cache
 def _jax_ldl(name):
     F, conj, nb, uplo, _ = _case(name)
     Lp, d, e, perm = jldl.ldl(_jg(F), uplo=uplo, conjugate=conj, nb=nb)
@@ -171,7 +171,7 @@ def test_hermitian_ldl_stays_accurate_past_the_jax_tests_size(rc):
     assert _reconstruct(F, _t(Lp), dn, en, perm.numpy(), True) < 1e-13
 
 
-@functools.lru_cache(maxsize=None)
+@shared_cache
 def _jax_solve(kind):
     F, B = _solve_inputs(kind)
     fn = jldl.symmetric_solve if kind == "symmetric" else jldl.hermitian_solve
@@ -213,7 +213,7 @@ def test_inertia_matches_jax(rc):
     assert tldl.inertia(d, e) == (48, 16, 0)
 
 
-@functools.lru_cache(maxsize=None)
+@shared_cache
 def _jax_ldl_de(n, seed):
     _, d, e, _ = jldl.ldl(_jg(_sym(n, seed)), conjugate=False, nb=8)
     return np.asarray(d), np.asarray(e)

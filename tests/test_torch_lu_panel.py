@@ -163,7 +163,44 @@ def test_panel_plan_inners():
                                                      (8,))
 
 
-def _two_level_lu(F, nbw, ob, cw):
+def _argmax_pivot(P, j, s):
+    """The plain version's pivot of column j: the first maximum of |v| over
+    rows >= j, NaN above every number (``torch.argmax``)."""
+    return j + int(torch.argmax(P[j:, j].abs()))
+
+
+#: the kernel's slab grain and its cap on a launch's CTAs on an H100
+#: (``ROWS_PER_CTA`` and the SM count in ``csrc/lu_panel.cu``)
+SLAB_ROWS, SLAB_CTAS = 64, 132
+
+
+def _f64_key_pivot(P, j, s):
+    """The float64 route's pivot of column j (chunk from s): each row's
+    128-bit key (bits(|v|) with NaN made 0x7ff8000000000000, then
+    0xffffffff - row), each CTA's slab of rows [s, M) keeps its largest key,
+    and the largest of those is the column's key, whose low word names the
+    row (the order in which CTAs raise the key does not matter: a max; a
+    CTA the high words' atomicMax turns away holds a smaller |v|)."""
+    M = P.shape[0]
+    a = P[j:, j].abs().numpy()
+    hi = a.view(np.uint64).copy()
+    hi[np.isnan(a)] = 0x7ff8000000000000
+    rows = np.arange(j, M)
+    lo = (0xffffffff - rows).astype(np.uint64)
+    G = min(-(-(M - s) // SLAB_ROWS), SLAB_CTAS)
+    R = -(-(M - s) // G)
+    best = None
+    for b in range(G):
+        m = (rows >= s + b * R) & (rows < min(s + (b + 1) * R, M))
+        if not m.any():
+            continue
+        i = np.lexsort((lo[m], hi[m]))[-1]
+        key = (int(hi[m][i]), int(lo[m][i]))
+        best = key if best is None or key > best else best
+    return 0xffffffff - best[1]
+
+
+def _two_level_lu(F, nbw, ob, cw, pivot=_argmax_pivot):
     """The CUDA kernel's algebra (``csrc/lu_panel.cu``), in float64 torch.
     Each cw-column chunk of an ob-column outer block is factored column by
     column on its own columns only; its composed swaps then reach the rest
@@ -172,7 +209,8 @@ def _two_level_lu(F, nbw, ob, cw):
     outer block, its composed swaps reach the panel's other columns the
     same way, U12 is solved chunk by chunk (a solve, then a product on the
     outer block's rows below the chunk), and one product of depth ob
-    updates the rest of the panel."""
+    updates the rest of the panel.  ``pivot(P, j, s)`` picks column j's
+    pivot row (chunk from s)."""
     P = F.clone()
     M = P.shape[0]
     piv = list(range(nbw))
@@ -202,7 +240,7 @@ def _two_level_lu(F, nbw, ob, cw):
         for s in range(so, eo, cw):
             e = min(s + cw, eo)
             for j in range(s, e):
-                p = j + int(torch.argmax(P[j:, j].abs()))
+                p = pivot(P, j, s)
                 piv[j] = p
                 P[[j, p], s:e] = P[[p, j], s:e]
                 P[j + 1:, j] /= P[j, j]
@@ -255,3 +293,53 @@ def test_two_level_blocking_matches_plain_and_jax(M, nbw, inner):
                                       interpret=True)
         np.testing.assert_array_equal(np.asarray(pperm), wperm)
         assert _residual(F, np.asarray(ppacked), wperm) < RES_TOL[np.float64]
+
+
+def _f64_panels():
+    """(name, panel, inner) for the float64 route's pivot key: panels of 700
+    rows (11 slabs of 64 at the first chunk), random, with ties across
+    slabs (small integers), a column with two NaNs and an all-zero column."""
+    rng = np.random.default_rng(17)
+    yield "random", rng.normal(size=(700, 200)), 48
+    ties = rng.integers(1, 4, size=(700, 64)).astype(np.float64)
+    yield "ties", ties * np.sign(rng.normal(size=(700, 64))), 16
+    nan = rng.normal(size=(700, 200))
+    nan[650, 150] = nan[500, 150] = np.nan
+    yield "nan", nan, 48
+    zero = rng.normal(size=(700, 200))
+    zero[:, 150] = 0.0
+    yield "zero", zero, 48
+
+
+@pytest.mark.parametrize("case", ["random", "ties", "nan", "zero"])
+def test_f64_route_pivot_key_matches_plain_and_jax(case):
+    """The float64 route resolves each column's pivot from one 128-bit key
+    raised by every CTA (``csrc/lu_panel.cu``: ``CandD``, ``publish_key``,
+    ``resolve``).  Its model (:func:`_f64_key_pivot` in the kernel's
+    two-level algebra) gives the plain version's and the JAX package's
+    ``_panel_lu(P, nbw, None, (128, inner))`` pivots, tie for tie (the
+    lower row), NaN above every number, and their factor to rtol 1e-10: in
+    full, or before the chunk of the NaN or zero column (inside it the
+    plain and JAX loops' masked updates spread the column's NaNs over the
+    chunk, the JAX one over the whole panel, so there only the JAX
+    factor's finite entries are compared)."""
+    name, F, inner = next(c for c in _f64_panels() if c[0] == case)
+    nbw = F.shape[1]
+    jpacked, jperm = jax_panel_lu(jnp.asarray(F), nbw, None,
+                                  (KERNEL_OUTER_BLOCK, inner))
+    want, wperm = np.asarray(jpacked), np.asarray(jperm)
+    model, mperm = _two_level_lu(torch.from_numpy(F), nbw, KERNEL_OUTER_BLOCK,
+                                 inner, pivot=_f64_key_pivot)
+    plain, pperm = lu_panel_reference(torch.from_numpy(F), nbw, inner)
+    np.testing.assert_array_equal(mperm.numpy(), wperm)
+    np.testing.assert_array_equal(pperm.numpy(), wperm)
+    cols = nbw if case in ("random", "ties") else KERNEL_OUTER_BLOCK
+    if cols < nbw:
+        assert np.isfinite(model.numpy()[:, :150]).all()
+    got, ref = model.numpy()[:, :cols], plain.numpy()[:, :cols]
+    np.testing.assert_allclose(got, ref, rtol=1e-10,
+                               atol=1e-10 * np.abs(ref).max())
+    seen = np.isfinite(want[:, :cols])
+    assert seen.mean() > 0.5
+    np.testing.assert_allclose(got[seen], want[:, :cols][seen], rtol=1e-10,
+                               atol=1e-10 * np.abs(ref).max())

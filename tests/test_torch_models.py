@@ -30,6 +30,7 @@ import pytest
 
 import elemental_tpu as el
 import elemental_tpu_torch as et
+from .torch_shared_ref import shared_cache
 
 K_ITERS = 3
 
@@ -98,7 +99,7 @@ def _model(pkg, name, k, rc=(1, 1)):
     return conv(x), None, info
 
 
-@functools.cache
+@shared_cache
 def _jax(name, k):
     return _model(el, name, k)
 

@@ -173,14 +173,86 @@ def _tcc(G, t):
     return Tc
 
 
-def _two_level_qr(F, cw, ob):
+#: the float64 route's spine (``csrc/qr_panel.cu``): warps of a CTA
+#: (RQ) and the cap on a launch's CTAs on an H100 (its SM count)
+RQ, CTAS = 16, 132
+
+
+def _spine_ctas(n):
+    """``spine_ctas<double>``: one CTA per 256 rows, at least 64 (or one
+    per 64 rows), before the cap."""
+    return max(-(-n // 256), min(64, -(-n // 64)))
+
+
+def _seq(x):
+    """The sum of x's rows in order (one rounding per addition)."""
+    return np.cumsum(x, axis=0)[-1] if len(x) else np.zeros(x.shape[1:])
+
+
+def _f64_chunk_qr(X):
+    """The float64 route's ``factor_chunk`` on one chunk X = P[s:, s:e]
+    (numpy float64), in its order of operations: the rows split into
+    slabs of G = min(_spine_ctas(rows), 132) CTAs; each column's dots with
+    the chunk's columns summed per warp (rows base + q + 16 n, in order),
+    then over the 16 warps, then the G CTAs' partials by warp (partial
+    q + 16 t, t in order) and over the warps again; the larfg scalars, w,
+    row j, v by division and the rank-1 update as the kernel forms them,
+    the next column's dots from the updated rows.  Returns (packed, tau)."""
+    A = X.copy()
+    n, cw = A.shape
+    G = min(_spine_ctas(n), CTAS)
+    R = -(-n // G)
+    slabs = [(min(b * R, n), min((b + 1) * R, n)) for b in range(G)]
+
+    def partials(jn, first):
+        part = np.zeros((G, cw))
+        for b, (r0, r1) in enumerate(slabs):
+            base = max(r0, jn + 1) if first else max(r0, jn)
+            acc = [_seq(np.array([A[i, jn] * A[i] for i in
+                                  range(base + q, r1, RQ) if i > jn]
+                                 ).reshape(-1, cw)) for q in range(RQ)]
+            part[b] = _seq(np.array(acc))
+        red = [_seq(part[q::RQ]) for q in range(RQ)]
+        return _seq(np.array(red))
+
+    tau = np.zeros(cw)
+    d = partials(0, True)
+    for jc in range(cw):
+        alpha, sigma, rj = A[jc, jc], d[jc], A[jc].copy()
+        anorm = np.sqrt(alpha * alpha + sigma)
+        s1 = 1.0 if alpha == 0 else alpha
+        beta = -np.sign(s1) * anorm
+        degenerate = anorm == 0
+        safe_beta = 1.0 if degenerate else beta
+        tau[jc] = 0.0 if degenerate else (safe_beta - alpha) / safe_beta
+        denom = alpha - safe_beta
+        safe_denom = 1.0 if denom == 0 else denom
+        vj = 0.0 if degenerate else 1.0
+        right = np.arange(cw) > jc
+        w = np.where(right, vj * rj + d / safe_denom, 0.0)
+        A[jc, right] = rj[right] - (tau[jc] * vj) * w[right]
+        A[jc, jc] = beta
+        A[jc + 1:, jc] = A[jc + 1:, jc] / safe_denom
+        A[jc + 1:, right] -= np.outer(tau[jc] * A[jc + 1:, jc], w[right])
+        if jc + 1 < cw:
+            d = partials(jc + 1, False)
+    return A, tau
+
+
+def _f64_route_chunk(X):
+    A, tau = _f64_chunk_qr(X.numpy())
+    return torch.from_numpy(A), torch.from_numpy(tau)
+
+
+def _two_level_qr(F, cw, ob, chunk=_panel_qr):
     """The CUDA kernel's algebra (``csrc/qr_panel.cu``), in float64 torch:
     cw-column inner chunks factored by the column recurrence, each inner
     block reflector applied to the rest of its ob-column outer block only,
     then each outer block's reflector to the rest of the panel.  T is
     assembled per outer block from the inner T_cc recurrences and the
     grams Z = V_c^T P[:, so:eo] and Z_o = V_o^T P the products already
-    hold."""
+    hold.  ``chunk`` factors one inner chunk (the plain column loop by
+    default)."""
     P = F.clone()
     M, k = P.shape
     tau = torch.zeros(k, dtype=P.dtype)
@@ -189,7 +261,7 @@ def _two_level_qr(F, cw, ob):
         eo = min(so + ob, k)
         for s in range(so, eo, cw):
             e = min(s + cw, eo)
-            P[s:, s:e], tau[s:e] = _panel_qr(P[s:, s:e])
+            P[s:, s:e], tau[s:e] = chunk(P[s:, s:e])
             Vc = _panel_v(P[s:, s:e])
             Z = Vc.T @ torch.cat([P[s:, so:s], Vc, P[s:, e:eo]], dim=1)
             Tcc = _tcc(Z[:, s - so:e - so], tau[s:e])
@@ -225,3 +297,24 @@ def test_two_level_blocking_matches_plain_and_jax(shape, cw, ob):
     _close(T.numpy(), np.asarray(jax_larft(jnp.asarray(V.numpy()),
                                            jnp.asarray(tau.numpy()))), 1e-12)
     assert torch.equal(torch.tril(T, -1), torch.zeros_like(T))
+
+
+@pytest.mark.parametrize("shape", [(1100, 70), (20000, 40)],
+                         ids=["18-ctas", "79-ctas"])
+def test_f64_route_partials_order_matches_plain_and_jax(shape):
+    """The float64 route sums each column's dots over its own slabs
+    (:func:`_f64_chunk_qr`, the kernel's fixed order: 64 rows a CTA at
+    1100 rows, 256 at 20000; a warp takes two or more of the CTAs'
+    partials).  In the kernel's two-level
+    blocking (32-column chunks, 128-column outer blocks) it gives the plain
+    version's packed panel, tau and T, and the JAX package's ``_panel_qr``
+    + ``_larft``, to rtol 1e-10."""
+    F = _panel(shape, np.float64, seed=31)
+    P, tau, T = _two_level_qr(torch.from_numpy(F), 32, 128,
+                              chunk=_f64_route_chunk)
+    pp, ptau, pT = qr_panel_reference(torch.from_numpy(F))
+    jp, jtau = jax_panel_qr(jnp.asarray(F))
+    jT = jax_larft(jax_panel_v(jp), jtau)
+    for got, plain, jax in ((P, pp, jp), (tau, ptau, jtau), (T, pT, jT)):
+        _close(got.numpy(), plain.numpy(), 1e-10)
+        _close(got.numpy(), np.asarray(jax), 1e-10)

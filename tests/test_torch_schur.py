@@ -16,7 +16,6 @@ starve XLA's in-process all-reduce rendezvous when the host is loaded
 (``rendezvous.cc``: "Termination timeout ... exceeded"); one device has
 no rendezvous.
 """
-import functools
 import importlib
 
 import jax
@@ -25,6 +24,7 @@ import pytest
 
 import elemental_tpu as el
 import elemental_tpu_torch as et
+from .torch_shared_ref import shared_cache
 
 jschur = importlib.import_module("elemental_tpu.lapack.schur")
 tschur = importlib.import_module("elemental_tpu_torch.lapack.schur")
@@ -65,7 +65,7 @@ def _schur_input(name):
     raise KeyError(name)
 
 
-@functools.lru_cache(maxsize=None)
+@shared_cache
 def _jax_schur(name):
     F, base = _schur_input(name)
     T, Q = jschur.schur(_jg(F), base=base)
@@ -114,7 +114,7 @@ def _triang_input(name):
     return T.astype(complex)
 
 
-@functools.lru_cache(maxsize=None)
+@shared_cache
 def _jax_triang(name):
     w, V = jschur.triang_eig(_jg(_triang_input(name)), nb=8)
     return np.asarray(w), np.asarray(el.to_global(V))
@@ -142,7 +142,7 @@ def test_triang_eig_matches_jax(rc, name):
         assert np.linalg.norm(R, axis=0)[[5, 6, 7]].max() < 1e-10
 
 
-@functools.lru_cache(maxsize=None)
+@shared_cache
 def _jax_eig():
     F = np.random.default_rng(4).normal(size=(40, 40))
     w, V = jschur.eig(_jg(F), base=12)
@@ -162,7 +162,7 @@ def test_eig_matches_jax(rc):
     assert np.linalg.norm(r) / np.linalg.norm(F) < 1e-11
 
 
-@functools.lru_cache(maxsize=None)
+@shared_cache
 def _jax_pspec():
     F = np.random.default_rng(5).normal(size=(32, 32))
     Z, sm = jschur.pseudospectra(_jg(F), (-3, 3), (-3, 3), nx=4, ny=4,
@@ -215,7 +215,7 @@ def test_pseudospectra_deflation_matches_jax(rc):
     assert np.median(rel) < 5e-2
 
 
-@functools.lru_cache(maxsize=None)
+@shared_cache
 def _jax_deflation_snaps():
     F2 = np.random.default_rng(11).normal(size=(24, 24))
     snaps = []

@@ -7,7 +7,6 @@ compiles per grid dominated this file's time).  Eigenvalues agree to 1e-12 and e
 each column's sign; each result also meets the residual and
 orthogonality bounds of ``tests/lapack/test_spectral.py`` and
 ``tests/lapack/test_tridiag_eig.py``."""
-import functools
 
 import jax
 import numpy as np
@@ -15,6 +14,7 @@ import pytest
 
 import elemental_tpu as el
 import elemental_tpu_torch as et
+from .torch_shared_ref import shared_cache
 
 GRIDS = [(1, 1), (2, 2), (2, 4)]
 IDS = [f"{r}x{c}" for r, c in GRIDS]
@@ -47,7 +47,7 @@ def _np(x):
         else np.asarray(x)
 
 
-@functools.cache
+@shared_cache
 def _jax(fn: str, key: str, *args, **kw):
     """``el.<fn>`` of the inputs named ``key`` on a 1x1 JAX grid, as numpy
     (once per module)."""

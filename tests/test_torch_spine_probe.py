@@ -86,6 +86,43 @@ def test_the_fma_potrf_source_still_gets_its_stamps():
         "FMA tiles in both dtypes"
 
 
+@pytest.mark.parametrize("kind,now,then,version", [
+    ("lu", "    const int p = resolve(j, sc);\n",
+     "    const int p = resolve(j, par, G, sc);\n",
+     "float64 candidates reduced in every warp"),
+    ("qr", "      column_barrier(grid, sc, target);\n    }\n",
+     "      grid.sync();\n    }\n", "grid.sync in both dtypes")])
+def test_the_earlier_panel_spines_still_get_their_stamps(kind, now, then,
+                                                         version):
+    """``--src`` probes the column loops before the float64 redesign: the
+    committed source with its one differing anchor put back (LU: the G
+    candidates each warp reduced; QR: grid.sync() closing each column in
+    both dtypes) gets that version's stamps."""
+    src = _source(kind)
+    assert src.count(now) == 1
+    name, parts, out = spine_probe.stamped_source(kind,
+                                                  src.replace(now, then))
+    assert name == version
+    assert out.count("PROBE_TS(") > len(parts)
+
+
+@pytest.mark.parametrize("kind", ["qr", "lu"])
+def test_panel_probes_follow_both_dtypes(kind):
+    """The qr and lu probes stamp a chunk of a float32 and a float64 panel
+    (the float64 one at the example's first panel), each chunk inside its
+    panel, and the stamp macro picks the chunk by the kernel's type."""
+    probe = spine_probe._PROBES[kind]
+    assert set(probe["panel"]) == set(probe["chunk"]) == {"float32",
+                                                          "float64"}
+    assert probe["panel"]["float64"] == {"qr": (32768, 128),
+                                         "lu": (16384, 1024)}[kind]
+    for name, (M, k) in probe["panel"].items():
+        assert 0 < probe["chunk"][name] < k
+    _, _, out = spine_probe.stamped_source(kind, _source(kind))
+    assert (f"sizeof(T) == 8 ? {probe['chunk']['float64']} : "
+            f"{probe['chunk']['float32']}") in out
+
+
 def test_potrf_split_means_each_part_over_the_steps():
     """``potrf_split`` on synthetic stamps: block 0's parts advance by 1,
     2, 3, 4 and 5 us a step, block 1's by 2, 3, 4 and 6; the step is 15
@@ -107,7 +144,7 @@ def test_potrf_split_means_each_part_over_the_steps():
     assert out["step_us"] == 15.0
 
 
-@pytest.mark.parametrize("kernel", ["lu", "potrf"])
+@pytest.mark.parametrize("kernel", ["lu", "qr", "potrf"])
 def test_ab_timing_needs_a_card(kernel, capsys):
     """Without a card both modes exit 1 and time nothing."""
     import torch
@@ -125,3 +162,15 @@ def test_potrf_trial_needs_a_card(capsys):
     path = common.CSRC.parents[2] / "tools" / "potrf_trial.py"
     assert runpy.run_path(str(path), run_name="potrf_trial")["main"]() == 1
     assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_ab_timing_qr_residual_of_the_plain_version():
+    """``ab_timing.qr_residual``, the gate of ``--kernel qr``, is at
+    rounding level for the plain version's factor and far above it for a
+    wrong tau."""
+    import torch
+    from elemental_tpu_torch.kernels import qr_panel_reference
+    P = torch.from_numpy(np.random.default_rng(2).normal(size=(300, 70)))
+    packed, tau, T = qr_panel_reference(P)
+    assert ab_timing.qr_residual(P, packed, tau, T) < 1e-14
+    assert ab_timing.qr_residual(P, packed, tau, 2 * T) > 1e-2

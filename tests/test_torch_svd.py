@@ -7,7 +7,6 @@ column's sign is aligned (the inputs' values are separated), and every
 result meets ``tests/lapack/test_spectral.py``'s oracles; the Golub-Kahan
 route is held to the JAX tests' bounds (it squares the condition number).
 """
-import functools
 
 import jax
 import numpy as np
@@ -17,6 +16,7 @@ import elemental_tpu as el
 import elemental_tpu_torch as et
 from elemental_tpu.lapack.funcs import _qdwh_eig as j_qdwh_eig
 from elemental_tpu_torch.lapack.funcs import _qdwh_eig as t_qdwh_eig
+from .torch_shared_ref import shared_cache
 
 GRIDS = [(1, 1), (2, 2), (2, 4)]
 IDS = [f"{r}x{c}" for r, c in GRIDS]
@@ -53,7 +53,7 @@ def _input(route):
     return np.random.default_rng(seed).normal(size=shape)
 
 
-@functools.lru_cache(maxsize=None)
+@shared_cache
 def _jax_svd(route, vectors=True):
     _, _, kw, nb = ROUTES[route]
     out = el.svd(_jg(_input(route)), vectors=vectors, nb=nb, **kw)
@@ -131,7 +131,7 @@ def _check_eig(F, w, Zg, tol=1e-12):
     assert np.linalg.norm(Zg.conj().T @ Zg - np.eye(n)) < tol * n
 
 
-@functools.lru_cache(maxsize=None)
+@shared_cache
 def _jax_qdwh(n, seed, base):
     w, Z = j_qdwh_eig(_jg(_sym(n, seed)), "L", True, base=base)
     return np.asarray(w), np.asarray(el.to_global(Z))
