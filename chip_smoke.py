@@ -235,7 +235,20 @@ Phases, each of which raises on failure:
    and ``herk`` / ``syrk`` / ``trrk`` in float64 with the JAX tests'
    bounds; every public function of the LDL slice in float64 with the
    JAX tests' inputs and bounds; and ``entry.dryrun_multichip(8)`` on a
-   virtual 2x4 grid.
+   virtual 2x4 grid;
+4a. the device grid: a 2x2 ``Grid(devices=...)`` over ``cuda:i % count``
+   for i < 4 (four ranks on ``cuda:0`` on a one-card machine, four cards
+   where there are four), each rank's block its own tensor: (a) at
+   N = 4096 float32, the tiles of every redistribution of the
+   ``hpd_solve`` path (:data:`DEVICE_GRID_MOVES`), of ``panel_spread``
+   and of ``transpose_dist`` bit-equal to the virtual 2x2 grid's storage
+   blocks; (b) ``hpd_solve(A, B, nb=2048)`` at N = 32768 float32,
+   nrhs = 8, on phase 3's inputs, on the device grid and on the virtual
+   2x2 grid, ``potrf_inv`` launched four times as often on the device
+   grid (once per rank and diagonal block), ``bench.py``'s factor gate and
+   the solve residual; the wall times beside phase 3's 1x1 time, the bytes
+   the collectives copied between distinct ranks beside the sum of the
+   records' ring-model bytes, and the devices used.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the card's name and power limit, and the one before that the JSON
@@ -2570,6 +2583,152 @@ def phase_distributed(et) -> None:
             {"grid": "2x2", "N": N, "nb": nb, "dtype": "float64",
              "crossover": crossover, "potrf_inv_launches": launches,
              "rel_error_vs_torch_solve": err, "residual": res}), flush=True)
+
+
+#: the redistributions of the hpd_solve path (cholesky 'L', its 'U'
+#: form's transpose pair, the triangular sweeps)
+DEVICE_GRID_MOVES = (
+    (("MC", "MR"), ("STAR", "STAR")), (("MC", "MR"), ("VC", "STAR")),
+    (("STAR", "STAR"), ("MC", "MR")), (("MC", "STAR"), ("MC", "MR")),
+    (("MR", "MC"), ("MC", "MR")), (("MC", "MR"), ("STAR", "VR")),
+    (("STAR", "VR"), ("STAR", "MR")), (("STAR", "MR"), ("MC", "MR")),
+    (("MC", "MR"), ("MC", "STAR")), (("MC", "MR"), ("STAR", "MC")))
+
+
+def same_tiles(D, V) -> bool:
+    """Every rank's tile of the device-grid matrix ``D`` equals its block
+    of the virtual-grid matrix ``V``'s stacked storage, bit for bit."""
+    import torch
+    from elemental_tpu_torch.core.dist import storage_slot
+    g = D.grid
+    r, c = g.height, g.width
+    lr, lc = D.local_shape
+    if D.dist != V.dist or D.gshape != V.gshape:
+        return False
+    for d, t in enumerate(D.local):
+        qr = storage_slot(D.cdist, r, c, d // c, d % c)
+        qc = storage_slot(D.rdist, r, c, d // c, d % c)
+        blk = V.local[qr * lr:(qr + 1) * lr, qc * lc:(qc + 1) * lc]
+        if t.device != g.devices[d] or not torch.equal(t, blk.to(t.device)):
+            return False
+    return True
+
+
+def device_grid_devices() -> list:
+    """The 2x2 device grid's devices: four cards where there are four,
+    else ``cuda:i % count`` (four ranks on ``cuda:0`` on one card)."""
+    import torch
+    count = torch.cuda.device_count()
+    return [f"cuda:{i % count}" for i in range(4)]
+
+
+def phase_device_grid(et, card: str, main_path: dict) -> dict:
+    """Phase 4a: the device grid's tiles against the virtual grid's
+    storage at N = 4096, and hpd_solve at full width on it."""
+    import torch
+    from elemental_tpu_torch.core import ranks
+    from elemental_tpu_torch.kernels import lu_panel, potrf_inv, qr_panel
+    from elemental_tpu_torch.redist import engine
+    devices = device_grid_devices()
+    dg, vg = et.Grid(2, 2, devices=devices), et.Grid(2, 2)
+    cards = len(set(dg.devices))
+    print(f"phase 4a device grid over {[str(d) for d in dg.devices]}: "
+          f"{cards} distinct card(s) of {torch.cuda.device_count()}"
+          + ("" if cards == 4 else "; the four ranks share the card"),
+          flush=True)
+
+    def pair(names):
+        return et.Dist[names[0]], et.Dist[names[1]]
+
+    # (a) every move of the path, tile for tile
+    n0 = 4096
+    A0, _ = _spd(n0, torch.float32, seed=3)
+    for src, dst in DEVICE_GRID_MOVES:
+        D = et.redistribute(et.from_global(A0, *pair(src), dg), *pair(dst))
+        V = et.redistribute(et.from_global(A0, *pair(src), vg), *pair(dst))
+        if not same_tiles(D, V):
+            raise AssertionError(f"device grid {src}->{dst} at {n0}: tiles "
+                                 f"differ from the virtual grid's storage")
+    P = A0[:, :2048]
+    for D, V in zip(et.panel_spread(et.from_global(P, et.VC, et.STAR, dg)),
+                    et.panel_spread(et.from_global(P, et.VC, et.STAR, vg))):
+        if not same_tiles(D, V):
+            raise AssertionError("device grid panel_spread: tiles differ")
+    for conj in (False, True):
+        D = et.transpose_dist(et.from_global(A0, et.MC, et.MR, dg), conj)
+        V = et.transpose_dist(et.from_global(A0, et.MC, et.MR, vg), conj)
+        if not same_tiles(D, V):
+            raise AssertionError("device grid transpose_dist: tiles differ")
+    out = {"bit_equal_moves": len(DEVICE_GRID_MOVES) + 3, "n_bit_equal": n0}
+    # warm-up of the device grid's path at a small size
+    B0 = torch.ones(n0, 8, device="cuda")
+    et.hpd_solve(et.from_global(A0, et.MC, et.MR, dg),
+                 et.from_global(B0, et.MC, et.MR, dg), nb=2048)
+    del A0, B0, P, D, V
+
+    # (b) the flagship on the virtual and on the device 2x2 grid
+    N, nb, nrhs = 32768, 2048, 8
+    Ag, gen = _spd(N, torch.float32, seed=0)
+    Bg = torch.randn(N, nrhs, generator=gen, device="cuda")
+    Av = et.from_global(Ag, et.MC, et.MR, vg)
+    Bv = et.from_global(Bg, et.MC, et.MR, vg)
+    torch.cuda.synchronize()
+    potrf_inv.launches = lu_panel.launches = qr_panel.launches = 0
+    t0 = time.perf_counter()
+    Xv = et.hpd_solve(Av, Bv, nb=nb)
+    torch.cuda.synchronize()
+    t_virtual = time.perf_counter() - t0
+    virtual_launches = potrf_inv.launches
+    del Av, Bv, Xv
+    Ad = et.from_global(Ag, et.MC, et.MR, dg)
+    Bd = et.from_global(Bg, et.MC, et.MR, dg)
+    ranks.synchronize(dg)
+    potrf_inv.launches = lu_panel.launches = qr_panel.launches = 0
+    with ranks.tally() as moved, engine.redist_trace() as log:
+        t0 = time.perf_counter()
+        Xd = et.hpd_solve(Ad, Bd, nb=nb)
+        ranks.synchronize(dg)
+        t_device = time.perf_counter() - t0
+    launches = potrf_inv.launches
+    if launches != 4 * virtual_launches or lu_panel.launches \
+            or qr_panel.launches:
+        raise AssertionError(f"device grid: potrf_inv launched {launches} "
+                             f"times, expected 4 x {virtual_launches}; "
+                             f"lu_panel {lu_panel.launches}, qr_panel "
+                             f"{qr_panel.launches}, expected 0")
+    wire = sum(r.wire_bytes for r in log if r.wire_bytes > 0)
+    sites = sum(s.bytes for r in log for s in engine.record_sites(r))
+    Fd = et.cholesky(Ad, nb=nb)
+    l, x = et.to_global(Fd), et.to_global(Xd)
+    del Fd, Ad
+    v = torch.randn(N, 1, generator=gen, device="cuda")
+    norm_a = torch.linalg.norm(Ag)
+    factor_res = float(torch.linalg.norm(Ag @ v - l @ (l.T @ v))
+                       / (norm_a * torch.linalg.norm(v)))
+    solve_res = float(torch.linalg.norm(Ag @ x - Bg)
+                      / (norm_a * torch.linalg.norm(x)))
+    if not (factor_res < 1e-3 and solve_res < 1e-4
+            and bool(torch.isfinite(x).all()) and tuple(x.shape) == (N, nrhs)):
+        raise AssertionError(f"device grid: factor residual {factor_res:.3e} "
+                             f"(< 1e-3), solve residual {solve_res:.3e} "
+                             f"(< 1e-4)")
+    out |= {"N": N, "nb": nb, "nrhs": nrhs, "dtype": "float32",
+            "grid": "2x2", "devices": [str(d) for d in dg.devices],
+            "distinct_cards": cards, "hpd_solve_s": t_device,
+            "virtual_2x2_hpd_solve_s": t_virtual,
+            "phase3_1x1_hpd_solve_s": main_path["hpd_solve_s"],
+            "potrf_inv_launches": launches,
+            "virtual_2x2_potrf_inv_launches": virtual_launches,
+            "bytes_moved_between_ranks": moved.bytes,
+            "copies_between_ranks": moved.copies,
+            "bytes_moved_per_rank": moved.bytes / dg.size,
+            "records_wire_bytes_per_rank": wire,
+            "records_with_panel_spread_bytes_per_rank": sites,
+            "redistribute_records": len(log),
+            "factor_residual": factor_res, "solve_residual": solve_res,
+            "card": card}
+    print("phase 4a device grid " + json.dumps(out), flush=True)
+    return out
 
 
 def phase_lu_distributed(et) -> None:
@@ -5581,6 +5740,7 @@ def main() -> int:
     phase_ldl_distributed(et)
     et.entry.dryrun_multichip(8)
     print(f"phase 4 wall_s {time.perf_counter() - t4:.1f}", flush=True)
+    device_grid = timed("4a", phase_device_grid, et, card, main_path)
 
     at_path = next(r for r in rows if r["w"] == 2048 and r["dtype"] == "float32")
     at_eig = next(r for r in rows if r["w"] == 512 and r["dtype"] == "float32")
@@ -5619,7 +5779,8 @@ def main() -> int:
         key = f"{name}_launches"
         out = {p: d[key] for p, d in (("3", main_path), ("3b", lu_path),
                                       ("3c", qr_path), ("3d", eig_path),
-                                      ("3e", svd_path), ("3g", ldl_path))
+                                      ("3e", svd_path), ("3g", ldl_path),
+                                      ("4a", device_grid))
                if d.get(key)}
         for ph, rest in (("3f", svd_rest), ("3h", ldl_rest),
                          ("3i", calu_tsqr), ("3j", resilience),

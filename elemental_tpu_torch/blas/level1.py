@@ -18,8 +18,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core.dist import Dist
+from ..core import indexing as ix
+from ..core.dist import Dist, rank_of
 from ..core.distmatrix import DistMatrix, _global_index_dim
+from ..core.ranks import per_rank
 from ..redist.engine import redistribute, transpose_dist
 
 
@@ -66,11 +68,22 @@ def conjugate(A: DistMatrix) -> DistMatrix:
 
 # ---- index-dependent maps -------------------------------------------
 
-def _global_indices(A: DistMatrix):
+def _global_indices(A: DistMatrix, rank=None):
     """(I, J) global index tensors matching the storage array layout
-    (padding positions map to indices >= the extent)."""
+    (padding positions map to indices >= the extent).  With ``rank`` =
+    ``(mc, mr)`` of a device grid: those of that rank's block, from its
+    shifts, on its device."""
     Sc, Sr = A.col_stride, A.row_stride
     lr, lc = A.local_rows, A.local_cols
+    if rank is not None:
+        g = A.grid
+        r, c = g.height, g.width
+        dev = g.devices[rank[0] * c + rank[1]]
+        I = torch.arange(lr, device=dev) * Sc \
+            + ix.shift(rank_of(A.cdist, r, c, *rank), A.calign, Sc)
+        J = torch.arange(lc, device=dev) * Sr \
+            + ix.shift(rank_of(A.rdist, r, c, *rank), A.ralign, Sr)
+        return I, J
     dev = A.local.device
     q = torch.arange(Sc, device=dev)[:, None]
     il = torch.arange(lr, device=dev)[None, :]
@@ -102,9 +115,10 @@ def index_dependent_fill(A: DistMatrix, fn) -> DistMatrix:
 
 
 def make_trapezoidal(A: DistMatrix, uplo: str, offset: int = 0) -> DistMatrix:
-    """Zero outside the lower/upper trapezoid (MakeTrapezoidal)."""
-    return A.with_local(torch.where(_trapezoid_mask(A, uplo, offset),
-                                    A.local, 0))
+    """Zero outside the lower/upper trapezoid (MakeTrapezoidal); on a
+    device grid each rank masks its own block."""
+    return A.with_local(per_rank(lambda rk, x: torch.where(
+        _trapezoid_mask(A, uplo, offset, rk), x, 0), A))
 
 
 def make_symmetric(A: DistMatrix, uplo: str = "L", conj: bool = False) -> DistMatrix:
@@ -366,8 +380,8 @@ def min_loc(A: DistMatrix):
 
 # ---- trapezoid updates (ScaleTrapezoid.cpp, AxpyTrapezoid.cpp) -------
 
-def _trapezoid_mask(A: DistMatrix, uplo: str, offset: int):
-    I, J = _global_indices(A)
+def _trapezoid_mask(A: DistMatrix, uplo: str, offset: int, rank=None):
+    I, J = _global_indices(A, rank)
     if uplo.upper().startswith("L"):
         return J[None, :] <= I[:, None] + offset
     return J[None, :] >= I[:, None] + offset

@@ -30,6 +30,7 @@ import torch
 from ..core.dist import MC, MR, VC, VR, STAR
 from ..core.distmatrix import DistMatrix, zeros as dm_zeros
 from ..core.environment import check_precision
+from ..core.ranks import Tiles, caller_name, per_rank, refuse, tensors
 from ..core.view import view, update_view
 from ..obs.tracer import NULL_HOOK as _NULL_HOOK, phase_hook as _phase_hook
 from ..redist.engine import panel_spread, redistribute, transpose_dist
@@ -39,8 +40,13 @@ from ..tune.policy import blocksize_policy as _blocksize, resolve_auto
 from .level1 import _global_indices, get_diagonal, make_symmetric
 
 
-def _check_mcmr(*Ms: DistMatrix):
+def _check_mcmr(*Ms: DistMatrix, device_grid: bool = False):
+    """Every operand zero-aligned [MC,MR] on one grid.  A device grid is
+    refused unless the caller runs on one (``device_grid=True``): the one
+    entry check of the level-3 and LAPACK drivers."""
     g = Ms[0].grid
+    if not device_grid and any(isinstance(A.local, Tiles) for A in Ms):
+        refuse(caller_name())
     for A in Ms:
         if A.dist != (MC, MR) or (A.calign, A.ralign) != (0, 0):
             raise ValueError(f"expected zero-aligned [MC,MR] operand, got {A}")
@@ -55,9 +61,11 @@ def _orient(A: DistMatrix, orient: str) -> DistMatrix:
     return redistribute(transpose_dist(A, conj=(orient == "C")), MC, MR)
 
 
-def _mask_triangle(C: DistMatrix, uplo: str, strict: bool = False):
-    """Boolean mask over C's storage selecting the given global triangle."""
-    I, J = _global_indices(C)
+def _mask_triangle(C: DistMatrix, uplo: str, strict: bool = False,
+                   rank=None):
+    """Boolean mask over C's storage (with ``rank``: over that device-grid
+    rank's block) selecting the given global triangle."""
+    I, J = _global_indices(C, rank)
     if uplo.upper().startswith("L"):
         return (J[None, :] < I[:, None]) if strict else (J[None, :] <= I[:, None])
     return (J[None, :] > I[:, None]) if strict else (J[None, :] >= I[:, None])
@@ -509,8 +517,11 @@ def trsm(side: str, uplo: str, orient: str, A: DistMatrix, B: DistMatrix,
     the wire precision of the panel moves and ``redist_path`` their route
     (the entry/exit transposes of a right-side solve included).
     ``'auto'`` for ``nb`` / ``comm_precision`` / ``redist_path`` resolves
-    through the tuner (:mod:`..tune`) as op ``'trsm'`` on B's shape."""
-    check_precision(precision, A.local, B.local)
+    through the tuner (:mod:`..tune`) as op ``'trsm'`` on B's shape.
+
+    Runs on a device grid: the replicated diagonal-block solves and the
+    storage products run on every rank's block."""
+    check_precision(precision, *tensors(A, B))
     nb, comm_precision, redist_path = resolve_auto(
         "trsm", B.gshape, B.dtype, B.grid, nb=nb,
         comm_precision=comm_precision, redist_path=redist_path).values()
@@ -550,14 +561,15 @@ def _trsm_left(uplo: str, trans: bool, conj: bool, A: DistMatrix, B: DistMatrix,
     ([STAR,STAR]), the RHS panel goes 1-D cyclic ([STAR,VR]) for the local
     triangular solve, and the off-diagonal product rides
     [MC,STAR] x [STAR,MR] storage (pure local)."""
-    _check_mcmr(A, B)
+    _check_mcmr(A, B, device_grid=True)
     m, n = B.gshape
     if A.gshape != (m, m):
         raise ValueError(f"A {A.gshape} incompatible with B {B.gshape}")
     lower = uplo.upper().startswith("L")
     r, c = A.grid.height, A.grid.width
     ib = _blocksize(nb, math.lcm(r, c), m)
-    X = B.with_local(alpha * B.local if _nonzero(alpha - 1) else B.local)
+    X = B.with_local(per_rank(lambda rk, x: alpha * x, B)
+                     if _nonzero(alpha - 1) else B.local)
     starts = list(range(0, m, ib))
     forward = lower != trans        # effective-lower => forward sweep
     if not forward:
@@ -568,10 +580,11 @@ def _trsm_left(uplo: str, trans: bool, conj: bool, A: DistMatrix, B: DistMatrix,
                            comm_precision=cp, path=rp)
         # mask to the stored triangle so opposite-triangle garbage (e.g. the
         # packed L\U format of lu()) can never leak into the solve
-        a11 = torch.tril(A11.local) if lower else torch.triu(A11.local)
         B1 = redistribute(view(X, rows=(s, e)), STAR, VR, comm_precision=cp,
                           path=rp)
-        x1 = _solve_block(a11, B1.local, lower, trans, conj, unit)
+        x1 = per_rank(lambda rk, a, b: _solve_block(
+            torch.tril(a) if lower else torch.triu(a), b, lower, trans, conj,
+            unit), A11, B1)
         X1 = DistMatrix(x1, B1.gshape, STAR, VR, 0, 0, A.grid)
         X1_mr = redistribute(X1, STAR, MR, comm_precision=cp, path=rp)
         X = update_view(X, redistribute(X1_mr, MC, MR), rows=(s, e))  # local filter
@@ -594,13 +607,13 @@ def _sweep_update(A: DistMatrix, X: DistMatrix, X1_mr: DistMatrix, s: int,
         # op(A)[hi-part, s:e] = op(A[s:e, hi-part])
         A1p = redistribute(view(A, rows=(s, e), cols=(lo, hi)), STAR, MC,
                            comm_precision=cp, path=rp)
-        a_loc = A1p.local.mT           # [MC,STAR]-storage of A1p^T
+        a_loc = per_rank(lambda rk, x: x.mT, A1p)   # [MC,STAR] of A1p^T
     else:
         A1p = redistribute(view(A, rows=(lo, hi), cols=(s, e)), MC, STAR,
                            comm_precision=cp, path=rp)
         a_loc = A1p.local
     if conj:
-        a_loc = a_loc.conj()
+        a_loc = per_rank(lambda rk, x: x.conj(), a_loc)
     return local_rank_update(X, a_loc, X1_mr.local, rows=(lo, hi),
                              precision=precision)
 
@@ -612,10 +625,12 @@ def local_rank_update(C: DistMatrix, A_loc, B_loc, rows=None, cols=None,
     ``A_loc`` / ``B_loc`` are the STORAGE arrays of conforming [MC,STAR]
     and [STAR,MR] operands (rows/cols of the product land exactly on the
     view's cyclic layout), so the whole rank-k update is one local matmul
-    + writeback -- the reference's ``LocalGemm`` trailing-update idiom."""
+    + writeback -- the reference's ``LocalGemm`` trailing-update idiom.
+    On a device grid ``A_loc`` / ``B_loc`` are Tiles and every rank runs
+    its own product."""
     sub = view(C, rows=rows, cols=cols)
-    upd = torch.matmul(A_loc, B_loc)
-    new = sub.local + (alpha * upd).to(C.dtype)
+    new = per_rank(lambda rk, c, a, b: c + (alpha * torch.matmul(a, b)).to(
+        C.dtype), sub, A_loc, B_loc)
     return update_view(C, sub.with_local(new), rows=rows, cols=cols)
 
 

@@ -16,9 +16,11 @@ over an r x c grid (p = r*c):
            zeros
   CIRC  -- all data on the root: the storage is the full array
 
-The grid of the port is virtual (one device holds every rank's block), so
-only the static layout math is needed here; the traced rank helpers of
-the JAX package have no counterpart.
+The static layout math serves both kinds of grid.  The JAX package's
+rank helpers (:func:`gather_axes`, :func:`spec_component`,
+:func:`rank_of`) read traced axis indices inside ``shard_map``; here a
+device grid runs each rank's step on the host with the rank's ``(mc,
+mr)`` known, so they take and return plain integers.
 """
 from __future__ import annotations
 
@@ -99,3 +101,51 @@ def md_slot_of_global(r: int, c: int, n: int):
     l = -(-n // L) if n else 1
     k = np.arange(n)
     return ((k % r) * c + (k % c)) * l + k // L
+
+
+def gather_axes(d: Dist) -> tuple:
+    """Grid axes (major first) whose all_gather rebuilds a ``d``-split
+    dimension in rank order ('mc' = the grid's height, 'mr' its width);
+    MD's slot ranges gather mc-major."""
+    return {Dist.MC: ("mc",), Dist.MR: ("mr",), Dist.VC: ("mr", "mc"),
+            Dist.VR: ("mc", "mr"), Dist.MD: ("mc", "mr")}.get(d, ())
+
+
+def spec_component(d: Dist):
+    """The grid axes a ``d`` dimension of the stacked storage is split
+    over (the JAX ``PartitionSpec`` entry; ``None`` = not split)."""
+    return {Dist.MC: "mc", Dist.MR: "mr", Dist.VC: ("mr", "mc"),
+            Dist.VR: ("mc", "mr"), Dist.MD: ("mc", "mr")}.get(d)
+
+
+def rank_of(d: Dist, r: int, c: int, mc: int, mr: int) -> int:
+    """Rank ``(mc, mr)``'s rank within distribution ``d``.
+
+    For MD the "rank" is k0, the first diagonal entry the rank owns
+    (< lcm), or the out-of-range sentinel lcm for a rank outside the
+    diagonal comm."""
+    if d is Dist.MC:
+        return mc
+    if d is Dist.MR:
+        return mr
+    if d is Dist.VC:
+        return mc + r * mr
+    if d is Dist.VR:
+        return mr + c * mc
+    if d is Dist.MD:
+        g, L, inv = md_params(r, c)
+        if (mc - mr) % g:
+            return L
+        return (mc + r * ((((mr - mc) // g) * inv) % (c // g))) % L
+    return 0
+
+
+def storage_slot(d: Dist, r: int, c: int, mc: int, mr: int) -> int:
+    """The slot of the stacked storage's ``d`` dimension that rank ``(mc,
+    mr)`` holds (0 for a replicated dimension; MD's mc-major slot
+    range)."""
+    if d is Dist.MD:
+        return mc * c + mr
+    if d in (Dist.STAR, Dist.CIRC):
+        return 0
+    return rank_of(d, r, c, mc, mr)

@@ -2,12 +2,19 @@
 
 PyTorch port of ``elemental_tpu/core/distmatrix.py`` (the reference's
 ``DistMatrix<T,ColDist,RowDist>``, Elemental ``include/El/core/DistMatrix/``).
-One dataclass holds one tensor, ``local``: the "stacked storage" array of
-shape ``(S_col*local_rows, S_row*local_cols)``, whose tile (q_col, q_row)
-is rank (q_col, q_row)'s local cyclic block, padded to the uniform extent
-``ceil(extent/stride)`` with ZEROS.  The layout is the JAX package's, bit
-for bit, so storage moves between the two packages as a plain array
-(:func:`from_storage` / :func:`storage_numpy`).
+On a virtual grid one dataclass holds one tensor, ``local``: the
+"stacked storage" array of shape ``(S_col*local_rows, S_row*local_cols)``,
+whose tile (q_col, q_row) is rank (q_col, q_row)'s local cyclic block,
+padded to the uniform extent ``ceil(extent/stride)`` with ZEROS.  The
+layout is the JAX package's, bit for bit, so storage moves between the
+two packages as a plain array (:func:`from_storage` /
+:func:`storage_numpy`).
+
+On a device grid ``local`` is a :class:`~.ranks.Tiles`: rank (mc, mr)'s
+tile of that storage -- the JAX package's shard on mesh device (mc, mr)
+-- on ``grid.devices[mc * c + mr]``, a tensor of its own.  A CIRC matrix
+lives on rank 0 (the others hold empty blocks), as the JAX package puts
+it on the mesh's first device.
 
 The storage array is an index permutation of the mathematical matrix,
 never interpreted directly; use :func:`to_global` / :func:`from_global`
@@ -25,8 +32,9 @@ import torch
 
 from . import indexing as ix
 from .dist import (Dist, LEGAL_PAIRS, stride as dist_stride, storage_slots,
-                   md_slot_of_global)
+                   storage_slot, md_slot_of_global)
 from .grid import Grid, default_grid
+from .ranks import Tiles, is_device_grid, per_rank, rank_map, refuse
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,7 +86,7 @@ class DistMatrix:
         )
 
     def astype(self, dtype) -> "DistMatrix":
-        return self.with_local(self.local.to(dtype))
+        return self.with_local(per_rank(lambda rk, x: x.to(dtype), self.local))
 
     def __repr__(self):
         return (
@@ -164,9 +172,12 @@ def _as_tensor(arr, device) -> torch.Tensor:
 def from_global(arr, cdist: Dist, rdist: Dist, grid: Grid | None = None,
                 calign: int = 0, ralign: int = 0) -> DistMatrix:
     """Build a DistMatrix (stacked-storage form) from a global array (numpy
-    or tensor).  The result owns a fresh tensor on ``grid.device``."""
+    or tensor).  The result owns a fresh tensor on ``grid.device`` (on a
+    device grid, one a rank on the rank's device)."""
     _check_pair(cdist, rdist)
     grid = grid or default_grid()
+    if is_device_grid(grid):
+        return _from_global_tiles(arr, cdist, rdist, grid, calign, ralign)
     x = _as_tensor(arr, grid.device)
     if x.dim() != 2:
         raise ValueError(f"from_global needs a 2-D array, got {tuple(x.shape)}")
@@ -185,6 +196,8 @@ def to_global(A: DistMatrix) -> torch.Tensor:
     """Recover the mathematical (m, n) matrix from stacked storage, as a
     fresh tensor."""
     m, n = A.gshape
+    if isinstance(A.local, Tiles):
+        return _to_global_tiles(A)
     if A.cdist is Dist.CIRC:
         return A.local.clone()
     r, c = A.grid.height, A.grid.width
@@ -203,6 +216,14 @@ def zeros(m: int, n: int, cdist: Dist = Dist.MC, rdist: Dist = Dist.MR,
           calign: int = 0, ralign: int = 0) -> DistMatrix:
     _check_pair(cdist, rdist)
     grid = grid or default_grid()
+    if is_device_grid(grid):
+        lshape = _tile_shape((m, n), cdist, rdist, grid)
+        loc = rank_map(grid, lambda rk, dev: torch.zeros(
+            lshape if cdist is not Dist.CIRC or rk == (0, 0) else (0, 0),
+            dtype=dtype, device=dev))
+        return DistMatrix(loc, (m, n), cdist, rdist,
+                          0 if cdist is Dist.CIRC else calign,
+                          0 if cdist is Dist.CIRC else ralign, grid)
     if cdist is Dist.CIRC:
         return DistMatrix(torch.zeros((m, n), dtype=dtype, device=grid.device),
                           (m, n), cdist, rdist, 0, 0, grid)
@@ -227,6 +248,8 @@ def remote_updates(A: DistMatrix, rows, cols, vals) -> DistMatrix:
     Indices are bounds-checked first (one device reduction each); cyclic
     layouts only (MD/CIRC route through a redistribution first)."""
     from .multivec import _index_tensor, _validate_update_indices
+    if isinstance(A.local, Tiles):
+        refuse("remote_updates")
     if Dist.MD in A.dist or Dist.CIRC in A.dist:
         raise ValueError("remote_updates supports cyclic layouts; "
                          "redistribute MD/CIRC operands first")
@@ -274,6 +297,9 @@ def from_storage(local_np, gshape, cdist: Dist, rdist: Dist,
     if arr.shape != want:
         raise ValueError(f"storage shape {arr.shape} != {want} for "
                          f"[{cdist},{rdist}] {gshape} on {grid}")
+    if is_device_grid(grid):
+        return DistMatrix(_split_storage(arr, gshape, cdist, rdist, grid),
+                          gshape, cdist, rdist, calign, ralign, grid)
     return DistMatrix(torch.as_tensor(arr, device=grid.device), gshape,
                       cdist, rdist, calign, ralign, grid)
 
@@ -290,4 +316,126 @@ def _numpy_dtype(dtype):
 def storage_numpy(A: DistMatrix) -> np.ndarray:
     """The stacked storage of ``A`` as a host numpy array (the inverse of
     :func:`from_storage`)."""
+    if isinstance(A.local, Tiles):
+        return _join_storage(A)
     return A.local.detach().resolve_conj().cpu().numpy().copy()
+
+
+# ---------------------------------------------------------------------
+# the device grid's tiles
+# ---------------------------------------------------------------------
+
+def _tile_shape(gshape, cdist: Dist, rdist: Dist, grid: Grid) -> tuple:
+    """Every rank's (padded) local block shape."""
+    r, c = grid.height, grid.width
+    return (ix.max_local_length(gshape[0], dist_stride(cdist, r, c)),
+            ix.max_local_length(gshape[1], dist_stride(rdist, r, c)))
+
+
+def _tile_index(extent: int, d: Dist, r: int, c: int, align: int,
+                rank) -> np.ndarray:
+    """The global index of each local position of ``rank``'s block along a
+    ``d`` dimension (>= ``extent`` on padding): its slot of
+    :func:`_storage_index_dim`."""
+    full = _storage_index_dim(extent, d, r, c, align)
+    ls = full.size // storage_slots(d, r, c)
+    q = storage_slot(d, r, c, *rank)
+    return full[q * ls:(q + 1) * ls]
+
+
+def _tile_slots(A_dist, grid: Grid, rank) -> tuple:
+    r, c = grid.height, grid.width
+    return tuple(storage_slot(d, r, c, *rank) for d in A_dist)
+
+
+def _from_global_tiles(arr, cdist, rdist, grid, calign, ralign) -> DistMatrix:
+    """:func:`from_global` on a device grid: each rank takes its own block
+    out of the global array, on its own device."""
+    r, c = grid.height, grid.width
+    on_dev: dict = {}
+
+    def global_on(dev):
+        if dev not in on_dev:
+            on_dev[dev] = _as_tensor(arr, dev)
+        return on_dev[dev]
+
+    x0 = global_on(grid.devices[0])
+    if x0.dim() != 2:
+        raise ValueError(f"from_global needs a 2-D array, got {tuple(x0.shape)}")
+    m, n = x0.shape
+    if cdist is Dist.CIRC:
+        loc = rank_map(grid, lambda rk, dev: global_on(dev).clone()
+                       if rk == (0, 0) else x0.new_zeros((0, 0), device=dev))
+        return DistMatrix(loc, (m, n), cdist, rdist, 0, 0, grid)
+
+    def tile(rk, dev):
+        x = global_on(dev)
+        t = _take_fill(x, 0, _tile_index(m, cdist, r, c, calign, rk), m)
+        t = _take_fill(t, 1, _tile_index(n, rdist, r, c, ralign, rk), n)
+        return t.clone() if t is x else t
+
+    return DistMatrix(rank_map(grid, tile), (m, n), cdist, rdist, calign,
+                      ralign, grid)
+
+
+def _to_global_tiles(A: DistMatrix) -> torch.Tensor:
+    """:func:`to_global` on a device grid: the ranks' blocks land in one
+    fresh tensor on the root rank's device (one rank per distinct
+    block)."""
+    g = A.grid
+    m, n = A.gshape
+    root = g.devices[0]
+    if A.cdist is Dist.CIRC:
+        return A.local[0].clone()
+    r, c = g.height, g.width
+    out = torch.zeros((m, n), dtype=A.dtype, device=root)
+    seen = set()
+    for d in range(g.size):
+        rk = (d // c, d % c)
+        slots = _tile_slots(A.dist, g, rk)
+        if slots in seen:
+            continue
+        seen.add(slots)
+        ri = _tile_index(m, A.cdist, r, c, A.calign, rk)
+        cj = _tile_index(n, A.rdist, r, c, A.ralign, rk)
+        rv, cv = np.flatnonzero(ri < m), np.flatnonzero(cj < n)
+        if rv.size == 0 or cv.size == 0:
+            continue
+        t = A.local[d]
+        blk = t.index_select(0, torch.as_tensor(rv, device=t.device))
+        blk = blk.index_select(1, torch.as_tensor(cv, device=t.device))
+        rows = torch.as_tensor(ri[rv], device=root)
+        cols = torch.as_tensor(cj[cv], device=root)
+        out[rows[:, None], cols[None, :]] = blk.to(root)
+    return out
+
+
+def _split_storage(arr: np.ndarray, gshape, cdist, rdist, grid) -> Tiles:
+    """Stacked storage -> each rank's tile on its device."""
+    if cdist is Dist.CIRC:
+        return rank_map(grid, lambda rk, dev: torch.as_tensor(
+            arr if rk == (0, 0) else arr[:0, :0], device=dev).clone())
+    lr, lc = _tile_shape(gshape, cdist, rdist, grid)
+
+    def tile(rk, dev):
+        qr, qc = _tile_slots((cdist, rdist), grid, rk)
+        blk = np.ascontiguousarray(arr[qr * lr:(qr + 1) * lr,
+                                       qc * lc:(qc + 1) * lc])
+        return torch.as_tensor(blk, device=dev).clone()
+
+    return rank_map(grid, tile)
+
+
+def _join_storage(A: DistMatrix) -> np.ndarray:
+    """Each rank's tile -> the stacked storage, as a host numpy array."""
+    host = [t.detach().resolve_conj().cpu().numpy() for t in A.local]
+    if A.cdist is Dist.CIRC:
+        return host[0].copy()
+    g = A.grid
+    lr, lc = A.local_shape
+    out = np.zeros(_storage_shape(A.gshape, A.cdist, A.rdist, g),
+                   dtype=host[0].dtype)
+    for d, blk in enumerate(host):
+        qr, qc = _tile_slots(A.dist, g, (d // g.width, d % g.width))
+        out[qr * lr:(qr + 1) * lr, qc * lc:(qc + 1) * lc] = blk
+    return out

@@ -76,7 +76,15 @@ PRECISIONS = (None, "highest")
 def check_precision(precision, *tensors) -> None:
     """Validate a driver's ``precision`` and the matmul mode it will run
     in: only full-precision arithmetic is ported, and on a CUDA tensor
-    that needs ``torch.backends.cuda.matmul.allow_tf32 is False``."""
+    that needs ``torch.backends.cuda.matmul.allow_tf32 is False``.
+
+    Every driver hands its operands' ``local`` here on entry: a device
+    grid's :class:`~.ranks.Tiles` refuses the drivers that do not run on
+    one (those that do pass their ranks' tensors, :func:`~.ranks.tensors`).
+    """
+    from .ranks import Tiles, caller_name, refuse
+    if any(isinstance(t, Tiles) for t in tensors):
+        refuse(caller_name())
     if precision not in PRECISIONS:
         raise NotImplementedError(
             f"precision={precision!r}: only {PRECISIONS} (full float32/"

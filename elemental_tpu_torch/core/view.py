@@ -13,6 +13,10 @@ Constraint (the "grain" rule): slice starts must be multiples of the dim's
 stride; ends must be multiples or the true extent.  Blocked algorithms pick
 block sizes as multiples of lcm(r, c) so this always holds.
 
+On a device grid each of these is the same slice of every rank's tile
+(:func:`~.ranks.per_rank`): the stacked storage's blocked view is, rank
+by rank, a slice of the rank's own block.
+
 ``view`` may return a tensor that shares memory with ``A.local`` (the
 library never writes into it); ``update_view`` returns a NEW matrix and
 leaves ``A`` untouched, as the JAX package's functional update does.
@@ -28,6 +32,7 @@ import torch
 
 from . import indexing as ix
 from .distmatrix import DistMatrix
+from .ranks import Tiles, per_rank
 
 
 def _local_range(s: int, e: int, extent: int, S: int, align: int):
@@ -58,8 +63,12 @@ def view(A: DistMatrix, rows=None, cols=None) -> DistMatrix:
     Sc, Sr = A.col_stride, A.row_stride
     rsl, rel = _local_range(rows[0], rows[1], m, Sc, A.calign)
     csl, cel = _local_range(cols[0], cols[1], n, Sr, A.ralign)
-    b, lr, lc = _blocked(A.local, Sc, Sr)
-    sub = b[:, rsl:rel, :, csl:cel].reshape(Sc * (rel - rsl), Sr * (cel - csl))
+    if isinstance(A.local, Tiles):
+        sub = per_rank(lambda rk, x: x[rsl:rel, csl:cel], A.local)
+    else:
+        b, lr, lc = _blocked(A.local, Sc, Sr)
+        sub = b[:, rsl:rel, :, csl:cel].reshape(Sc * (rel - rsl),
+                                                Sr * (cel - csl))
     gshape = (min(rows[1], m) - rows[0], min(cols[1], n) - cols[0])
     return dataclasses.replace(A, local=sub, gshape=gshape)
 
@@ -72,6 +81,12 @@ def update_view(A: DistMatrix, B: DistMatrix, rows=None, cols=None) -> DistMatri
     Sc, Sr = A.col_stride, A.row_stride
     rsl, rel = _local_range(rows[0], rows[1], m, Sc, A.calign)
     csl, cel = _local_range(cols[0], cols[1], n, Sr, A.ralign)
+    if isinstance(A.local, Tiles):
+        def write(rk, x, y):
+            out = x.clone(memory_format=torch.contiguous_format)
+            out[rsl:rel, csl:cel] = y
+            return out
+        return A.with_local(per_rank(write, A.local, B.local))
     out = A.local.clone(memory_format=torch.contiguous_format)
     b, lr, lc = _blocked(out, Sc, Sr)
     b[:, rsl:rel, :, csl:cel] = B.local.reshape(Sc, rel - rsl, Sr, cel - csl)
@@ -101,6 +116,10 @@ def pad_matrix(A: DistMatrix, M: int, N: int) -> DistMatrix:
     Sc, Sr = A.col_stride, A.row_stride
     lr2 = ix.max_local_length(M, Sc)
     lc2 = ix.max_local_length(N, Sr)
+    if isinstance(A.local, Tiles):
+        loc = per_rank(lambda rk, x: torch.nn.functional.pad(
+            x, (0, lc2 - x.shape[1], 0, lr2 - x.shape[0])), A.local)
+        return dataclasses.replace(A, local=loc, gshape=(M, N))
     b, lr, lc = _blocked(A.local, Sc, Sr)
     b = torch.nn.functional.pad(b, (0, lc2 - lc, 0, 0, 0, lr2 - lr))
     return dataclasses.replace(A, local=b.reshape(Sc * lr2, Sr * lc2),
@@ -110,6 +129,9 @@ def pad_matrix(A: DistMatrix, M: int, N: int) -> DistMatrix:
 def shrink_matrix(A: DistMatrix, m: int, n: int) -> DistMatrix:
     """Restrict the global shape to (m, n) <= gshape, re-zeroing the newly
     out-of-range entries (keeps the padding-is-zero invariant)."""
+    if isinstance(A.local, Tiles):
+        from .ranks import refuse
+        refuse("shrink_matrix")
     M, N = A.gshape
     if m > M or n > N:
         raise ValueError(f"shrink_matrix target ({m},{n}) larger than {A.gshape}")

@@ -31,6 +31,15 @@ PyTorch updates tensors in place and JAX never does: the sequential
 schedule works on ONE clone of its input and writes the factor's panels
 into it, so ``cholesky(A)`` never changes ``A.local``.
 
+On a device grid (:mod:`..core.ranks`) the same schedules run with
+every rank's block on its own device: the redistributions are the JAX
+engine's collectives, and every local step -- the diagonal-block factor
+(``potrf_inv`` on each rank's replicated block, as ``shard_map`` runs it
+on every device), the panel solve, the masked storage products and the
+crossover's sequential tail -- runs once per rank
+(:func:`~..core.ranks.per_rank`).  ``health=`` and ``abft=`` do not run
+there yet.
+
 ``cholesky_pivoted`` (``pstrf``) and ``cholesky_mod`` (the rank-k
 update / downdate) run replicated on the gathered matrix, one column per
 step on the device.
@@ -45,6 +54,7 @@ import torch
 from ..core.dist import MC, MR, VC, STAR
 from ..core.distmatrix import DistMatrix
 from ..core.environment import check_precision
+from ..core.ranks import DeviceGridError, is_device_grid, per_rank, tensors
 from ..core.view import view, update_view
 from ..redist.engine import (REDIST_PATHS, apply_fault, redistribute,
                              transpose_dist, panel_spread)
@@ -159,9 +169,9 @@ def _local_cholesky(A: DistMatrix, nb: int | None, precision,
     """Sequential (p == 1) lower path: on a 1x1 grid the storage array IS
     the global matrix, so the whole blocked loop runs on it directly."""
     ib = max(nb or 2048, 1)
-    out = _local_chol_array(A.local, A.gshape[0], ib, precision,
-                            lookahead=lookahead, timer=timer, plan=plan)
-    return A.with_local(out)
+    return A.with_local(per_rank(lambda rk, a: _local_chol_array(
+        a, A.gshape[0], ib, precision, lookahead=lookahead, timer=timer,
+        plan=plan), A))
 
 
 def _check_knobs(comm_precision, redist_path) -> None:
@@ -226,17 +236,26 @@ def cholesky(A: DistMatrix, uplo: str = "L", nb: int | None = None,
     ``tick(phase, step, *tensors)`` object) receives the schedule's
     phase ticks (diag / panel / spread / update / tail); under an active
     :class:`~..obs.Tracer` the ticks also land there.  Each tick waits
-    for the card, so timing costs the host its run-ahead.
+    for the card (on a device grid, for every device of the grid), so
+    timing costs the host its run-ahead.
+
+    On a device grid (``Grid(devices=...)``) every schedule runs with the
+    local steps on each rank; ``health``, ``abft`` and ``'auto'`` knobs
+    raise :class:`~..core.ranks.DeviceGridError` there.
     """
-    _check_mcmr(A)
+    _check_mcmr(A, device_grid=True)
     nb, lookahead, crossover, panel_impl, comm_precision, redist_path = \
         resolve_auto("cholesky", A.gshape, A.dtype, A.grid, nb=nb,
                      lookahead=lookahead, crossover=crossover,
                      panel_impl=panel_impl, comm_precision=comm_precision,
                      redist_path=redist_path).values()
     _check_knobs(comm_precision, redist_path)
-    check_precision(precision, A.local)
-    plan = resolve_panel(panel_impl, dtype=A.dtype, device=A.local.device)
+    check_precision(precision, *tensors(A))
+    if is_device_grid(A.grid) and (health or abft):
+        raise DeviceGridError("cholesky's health= and abft= do not run on a "
+                              "device grid yet")
+    plan = resolve_panel(panel_impl, dtype=A.dtype,
+                         device=tensors(A)[0].device)
     if uplo.upper().startswith("U"):
         # U = (lower factor of A^H-as-lower)^H; A hermitian so the data of
         # the upper triangle, conj-transposed, is the lower triangle.
@@ -271,6 +290,15 @@ def cholesky(A: DistMatrix, uplo: str = "L", nb: int | None = None,
     r, c = g.height, g.width
     cp, rp = comm_precision, redist_path
     ib = _blocksize(nb, math.lcm(r, c), m)
+
+    def factor(D):
+        """Every rank's (L, L^{-1}) of its replicated diagonal block."""
+        return per_rank(lambda rk, d: _potrf_inv(d, precision, plan=plan), D)
+
+    def solve(P, Li):
+        """Every rank's panel solve P L11^{-H}: one matmul."""
+        return per_rank(lambda rk, p, li: p @ li.mH, P, Li)
+
     xover = (_CROSSOVER if lookahead else 0) if crossover is None \
         else max(int(crossover), 0)
     L = A
@@ -279,13 +307,13 @@ def cholesky(A: DistMatrix, uplo: str = "L", nb: int | None = None,
         e0 = min(ib, m)
         A11 = redistribute(view(L, rows=(0, e0), cols=(0, e0)), STAR, STAR,
                            comm_precision=cp, path=rp)
-        L11, Li11 = _potrf_inv(A11.local, precision, plan=plan)
+        L11, Li11 = factor(A11)
         tm.tick("diag", 0, L11)
         L21_vc = None
         if e0 < m:
             A21_vc = redistribute(view(L, rows=(e0, m), cols=(0, e0)),
                                   VC, STAR, comm_precision=cp, path=rp)
-            x21 = A21_vc.local @ Li11.mH
+            x21 = solve(A21_vc, Li11)
             L21_vc = DistMatrix(x21, (m - e0, e0), VC, STAR, 0, 0, g)
             tm.tick("panel", 0, L21_vc)
         nxt = (L11, Li11, L21_vc)
@@ -298,7 +326,7 @@ def cholesky(A: DistMatrix, uplo: str = "L", nb: int | None = None,
                                comm_precision=cp, path=rp)
             # replicated diagonal-block factor + inverse, so the panel
             # Trsm below is a matmul
-            L11, Li11 = _potrf_inv(A11.local, precision, plan=plan)
+            L11, Li11 = factor(A11)
             tm.tick("diag", k, L11)
         L11_ss = DistMatrix(L11, (e - s, e - s), STAR, STAR, 0, 0, g)
         L = update_view(L, redistribute(L11_ss, MC, MR), rows=(s, e), cols=(s, e))
@@ -307,7 +335,7 @@ def cholesky(A: DistMatrix, uplo: str = "L", nb: int | None = None,
         if not lookahead:
             A21_vc = redistribute(view(L, rows=(e, m), cols=(s, e)), VC, STAR,
                                   comm_precision=cp, path=rp)
-            x21 = A21_vc.local @ Li11.mH                     # A21 L11^{-H}
+            x21 = solve(A21_vc, Li11)                        # A21 L11^{-H}
             L21_vc = DistMatrix(x21, (m - e, e - s), VC, STAR, 0, 0, g)
             tm.tick("panel", k, L21_vc)
         L21_mc, L21H_mr = panel_spread(L21_vc, conj=True, comm_precision=cp)
@@ -315,9 +343,9 @@ def cholesky(A: DistMatrix, uplo: str = "L", nb: int | None = None,
         tail = bool(xover) and m - e <= xover
         if not lookahead:
             A22 = view(L, rows=(e, m), cols=(e, m))
-            upd = L21_mc.local @ L21H_mr.local
-            mask = _mask_triangle(A22, "L")
-            A22new = torch.where(mask, A22.local - upd, A22.local)
+            A22new = per_rank(lambda rk, a, x, y: torch.where(
+                _mask_triangle(A22, "L", rank=rk), a - x @ y, a),
+                A22, L21_mc, L21H_mr)
             L = update_view(L, A22.with_local(A22new), rows=(e, m), cols=(e, m))
             L = update_view(L, redistribute(L21_mc, MC, MR), rows=(e, m), cols=(s, e))
             tm.tick("update", k, L)
@@ -326,22 +354,22 @@ def cholesky(A: DistMatrix, uplo: str = "L", nb: int | None = None,
             e2 = min(e + ib, m)
             A22a = view(L, rows=(e, m), cols=(e, e2))
             L21H_a = view(L21H_mr, cols=(0, e2 - e))
-            maskA = _mask_triangle(A22a, "L")
-            stripD = A22a.with_local(torch.where(
-                maskA, A22a.local - L21_mc.local @ L21H_a.local, A22a.local))
+            stripD = A22a.with_local(per_rank(lambda rk, a, x, y: torch.where(
+                _mask_triangle(A22a, "L", rank=rk), a - x @ y, a),
+                A22a, L21_mc, L21H_a))
             if not tail:
                 # factor diag block k+1 + solve panel k+1 from the strip
                 A11n = redistribute(view(stripD, rows=(0, e2 - e),
                                          cols=(0, e2 - e)), STAR, STAR,
                                     comm_precision=cp, path=rp)
-                L11n, Li11n = _potrf_inv(A11n.local, precision, plan=plan)
+                L11n, Li11n = factor(A11n)
                 tm.tick("diag", k + 1, L11n)
                 L21n_vc = None
                 if e2 < m:
                     A21n = redistribute(view(stripD, rows=(e2 - e, m - e),
                                              cols=(0, e2 - e)), VC, STAR,
                                         comm_precision=cp, path=rp)
-                    x21n = A21n.local @ Li11n.mH
+                    x21n = solve(A21n, Li11n)
                     L21n_vc = DistMatrix(x21n, (m - e2, e2 - e), VC, STAR,
                                          0, 0, g)
                     tm.tick("panel", k + 1, L21n_vc)
@@ -351,11 +379,12 @@ def cholesky(A: DistMatrix, uplo: str = "L", nb: int | None = None,
             if e2 < m:
                 A22b = view(L, rows=(e, m), cols=(e2, m))
                 L21H_b = view(L21H_mr, cols=(e2 - e, m - e))
-                I, J = _global_indices(A22b)
-                maskB = (J[None, :] + (e2 - e)) <= I[:, None]
-                restD = A22b.with_local(torch.where(
-                    maskB, A22b.local - L21_mc.local @ L21H_b.local,
-                    A22b.local))
+
+                def rest(rk, a, x, y):
+                    I, J = _global_indices(A22b, rk)
+                    return torch.where((J[None, :] + (e2 - e)) <= I[:, None],
+                                       a - x @ y, a)
+                restD = A22b.with_local(per_rank(rest, A22b, L21_mc, L21H_b))
             L = update_view(L, redistribute(L21_mc, MC, MR), rows=(e, m), cols=(s, e))
             L = update_view(L, stripD, rows=(e, m), cols=(e, e2))
             if restD is not None:
@@ -366,8 +395,9 @@ def cholesky(A: DistMatrix, uplo: str = "L", nb: int | None = None,
             # block, sequential finish, one scatter back
             Atail = redistribute(view(L, rows=(e, m), cols=(e, m)), STAR, STAR,
                                  comm_precision=cp, path=rp)
-            lt = _local_chol_array(Atail.local, m - e, ib, precision,
-                                   lookahead=lookahead, plan=plan)
+            lt = per_rank(lambda rk, a: _local_chol_array(
+                a, m - e, ib, precision, lookahead=lookahead, plan=plan),
+                Atail)
             Lt_ss = DistMatrix(lt, (m - e, m - e), STAR, STAR, 0, 0, g)
             L = update_view(L, redistribute(Lt_ss, MC, MR),
                             rows=(e, m), cols=(e, m))
@@ -391,6 +421,9 @@ def hpd_solve(A: DistMatrix, B: DistMatrix, uplo: str = "L",
     forwards to :func:`cholesky`.  For the residual-certified path use
     ``elemental_tpu_torch.resilience.certified_solve('hpd', A, B)``."""
     uplo = "U" if uplo.upper().startswith("U") else "L"
+    if info and is_device_grid(A.grid):
+        raise DeviceGridError("hpd_solve's info= does not run on a device "
+                              "grid yet")
     F = cholesky(A, uplo, nb=nb, precision=precision, health=health)
     X = cholesky_solve_after(F, B, uplo, nb=nb, precision=precision)
     if not info:

@@ -160,7 +160,7 @@ def ring_bytes(gshape, dtype, grid_shape) -> int:
 
 def _tensors(tree):
     """The tensors of a tree of tuples / lists / dicts / DistMatrix-like
-    objects (anything with a ``.local``)."""
+    objects (anything with a ``.local``) and device-grid Tiles."""
     if isinstance(tree, torch.Tensor):
         yield tree
     elif isinstance(tree, (tuple, list)):
@@ -171,6 +171,8 @@ def _tensors(tree):
             yield from _tensors(x)
     elif hasattr(tree, "local"):
         yield from _tensors(tree.local)
+    elif hasattr(tree, "tiles"):           # a device grid's Tiles
+        yield from tree.tiles
 
 
 def block_until_ready(tree) -> None:

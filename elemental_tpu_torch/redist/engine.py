@@ -2,10 +2,12 @@
 
 PyTorch port of ``elemental_tpu/redist/engine.py`` (the reference's
 ``El::copy`` namespace, Elemental ``src/blas_like/level1/Copy/*.hpp``).
-The grid is virtual -- every rank's block lives in one stacked-storage
-tensor on one device -- and stacked storage is a pure index permutation
-of the global matrix.  So the default route of every pair goes through
-the global matrix,
+On a device grid (every rank's block on its own device) a
+redistribution runs the JAX engine's collective route, hop for hop
+(:mod:`.device_route`).  On a virtual grid every rank's block lives in
+one stacked-storage tensor on one device, and stacked storage is a pure
+index permutation of the global matrix.  So there the default route of
+every pair goes through the global matrix,
 
     B = from_global(to_global(A), cdist, rdist, calign, ralign),
 
@@ -14,7 +16,8 @@ the JAX engine's storage.  On a 1x1 grid every distribution's storage IS
 the global matrix, so there a redistribution only retags (a fresh view
 of the same storage).
 
-What the engine records is what a real r x c grid would move: every
+What the engine records is what a real r x c grid moves, the same on
+both kinds of grid: every
 public :func:`redistribute` / :func:`panel_spread` entry is counted
 (:data:`REDIST_COUNTS`, :func:`redist_counts`) and described by a
 :class:`RedistRecord` (:func:`redist_trace`, :func:`add_redist_observer`)
@@ -31,7 +34,9 @@ codec of :mod:`.quantize`) rounds the payload as the JAX wire would: a
 bf16 cast of every rank's whole block, or the int8 block-scale round trip
 of each block a rank sends, tile by tile.  ``path='auto'`` arbitrates
 chain against direct with the tuner's machine constants;
-``comm_precision='auto'`` is not a wire and raises ``ValueError``.
+``comm_precision='auto'`` is not a wire and raises ``ValueError``.  On a
+device grid the ``'bf16'`` wire casts every rank's block before the moves;
+``'int8'``, ``'direct'`` and ``'auto'`` raise ``ValueError`` there.
 
 :func:`collective_sites` names, for any entry, the collectives the JAX
 engine's lowering issues on a real grid (primitive, participants, block,
@@ -55,8 +60,11 @@ import torch
 
 from ..core import indexing as ix
 from ..core.dist import (Dist, MC, MR, VC, VR, STAR, MD, CIRC,
-                         stride as dist_stride, storage_slots)
+                         stride as dist_stride, storage_slot, storage_slots,
+                         gather_axes)
 from ..core.distmatrix import DistMatrix, _check_pair, from_global, to_global
+from ..core.ranks import Tiles, per_rank, refuse
+from . import device_route
 from .plan import compile_plan
 from .quantize import QUANT_TILE, check_comm_precision, q8_roundtrip, quantizable
 
@@ -247,6 +255,8 @@ def _trace_record(kind, src, dst, gshape, dtype, objs_in, objs_out,
 def _fault(target: str, local):
     if _FAULT_INJECTOR is None:
         return local
+    if isinstance(local, Tiles):
+        refuse("fault injection")
     return _FAULT_INJECTOR.apply(target, (local,))[0]
 
 
@@ -431,14 +441,6 @@ def _site(out: list, prim: str, S: int, shape, z: int, axes,
     out.append(CollectiveSite(prim, int(S), shape, int(z),
                               ring_bytes(prim, nbytes, S), tuple(axes),
                               dtype))
-
-
-def gather_axes(d: Dist) -> tuple:
-    """Mesh axes (major first) whose all_gather rebuilds a ``d``-split
-    dimension in rank order (the JAX package's ``core.dist.gather_axes``;
-    MD's slot ranges gather mc-major)."""
-    return {MC: ("mc",), MR: ("mr",), VC: ("mr", "mc"), VR: ("mc", "mr"),
-            MD: ("mc", "mr")}.get(d, ())
 
 
 def _realign_axes(d: Dist) -> tuple:
@@ -750,7 +752,7 @@ def isolated_probe(refs: bool = True):
 def _fresh(A: DistMatrix) -> DistMatrix:
     """``A`` with a new view of the same storage (a record's output is
     never the object that went in)."""
-    return A.with_local(A.local.view(A.local.shape))
+    return A.with_local(per_rank(lambda rk, x: x.view(x.shape), A.local))
 
 
 def _global_route(A: DistMatrix, cdist: Dist, rdist: Dist, calign: int,
@@ -759,7 +761,7 @@ def _global_route(A: DistMatrix, cdist: Dist, rdist: Dist, calign: int,
         return _fresh(A)
     if A.grid.size == 1:
         # every layout's storage is the global matrix on a 1x1 grid
-        return DistMatrix(A.local.view(A.local.shape), A.gshape, cdist,
+        return DistMatrix(_fresh(A).local, A.gshape, cdist,
                           rdist, 0 if cdist is CIRC else calign,
                           0 if cdist is CIRC else ralign, A.grid)
     return from_global(to_global(A), cdist, rdist, A.grid, calign, ralign)
@@ -897,21 +899,6 @@ def _direct_wins(plan, gshape, itemsize, backend: str = "cpu") -> bool:
     return t_direct < t_chain
 
 
-def _tile_of(d: Dist, mc: int, mr: int, r: int, c: int) -> int:
-    """Storage slot of device (mc, mr)'s block along a ``d`` dimension."""
-    if d is MC:
-        return mc
-    if d is MR:
-        return mr
-    if d is VC:
-        return mc + r * mr
-    if d is VR:
-        return mr + c * mc
-    if d is MD:
-        return mc * c + mr
-    return 0
-
-
 @lru_cache(maxsize=256)
 def _direct_maps(plan):
     """The plan's per-device gather -> collective -> scatter, composed
@@ -966,8 +953,8 @@ def _direct_maps(plan):
     reps, seen = [], set()
     for d in range(p):
         mc, mr = d // c, d % c
-        key = (_tile_of(plan.dst[0], mc, mr, r, c),
-               _tile_of(plan.dst[1], mc, mr, r, c))
+        key = (storage_slot(plan.dst[0], r, c, mc, mr),
+               storage_slot(plan.dst[1], r, c, mc, mr))
         if key not in seen:
             seen.add(key)
             reps.append((d, key))
@@ -988,8 +975,8 @@ def _direct_maps(plan):
             s, slot = sk
             smc, smr = s // c, s % c
             sr_, sc_ = plan.send_rows[s, slot], plan.send_cols[s, slot]
-            str_ = _tile_of(plan.src[0], smc, smr, r, c)
-            stc = _tile_of(plan.src[1], smc, smr, r, c)
+            str_ = storage_slot(plan.src[0], r, c, smc, smr)
+            stc = storage_slot(plan.src[1], r, c, smc, smr)
             src_rows[b, k] = np.where(sr_ < lr_s, str_ * lr_s + sr_,
                                       src_ext[0])
             src_cols[b, k] = np.where(sc_ < lc_s, stc * lc_s + sc_,
@@ -1050,9 +1037,12 @@ def redistribute(A: DistMatrix, cdist: Dist, rdist: Dist,
     if path not in REDIST_PATHS:
         raise ValueError(f"path must be one of {REDIST_PATHS}, got {path!r}")
     check_comm_precision(comm_precision)
+    ranked = isinstance(A.local, Tiles)
+    if ranked:
+        _device_knobs(comm_precision, path)
     REDIST_COUNTS[(A.dist, (cdist, rdist))] += 1
     grid_shape = (A.grid.height, A.grid.width)
-    itemsize = A.local.element_size()
+    itemsize = A.dtype.itemsize
     circ = cdist is CIRC or A.cdist is CIRC
     noop = A.dist == (cdist, rdist) \
         and (A.calign, A.ralign) == (calign, ralign)
@@ -1086,13 +1076,16 @@ def redistribute(A: DistMatrix, cdist: Dist, rdist: Dist,
                       aligns=aligns)
         return out
     wire = None
-    if circ:
-        out = _global_route(A, cdist, rdist, calign, ralign)
-    else:
+    if not circ:
         q8_ok = ((cdist, rdist) == (STAR, STAR)
                  and (calign, ralign) == (0, 0) and _zero_aligned(A)
                  and set(A.dist) <= _Q8_DISTS)
         wire = None if noop else _wire_mode(A, comm_precision, q8_ok)
+    if ranked and A.grid.size > 1 and not noop:
+        out = device_route.redistribute(A, cdist, rdist, calign, ralign, wire)
+    elif circ or ranked:
+        out = _global_route(A, cdist, rdist, calign, ralign)
+    else:
         if wire == "int8":
             out = _to_star_star_q8(A)
         elif wire == "bf16":
@@ -1123,11 +1116,25 @@ def redistribute(A: DistMatrix, cdist: Dist, rdist: Dist,
     return out
 
 
+def _device_knobs(comm_precision, path) -> None:
+    """The wire and route knobs a device grid runs: the full-precision and
+    ``'bf16'`` wires on the chained route."""
+    if comm_precision == "int8":
+        raise ValueError("comm_precision='int8' does not run on a device "
+                         "grid yet (its wire is a later slice); use None or "
+                         "'bf16'")
+    if path in ("direct", "auto"):
+        raise ValueError(f"path={path!r} does not run on a device grid yet "
+                         f"(the one-shot plan's executor is a later slice); "
+                         f"use None or 'chain'")
+
+
 def backend_of(grid) -> str:
-    """The backend word of a grid's device, the JAX package's: ``'gpu'``
-    for a CUDA device, ``'cpu'`` for the CPU (the tuner's cache file
+    """The backend word of a grid's devices, the JAX package's: ``'gpu'``
+    for CUDA devices, ``'cpu'`` for the CPU (the tuner's cache file
     names and machine rows use these words)."""
-    return "gpu" if grid.device.type == "cuda" else grid.device.type
+    dev = grid.devices[0] if grid.devices is not None else grid.device
+    return "gpu" if dev.type == "cuda" else dev.type
 
 
 def _zero_aligned(A: DistMatrix) -> bool:
@@ -1136,7 +1143,10 @@ def _zero_aligned(A: DistMatrix) -> bool:
 
 def transpose_dist(A: DistMatrix, conj: bool = False) -> DistMatrix:
     """A^T tagged [rdist, cdist] -- Elemental's ``copy::TransposeDist``
-    (a local transpose of the storage, materialized)."""
+    (a local transpose of the storage, materialized; on a device grid of
+    every rank's block)."""
+    if isinstance(A.local, Tiles):
+        return device_route.transpose_dist(A, conj)
     loc = A.local.mT.contiguous()
     if conj:
         loc = loc.conj_physical()
@@ -1154,17 +1164,25 @@ def panel_spread(A: DistMatrix, conj: bool = True, comm_precision=None):
     if A.dist != (VC, STAR) or (A.calign, A.ralign) != (0, 0):
         raise ValueError(f"panel_spread needs a zero-aligned [VC,STAR] "
                          f"panel, got {A}")
+    ranked = isinstance(A.local, Tiles)
+    if ranked:
+        _device_knobs(comm_precision, None)
     REDIST_COUNTS["panel_spread"] += 1
     wire = _wire_mode(A, comm_precision, q8_ok=True)
     g = A.grid
     src = A
-    if wire == "int8":
-        src = A.with_local(_q8_tiles(A.local, g.size, 1))
-    elif wire == "bf16":
-        src = A.with_local(_bf16(A.local))
-    mc = _global_route(src, MC, STAR, 0, 0)
-    mr = _global_route(transpose_dist(src, conj=conj), STAR, MR, 0, 0)
+    if ranked:
+        mc, mr = device_route.panel_spread(A, conj, wire)
+    else:
+        if wire == "int8":
+            src = A.with_local(_q8_tiles(A.local, g.size, 1))
+        elif wire == "bf16":
+            src = A.with_local(_bf16(A.local))
+        mc = _global_route(src, MC, STAR, 0, 0)
+        mr = _global_route(transpose_dist(src, conj=conj), STAR, MR, 0, 0)
     if _FAULT_INJECTOR is not None:
+        if ranked:
+            refuse("fault injection")
         lmc, lmr = _FAULT_INJECTOR.apply("panel_spread", (mc.local, mr.local))
         mc, mr = mc.with_local(lmc), mr.with_local(lmr)
     _trace_record("panel_spread", A.dist, ((MC, STAR), (STAR, MR)),
@@ -1197,6 +1215,8 @@ def contract(A: DistMatrix, cdist: Dist, rdist: Dist) -> DistMatrix:
     entry ``d`` the stacked storage of device ``d = mc * c + mr``, of
     which only device d's own block counts.  The blocks are summed in
     ascending device order.  Zero alignments."""
+    if isinstance(A.local, Tiles):
+        refuse("contract")
     g = A.grid
     r, c = g.height, g.width
     src, dst = A.dist, (cdist, rdist)
@@ -1211,7 +1231,8 @@ def contract(A: DistMatrix, cdist: Dist, rdist: Dist) -> DistMatrix:
     total = None
     for d in range(r * c):
         mc, mr = d // c, d % c
-        tr, tc = _tile_of(A.cdist, mc, mr, r, c), _tile_of(A.rdist, mc, mr, r, c)
+        tr = storage_slot(A.cdist, r, c, mc, mr)
+        tc = storage_slot(A.rdist, r, c, mc, mr)
         own = torch.zeros_like(parts[d])
         own[tr * lr:(tr + 1) * lr, tc * lc:(tc + 1) * lc] = \
             parts[d, tr * lr:(tr + 1) * lr, tc * lc:(tc + 1) * lc]
@@ -1242,6 +1263,8 @@ def move_rows(A: DistMatrix, targets, sources, valid) -> DistMatrix:
     False (sentinel padding), as the JAX engine's ``mode="drop"`` scatter
     does.  Invalid entries scatter into one spare storage row that is
     sliced off, so nothing syncs with the host."""
+    if isinstance(A.local, Tiles):
+        refuse("move_rows")
     REDIST_COUNTS["row_permute"] += 1
     dev = A.local.device
     targets, sources = _index(targets, dev), _index(sources, dev)
@@ -1272,6 +1295,8 @@ def permute_rows_storage(A: DistMatrix, perm, inverse: bool = False
     padding rows stay zero."""
     if (A.calign, A.ralign) != (0, 0):
         raise ValueError(f"permute_rows_storage needs zero alignments, got {A}")
+    if isinstance(A.local, Tiles):
+        refuse("permute_rows_storage")
     REDIST_COUNTS["row_permute"] += 1
     dev = A.local.device
     perm = _index(perm, dev)

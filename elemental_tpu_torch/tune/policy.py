@@ -197,10 +197,23 @@ def resolve_knobs(op: str, *, gshape, dtype, grid, knobs: dict,
     return out
 
 
+#: the tuned ops that run on a device grid (every other driver that
+#: resolves its knobs here refuses one)
+DEVICE_GRID_OPS = frozenset({"cholesky", "trsm"})
+
+
 def resolve_auto(op: str, gshape, dtype, grid, **knobs) -> dict:
     """:func:`resolve_knobs` with the knobs as keyword arguments, the one
     call every driver makes before anything else: the result holds them
     in the order given, each ``'auto'`` replaced by its resolution."""
+    if getattr(grid, "devices", None) is not None:
+        from ..core.ranks import DeviceGridError, refuse
+        if op not in DEVICE_GRID_OPS:
+            refuse(op)
+        if wants_auto(*knobs.values()):
+            raise DeviceGridError(f"{op}'s 'auto' knobs do not resolve on a "
+                                  f"device grid yet (the tuner probes "
+                                  f"virtual grids); pass explicit values")
     return resolve_knobs(op, gshape=gshape, dtype=dtype, grid=grid,
                          knobs=knobs)
 

@@ -45,7 +45,13 @@ and perf tools (``elemental_tpu_torch.examples`` / ``.perf``): the kernel
 rows of ``ab_harness panel`` in float32 and float64 held against the plain
 versions by ``chip_smoke.py`` phase 3p (b)'s checks, the float64 examples
 launching their kernels, ``perf.kernels smoke`` and ``redist_bench
---smoke`` exiting 0 (``-k "harness or example or perf"``)."""
+--smoke`` exiting 0 (``-k "harness or example or perf"``).  The device
+grid (``Grid(2, 2, devices=["cuda:0"] * 4)``): at N = 1024 float64 its
+tiles are bit-equal to the virtual 2x2 grid's storage for every move of
+the ``hpd_solve`` path, ``hpd_solve`` matches ``torch.linalg.solve`` to
+1e-10 with ``potrf_inv`` launched four times the virtual grid's count,
+and with two or more cards the ranks' tiles sit on distinct cards (``-k
+device_grid``)."""
 import sys
 
 import numpy as np
@@ -57,8 +63,8 @@ from elemental_tpu_torch.kernels import (lu_panel, lu_panel_reference,
                                          potrf_inv, potrf_inv_reference,
                                          qr_panel, qr_panel_reference)
 from elemental_tpu_torch.kernels.qr_panel import _larft, _panel_v
-from chip_smoke import (eig_gates, panel_routes, potrf_check,
-                        potrf_routes, qr_residuals)
+from chip_smoke import (DEVICE_GRID_MOVES, eig_gates, panel_routes,
+                        potrf_check, potrf_routes, qr_residuals, same_tiles)
 
 pytestmark = pytest.mark.gpu
 
@@ -1713,3 +1719,73 @@ def test_perf_kernels_and_redist_smokes_exit_zero(capsys):
     assert kernels.main(["smoke"]) == 0
     assert redist_bench.main(["--smoke"]) == 0
     assert "kernels smoke OK" in capsys.readouterr().out
+
+
+def _device_grid_case(devices, n=1024, dtype=torch.float64):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    G = torch.randn(n, n, generator=gen, device="cuda", dtype=dtype)
+    A = G @ G.T / n + n * torch.eye(n, device="cuda", dtype=dtype)
+    B = torch.randn(n, 4, generator=gen, device="cuda", dtype=dtype)
+    r = 2 if len(devices) % 2 == 0 else 1
+    return A, B, et.Grid(r, len(devices) // r, devices=devices)
+
+
+def _pair(names):
+    return et.Dist[names[0]], et.Dist[names[1]]
+
+
+def test_device_grid_tiles_are_bit_equal_to_the_virtual_grid():
+    _need_card()
+    A, _, dg = _device_grid_case(["cuda:0"] * 4)
+    vg = et.Grid(2, 2)
+    for src, dst in DEVICE_GRID_MOVES:
+        D = et.redistribute(et.from_global(A, *_pair(src), dg), *_pair(dst))
+        V = et.redistribute(et.from_global(A, *_pair(src), vg), *_pair(dst))
+        assert same_tiles(D, V), (src, dst)
+    P = A[:, :128]
+    for D, V in zip(et.panel_spread(et.from_global(P, et.VC, et.STAR, dg)),
+                    et.panel_spread(et.from_global(P, et.VC, et.STAR, vg))):
+        assert same_tiles(D, V)
+    assert same_tiles(et.transpose_dist(et.from_global(A, et.MC, et.MR, dg)),
+                      et.transpose_dist(et.from_global(A, et.MC, et.MR, vg)))
+
+
+@pytest.mark.parametrize("uplo", ["L", "U"])
+def test_device_grid_hpd_solve_launches_the_kernel_on_every_rank(uplo):
+    _need_card()
+    A, B, dg = _device_grid_case(["cuda:0"] * 4)
+    ref = torch.linalg.solve(A, B)
+    counts = []
+    for g in (et.Grid(2, 2), dg):
+        potrf_inv.launches = 0
+        X = et.hpd_solve(et.from_global(A, et.MC, et.MR, g),
+                         et.from_global(B, et.MC, et.MR, g), uplo=uplo,
+                         nb=128)
+        counts.append(potrf_inv.launches)
+        x = et.to_global(X)
+        assert float(torch.linalg.norm(x - ref) / torch.linalg.norm(ref)) \
+            < 1e-10
+    assert counts[0] > 0 and counts[1] == 4 * counts[0]
+
+
+def test_device_grid_puts_ranks_on_distinct_cards():
+    _need_card()
+    count = torch.cuda.device_count()
+    if count < 2:
+        pytest.skip("needs two or more cards")
+    k = min(count, 4)
+    devices = [f"cuda:{i}" for i in range(k)]
+    A, B, dg = _device_grid_case(devices)
+    M = et.from_global(A, et.MC, et.MR, dg)
+    assert [t.device for t in M.local] == [torch.device(d) for d in devices]
+    vg = et.Grid(dg.height, dg.width)
+    for src, dst in DEVICE_GRID_MOVES:
+        D = et.redistribute(et.from_global(A, *_pair(src), dg), *_pair(dst))
+        assert len({t.device for t in D.local}) == k
+        V = et.redistribute(et.from_global(A, *_pair(src), vg), *_pair(dst))
+        assert same_tiles(D, V), (src, dst)
+    X = et.hpd_solve(M, et.from_global(B, et.MC, et.MR, dg), nb=128)
+    ref = torch.linalg.solve(A, B)
+    assert float(torch.linalg.norm(et.to_global(X) - ref)
+                 / torch.linalg.norm(ref)) < 1e-10
