@@ -248,7 +248,28 @@ Phases, each of which raises on failure:
    grid (once per rank and diagonal block), ``bench.py``'s factor gate and
    the solve residual; the wall times beside phase 3's 1x1 time, the bytes
    the collectives copied between distinct ranks beside the sum of the
-   records' ring-model bytes, and the devices used.
+   records' ring-model bytes, and the devices used;
+4b. LU and QR on 4a's 2x2 device grid: (a) at N = 4096 float32, nb =
+   512, the tiles of ``move_rows`` (a panel's 2 nb moved rows with
+   sentinel entries), ``permute_rows_storage`` (both ``inverse``) and
+   ``interior_view`` (offset 0 and off the stride) bit-equal to the
+   virtual 2x2 grid's storage blocks; ``lu`` (look-ahead with its
+   crossover, ``crossover=0``, and CALU with ``crossover=0``) and ``qr``
+   under ``bench.py``'s factor gate (< 1e-3), every rank's pivots equal
+   to rank 0's on the device (``torch.equal``), and the CALU sweep-graph
+   captures of the call; (b) ``lu_solve(A, B, nb=2048)`` at N = 32768,
+   nrhs = 8 (phase 3b's inputs) and ``least_squares(A, B, nb=2048)`` at
+   65536 x 32768 (phase 3c's), each on the virtual and on the device 2x2
+   grid, with phase 3b's gates (factor < 1e-3, HPL < 16) and 3c's
+   (factor < 1e-3, orthogonality and normal-equations optimality
+   < 1e-4), ``lu_panel`` / ``qr_panel`` launched exactly four times as
+   often on the device grid as on the virtual one (64 = 4 x 16 each: one
+   a rank and panel; :func:`lu_panel_count` derives LU's 16 from the
+   crossover) and ``potrf_inv`` not at all; the wall times beside
+   phases 3b / 3c's 1x1 times, and the bytes and copies between distinct
+   ranks beside the records' ring-model bytes.  To keep the script well
+   inside its time limit with 4b, 3p is cut in depth
+   (:data:`EXAMPLE_ARGV`, :data:`PANEL_SWEEP`).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 holds the card's name and power limit, and the one before that the JSON
@@ -2728,6 +2749,250 @@ def phase_device_grid(et, card: str, main_path: dict) -> dict:
             "factor_residual": factor_res, "solve_residual": solve_res,
             "card": card}
     print("phase 4a device grid " + json.dumps(out), flush=True)
+    return out
+
+
+def lu_panel_count(m: int, n: int, nb: int, crossover: int) -> int:
+    """``lu_panel`` launches of one ``lu`` on one rank (or on a virtual
+    grid) with the look-ahead schedule: one a panel of the distributed
+    loop, up to and including the step whose trailing block fits the
+    crossover, then one a panel of the sequential tail's blocked loop."""
+    kend = min(m, n)
+    count = 0
+    for s in range(0, kend, nb):
+        e = min(s + nb, kend)
+        count += 1
+        if crossover and e < kend and m - e <= crossover \
+                and n - e <= crossover:
+            return count + -(-(kend - e) // nb)
+    return count
+
+
+def _qr_factor_res(et, grid, a, Ap, tau, gen) -> float:
+    """bench.py's QR factor gate ||A v - Q (R v)|| / (||A||_F ||v||) of a
+    tall-or-square global ``a``, Q applied by ``apply_q`` on ``grid``."""
+    import torch
+    m, n = a.shape
+    v = torch.randn(n, 1, generator=gen, device="cuda")
+    ap = et.to_global(Ap)
+    rv = torch.zeros(m, 1, device="cuda")
+    rv[:n] = torch.triu(ap[:n]) @ v
+    del ap
+    qrv = et.to_global(et.apply_q(Ap, tau, et.from_global(
+        rv, et.MC, et.MR, grid), orient="N"))
+    return float(torch.linalg.norm(a @ v - qrv)
+                 / (torch.linalg.norm(a) * torch.linalg.norm(v)))
+
+
+def phase_device_grid_lu_qr(et, card: str, lu_path: dict,
+                            qr_path: dict) -> dict:
+    """Phase 4b: LU and QR on phase 4a's 2x2 device grid (see the module
+    docstring).  Every rank's pivots are read from ``lu``'s per-rank copy
+    of ``perm`` (its ``_root`` seam, wrapped here for the call)."""
+    import importlib
+    import torch
+    from elemental_tpu_torch.core import ranks
+    from elemental_tpu_torch.kernels import lu_panel, potrf_inv, qr_panel
+    from elemental_tpu_torch.redist import engine
+    lu_mod = importlib.import_module("elemental_tpu_torch.lapack.lu")
+    kern = (potrf_inv, lu_panel, qr_panel)
+    dg, vg = et.Grid(2, 2, devices=device_grid_devices()), et.Grid(2, 2)
+    gen = torch.Generator(device="cuda")
+    per_rank_perms = []
+    root = lu_mod._root
+
+    def keep_root(perm):
+        per_rank_perms.append(perm)
+        return root(perm)
+
+    def pivots_agree() -> bool:
+        tiles = per_rank_perms[-1].tiles
+        return all(torch.equal(t.to(tiles[0].device), tiles[0])
+                   for t in tiles[1:])
+
+    # (a) the row motion, the extract and the factor gates at N = 4096
+    n0, nb0 = 4096, 512
+    gen.manual_seed(5)
+    A0 = torch.randn(n0, n0, generator=gen, device="cuda")
+    Ad = et.from_global(A0, et.MC, et.MR, dg)
+    Av = et.from_global(A0, et.MC, et.MR, vg)
+    k = 2 * nb0
+    t = torch.randperm(n0, generator=gen, device="cuda")[:k]
+    src = torch.randperm(n0, generator=gen, device="cuda")[:k]
+    valid = torch.rand(k, generator=gen, device="cuda") < 0.8
+    t = torch.where(valid, t, n0)                        # sentinel entries
+    p = torch.randperm(n0, generator=gen, device="cuda")
+    moves = [("move_rows", lambda M: engine.move_rows(M, t, src, valid))]
+    moves += [(f"permute_rows_storage inverse={inv}",
+               lambda M, inv=inv: engine.permute_rows_storage(M, p, inv))
+              for inv in (False, True)]
+    moves += [(f"interior_view {rows} {cols}",
+               lambda M, rows=rows, cols=cols: et.interior_view(M, rows, cols))
+              for rows, cols in (((0, 2048), (0, 2048)),
+                                 ((1, 4096), (3, 3001)))]
+    for label, fn in moves:
+        if not same_tiles(fn(Ad), fn(Av)):
+            raise AssertionError(f"4b {label} at {n0}: tiles differ from the "
+                                 f"virtual grid's storage")
+    out = {"bit_equal_moves": len(moves), "n_bit_equal": n0}
+    lu_mod._root = keep_root
+    try:
+        factors = {}
+        for label, kw in (("classic", {}), ("classic crossover=0",
+                                            {"crossover": 0}),
+                          ("calu crossover=0", {"panel": "calu",
+                                                "crossover": 0})):
+            caps = lu_mod.SWEEP_GRAPH_STATS["captures"]
+            LU, perm = et.lu(Ad, nb=nb0, **kw)
+            agree = pivots_agree()
+            res = _lu_gates(et, A0, LU, perm, None, None, gen)
+            factors[label] = res | {
+                "pivots_equal_on_every_rank": agree,
+                "sweep_graph_captures": lu_mod.SWEEP_GRAPH_STATS["captures"]
+                - caps}
+            if not (agree and res["factor_residual"] < 1e-3):
+                raise AssertionError(f"4b lu {label} at {n0}: pivots equal "
+                                     f"on every rank {agree}, factor "
+                                     f"residual {res['factor_residual']:.3e}"
+                                     f" (< 1e-3)")
+        Ap, tau = et.qr(Ad, nb=nb0)
+        res = _qr_factor_res(et, dg, A0, Ap, tau, gen)
+        factors["qr"] = {"factor_residual": res}
+        if not res < 1e-3:
+            raise AssertionError(f"4b qr at {n0}: factor residual "
+                                 f"{res:.3e} (< 1e-3)")
+        out["n4096"] = factors
+        del A0, Ad, Av, LU, perm, Ap, tau
+        print("phase 4b (a) " + json.dumps(out), flush=True)
+
+        # (b) lu_solve and least_squares at full width, virtual then device
+        def run(label, grid, fn):
+            """``fn()`` timed with the kernels' counts set to 0 just before
+            and read just after, the bytes between ranks, and the records'
+            bytes (read by an observer: a ``redist_trace`` would keep every
+            redistribution's tiles alive, 4 x the replicated panels)."""
+            rec = {"records": 0, "wire": 0, "sites": 0, "row_permute": 0}
+
+            def observe(r):
+                if r.kind == "row_permute":        # observers only
+                    rec["row_permute"] += max(r.wire_bytes, 0)
+                    return
+                rec["records"] += 1
+                rec["wire"] += max(r.wire_bytes, 0)
+                rec["sites"] += sum(s.bytes for s in engine.record_sites(r))
+            _sync()
+            _reset(kern)
+            remove = engine.add_redist_observer(observe)
+            try:
+                with ranks.tally() as moved:
+                    t0 = time.perf_counter()
+                    res = fn()
+                    if ranks.is_device_grid(grid):
+                        ranks.synchronize(grid)
+                    else:
+                        _sync()
+                    wall = time.perf_counter() - t0
+            finally:
+                remove()
+            return res, {f"{label}_s": wall,
+                         "launches": {k.__name__: k.launches for k in kern},
+                         "bytes_moved_between_ranks": moved.bytes,
+                         "copies_between_ranks": moved.copies,
+                         "records_wire_bytes_per_rank": rec["wire"],
+                         "records_with_panel_spread_bytes_per_rank":
+                             rec["sites"],
+                         "row_permute_records_wire_bytes": rec["row_permute"],
+                         "redistribute_records": rec["records"]}
+
+        N, nb, nrhs = 32768, 2048, 8
+        gen.manual_seed(0)                               # phase 3b's inputs
+        Ag = torch.randn(N, N, generator=gen, device="cuda")
+        Bg = torch.randn(N, nrhs, generator=gen, device="cuda")
+        want = lu_panel_count(N, N, nb, lu_mod._CROSSOVER)
+        print(f"phase 4b (b) lu_panel launches expected: {want} a grid's "
+              f"lu (the look-ahead loop to the crossover at "
+              f"{lu_mod._CROSSOVER}, then the tail), so {want} on the "
+              f"virtual 2x2 and 4 x {want} = {4 * want} on the device grid "
+              f"(one a rank)", flush=True)
+        lu_out = {}
+        for tag, grid in (("virtual_2x2", vg), ("device_2x2", dg)):
+            A = et.from_global(Ag, et.MC, et.MR, grid)
+            B = et.from_global(Bg, et.MC, et.MR, grid)
+            X, lu_out[tag] = run("lu_solve", grid,
+                                 lambda: et.lu_solve(A, B, nb=nb))
+            if tag == "device_2x2":
+                LU, perm = et.lu(A, nb=nb)
+                agree = pivots_agree()
+                gates = _lu_gates(et, Ag, LU, perm, X, Bg, gen)
+                lu_out[tag] |= gates | {"pivots_equal_on_every_rank": agree}
+                del LU, perm
+            del A, B, X
+        got = lu_out["device_2x2"]["launches"]
+        vgot = lu_out["virtual_2x2"]["launches"]
+        g = lu_out["device_2x2"]
+        if not (vgot["lu_panel"] == want and got["lu_panel"] == 4 * want
+                and not got["potrf_inv"] and not got["qr_panel"]
+                and g["pivots_equal_on_every_rank"]
+                and g["factor_residual"] < 1e-3
+                and max(g["hpl_scaled_residuals"]) < 16 and g["finite"]):
+            raise AssertionError(f"4b lu_solve on the device grid: launches "
+                                 f"{got} (virtual {vgot}, want lu_panel "
+                                 f"{4 * want} = 4 x {want}), gates {g}")
+        del Ag, Bg
+        torch.cuda.empty_cache()
+    finally:
+        lu_mod._root = root
+    out["lu_solve"] = lu_out | {"N": N, "nb": nb, "nrhs": nrhs,
+                                "phase3b_1x1_lu_solve_s":
+                                    lu_path.get("lu_solve_s"),
+                                "lu_panel_launches_expected": 4 * want}
+    print("phase 4b (b) lu_solve " + json.dumps(out["lu_solve"]), flush=True)
+
+    m, n = 65536, 32768
+    gen.manual_seed(0)                                   # phase 3c's inputs
+    a = torch.randn(m, n, generator=gen, device="cuda")
+    b = torch.randn(m, nrhs, generator=gen, device="cuda")
+    ls_out = {}
+    for tag, grid in (("virtual_2x2", vg), ("device_2x2", dg)):
+        A = et.from_global(a, et.MC, et.MR, grid)
+        B = et.from_global(b, et.MC, et.MR, grid)
+        X, ls_out[tag] = run("least_squares", grid,
+                             lambda: et.least_squares(A, B, nb=nb))
+        if tag == "device_2x2":
+            x = et.to_global(X)
+            del X
+            Ap, tau = et.qr(A, nb=nb)
+            ap = et.to_global(Ap)
+            fr, orth, opt = _ls_gates(et, grid, a, ap, Ap, tau, x, b, gen)
+            ls_out[tag] |= {"factor_residual": fr, "orthogonality": orth,
+                            "normal_equations_optimality": opt,
+                            "finite": bool(torch.isfinite(x).all())}
+            del Ap, tau, ap, x
+        else:
+            del X
+        del A, B
+        torch.cuda.empty_cache()
+    got = ls_out["device_2x2"]["launches"]
+    vgot = ls_out["virtual_2x2"]["launches"]
+    g = ls_out["device_2x2"]
+    if not (vgot["qr_panel"] == n // nb and got["qr_panel"] == 4 * (n // nb)
+            and not got["potrf_inv"] and not got["lu_panel"]
+            and g["factor_residual"] < 1e-3 and g["orthogonality"] < 1e-4
+            and g["normal_equations_optimality"] < 1e-4 and g["finite"]):
+        raise AssertionError(f"4b least_squares on the device grid: launches "
+                             f"{got} (virtual {vgot}, want qr_panel "
+                             f"{4 * (n // nb)} = 4 x {n // nb}), gates {g}")
+    del a, b
+    out["least_squares"] = ls_out | {
+        "m": m, "n": n, "nb": nb, "nrhs": nrhs,
+        "phase3c_1x1_least_squares_s": qr_path.get("least_squares_s"),
+        "qr_panel_launches_expected": 4 * (n // nb)}
+    print("phase 4b (b) least_squares " + json.dumps(out["least_squares"]),
+          flush=True)
+    out |= {"devices": [str(d) for d in dg.devices],
+            "distinct_cards": len(set(dg.devices)), "dtype": "float32",
+            "lu_panel_launches": lu_out["device_2x2"]["launches"]["lu_panel"],
+            "qr_panel_launches": got["qr_panel"], "card": card}
     return out
 
 
@@ -5455,17 +5720,21 @@ def phase_analysis(et, card: str) -> dict:
 #: random sparse A on the host (dense at m = 65536: 34 GB) and, with the
 #: example's 60 iterations, stops short of tol 1e-6 from m = 1000 on in
 #: both packages alike; ``pseudospectra`` to n = 128, because its time is
-#: the Schur form's (18-29 s at n = 256 with 16 x 16 or 8 x 8 points)
+#: the Schur form's (18-29 s at n = 256 with 16 x 16 or 8 x 8 points).
+#: Three more are cut in depth to make room for phase 4b: ``lu`` from
+#: n = 16384 to 8192 (8.3 s), ``qr_least_squares`` from 32768 x 8192 to
+#: 16384 x 4096 (10.8 s) and ``rpca`` from 2048 x 2048, rank 20, to
+#: 1024 x 1024, rank 10 (19.0 s; the times are the uncut runs')
 EXAMPLE_ARGV = {
     "cholesky": ["--n", "4096", "--nrhs", "8"],
-    "lu": ["--n", "16384"],
-    "qr_least_squares": ["--m", "32768", "--n", "8192"],
+    "lu": ["--n", "8192"],
+    "qr_least_squares": ["--m", "16384", "--n", "4096"],
     "spd_scaling_sweep": ["--n", "8192", "--ranks", "4"],
     "herm_eig": ["--n", "4096"],
     "svd": ["--m", "8192", "--n", "4096"],
     "lp": ["--m", "2048", "--n", "4096"],
     "lav": ["--m", "400", "--n", "60", "--nnz", "3000"],
-    "rpca": ["--m", "2048", "--n", "2048", "--rank", "20"],
+    "rpca": ["--m", "1024", "--n", "1024", "--rank", "10"],
     "pseudospectra": ["--n", "128", "--npts", "16"],
 }
 #: the keys of each report held under 1e-3 (``tests/test_examples.py``'s)
@@ -5487,8 +5756,10 @@ EXAMPLE_KERNELS = {
 #: height and the widths the float64 examples launch (``qr`` blocks of
 #: 128, the virtual grids' ``potrf_inv`` blocks of 128, ``lu``'s default
 #: 1024 on 1x1, ``cholesky``'s 2048) and 512, the eigensolvers' and the
-#: SVD path's; and the least-squares example's first panel, 32768 x 128
-PANEL_SWEEP = {"m": 16384, "nbs": (128, 512, 1024, 2048), "qr_m": 32768,
+#: SVD path's; and the least-squares example's first panel, 16384 x 128.
+#: The height is cut from 16384 (and the least-squares panel from 32768)
+#: with the examples, to make room for phase 4b: the sweep took 62.5 s
+PANEL_SWEEP = {"m": 8192, "nbs": (128, 512, 1024, 2048), "qr_m": 16384,
                "qr_nb": 128}
 #: phase 3p (c) and (d): ``ab_harness phases lu``'s (N, nb) and the
 #: redistribution row's n on a virtual 2x2 grid
@@ -5741,6 +6012,8 @@ def main() -> int:
     et.entry.dryrun_multichip(8)
     print(f"phase 4 wall_s {time.perf_counter() - t4:.1f}", flush=True)
     device_grid = timed("4a", phase_device_grid, et, card, main_path)
+    device_lu_qr = timed("4b", phase_device_grid_lu_qr, et, card, lu_path,
+                         qr_path)
 
     at_path = next(r for r in rows if r["w"] == 2048 and r["dtype"] == "float32")
     at_eig = next(r for r in rows if r["w"] == 512 and r["dtype"] == "float32")
@@ -5780,7 +6053,8 @@ def main() -> int:
         out = {p: d[key] for p, d in (("3", main_path), ("3b", lu_path),
                                       ("3c", qr_path), ("3d", eig_path),
                                       ("3e", svd_path), ("3g", ldl_path),
-                                      ("4a", device_grid))
+                                      ("4a", device_grid),
+                                      ("4b", device_lu_qr))
                if d.get(key)}
         for ph, rest in (("3f", svd_rest), ("3h", ldl_rest),
                          ("3i", calu_tsqr), ("3j", resilience),

@@ -9,12 +9,15 @@ device grid (:class:`~.grid.Grid` with ``devices=``) a DistMatrix's
 * :func:`per_rank` runs a step once per rank on that rank's blocks (under
   ``torch.cuda.device`` for a CUDA device) -- the body of a
   ``shard_map``;
-* :func:`all_gather`, :func:`all_to_all` and :func:`ppermute` are the
-  collectives, over the same named axes and in the same rank order as
-  ``lax.all_gather`` / ``all_to_all`` / ``ppermute`` on the JAX mesh
-  (``'mc'`` = the grid's height, ``'mr'`` its width).  Every value that
-  one rank hands another is one ``copy_`` from the sender's tensor into
-  the receiver's, and goes through the byte tally (:func:`tally`).
+* :func:`all_gather`, :func:`all_to_all`, :func:`ppermute` and
+  :func:`psum` are the collectives, over the same named axes and in the
+  same rank order as ``lax.all_gather`` / ``all_to_all`` / ``ppermute`` /
+  ``psum`` on the JAX mesh (``'mc'`` = the grid's height, ``'mr'`` its
+  width); :func:`gather_rows` is the row motion within a grid column
+  that GSPMD plans for the JAX engine's storage gathers (``move_rows``,
+  ``permute_rows_storage``).  Every value that one rank hands another is
+  one ``copy_`` from the sender's tensor into the receiver's, and goes
+  through the byte tally (:func:`tally`).
 
 Ranks that share a device run one after the other on that device's
 current stream.
@@ -43,7 +46,10 @@ SUPPORTED = ("from_global", "to_global", "zeros", "from_storage",
              "storage_numpy", "view", "update_view", "pad_matrix",
              "redistribute", "panel_spread", "transpose_dist",
              "make_trapezoidal", "cholesky", "hpd_solve",
-             "cholesky_solve_after", "trsm")
+             "cholesky_solve_after", "trsm", "move_rows",
+             "permute_rows_storage", "interior_view", "permute_rows",
+             "lu (classic and calu panels)", "lu_solve", "lu_solve_after",
+             "qr (classic panel)", "apply_q", "least_squares")
 
 
 def refuse(what: str):
@@ -297,6 +303,68 @@ def ppermute(xs: Tiles, axes, perm) -> Tiles:
     return Tiles(g, outs)
 
 
+def psum(xs: Tiles, axes, acc_dtype=None) -> Tiles:
+    """``lax.psum(x, axes)``: each rank gets the sum of its group's blocks
+    (:func:`group`), added in the group's rank order on the rank's own
+    device, so every member gets the same bits.  ``acc_dtype`` is the
+    dtype the sum runs in (default the blocks'); the payload moves in the
+    blocks' own dtype.
+
+    Tally: every rank receives the blocks of the S - 1 other members of
+    its group, so a call moves p (S - 1) x ``block bytes``."""
+    g = xs.grid
+    r, c = g.height, g.width
+    outs = []
+    for d, dev in enumerate(g.devices):
+        members = group(axes, d, r, c)
+        x = xs.tiles[d]
+        recv = torch.empty((len(members),) + tuple(x.shape), dtype=x.dtype,
+                           device=dev)
+        for k, s in enumerate(members):
+            _send(recv[k], xs.tiles[s], s, d)
+        acc = recv[0].to(acc_dtype or x.dtype, copy=True)
+        for k in range(1, len(members)):
+            acc += recv[k]
+        outs.append(acc)
+    return Tiles(g, outs)
+
+
+def gather_rows(xs: Tiles, sources: Tiles) -> Tiles:
+    """Row motion within each grid column of a zero-aligned [MC,*] matrix,
+    whose rank (mc, mr) holds global rows ``mc + r * iLoc``: each rank gets
+    the (k, local width) block of the global rows its own copy of
+    ``sources`` lists (k entries, each a row of the matrix).
+
+    No host sync learns which rows cross ranks: every rank of the column
+    offers a buffer of a fixed b = min(k, local rows) rows, an
+    ``all_gather`` over ``'mc'`` spreads the buffers, and each rank picks
+    row j from the buffer of the member that owns ``sources[j]`` (member
+    ``sources[j] % r``).  With k < local rows a member's buffer holds the
+    rows ``sources // r`` of its tile (the entries it does not own are
+    never picked); otherwise the buffer is its whole tile.  Rows never
+    change grid column, so nothing moves over ``'mr'``.
+
+    Tally: every rank receives r - 1 buffers, so a call moves p (r - 1) b
+    (local width) (itemsize) bytes between ranks."""
+    g = xs.grid
+    r = g.height
+    lr = xs.tiles[0].shape[0]
+    k = sources.tiles[0].shape[0]
+    whole = k >= lr
+
+    def offer(rk, x, src):
+        return x if whole else x.index_select(0, src // r)
+
+    bufs = all_gather(per_rank(offer, xs, sources), "mc")
+
+    def pick(rk, buf, src):
+        slot = src // r if whole else torch.arange(k, device=src.device)
+        return buf.reshape(-1, buf.shape[-1]).index_select(
+            0, (src % r) * buf.shape[1] + slot)
+
+    return per_rank(pick, bufs, sources)
+
+
 def broadcast(xs: Tiles, root: int = 0) -> Tiles:
     """Every rank gets a copy of rank ``root``'s block."""
     g = xs.grid
@@ -307,6 +375,16 @@ def broadcast(xs: Tiles, root: int = 0) -> Tiles:
         _send(out, x, root, d)
         outs.append(out)
     return Tiles(g, outs)
+
+
+def replicate(grid, x) -> Tiles:
+    """Every rank's copy of ``x``: a Tiles as given, else ``x`` (a tensor
+    or host data) placed on the root rank's device and handed to the
+    others by a tallied :func:`broadcast`."""
+    if isinstance(x, Tiles):
+        return x
+    t = torch.as_tensor(x, device=grid.devices[0])
+    return broadcast(Tiles(grid, [t] * grid.size))
 
 
 def synchronize(grid) -> None:

@@ -27,6 +27,20 @@ schedule works on ONE clone of its input, so ``lu(A)`` never changes
 on the device, and :func:`_moved_rows` pads its index list by a stable
 sort instead of ``nonzero``.
 
+On a device grid (:mod:`..core.ranks`) the same schedules run with every
+rank's block on its own device, as ``shard_map`` / GSPMD runs the JAX
+driver: each rank factors its replicated panel (``lu_panel`` or the CALU
+tournament on every rank's device) and keeps its own copy of the pivots
+and of ``perm``; the row swaps move rows within each grid column
+(:func:`~..redist.engine.move_rows` through
+:func:`~..core.ranks.gather_rows`), CALU's row-block solve ends in a
+:func:`~..core.ranks.psum` over ``'mc'``, and every other local step --
+the panel inverse and solve, the strip and remainder products, the
+column-masked write-backs and the crossover's sequential tail -- runs
+once per rank (:func:`~..core.ranks.per_rank`).  ``lu`` returns rank 0's
+``perm``; the solves hand it to every rank by a broadcast.  ``health=``,
+``abft=`` and ``info=True`` do not run there yet.
+
 The packed L\\U layout and the permutation convention follow LAPACK getrf
 (perm[i] = original index of the row now at position i).
 :func:`lu_full_pivot` (complete pivoting) factors one replicated copy in
@@ -42,6 +56,8 @@ import torch
 from ..core.dist import MC, MR, STAR, VC, VR
 from ..core.distmatrix import DistMatrix
 from ..core.environment import check_precision
+from ..core.ranks import (DeviceGridError, Tiles, is_device_grid, per_rank,
+                          psum, rank_map, tensors)
 from ..core.view import view, update_view
 from ..redist.engine import (_dtype_name, apply_fault, move_rows,
                              note_collective, permute_rows_storage,
@@ -67,8 +83,9 @@ _CROSSOVER = 4096
 
 def permute_rows(B: DistMatrix, perm, inverse: bool = False) -> DistMatrix:
     """B[perm, :] as a DistMatrix (``DistPermutation::PermuteRows``): one
-    storage-level gather for a zero-aligned [MC,MR] matrix."""
-    _check_mcmr(B)
+    storage-level gather for a zero-aligned [MC,MR] matrix (on a device
+    grid every rank gets ``perm`` by a broadcast)."""
+    _check_mcmr(B, device_grid=True)
     return permute_rows_storage(B, perm, inverse=inverse)
 
 
@@ -173,9 +190,26 @@ def _sweep(V, piv, rows):
                                       value=-1)
 
 
-#: most sweep graphs a cache holds: the current round-0 slab shape and
-#: the log2 r playoff shapes (r <= 8); the least recently used goes first
+#: most sweep graphs a cache holds for one device: the current round-0
+#: slab shape and the log2 r playoff shapes (r <= 8); the least recently
+#: used goes first
 _SWEEP_GRAPHS_MAX = 4
+
+#: the sweep graphs captured on the card since import
+SWEEP_GRAPH_STATS = {"captures": 0}
+
+
+class _SweepCache(dict):
+    """One ``lu`` call's sweep graphs (:func:`_sweep_pivots`): at most
+    :data:`_SWEEP_GRAPHS_MAX` for each distinct device of the grid, so a
+    device grid over four cards keeps every card's shapes.  Ranks that
+    share a device share its graphs."""
+
+    def __init__(self, grid=None):
+        super().__init__()
+        devices = getattr(grid, "devices", None)
+        self.limit = _SWEEP_GRAPHS_MAX * (len(set(devices)) if devices
+                                          else 1)
 
 
 def _sweep_pivots(V, n: int, graphs: dict | None = None):
@@ -187,7 +221,8 @@ def _sweep_pivots(V, n: int, graphs: dict | None = None):
     device) -> (graph, V, piv, rows) with the static tensors the graph
     reads and writes; ``lu`` keeps one for the length of a call, so
     nothing stays resident after it returns (``None``: a cache for this
-    call only)."""
+    call only).  The result is a copy of the graph's pivot tensor, so
+    that two ranks replaying one graph get tensors of their own."""
     B, Mp, w = V.shape
     dev = V.device
     if not V.is_cuda:
@@ -200,27 +235,31 @@ def _sweep_pivots(V, n: int, graphs: dict | None = None):
     key = (B, Mp, w, n, V.dtype, dev)
     entry = graphs.pop(key, None)
     if entry is None:
-        while len(graphs) >= _SWEEP_GRAPHS_MAX:
+        while len(graphs) >= getattr(graphs, "limit", _SWEEP_GRAPHS_MAX):
             graphs.pop(next(iter(graphs)))
         Vs = V.clone()
         piv = torch.empty((n, B), dtype=torch.int64, device=dev)
         rows = (torch.arange(B, device=dev)[None, :] * Mp
                 + torch.arange(n, device=dev)[:, None])
-        # two columns on a side stream are the warm-up capture needs
+        # two columns on a side stream are the warm-up capture needs; the
+        # capture runs on that stream too: torch.cuda.graph's default
+        # capture stream belongs to the device current at its first use,
+        # and a device grid captures on every rank's card
         side = torch.cuda.Stream(device=dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
             _sweep(V.clone(), piv[:min(n, 2)], rows)
         torch.cuda.current_stream(dev).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph, stream=side):
             _sweep(Vs, piv, rows)
         entry = (graph, Vs, piv, rows)
+        SWEEP_GRAPH_STATS["captures"] += 1
     graphs[key] = entry                                  # most recent last
     graph, Vs, piv, _ = entry
     Vs.copy_(V)
     graph.replay()
-    return piv
+    return piv.clone()
 
 
 def _playoff_perm(V, ncol: int, graphs: dict | None = None):
@@ -378,25 +417,45 @@ def _rowblock_solve(Ablk: DistMatrix, Li11, wire=None) -> DistMatrix:
     a real grid, where the classic schedule needs an all-to-all and an
     all-gather.  ``wire='bf16'`` rounds each partial to bfloat16 and the
     sum to bfloat16, as the JAX psum on a bfloat16 payload; the sum runs
-    in float32 in grid-row order (XLA's psum order may differ)."""
+    in float32 in grid-row order (XLA's psum order may differ).
+
+    On a device grid every rank forms its own partial and
+    :func:`~..core.ranks.psum` over ``'mc'`` adds them (the bfloat16
+    payload on the wire under ``'bf16'``); ``Li11`` is each rank's
+    copy."""
     g = Ablk.grid
     r = g.height
     nbw = Ablk.gshape[0]
-    x = Ablk.local
-    lr = x.shape[0] // r
-    cols = (torch.arange(r, device=x.device)[:, None]
-            + r * torch.arange(lr, device=x.device)[None, :])   # (r, lr)
-    Lsub = Li11[:, cols.clamp(0, nbw - 1)].permute(1, 0, 2)    # (r, nbw, lr)
-    Lsub = torch.where((cols < nbw)[:, None, :], Lsub, 0)
-    parts = torch.bmm(Lsub, x.reshape(r, lr, x.shape[1]))       # (r, nbw, *)
-    note_collective("psum", r, (nbw, x.shape[1] // g.width),
-                    2 if wire == "bf16" else x.element_size(), ("mc",),
-                    "bfloat16" if wire == "bf16" else _dtype_name(x.dtype))
+    dtype = Ablk.dtype
+    isz = 2 if wire == "bf16" else dtype.itemsize
+    note_collective("psum", r, (nbw, Ablk.local_cols), isz, ("mc",),
+                    "bfloat16" if wire == "bf16" else _dtype_name(dtype))
+    if not isinstance(Ablk.local, Tiles):
+        x = Ablk.local
+        lr = x.shape[0] // r
+        cols = (torch.arange(r, device=x.device)[:, None]
+                + r * torch.arange(lr, device=x.device)[None, :])  # (r, lr)
+        Lsub = Li11[:, cols.clamp(0, nbw - 1)].permute(1, 0, 2)   # (r, nbw, lr)
+        Lsub = torch.where((cols < nbw)[:, None, :], Lsub, 0)
+        parts = torch.bmm(Lsub, x.reshape(r, lr, x.shape[1]))      # (r, nbw, *)
+        if wire == "bf16":
+            out = parts.to(torch.bfloat16).to(torch.float32).sum(0) \
+                .to(torch.bfloat16).to(x.dtype)
+        else:
+            out = parts.sum(0)
+        return DistMatrix(out, Ablk.gshape, STAR, MR, 0, Ablk.ralign, g)
+
+    def part(rk, x, li):
+        cols = rk[0] + r * torch.arange(x.shape[0], device=x.device)
+        lsub = torch.where((cols < nbw)[None, :],
+                           li[:, cols.clamp(0, nbw - 1)], 0)
+        y = lsub @ x
+        return y.to(torch.bfloat16) if wire == "bf16" else y
+
+    out = psum(per_rank(part, Ablk, Li11), "mc",
+               torch.float32 if wire == "bf16" else None)
     if wire == "bf16":
-        out = parts.to(torch.bfloat16).to(torch.float32).sum(0) \
-            .to(torch.bfloat16).to(x.dtype)
-    else:
-        out = parts.sum(0)
+        out = per_rank(lambda rk, y: y.to(torch.bfloat16).to(dtype), out)
     return DistMatrix(out, Ablk.gshape, STAR, MR, 0, Ablk.ralign, g)
 
 
@@ -407,11 +466,18 @@ def _rowblock_solve(Ablk: DistMatrix, Li11, wire=None) -> DistMatrix:
 def _local_lu(A: DistMatrix, nb: int | None, precision, update_precision=None,
               lookahead: bool = True, timer=None, plan=None):
     """Sequential (p == 1) path: on a 1x1 grid the storage array IS the
-    global matrix, so the blocked loop runs on it directly."""
-    a, perm = _local_lu_array(A.local, A.gshape[0], A.gshape[1],
-                              max(nb or 1024, 1), precision,
-                              update_precision, lookahead, timer, plan)
-    return A.with_local(a), perm
+    global matrix, so the blocked loop runs on it directly (on a 1x1
+    device grid, on the one rank's block)."""
+    a, perm = per_rank(lambda rk, x: _local_lu_array(
+        x, A.gshape[0], A.gshape[1], max(nb or 1024, 1), precision,
+        update_precision, lookahead, timer, plan), A)
+    return A.with_local(a), _root(perm)
+
+
+def _root(x):
+    """A driver's per-rank result as it returns it (``lu``'s ``perm``,
+    ``qr``'s ``tau``): rank 0's copy on a device grid."""
+    return x.tiles[0] if isinstance(x, Tiles) else x
 
 
 def _local_lu_array(a, m: int, n: int, ib: int, precision,
@@ -483,10 +549,11 @@ def _local_lu_array(a, m: int, n: int, ib: int, precision,
 
 def _blend_update(A: DistMatrix, block: DistMatrix, rows, cols, keep_new):
     cur = view(A, rows=rows, cols=cols)
-    _, J = _global_indices(cur)
-    mask = keep_new(J)[None, :]
-    return update_view(A, cur.with_local(torch.where(mask, block.local,
-                                                     cur.local)),
+
+    def blend(rk, b, x):
+        _, J = _global_indices(cur, rk)
+        return torch.where(keep_new(J)[None, :], b, x)
+    return update_view(A, cur.with_local(per_rank(blend, block, cur)),
                        rows=rows, cols=cols)
 
 
@@ -577,8 +644,13 @@ def lu(A: DistMatrix, nb: int | None = None, precision=None,
     first, analytic cost model cold; explicit values always win).
     ``timer`` (a :class:`~..obs.PhaseTimer`) receives the phase ticks
     (panel / swap / solve / update / tail; ``tournament`` under CALU),
-    as does an active :class:`~..obs.Tracer`."""
-    _check_mcmr(A)
+    as does an active :class:`~..obs.Tracer`.
+
+    On a device grid (``Grid(devices=...)``) every schedule runs with the
+    local steps on each rank and ``perm`` is rank 0's copy, on
+    ``grid.devices[0]``; ``health``, ``abft`` and ``'auto'`` knobs raise
+    :class:`~..core.ranks.DeviceGridError` there."""
+    _check_mcmr(A, device_grid=True)
     nb, lookahead, crossover, panel, panel_impl, comm_precision, \
         redist_path = resolve_auto(
             "lu", A.gshape, A.dtype, A.grid, nb=nb, lookahead=lookahead,
@@ -588,9 +660,13 @@ def lu(A: DistMatrix, nb: int | None = None, precision=None,
     r, c = g.height, g.width
     panel = _check_lu_knobs(panel, update_precision, comm_precision,
                             redist_path)
-    check_precision(precision, A.local)
-    plan = resolve_panel(panel_impl, dtype=A.dtype, device=A.local.device,
-                         inners=inners)
+    check_precision(precision, *tensors(A))
+    ranked = is_device_grid(g)
+    if ranked and (health or abft):
+        raise DeviceGridError("lu's health= and abft= do not run on a "
+                              "device grid yet")
+    plan = resolve_panel(panel_impl, dtype=A.dtype,
+                         device=tensors(A)[0].device, inners=inners)
     if abft:
         from ..resilience.abft import abft_lu
         return abft_lu(A, nb=nb, precision=precision,
@@ -611,21 +687,29 @@ def lu(A: DistMatrix, nb: int | None = None, precision=None,
         return out
     calu = panel == "calu" and r > 1
     cp, rp = comm_precision, redist_path
-    sweeps: dict = {}                # this call's sweep graphs (CALU, card)
+    sweeps = _SweepCache(g)          # this call's sweep graphs (CALU, card)
 
-    def factor_panel(Ploc, w: int, step: int):
-        if calu:
-            Pf, pperm = _calu_panel(Ploc, w, r, precision, plan, sweeps, tm,
-                                    step)
+    def factor_panel(Pss: DistMatrix, w: int, step: int):
+        """Every rank's factor of the first ``w`` columns of its copy of
+        the replicated panel ``Pss``: ``(Pf, pperm)``."""
+        if calu and Pss.gshape[0] > w:
+            # the tournament, then the unpivoted factor of the permuted
+            # panel (:func:`_calu_panel`)
+            pperm = per_rank(lambda rk, p: _tournament_pivots(
+                p[:, :w], w, r, sweeps), Pss)
+            tm.tick("tournament", step, pperm)
+            Pf = per_rank(lambda rk, p, q: _nopiv_panel(
+                p[:, :w].index_select(0, q), w), Pss, pperm)
         else:
-            Pf, pperm = _panel_dispatch(Ploc, w, precision, plan)
+            Pf, pperm = per_rank(lambda rk, p: _panel_dispatch(
+                p[:, :w], w, precision, plan), Pss)
         Pf, = apply_fault("compute", (Pf,))
         return Pf, pperm
 
     ib = _blocksize(nb, math.lcm(r, c), min(m, n))
     kend = min(m, n)
-    dev = A.local.device
-    perm = torch.arange(m, device=dev)
+    perm = rank_map(g, lambda rk, d: torch.arange(m, device=d)) if ranked \
+        else torch.arange(m, device=A.local.device)
     xover = (_CROSSOVER if lookahead else 0) if crossover is None \
         else max(int(crossover), 0)
     tm.start()
@@ -639,7 +723,7 @@ def lu(A: DistMatrix, nb: int | None = None, precision=None,
         e0_up = col_up(min(ib, kend))
         panel0 = redistribute(view(A, rows=(0, m), cols=(0, e0_up)),
                               STAR, STAR, comm_precision=cp, path=rp)
-        nxt = factor_panel(panel0.local[:, :min(ib, kend)], min(ib, kend), 0)
+        nxt = factor_panel(panel0, min(ib, kend), 0)
         tm.tick("panel", 0, nxt)
     for k, s in enumerate(range(0, kend, ib)):
         e = min(s + ib, kend)
@@ -651,18 +735,17 @@ def lu(A: DistMatrix, nb: int | None = None, precision=None,
         else:
             pan = redistribute(view(A, rows=(s, m), cols=(s, e_up)),
                                STAR, STAR, comm_precision=cp, path=rp)
-            Pf, pperm = factor_panel(pan.local[:, :nbw], nbw, k)
+            Pf, pperm = factor_panel(pan, nbw, k)
             tm.tick("panel", k, Pf, pperm)
-        perm[s:] = perm[s:].index_select(0, pperm)
+        _compose(perm, s, pperm)
         # move only the rows the panel permutation displaced (<= 2 nbw)
         # across ALL columns (the panel region is overwritten right after)
-        idx, src = _moved_rows(pperm, nbw)
-        valid = idx < (m - s)
-        A = _apply_swaps_moved(A, idx + s, src.clamp(0, m - s - 1) + s,
-                               valid)
+        A = _apply_swaps_moved(A, *per_rank(
+            lambda rk, q: _swap_lists(q, nbw, s, m), pperm))
         tm.tick("swap", k, A)
         # write back the factored panel (rows s..m of cols s..e)
-        Pf_w = torch.nn.functional.pad(Pf, (0, e_up - e)) if e_up > e else Pf
+        Pf_w = per_rank(lambda rk, p: torch.nn.functional.pad(
+            p, (0, e_up - e)) if e_up > e else p, Pf)
         Pf_ss = DistMatrix(Pf_w, (m - s, e_up - s), STAR, STAR, 0, 0, g)
         A = _update_cols_lt(A, redistribute(Pf_ss, MC, MR), (s, m),
                             (s, e_up), e)
@@ -670,7 +753,8 @@ def lu(A: DistMatrix, nb: int | None = None, precision=None,
             continue
         # U12 := L11^{-1} A12 over the legal column range (s, n); the
         # writeback keeps only cols >= e
-        Li11 = _unit_lower_inv(Pf[:nbw], nbw, precision)
+        Li11 = per_rank(lambda rk, p: _unit_lower_inv(p[:nbw], nbw,
+                                                      precision), Pf)
         if calu:
             # one-psum row-block solve in place of the all-to-all +
             # all-gather pair below
@@ -680,17 +764,17 @@ def lu(A: DistMatrix, nb: int | None = None, precision=None,
         else:
             A1n = redistribute(view(A, rows=(s, e), cols=(s, n)), STAR, VR,
                                comm_precision=cp, path=rp)
-            U1n = DistMatrix(Li11 @ A1n.local, (nbw, n - s), STAR, VR, 0, 0,
-                             g)
+            U1n = DistMatrix(per_rank(lambda rk, li, a: li @ a, Li11, A1n),
+                             (nbw, n - s), STAR, VR, 0, 0, g)
             U1n_mr = redistribute(U1n, STAR, MR, comm_precision=cp, path=rp)
         tm.tick("solve", k, U1n_mr)
+        L21_ss = DistMatrix(per_rank(lambda rk, p: p[nbw:], Pf),
+                            (m - e, nbw), STAR, STAR, 0, 0, g)
         if not lookahead or e >= kend:
             A = _update_cols_ge(A, redistribute(U1n_mr, MC, MR), (s, e),
                                 (s, n), e)
             if e < m:
                 U12_mr = view(U1n_mr, cols=(e - s, n - s))
-                L21_ss = DistMatrix(Pf[nbw:], (m - e, nbw), STAR, STAR,
-                                    0, 0, g)
                 L21_mc = redistribute(L21_ss, MC, STAR)
                 A = local_rank_update(A, L21_mc.local, U12_mr.local,
                                       rows=(e, m), cols=(e, n))
@@ -705,21 +789,21 @@ def lu(A: DistMatrix, nb: int | None = None, precision=None,
         # every operand is read from the pre-writeback A
         e2 = min(e + ib, kend)
         e2_up = col_up(e2)
-        L21_ss = DistMatrix(Pf[nbw:], (m - e, nbw), STAR, STAR, 0, 0, g)
         L21_mc = redistribute(L21_ss, MC, STAR)
         U12a = view(U1n_mr, cols=(e - s, e2_up - s))
         A22a = view(A, rows=(e, m), cols=(e, e2_up))
-        stripD = A22a.with_local(A22a.local - L21_mc.local @ U12a.local)
+        stripD = A22a.with_local(per_rank(_minus_product, A22a, L21_mc, U12a))
         if not tail:
             strip_ss = redistribute(stripD, STAR, STAR, comm_precision=cp,
                                     path=rp)
-            nxt = factor_panel(strip_ss.local[:, :e2 - e], e2 - e, k + 1)
+            nxt = factor_panel(strip_ss, e2 - e, k + 1)
             tm.tick("panel", k + 1, nxt)
         restD = None
         if e2_up < n:
             U12b = view(U1n_mr, cols=(e2_up - s, n - s))
             A22b = view(A, rows=(e, m), cols=(e2_up, n))
-            restD = A22b.with_local(A22b.local - L21_mc.local @ U12b.local)
+            restD = A22b.with_local(per_rank(_minus_product, A22b, L21_mc,
+                                             U12b))
         A = _update_cols_ge(A, redistribute(U1n_mr, MC, MR), (s, e),
                             (s, n), e)
         A = update_view(A, stripD, rows=(e, m), cols=(e, e2_up))
@@ -732,7 +816,27 @@ def lu(A: DistMatrix, nb: int | None = None, precision=None,
             break
     if hm is not None:
         hm.report()
-    return A, perm
+    return A, _root(perm)
+
+
+def _minus_product(rk, a, x, y):
+    """``a - x @ y`` on one rank's (or the stacked) storage."""
+    return a - x @ y
+
+
+def _compose(perm, s: int, pperm) -> None:
+    """In place, on every rank's copy: ``perm[s:] = perm[s:][pperm]``."""
+    def step(rk, p, q):
+        p[s:] = p[s:].index_select(0, q)
+    per_rank(step, perm, pperm)
+
+
+def _swap_lists(pperm, nbw: int, s: int, m: int):
+    """The global (targets, sources, valid) of a panel's row swaps at row
+    ``s`` (:func:`_moved_rows`)."""
+    idx, src = _moved_rows(pperm, nbw)
+    valid = idx < (m - s)
+    return idx + s, src.clamp(0, m - s - 1) + s, valid
 
 
 def _lu_tail(A: DistMatrix, perm, e: int, ib: int, precision,
@@ -740,22 +844,24 @@ def _lu_tail(A: DistMatrix, perm, e: int, ib: int, precision,
              comm_precision=None, redist_path=None, plan=None):
     """Crossover-to-local finish of the (fully updated) trailing block:
     one [STAR,STAR] gather of rows/cols >= e, the sequential blocked
-    kernel, one storage-level row permutation of the already-factored
-    left columns, and the factored tail written back."""
+    kernel (on every rank's copy on a device grid), one storage-level row
+    permutation of the already-factored left columns, and the factored
+    tail written back."""
     m, n = A.gshape
     g = A.grid
     Atail = redistribute(view(A, rows=(e, m), cols=(e, n)), STAR, STAR,
                          comm_precision=comm_precision, path=redist_path)
-    at, pt = _local_lu_array(Atail.local, m - e, n - e, ib, precision,
-                             update_precision, lookahead, plan=plan)
-    dev = A.local.device
+    at, pt = per_rank(lambda rk, x: _local_lu_array(
+        x, m - e, n - e, ib, precision, update_precision, lookahead,
+        plan=plan), Atail)
     # the tail's permutation applies to the WHOLE row range; cols >= e are
     # overwritten by the factored tail right after
-    A = _apply_swaps_moved(A, torch.arange(m - e, device=dev) + e, pt + e,
-                           torch.ones(m - e, dtype=torch.bool, device=dev))
+    A = _apply_swaps_moved(A, *per_rank(lambda rk, q: (
+        torch.arange(m - e, device=q.device) + e, q + e,
+        torch.ones(m - e, dtype=torch.bool, device=q.device)), pt))
     At_ss = DistMatrix(at, (m - e, n - e), STAR, STAR, 0, 0, g)
     A = update_view(A, redistribute(At_ss, MC, MR), rows=(e, m), cols=(e, n))
-    perm[e:] = perm[e:].index_select(0, pt)
+    _compose(perm, e, pt)
     tm.tick("tail", k, A)
     return A, perm
 
@@ -771,7 +877,12 @@ def lu_solve(A: DistMatrix, B: DistMatrix, nb: int | None = None,
     factor's diagonal (an exactly-singular A surfaces as a zero pivot
     instead of a silently NaN/Inf X); ``health`` forwards to :func:`lu`.
     For the residual-certified path use
-    ``elemental_tpu_torch.resilience.certified_solve('lu', A, B)``."""
+    ``elemental_tpu_torch.resilience.certified_solve('lu', A, B)``.
+    Runs on a device grid, where ``info=True`` raises
+    :class:`~..core.ranks.DeviceGridError`."""
+    if info and is_device_grid(A.grid):
+        raise DeviceGridError("lu_solve's info= does not run on a device "
+                              "grid yet")
     LU_, perm = lu(A, nb=nb, precision=precision, panel=panel, health=health)
     X = lu_solve_after(LU_, perm, B, nb=nb, precision=precision)
     if not info:
@@ -782,7 +893,8 @@ def lu_solve(A: DistMatrix, B: DistMatrix, nb: int | None = None,
 
 def lu_solve_after(LU_: DistMatrix, perm, B: DistMatrix,
                    nb: int | None = None, precision=None) -> DistMatrix:
-    """X = U^{-1} L^{-1} P B (``lu::SolveAfter``)."""
+    """X = U^{-1} L^{-1} P B (``lu::SolveAfter``); on a device grid
+    ``perm`` reaches every rank by a broadcast (:func:`permute_rows`)."""
     Bp = permute_rows(B, perm)
     Y = trsm("L", "L", "N", LU_, Bp, unit=True, nb=nb, precision=precision)
     return trsm("L", "U", "N", LU_, Y, nb=nb, precision=precision)

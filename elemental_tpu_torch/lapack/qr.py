@@ -26,6 +26,16 @@ left-looking pivoted panel, its column loop run eagerly with the pivot
 index on the device.  TSQR (``panel='tsqr'``, ``tsqr``) is the
 communication-avoiding panel; the checksum-guarded QR (``abft=``) lives
 in ``resilience/abft.py``.
+
+On a device grid (:mod:`..core.ranks`) the classic schedule runs with
+every rank's block on its own device: each rank reduces its replicated
+panel (``qr_panel`` on every rank's device) and builds its own V and T,
+the compact-WY contraction ``V^H A2`` is each rank's local product plus
+a :func:`~..core.ranks.psum` over ``'mc'`` (what GSPMD makes of the JAX
+storage contraction), and the update and the column-masked write-backs
+run once per rank.  ``qr`` returns rank 0's ``tau``; :func:`apply_q`
+hands it to every rank by a broadcast.  ``panel='tsqr'``, ``tsqr``,
+``health=`` and ``abft=`` do not run there yet.
 """
 from __future__ import annotations
 
@@ -36,6 +46,8 @@ import torch
 from ..core.dist import MC, MR, STAR, VC
 from ..core.distmatrix import DistMatrix
 from ..core.environment import check_precision
+from ..core.ranks import (DeviceGridError, Tiles, is_device_grid, per_rank,
+                          psum, refuse, replicate, tensors)
 from ..core.view import view, update_view
 from ..redist.engine import apply_fault, redistribute, transpose_dist
 from ..redist.interior import interior_view
@@ -48,7 +60,7 @@ from ..matrices.basic import identity
 from ..obs.tracer import NULL_HOOK as _NULL_TIMER, phase_hook as _phase_hook
 from ..tune.policy import blocksize_policy as _blocksize, resolve_auto
 from .cholesky import _check_knobs
-from .lu import (_nopiv_panel, _update_cols_ge, _update_cols_lt,
+from .lu import (_nopiv_panel, _root, _update_cols_ge, _update_cols_lt,
                  permute_cols, permute_rows)
 
 
@@ -155,18 +167,17 @@ def _panel_qr_tsqr(P, r: int):
     return packed, tau
 
 
-def _local_qr_array(A: DistMatrix, ib: int, plan, redist_path=None,
+def _local_qr_array(a, g, ib: int, plan, redist_path=None,
                     tm=_NULL_TIMER):
-    """Blocked Householder QR of a 1x1-grid matrix on ONE clone of its
-    storage: returns ``(packed, tau)`` as new tensors.  Per panel the
+    """Blocked Householder QR of a 1x1-grid matrix's storage ``a`` on ONE
+    clone of it: returns ``(packed, tau)`` as new tensors.  Per panel the
     packed panel is written back, then the trailing columns get the
     compact-WY update in place.  The panel gather and the two relands of
     the distributed loop are 1x1 retags, issued as such (no copy) so the
     redistribution counts are the JAX driver's; ``tm`` gets the
     distributed loop's ticks ("panel", then "update" with the whole
     storage)."""
-    a = A.local.clone(memory_format=torch.contiguous_format)
-    g = A.grid
+    a = a.clone(memory_format=torch.contiguous_format)
     m, n = a.shape
     kend = min(m, n)
     taus = []
@@ -192,6 +203,14 @@ def _local_qr_array(A: DistMatrix, ib: int, plan, redist_path=None,
             tm.tick("update", s // ib, a)
     tau = torch.cat(taus) if taus else a.new_zeros((0,))
     return a, tau
+
+
+def _contract_mc(V_mc, X):
+    """``V^H X`` of a [MC,STAR] V and an [MC,MR] X, landing [STAR,MR]
+    storage: one product of the stacked storage, or on a device grid each
+    rank's local product summed over ``'mc'``."""
+    W = per_rank(lambda rk, v, x: v.conj().mT @ x, V_mc, X)
+    return psum(W, "mc") if isinstance(W, Tiles) else W
 
 
 def qr(A: DistMatrix, nb: int | None = None, precision=None,
@@ -235,15 +254,25 @@ def qr(A: DistMatrix, nb: int | None = None, precision=None,
     ``panel_impl`` may be ``'auto'``: the tuner (:mod:`..tune`) resolves
     them (measured cache first, analytic cost model cold; explicit values
     always win).  ``timer`` (a :class:`~..obs.PhaseTimer`) receives the
-    panel / update ticks, as does an active :class:`~..obs.Tracer`."""
-    _check_mcmr(A)
+    panel / update ticks, as does an active :class:`~..obs.Tracer`.
+
+    On a device grid (``Grid(devices=...)``) the classic panel runs with
+    the local steps on each rank and ``tau`` is rank 0's copy, on
+    ``grid.devices[0]``; ``panel='tsqr'``, ``health``, ``abft`` and
+    ``'auto'`` knobs raise :class:`~..core.ranks.DeviceGridError`
+    there."""
+    _check_mcmr(A, device_grid=True)
     nb, panel, panel_impl, comm_precision, redist_path = resolve_auto(
         "qr", A.gshape, A.dtype, A.grid, nb=nb, panel=panel,
         panel_impl=panel_impl, comm_precision=comm_precision,
         redist_path=redist_path).values()
     panel = _check_qr_knobs(panel, comm_precision, redist_path)
-    check_precision(precision, A.local)
-    plan = resolve_panel(panel_impl, dtype=A.dtype, device=A.local.device)
+    check_precision(precision, *tensors(A))
+    if is_device_grid(A.grid) and (health or abft or panel == "tsqr"):
+        raise DeviceGridError("qr's panel='tsqr', health= and abft= do not "
+                              "run on a device grid yet")
+    plan = resolve_panel(panel_impl, dtype=A.dtype,
+                         device=tensors(A)[0].device)
     if abft:
         from ..resilience.abft import abft_qr
         return abft_qr(A, nb=nb, precision=precision, panel=panel,
@@ -260,12 +289,13 @@ def qr(A: DistMatrix, nb: int | None = None, precision=None,
         tm, hm = attach_health("qr", health, tm, scale_from=A)
     tm.start()
     if g.size == 1 and panel == "classic":
-        a, tau = _local_qr_array(A, ib, plan, redist_path, tm)
+        a, tau = per_rank(lambda rk, x: _local_qr_array(
+            x, g, ib, plan, redist_path, tm), A)
         Ap = A.with_local(a)
         _record_qr_nb(Ap, ib)
         if hm is not None:
             hm.report()
-        return Ap, tau
+        return Ap, _root(tau)
     kend = min(m, n)
     taus = []
     for k, s in enumerate(range(0, kend, ib)):
@@ -279,32 +309,42 @@ def qr(A: DistMatrix, nb: int | None = None, precision=None,
             Pf, tau = _panel_qr_tsqr(panel_ss.local[:, :nbw], r)
             T = None
         else:
-            Pf, tau, T = _panel_qr_dispatch(panel_ss.local[:, :nbw], plan)
+            Pf, tau, T = per_rank(lambda rk, p: _panel_qr_dispatch(
+                p[:, :nbw], plan), panel_ss)
         Pf, = apply_fault("compute", (Pf,))
         taus.append(tau)
         tm.tick("panel", k, Pf, tau)
-        Pf_w = torch.nn.functional.pad(Pf, (0, e_up - e)) if e_up > e else Pf
+        Pf_w = per_rank(lambda rk, p: torch.nn.functional.pad(
+            p, (0, e_up - e)) if e_up > e else p, Pf)
         Pf_ss = DistMatrix(Pf_w, (m - s, e_up - s), STAR, STAR, 0, 0, g)
         A = _update_cols_lt(A, redistribute(Pf_ss, MC, MR), (s, m),
                             (s, e_up), e)
         if e < n:
-            V = _panel_v(Pf)
-            if T is None:
-                T = _larft(V, tau)
+            V, T = per_rank(lambda rk, *pt: _v_and_t(*pt), Pf, tau, T)
             V_ss = DistMatrix(V, (m - s, nbw), STAR, STAR, 0, 0, g)
             V_mc = redistribute(V_ss, MC, STAR)
             A2 = view(A, rows=(s, m), cols=(s, n))
-            W = V_mc.local.conj().mT @ A2.local        # [STAR,MR] storage
-            W = T.conj().mT @ W
-            A = _update_cols_ge(A, A2.with_local(
-                torch.addmm(A2.local, V_mc.local, W, alpha=-1)), (s, m),
-                (s, n), e)
+            W = _contract_mc(V_mc, A2)                 # [STAR,MR] storage
+            A = _update_cols_ge(A, A2.with_local(per_rank(
+                lambda rk, a2, v, w, t: torch.addmm(a2, v, t.conj().mT @ w,
+                                                    alpha=-1),
+                A2, V_mc, W, T)), (s, m), (s, n), e)
             tm.tick("update", k, A)
     _record_qr_nb(A, ib)
     if hm is not None:
         hm.report()
-    tau = torch.cat(taus) if taus else A.local.new_zeros((0,))
-    return A, tau
+    if taus:
+        tau = per_rank(lambda rk, *ts: torch.cat(ts), *taus)
+    else:
+        tau = per_rank(lambda rk, x: x.new_zeros((0,)), A)
+    return A, _root(tau)
+
+
+def _v_and_t(Pf, tau, T):
+    """A packed panel's reflectors V and its block-reflector triangle: the
+    kernel's ``T``, else :func:`_larft` of V."""
+    V = _panel_v(Pf)
+    return V, (_larft(V, tau) if T is None else T)
 
 
 def _record_qr_nb(Ap: DistMatrix, ib: int) -> None:
@@ -340,9 +380,11 @@ def apply_q(Ap: DistMatrix, tau, B: DistMatrix, orient: str = "N",
     few launches a panel).  ``nb`` MUST match the factorization's blocking: the
     default (``None``) reuses the block size :func:`qr` recorded on
     ``Ap``; an explicit ``nb`` that derives different panel boundaries
-    raises ``ValueError``."""
-    _check_mcmr(Ap, B)
-    check_precision(precision, Ap.local, B.local)
+    raises ``ValueError``.  On a device grid every rank gets ``tau`` by a
+    broadcast, rebuilds V and T from its copy of the panel, and the
+    contraction ``V^H B`` is each rank's product summed over ``'mc'``."""
+    _check_mcmr(Ap, B, device_grid=True)
+    check_precision(precision, *tensors(Ap, B))
     m, n = Ap.gshape
     if B.gshape[0] != m:
         raise ValueError(f"B height {B.gshape[0]} != {m}")
@@ -353,9 +395,12 @@ def apply_q(Ap: DistMatrix, tau, B: DistMatrix, orient: str = "N",
     starts = list(range(0, kend, ib))
     if orient == "N":
         starts = starts[::-1]
+    if is_device_grid(g):
+        tau = replicate(g, tau)
     local = g.size == 1
     if local:
-        b = B.local.clone(memory_format=torch.contiguous_format)
+        b = per_rank(lambda rk, x: x.clone(
+            memory_format=torch.contiguous_format), B)
     for s in starts:
         e = min(s + ib, kend)
         nbw = e - s
@@ -363,19 +408,23 @@ def apply_q(Ap: DistMatrix, tau, B: DistMatrix, orient: str = "N",
         # on a 1x1 grid both moves are retags of views (no copy)
         panel = redistribute(view(Ap, rows=(s, m), cols=(s, e_up)),
                              STAR, STAR)
-        V = _panel_v(panel.local[:, :nbw])
-        T = _larft(V, tau[s:e])
-        Tm = T.conj().mT if orient == "C" else T
+
+        def v_and_tm(rk, p, tq):
+            V = _panel_v(p[:, :nbw])
+            T = _larft(V, tq[s:e])
+            return V, (T.conj().mT if orient == "C" else T)
+        V, Tm = per_rank(v_and_tm, panel, tau)
         V_ss = DistMatrix(V, (m - s, nbw), STAR, STAR, 0, 0, g)
         V_mc = redistribute(V_ss, MC, STAR)
         if local:
-            b[s:].addmm_(V, Tm @ (V.conj().mT @ b[s:]), alpha=-1)
+            per_rank(lambda rk, x, v, t: x[s:].addmm_(
+                v, t @ (v.conj().mT @ x[s:]), alpha=-1), b, V, Tm)
             continue
         B2 = view(B, rows=(s, m))
-        W = V_mc.local.conj().mT @ B2.local
-        W = Tm @ W
-        upd = V_mc.local @ W
-        B = update_view(B, B2.with_local(B2.local - upd), rows=(s, m))
+        W = _contract_mc(V_mc, B2)
+        B = update_view(B, B2.with_local(per_rank(
+            lambda rk, b2, v, t, w: b2 - v @ (t @ w), B2, V_mc, Tm, W)),
+            rows=(s, m))
     return B.with_local(b) if local else B
 
 
@@ -392,8 +441,9 @@ def least_squares(A: DistMatrix, B: DistMatrix, nb: int | None = None,
     dense path of ``src/lapack_like/euclidean_min/LeastSquares.cpp``):
     Q^H B via the packed reflectors, then a triangular solve against the
     interior-extracted R.  ``abft`` threads through to :func:`qr`: the
-    factorization runs checksum-guarded with per-panel rollback."""
-    _check_mcmr(A, B)
+    factorization runs checksum-guarded with per-panel rollback.  Runs on
+    a device grid (without ``abft``)."""
+    _check_mcmr(A, B, device_grid=True)
     m, n = A.gshape
     if m < n:
         raise ValueError("least_squares requires m >= n (tall)")
@@ -608,6 +658,8 @@ def tsqr(A: DistMatrix):
     grid) and factored once more, and each rank's Q block times its
     share of the second Q.  Returns (Q [VC,STAR] with orthonormal
     columns, R [STAR,STAR])."""
+    if isinstance(A.local, Tiles):
+        refuse("tsqr")
     if A.dist != (VC, STAR) or (A.calign, A.ralign) != (0, 0):
         raise ValueError(f"tsqr expects zero-aligned [VC,STAR], got {A}")
     m, k = A.gshape

@@ -63,6 +63,7 @@ from ..core.dist import (Dist, MC, MR, VC, VR, STAR, MD, CIRC,
                          stride as dist_stride, storage_slot, storage_slots,
                          gather_axes)
 from ..core.distmatrix import DistMatrix, _check_pair, from_global, to_global
+from ..core import ranks
 from ..core.ranks import Tiles, per_rank, refuse
 from . import device_route
 from .plan import compile_plan
@@ -218,9 +219,11 @@ def set_fault_step(step) -> None:
 def apply_fault(target: str, outputs: tuple) -> tuple:
     """Route kernel outputs through the installed fault injector (the
     ``'compute'`` target of the panel factorizations); identity when none
-    is installed."""
+    is installed.  A device grid's outputs (Tiles) take no fault."""
     if _FAULT_INJECTOR is None:
         return tuple(outputs)
+    if any(isinstance(o, Tiles) for o in outputs):
+        refuse("fault injection")
     return tuple(_FAULT_INJECTOR.apply(target, tuple(outputs)))
 
 
@@ -1262,59 +1265,114 @@ def move_rows(A: DistMatrix, targets, sources, valid) -> DistMatrix:
     storage-level gather/scatter, dropping entries where ``valid`` is
     False (sentinel padding), as the JAX engine's ``mode="drop"`` scatter
     does.  Invalid entries scatter into one spare storage row that is
-    sliced off, so nothing syncs with the host."""
-    if isinstance(A.local, Tiles):
-        refuse("move_rows")
+    sliced off, so nothing syncs with the host.
+
+    On a device grid (an [MC,*] matrix) the indices are every rank's own
+    copy (a Tiles; a tensor is handed to the ranks by
+    :func:`~..core.ranks.replicate`) and the rows move within each grid
+    column through :func:`~..core.ranks.gather_rows`; the record is the
+    virtual grid's."""
+    ranked = isinstance(A.local, Tiles)
+    if ranked:
+        _check_mc_rows(A, "move_rows")
     REDIST_COUNTS["row_permute"] += 1
-    dev = A.local.device
-    targets, sources = _index(targets, dev), _index(sources, dev)
-    valid = torch.as_tensor(valid, device=dev)
     S, lr = A.col_stride, A.local_rows
     m = A.gshape[0]
-    stor = A.local
-    sidx = _storage_row_of(targets.clamp(0, m - 1), S, lr)
-    sidx = torch.where(valid, sidx, stor.shape[0])     # the spare row
-    rows = stor.index_select(0, _storage_row_of(sources.clamp(0, m - 1), S, lr))
-    out = torch.cat((stor, stor.new_zeros((1, stor.shape[1]))))
-    out.index_copy_(0, sidx, rows)
-    res = A.with_local(out[:-1])
-    k = int(targets.shape[0])
+    if ranked:
+        targets, sources, valid = (ranks.replicate(A.grid, x) for x in
+                                   (targets, sources, valid))
+        rows = ranks.gather_rows(A.local, per_rank(
+            lambda rk, s: _index(s, s.device).clamp(0, m - 1), sources))
+
+        def land(rk, x, t, v, y):
+            # the rank's own rows of the valid targets; the rest go to
+            # the spare row
+            t = _index(t, x.device)
+            mine = v & (t % S == rk[0])
+            out = torch.cat((x, x.new_zeros((1, x.shape[1]))))
+            out.index_copy_(0, torch.where(mine, t.clamp(0, m - 1) // S,
+                                           x.shape[0]), y)
+            return out[:-1]
+        res = A.with_local(per_rank(land, A.local, targets, valid, rows))
+        k = int(targets.tiles[0].shape[0])
+        width = A.row_stride * A.local_cols
+    else:
+        dev = A.local.device
+        targets, sources = _index(targets, dev), _index(sources, dev)
+        valid = torch.as_tensor(valid, device=dev)
+        stor = A.local
+        sidx = _storage_row_of(targets.clamp(0, m - 1), S, lr)
+        sidx = torch.where(valid, sidx, stor.shape[0])     # the spare row
+        rows = stor.index_select(
+            0, _storage_row_of(sources.clamp(0, m - 1), S, lr))
+        out = torch.cat((stor, stor.new_zeros((1, stor.shape[1]))))
+        out.index_copy_(0, sidx, rows)
+        res = A.with_local(out[:-1])
+        k = int(targets.shape[0])
+        width = stor.shape[1]
     _trace_record("row_permute", A.dist, A.dist, (k, A.gshape[1]), A.dtype,
                   A.local, (res.local,), grid_shape=(A.grid.height,
                                                      A.grid.width),
                   path="storage", rounds=0,
-                  wire_bytes=k * stor.shape[1] * stor.element_size(),
+                  wire_bytes=k * width * A.dtype.itemsize,
                   observers_only=True)
     return res
+
+
+def _check_mc_rows(A: DistMatrix, what: str) -> None:
+    """The row motions run on a device grid for a zero-aligned [MC,*]
+    matrix (the LU drivers' [MC,MR])."""
+    if A.cdist is not MC or A.calign:
+        raise ranks.DeviceGridError(f"{what} runs on a device grid for "
+                                    f"zero-aligned [MC,*] matrices, got {A}")
 
 
 def permute_rows_storage(A: DistMatrix, perm, inverse: bool = False
                          ) -> DistMatrix:
     """``B[i] = A[perm[i]]`` as one storage-level gather for a zero-aligned
     row-cyclic matrix (the full-permutation sibling of :func:`move_rows`);
-    padding rows stay zero."""
+    padding rows stay zero.  On a device grid (an [MC,*] matrix) each rank
+    gathers its own rows from its grid column
+    (:func:`~..core.ranks.gather_rows`), its copy of ``perm`` as
+    :func:`move_rows` takes its indices; the record is the virtual
+    grid's."""
     if (A.calign, A.ralign) != (0, 0):
         raise ValueError(f"permute_rows_storage needs zero alignments, got {A}")
-    if isinstance(A.local, Tiles):
-        refuse("permute_rows_storage")
+    ranked = isinstance(A.local, Tiles)
+    if ranked:
+        _check_mc_rows(A, "permute_rows_storage")
     REDIST_COUNTS["row_permute"] += 1
-    dev = A.local.device
-    perm = _index(perm, dev)
-    p = torch.argsort(perm) if inverse else perm
     m = A.gshape[0]
     S, lr = A.col_stride, A.local_rows
-    if S == 1:
-        res = A.with_local(A.local.index_select(0, p))
+    if ranked:
+        def mine(rk, q):
+            # the global row of each local row, and its source row
+            q = _index(q, q.device)
+            p = torch.argsort(q) if inverse else q
+            gi = torch.arange(lr, device=q.device) * S + rk[0]
+            return gi, p[gi.clamp(0, m - 1)]
+        gi, src = per_rank(mine, ranks.replicate(A.grid, perm))
+        res = A.with_local(per_rank(
+            lambda rk, y, i: torch.where((i < m)[:, None], y, 0),
+            ranks.gather_rows(A.local, src), gi))
+        size = S * lr * A.row_stride * A.local_cols
     else:
-        sr = torch.arange(S * lr, device=dev)
-        gi = (sr % lr) * S + sr // lr               # global row of storage slot
-        src = _storage_row_of(p[gi.clamp(0, m - 1)], S, lr)
-        out = A.local.index_select(0, src)
-        res = A.with_local(torch.where((gi < m)[:, None], out, 0))
+        dev = A.local.device
+        perm = _index(perm, dev)
+        p = torch.argsort(perm) if inverse else perm
+        if S == 1:
+            res = A.with_local(A.local.index_select(0, p))
+        else:
+            sr = torch.arange(S * lr, device=dev)
+            gi = (sr % lr) * S + sr // lr           # global row of storage slot
+            src = _storage_row_of(p[gi.clamp(0, m - 1)], S, lr)
+            out = A.local.index_select(0, src)
+            res = A.with_local(torch.where((gi < m)[:, None], out, 0))
+        size = A.local.numel()
     _trace_record("row_permute", A.dist, A.dist, A.gshape, A.dtype,
                   A.local, (res.local,), grid_shape=(A.grid.height,
                                                      A.grid.width),
                   path="storage", rounds=0,
-                  wire_bytes=A.local.numel() * A.local.element_size(),
+                  wire_bytes=size * A.dtype.itemsize,
                   observers_only=True)
     return res

@@ -8,16 +8,77 @@ cs:ce])``, and written back through the global matrix, which moves
 values and does no arithmetic, so the storage is bit-equal to the JAX
 package's (whose one rotation per distributed dimension is a
 collective).  On a 1x1 grid the storage IS the global matrix and each
-is one slice.  The stacking helpers ``_blank``, ``vstack`` and
+is one slice.  On a device grid (:mod:`..core.ranks`) ``interior_view``
+runs the JAX ``_extract_dim`` rank by rank: one ``ppermute`` rotation per
+distributed dimension whose offset is not a stride multiple, then a
+slice of each rank's block (with no motion at all at offset 0); its tiles
+are the JAX shards, bit for bit.  ``interior_update`` does not run there
+yet.  The stacking helpers ``_blank``, ``vstack`` and
 ``hstack`` (QDWH's [sqrt(c) X; I]) are one concatenation on a 1x1 grid.
 """
 from __future__ import annotations
 
 import torch
 
-from ..core.dist import Dist
+from ..core import indexing as ix
+from ..core.dist import Dist, MC, MR, VC, VR, rank_of, stride as dist_stride
 from ..core.distmatrix import (DistMatrix, _global_index_dim, from_global,
                                to_global)
+from ..core.ranks import Tiles, per_rank, ppermute, refuse
+from .device_route import _pad_dim
+
+
+def _rot_perm(d: Dist, delta: int, r: int, c: int):
+    """(axes, perm) rotating rank space by ``delta``: rank q receives from
+    rank (q + delta) % S, as ``ppermute`` pairs over the mesh's linear
+    order (mc major), VC's column-major rank translated to it."""
+    if d is MC:
+        return "mc", [((q + delta) % r, q) for q in range(r)]
+    if d is MR:
+        return "mr", [((q + delta) % c, q) for q in range(c)]
+    p = r * c
+    if d is VC:
+        lin = [(v % r) * c + v // r for v in range(p)]
+    elif d is VR:
+        lin = list(range(p))
+    else:
+        raise ValueError(f"no permute axes for {d}")
+    return ("mc", "mr"), [(lin[(q + delta) % p], lin[q]) for q in range(p)]
+
+
+def _extract_tiles(xs: Tiles, dim: int, d: Dist, s: int, e: int, g) -> Tiles:
+    """One dimension of the device grid's extract: global [s, e) of every
+    rank's ``dim`` -> a new zero-aligned dimension (the JAX
+    ``_extract_dim``)."""
+    r, c = g.height, g.width
+    S = dist_stride(d, r, c)
+    if S == 1:
+        return per_rank(lambda rk, x: x.narrow(dim, s, e - s), xs)
+    l_new = ix.max_local_length(e - s, S)
+    if s % S:
+        xs = ppermute(xs, *_rot_perm(d, s % S, r, c))
+
+    def cut(rk, x):
+        q = rank_of(d, r, c, *rk)
+        y = _pad_dim(x, dim, s // S + 1 + l_new).narrow(dim, (q + s) // S,
+                                                        l_new)
+        gi = torch.arange(l_new, device=x.device) * S + q
+        shape = [1] * y.dim()
+        shape[dim] = l_new
+        return torch.where((gi < e - s).reshape(shape), y, 0)
+    return per_rank(cut, xs)
+
+
+def _interior_view_tiles(A: DistMatrix, rs, re, cs, ce) -> DistMatrix:
+    if Dist.MD in A.dist or Dist.CIRC in A.dist:
+        refuse("interior_view of an MD or CIRC matrix")
+    g = A.grid
+    x = _extract_tiles(A.local, 0, A.cdist, rs, re, g)
+    x = _extract_tiles(x, 1, A.rdist, cs, ce, g)
+    if A.col_stride == A.row_stride == 1:
+        # two slices: a view of A's tiles until copied
+        x = per_rank(lambda rk, t: t.clone(), x)
+    return DistMatrix(x, (re - rs, ce - cs), A.cdist, A.rdist, 0, 0, g)
 
 
 def _check_zero_aligned(*Ms: DistMatrix):
@@ -37,6 +98,8 @@ def interior_view(A: DistMatrix, rows=None, cols=None) -> DistMatrix:
     if not (0 <= rs <= re <= m and 0 <= cs <= ce <= n):
         raise ValueError(f"range ({rows},{cols}) out of bounds for {A.gshape}")
     g = A.grid
+    if isinstance(A.local, Tiles):
+        return _interior_view_tiles(A, rs, re, cs, ce)
     if g.size == 1 or A.cdist is Dist.CIRC:
         return DistMatrix(A.local[rs:re, cs:ce].clone(), (re - rs, ce - cs),
                           A.cdist, A.rdist, 0, 0, g)
@@ -56,6 +119,8 @@ def interior_update(A: DistMatrix, B: DistMatrix, at=(0, 0)) -> DistMatrix:
     _check_zero_aligned(A, B)
     if B.dist != A.dist or B.grid != A.grid:
         raise ValueError(f"interior_update needs matching layout: {A} vs {B}")
+    if isinstance(A.local, Tiles):
+        refuse("interior_update")
     i0, j0 = at
     m, n = A.gshape
     h, w = B.gshape

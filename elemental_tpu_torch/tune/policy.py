@@ -199,7 +199,7 @@ def resolve_knobs(op: str, *, gshape, dtype, grid, knobs: dict,
 
 #: the tuned ops that run on a device grid (every other driver that
 #: resolves its knobs here refuses one)
-DEVICE_GRID_OPS = frozenset({"cholesky", "trsm"})
+DEVICE_GRID_OPS = frozenset({"cholesky", "trsm", "lu", "qr"})
 
 
 def resolve_auto(op: str, gshape, dtype, grid, **knobs) -> dict:

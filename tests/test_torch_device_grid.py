@@ -10,8 +10,10 @@ first step and never), ``hpd_solve`` and ``cholesky_solve_after`` in both
 ``uplo`` s agree with JAX to 1e-12 relative (float64, complex128) and with
 the port's virtual grid of the same shape to 1e-12, and record the same
 redistribution counts and records.  The byte tally of the collectives is
-the records' ring-model bytes on every rank, and the drivers outside the
-slice refuse a device grid with ``DeviceGridError``."""
+the records' ring-model bytes on every rank, and the drivers and knobs
+that do not run there yet refuse a device grid with ``DeviceGridError``
+(``tests/test_torch_device_grid_lu.py`` and ``_qr.py`` hold the LU and
+QR drivers that do)."""
 import jax
 import numpy as np
 import pytest
@@ -346,15 +348,18 @@ def test_tally_is_the_records_wire_bytes_on_every_rank(rc, src, dst):
 # what does not run on a device grid yet
 # ---------------------------------------------------------------------
 
-@pytest.mark.parametrize("driver", ["lu_solve", "least_squares", "lu",
-                                    "herm_eig", "gemm"])
+@pytest.mark.parametrize("driver", ["qr_tsqr", "tsqr", "lu_abft",
+                                    "lu_solve_info", "svd", "herm_eig",
+                                    "gemm"])
 def test_drivers_outside_the_slice_refuse_a_device_grid(driver):
     tg = dgrid(2, 2)
     A = et.from_global(_hpd(np.float64), et.MC, et.MR, tg)
     B = et.from_global(_rhs(np.float64), et.MC, et.MR, tg)
-    call = {"lu_solve": lambda: et.lu_solve(A, B, nb=NB),
-            "least_squares": lambda: et.least_squares(A, B, nb=NB),
-            "lu": lambda: et.lu(A, nb=NB),
+    call = {"qr_tsqr": lambda: et.qr(A, nb=NB, panel="tsqr"),
+            "tsqr": lambda: et.tsqr(et.redistribute(A, et.VC, et.STAR)),
+            "lu_abft": lambda: et.lu(A, nb=NB, abft=True),
+            "lu_solve_info": lambda: et.lu_solve(A, B, nb=NB, info=True),
+            "svd": lambda: et.svd(A),
             "herm_eig": lambda: et.herm_eig(A),
             "gemm": lambda: et.gemm(A, B)}[driver]
     with pytest.raises(ranks.DeviceGridError, match="device grid"):
@@ -374,5 +379,9 @@ def test_knobs_outside_the_slice_raise():
         et.cholesky(A, nb=NB, abft=True)
     with pytest.raises(ranks.DeviceGridError):
         et.cholesky(A, nb=NB, health=True)
+    with pytest.raises(ranks.DeviceGridError):
+        et.lu(A, nb="auto")
+    with pytest.raises(ranks.DeviceGridError):
+        et.qr(A, nb=NB, health=True)
     with pytest.raises(TypeError):
         A.local[:2]

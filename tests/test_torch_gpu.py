@@ -51,7 +51,11 @@ tiles are bit-equal to the virtual 2x2 grid's storage for every move of
 the ``hpd_solve`` path, ``hpd_solve`` matches ``torch.linalg.solve`` to
 1e-10 with ``potrf_inv`` launched four times the virtual grid's count,
 and with two or more cards the ranks' tiles sit on distinct cards (``-k
-device_grid``)."""
+device_grid``); ``lu`` (classic and CALU), ``lu_solve`` and
+``least_squares`` on it at n = 1024 float64 match the virtual grid's and
+``torch.linalg`` with ``lu_panel`` / ``qr_panel`` launched four times the
+virtual grid's count, and two ranks replaying one CALU sweep graph on a
+card get pivot tensors of their own."""
 import sys
 
 import numpy as np
@@ -1789,3 +1793,94 @@ def test_device_grid_puts_ranks_on_distinct_cards():
     ref = torch.linalg.solve(A, B)
     assert float(torch.linalg.norm(et.to_global(X) - ref)
                  / torch.linalg.norm(ref)) < 1e-10
+
+
+@pytest.mark.parametrize("panel", ["classic", "calu"])
+def test_device_grid_lu_solve_launches_the_kernel_on_every_rank(panel):
+    _need_card()
+    A, B, dg = _device_grid_case(["cuda:0"] * 4)
+    ref = torch.linalg.solve(A, B)
+    counts, perms = [], []
+    for g in (et.Grid(2, 2), dg):
+        lu_panel.launches = 0
+        Am = et.from_global(A, et.MC, et.MR, g)
+        X = et.lu_solve(Am, et.from_global(B, et.MC, et.MR, g), nb=128,
+                        panel=panel)
+        counts.append(lu_panel.launches)
+        perms.append(et.lu(Am, nb=128, panel=panel)[1])
+        assert float(torch.linalg.norm(et.to_global(X) - ref)
+                     / torch.linalg.norm(ref)) < 1e-10
+    assert counts[0] > 0 and counts[1] == 4 * counts[0]
+    assert torch.equal(perms[0], perms[1])
+
+
+def test_device_grid_calu_on_distinct_cards():
+    """CALU's sweep graphs captured on every rank's card: the pivots equal
+    the virtual grid's, and the factor reproduces A as well as the virtual
+    grid's does."""
+    _need_card()
+    count = torch.cuda.device_count()
+    if count < 2:
+        pytest.skip("needs two or more cards")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(14)
+    A = torch.randn(1024, 1024, generator=gen, device="cuda")
+    dg = et.Grid(2, 2, devices=[f"cuda:{i % count}" for i in range(4)])
+    outs = [et.lu(et.from_global(A, et.MC, et.MR, g), nb=128, panel="calu",
+                  crossover=0) for g in (et.Grid(2, 2), dg)]
+    assert torch.equal(outs[0][1], outs[1][1].to(outs[0][1].device))
+    res = []
+    for LU, perm in outs:
+        lu_, perm = et.to_global(LU), perm.to(A.device)
+        L = torch.tril(lu_, -1) + torch.eye(1024, device=lu_.device)
+        res.append(float(torch.linalg.norm(A[perm] - L @ torch.triu(lu_))
+                         / torch.linalg.norm(A)))
+    # f32, n = 1024: ~1.0e-5 for this matrix on the CPU's plain panels
+    assert res[1] < 1e-4 and res[1] < 2 * res[0]
+
+
+def test_device_grid_least_squares_launches_the_kernel_on_every_rank():
+    _need_card()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(12)
+    A = torch.randn(1536, 1024, generator=gen, device="cuda",
+                    dtype=torch.float64)
+    B = torch.randn(1536, 4, generator=gen, device="cuda",
+                    dtype=torch.float64)
+    ref = torch.linalg.lstsq(A, B).solution
+    counts = []
+    for g in (et.Grid(2, 2), et.Grid(2, 2, devices=["cuda:0"] * 4)):
+        qr_panel.launches = 0
+        X = et.least_squares(et.from_global(A, et.MC, et.MR, g),
+                             et.from_global(B, et.MC, et.MR, g), nb=128)
+        counts.append(qr_panel.launches)
+        assert float(torch.linalg.norm(et.to_global(X) - ref)
+                     / torch.linalg.norm(ref)) < 1e-10
+    assert counts[0] == 1024 // 128 and counts[1] == 4 * counts[0]
+
+
+def test_device_grid_calu_sweep_graph_gives_each_rank_its_own_pivots():
+    """Two ranks on one card replay one captured sweep graph; each gets a
+    pivot tensor of its own holding its own sweep's pivots."""
+    _need_card()
+    import importlib
+    tlu = importlib.import_module("elemental_tpu_torch.lapack.lu")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    V1, V2 = (torch.randn(2, 1024, 128, generator=gen, device="cuda")
+              for _ in range(2))
+    cache = tlu._SweepCache(et.Grid(2, 2, devices=["cuda:0"] * 4))
+    caps = tlu.SWEEP_GRAPH_STATS["captures"]
+    p1 = tlu._sweep_pivots(V1, 128, cache)
+    p2 = tlu._sweep_pivots(V2, 128, cache)
+    assert tlu.SWEEP_GRAPH_STATS["captures"] - caps == 1
+    assert p1.data_ptr() != p2.data_ptr()
+
+    def eager(V):
+        B, Mp, _ = V.shape
+        piv = torch.empty((128, B), dtype=torch.int64, device="cuda")
+        rows = (torch.arange(B, device="cuda")[None, :] * Mp
+                + torch.arange(128, device="cuda")[:, None])
+        tlu._sweep(V.clone(), piv, rows)
+        return piv
+    assert torch.equal(p1, eager(V1)) and torch.equal(p2, eager(V2))
